@@ -9,23 +9,30 @@ Potjans-Diesmann microcircuit (scale 1.0: 77,169 neurons, about 0.3 B
 synapses, delay buckets d=8 and d=15, noise sigma 1.0):
 ``microcircuit`` -> ``to_dcsr(k=1)`` -> ``Session(SimConfig())`` (which
 builds the delay-bucketed ELL panels) -> ``run`` with ``RateMonitor`` and
-``RasterMonitor``.  Phases, each printing its own lines:
+``RasterMonitor``.  With the default ``gather="auto"`` the first chunk runs
+the ``fused`` engine and, while the spike rate stays under the event
+threshold, later chunks run ``fused_event`` (``lif_step`` plus the event
+gather).  Phases, each printing its own lines:
 
   1. device: the card's name, count, name and power limit from nvidia-smi;
-  2. build: the three CUDA kernels from ``src/repro_torch/kernels/csrc``,
+  2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``,
      with nvcc's register, shared-memory and spill report;
   3. kernels vs plain at the main path's shapes (the session's own panels,
      inputs from ``--seed``): ``lif_step`` bit-exact, ``spike_gather``
      within rtol=atol=1e-5, ``fused_step`` bit-exact against ``lif_step``
      then ``spike_gather`` and within 1e-5 of its plain version;
-  4. main path: 1000 steps on the ``fused`` engine; the fused kernel's
-     launch count must rise by exactly 1000;
-  5. engine parity: 200 steps on the ``unfused`` engine, whose raster must
-     equal the fused run's first 200 steps, then a small network on the
-     card against the plain torch versions on the CPU;
-  6. timing with CUDA events at the main path's shapes: each kernel, its
+  4. main path: 1000 steps; the launch counts, set to 0 just before the run
+     and read just after, must match the gather mode of every chunk;
+  5. the event kernel against its plain version and against the dense
+     kernels, on spike vectors of the main path's raster;
+  6. the unfused path: 256 steps on the ``unfused`` engine, counts set to
+     0 before and read after, whose raster must equal the main path's
+     first 256 steps; then a small network on the card against the plain
+     torch versions on the CPU;
+  7. timing with CUDA events at the main path's shapes: each kernel, its
      plain version, ``torch.sparse.mm`` over the same synapses for the
-     gather, and the bound (bytes over 3.35 TB/s).
+     gathers, and the bound (bytes over 3.35 TB/s); and the dense and the
+     event engine's us/step from one state of the main path.
 
 It ends with a JSON line of kernel figures, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -48,6 +55,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import event_step as event_mod  # noqa: E402
 from repro_torch.kernels import fused_step as fused_mod  # noqa: E402
 from repro_torch.kernels import lif_step as lif_mod  # noqa: E402
 from repro_torch.kernels import spike_gather as gather_mod  # noqa: E402
@@ -57,10 +65,11 @@ from repro_torch.snn import (  # noqa: E402
 from repro_torch.snn.neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_V  # noqa: E402
 
 STEPS = 1000
-PARITY_STEPS = 200
+PARITY_STEPS = 256
+ENGINE_STEPS = 100
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor f32, published
-COUNTERS = (lif_mod.COUNTER, gather_mod.COUNTER, fused_mod.COUNTER)
+COUNTERS = (lif_mod.COUNTER, gather_mod.COUNTER, fused_mod.COUNTER, event_mod.COUNTER)
 SOURCES = {
     "lif_step": ("src/repro_torch/kernels/csrc/lif_step.cu",
                  "src/repro/kernels/lif_step.py:38"),
@@ -68,6 +77,8 @@ SOURCES = {
                      "src/repro/kernels/spike_gather.py:65"),
     "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
                    "src/repro/kernels/fused_step.py:140"),
+    "event_post_exchange": ("src/repro_torch/kernels/csrc/event_step.cu",
+                            "src/repro/kernels/event_step.py:198"),
 }
 
 
@@ -205,30 +216,44 @@ def run_session(ses, steps):
     return res, rate, raster, time.perf_counter() - t0
 
 
-def phase_main_path(ses, n):
+def reset_counts():
     for c in COUNTERS:
         c.launches = 0
+
+
+def read_counts():
+    return {c.name: c.launches for c in COUNTERS}
+
+
+def phase_main_path(ses, n):
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     res, rate, raster, secs = run_session(ses, STEPS)
-    require(ses.engine_choice.engine == "fused", f"engine {ses.engine_choice}")
-    require(fused_mod.COUNTER.launches == STEPS,
-            f"fused_step launched {fused_mod.COUNTER.launches} times in {STEPS} steps")
-    require(lif_mod.COUNTER.launches == 0 and gather_mod.COUNTER.launches == 0,
-            "the fused engine launched an unfused kernel")
+    launches = read_counts()
+    modes = ses.last_gather_modes
+    dense = sum(c for c, m in zip(res.chunks, modes) if m == "dense")
+    event = sum(c for c, m in zip(res.chunks, modes) if m == "event")
+    say("main", f"chunks {res.chunks}, gather modes {modes}")
+    require(dense + event == STEPS, f"gather modes {modes}")
+    require(event > 0, "the main path never took the event gather")
+    require(launches == {"lif_step": event, "spike_gather": 0, "fused_step": dense,
+                         "event_post_exchange": event},
+            f"launches {launches} for {dense} dense and {event} event steps")
     counts = res.spike_count
     require(counts.shape == (STEPS,) and np.isfinite(rate.rates).all(), "bad spike counts")
     require(int(counts.sum()) > 0, "the network never spiked")
     require(raster.raster.shape == (STEPS, n), f"raster {raster.raster.shape}")
     require(int(raster.raster.sum()) == int(counts.sum()), "raster and counts disagree")
     peak = torch.cuda.max_memory_allocated()
-    say("main", f"{STEPS} steps ({STEPS * ses.dt:.0f} ms model time) on '{ses.engine_choice.engine}':"
-        f" {secs:.3f} s, {secs / STEPS * 1e6:.1f} us/step (host clock, monitors included)")
-    say("main", f"fused_step launches: {fused_mod.COUNTER.launches}; spikes: {int(counts.sum())}; "
-        f"mean rate {rate.rates.mean():.2f} Hz; peak device memory "
-        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    say("main", f"{STEPS} steps ({STEPS * ses.dt:.0f} ms model time), {dense} on 'fused' and "
+        f"{event} on 'fused_event': {secs:.3f} s, {secs / STEPS * 1e6:.1f} us/step "
+        "(host clock, monitors included)")
+    say("main", f"launches {launches}; spikes: {int(counts.sum())} "
+        f"({counts.mean() / n:.6f} per neuron a step); mean rate {rate.rates.mean():.2f} Hz; "
+        f"peak device memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
     pops = _population_rates(raster.raster, ses)
     say("main", "population rates (Hz): " + ", ".join(f"{k} {v:.2f}" for k, v in pops.items()))
-    return raster.raster
+    return raster.raster, launches
 
 
 def _population_rates(raster, ses):
@@ -243,19 +268,62 @@ def _population_rates(raster, ses):
             for p, a, b in zip(PD14_POPS, edges[:-1], edges[1:])}
 
 
-def phase_parity(net, fused_raster, nd):
+def event_case(sim, t=STEPS):
+    """A ring and the slots of an event step at ``t``."""
+    D = sim.d_ring
+    ring = torch.from_numpy(
+        np.random.default_rng(t).normal(0.0, 1.0, (D, sim.dev.n_p)).astype(np.float32)
+    ).to(sim.device)
+    return ring, t % D, [(t + d) % D for d in sim.dev.delays]
+
+
+def phase_event(sim, raster):
+    """The event kernel against its plain version and the dense kernels, on
+    spike vectors of the main path (and one whose ids overflow the buffer)."""
+    plan, cols, weights = sim.event_plan, sim.dev.cols, sim.dev.weights0
+    n_p = sim.dev.n_p
+    busiest = int(raster.sum(axis=1)[128:].argmax()) + 128
+    acts = {f"main-path step {j}": raster[j] for j in (STEPS // 2, busiest)}
+    acts["10% active (overflow)"] = (
+        np.random.default_rng(5).random(n_p) < 0.1).astype(np.uint8)
+    err, flagged = 0.0, []
+    for what, a in acts.items():
+        act = torch.from_numpy(a.astype(np.float32)).to(sim.device)
+        ring, slot, write = event_case(sim)
+        got, want, dense = ring.clone(), ring.clone(), ring.clone()
+        flags = event_mod.event_post_exchange_cuda(act, got, slot, write, plan, cols, weights)
+        want_flags = event_mod.event_post_exchange_plain(act, want, slot, write, plan,
+                                                         cols, weights)
+        require(torch.equal(flags, want_flags), f"event flags differ from plain ({what})")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        dense[slot] = 0.0
+        for c, w, ws in zip(cols, weights, write):
+            dense[ws] += gather_mod.spike_gather_cuda(act, c, w)[:n_p]
+        require(torch.equal(got, dense), f"event ring differs from the dense kernels' ({what})")
+        err = max(err, float((got - want).abs().max()))
+        frac = float(flags.float().mean())
+        flagged.append(frac)
+        say("event", f"{what}: {int(a.sum())} spikes, {frac:.4f} of {flags.numel()} "
+            f"(bucket, block) pairs flagged (blocks of {plan.block_r} rows); flags equal "
+            "plain, ring bit-equal to the dense kernels, max |kernel - plain| = "
+            f"{float((got - want).abs().max()):.3e} (rtol=atol=1e-5)")
+    return err, acts[f"main-path step {STEPS // 2}"]
+
+
+def phase_parity(net, main_raster, nd):
     ses = Session(net, SimConfig(fused=False))
     require(ses.engine_choice.engine == "unfused", f"engine {ses.engine_choice}")
+    reset_counts()
     _, _, raster, secs = run_session(ses, PARITY_STEPS)
-    require(lif_mod.COUNTER.launches == PARITY_STEPS,
-            f"lif_step launched {lif_mod.COUNTER.launches} times")
-    require(gather_mod.COUNTER.launches == PARITY_STEPS * nd,
-            f"spike_gather launched {gather_mod.COUNTER.launches} times")
-    require(np.array_equal(raster.raster, fused_raster[:PARITY_STEPS]),
-            "unfused raster differs from the fused run's")
-    say("parity", f"unfused {PARITY_STEPS} steps: raster identical to the fused run's; "
-        f"{secs / PARITY_STEPS * 1e6:.1f} us/step; launches lif_step "
-        f"{lif_mod.COUNTER.launches}, spike_gather {gather_mod.COUNTER.launches}")
+    launches = read_counts()
+    require(launches == {"lif_step": PARITY_STEPS, "spike_gather": PARITY_STEPS * nd,
+                         "fused_step": 0, "event_post_exchange": 0},
+            f"unfused path launches {launches}")
+    require(np.array_equal(raster.raster, main_raster[:PARITY_STEPS]),
+            "unfused raster differs from the main path's")
+    say("parity", f"unfused {PARITY_STEPS} steps: raster identical to the main path's "
+        f"(fused, then fused_event); {secs / PARITY_STEPS * 1e6:.1f} us/step; launches {launches}")
+    return launches
 
 
 def phase_small_net():
@@ -298,7 +366,8 @@ def _csr(bucket, n, dev):
         ).to(dev)
 
 
-def phase_timing(sim, params, inputs, errs, launches):
+def phase_timing(ses, params, inputs, event_act, errs, launches):
+    sim = ses.simulator
     v, refrac, i_tot, act = inputs
     n_p = sim.dev.n_p
     cols, weights = sim.dev.cols, sim.dev.weights0
@@ -352,11 +421,55 @@ def phase_timing(sim, params, inputs, errs, launches):
     out.append(dict(name="fused_step", ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
                     library_ms=None))
 
+    # the event kernel on a spike vector of the main path: what it must move
+    # depends on the blocks this vector flags
+    plan = sim.event_plan
+    eact = torch.from_numpy(event_act.astype(np.float32)).to(v.device)
+    ring, slot, write = event_case(sim)
+    flags = event_mod.event_post_exchange_cuda(eact, ring, slot, write, plan, cols, weights)
+    n_ids = int(event_act.sum())
+    block_rows = np.clip(n_p - plan.block_r * np.arange(plan.num_blocks), 0, plan.block_r)
+    rows = [int(block_rows[f > 0].sum()) for f in flags.cpu().numpy()]
+    slots = sum(r * c.shape[1] for r, c in zip(rows, cols))
+    e_bytes = (slots * 8 + n_p * 4 * 2 + sum(rows) * 8 + n_ids * (8 + nd * plan.num_blocks)
+               + flags.numel() * 4)
+    tk = cuda_ms(lambda: event_mod.event_post_exchange_cuda(eact, ring, slot, write, plan,
+                                                            cols, weights), 20)
+    tp = cuda_ms(lambda: event_mod.event_post_exchange_plain(eact, ring, slot, write, plan,
+                                                             cols, weights), 5)
+    b, by = bound_ms(e_bytes, 2 * slots)
+    say("timing", f"event_post_exchange ({n_ids} spikes, {sum(rows)} of {nd * n_p} "
+        f"(bucket, row) pairs in flagged blocks): kernel {tk:.3f} ms "
+        f"({e_bytes / tk / 1e6:.0f} GB/s), plain {tp:.3f} ms, bound {b:.3f} ms "
+        f"({e_bytes / 1e9:.3f} GB); library: torch.sparse.mm over both buckets {g_lib:.3f} ms")
+    out.append(dict(name="event_post_exchange", ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
+                    library_ms=g_lib))
+
     for k in out:
         src, rep = SOURCES[k["name"]]
         k.update(route="cuda", source=src, replaces=rep, launches=launches[k["name"]],
-                 max_abs_err=errs[k["name"]])
+                 max_abs_err=errs[k["name"]],
+                 path="unfused" if k["name"] == "spike_gather" else "main")
     return out
+
+
+def phase_engines(ses):
+    """Host-clock us/step of the dense and the event engine from the state
+    the main path ended in, alternating dense, event, dense, event."""
+    sim = ses.simulator
+    mode0, per = sim.gather, {}
+    for mode in ("dense", "event", "dense", "event"):
+        sim.set_gather(mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(ses.state, ENGINE_STEPS)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / ENGINE_STEPS * 1e6
+        per.setdefault(sim.engine_choice.engine, []).append(f"{us:.1f}")
+    sim.set_gather(mode0)
+    say("timing", f"engines from the main path's state, {ENGINE_STEPS} steps each, no "
+        "monitors (host clock): "
+        + "; ".join(f"{e} {', '.join(us)} us/step" for e, us in per.items()))
 
 
 def main(argv=None) -> int:
@@ -381,19 +494,22 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     shapes = [(b.delay, b.cols.shape) for b in sim.ell.buckets]
     panel_gb = sum(c.numel() * 8 for c in sim.dev.cols) / 1e9
-    say("host", f"Session (ELL build + upload): {time.perf_counter() - t0:.1f} s; buckets "
-        f"{shapes}; {panel_gb:.3f} GB of cols + weights on the card; fill "
+    say("host", f"Session (ELL build, touch bitmaps, upload): {time.perf_counter() - t0:.1f} s; "
+        f"buckets {shapes}; {panel_gb:.3f} GB of cols + weights and "
+        f"{sim.event_plan.touch.numel() / 1e9:.3f} GB of touch bitmaps on the card; fill "
         f"{sim.ell.fill_factor:.3f}; engine {ses.engine_choice}; host peak RSS "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f} GiB")
 
     params = lif_params(net)
     inputs, errs = phase_kernels(sim, params, np.random.default_rng(args.seed))
-    fused_raster = phase_main_path(ses, net.n)
-    phase_parity(net, fused_raster, len(sim.dev.cols))
-    launches = {c.name: c.launches for c in COUNTERS}
-    say("main", f"launches over the main path (fused + unfused runs): {launches}")
+    main_raster, launches = phase_main_path(ses, net.n)
+    errs["event_post_exchange"], event_act = phase_event(sim, main_raster)
+    unfused = phase_parity(net, main_raster, len(sim.dev.cols))
+    # spike_gather runs only on the unfused path: its count is that run's
+    launches["spike_gather"] = unfused["spike_gather"]
     phase_small_net()
-    kernels = phase_timing(sim, params, inputs, errs, launches)
+    kernels = phase_timing(ses, params, inputs, event_act, errs, launches)
+    phase_engines(ses)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

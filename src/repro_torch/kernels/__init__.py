@@ -1,10 +1,11 @@
 """Kernel layer of the port: hand-written CUDA kernels for Hopper, each
 beside its plain torch version, behind the ``ops`` entry points.
 
-  - :mod:`.ops`          -- ``lif_step``, ``spike_gather``, ``fused_step``
+  - :mod:`.ops`          -- ``lif_step``, ``spike_gather``, ``fused_step``,
+    ``event_post_exchange``
   - :mod:`.dispatch`     -- backend by device, step-engine selection
   - :mod:`.ref`          -- the plain torch versions (correctness contract)
-  - :mod:`.lif_step`, :mod:`.spike_gather`, :mod:`.fused_step` -- kernel
-    wrappers with their launch counters
+  - :mod:`.lif_step`, :mod:`.spike_gather`, :mod:`.fused_step`,
+    :mod:`.event_step` -- kernel wrappers with their launch counters
   - :mod:`._build`       -- builds ``csrc/*.cu`` on first use
 """

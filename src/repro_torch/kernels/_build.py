@@ -141,6 +141,10 @@ _SIGNATURES = {
         [_P] * 6 + [_I, _I, _I] + [_P, _P, _P, _P] + [_F] * 7 + [_P, _I]
     ),
     "repro_fused_step_max_buckets": [],
+    "repro_event_step": (
+        [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P] * 5 + [_I]
+    ),
+    "repro_event_step_max_buckets": [],
 }
 
 

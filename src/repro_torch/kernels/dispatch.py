@@ -8,13 +8,15 @@ Counterpart of ``repro/kernels/dispatch.py``.  Backends:
 
 The backend follows the tensor's device: a CUDA tensor always takes the
 kernel, and a CPU tensor the plain version.  This is the reverse of the
-reference, which sends everything off the TPU to ``ref``.  An explicit
-``backend=`` that disagrees with the device raises instead of moving data.
+reference, which sends everything off the TPU to ``ref``.
 
-``select_step_engine`` picks ``fused`` (one cooperative launch per step) or
+``select_step_engine`` picks ``fused`` (one cooperative launch per step),
+``fused_event`` (``lif_step`` plus one cooperative event-gather launch) or
 ``unfused`` (``lif_step`` plus one ``spike_gather`` launch per delay
-bucket), with limits derived for the H100 in place of the reference's VMEM
-budgets.
+bucket).  The reference's VMEM budgets have no counterpart: the kernels
+keep nothing resident beyond what L2 holds on its own, so the only limits
+are the ones the kernels really have (LIF-only, and a 32-entry per-bucket
+argument table).
 """
 from __future__ import annotations
 
@@ -58,22 +60,14 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def backend_for(device: torch.device, backend: Optional[str] = None) -> str:
-    """``cuda`` for a CUDA device, ``ref`` for the CPU; an explicit
-    ``backend`` must agree with the device."""
+def backend_for(device: torch.device) -> str:
+    """``cuda`` for a CUDA device, ``ref`` for the CPU."""
     device = torch.device(device)
     if device.type == "cuda":
-        found = "cuda"
-    elif device.type == "cpu":
-        found = "ref"
-    else:
-        raise ValueError(f"no kernels for device type {device.type!r}")
-    if backend is not None and backend != found:
-        raise ValueError(
-            f"backend={backend!r} does not run on {device}: CUDA tensors take "
-            "the 'cuda' kernels and CPU tensors the 'ref' plain versions"
-        )
-    return found
+        return "cuda"
+    if device.type == "cpu":
+        return "ref"
+    raise ValueError(f"no kernels for device type {device.type!r}")
 
 
 def lookup(op: str, backend: str) -> Callable:
@@ -89,23 +83,24 @@ def lookup(op: str, backend: str) -> Callable:
         ) from None
 
 
-# -- step-engine selection (fused vs unfused) -----------------------------
+# -- step-engine selection ------------------------------------------------
 
-# The fused kernel keeps nothing resident in shared memory: phase 1 streams
-# the state vectors and phase 2 reads the spike vector back through L2 while
-# the panels stream past.  Two H100 limits follow:
-#   * its argument table holds at most this many delay buckets
-#     (csrc/fused_step.cu:kMaxBuckets);
-#   * the spike vector should fit a quarter of the 50 MB L2, leaving the
-#     rest to the streamed panels: 12.5 MB of f32 spikes.
+# the fused and event kernels' per-bucket argument tables
+# (csrc/fused_step.cu, csrc/event_step.cu: kMaxBuckets)
 FUSED_MAX_BUCKETS = 32
-_L2_BYTES = 50 * 1024 * 1024
-FUSED_MAX_N_P = _L2_BYTES // 4 // 4
+
+# Session's activity-adaptive dispatcher (SimConfig(gather="auto")) swaps to
+# the event engine below this running mean spike rate (spikes per neuron per
+# step) and back to the dense sweep above it.  The reference's value
+# (repro/kernels/dispatch.py:EVENT_ACTIVITY_THRESHOLD), kept so both
+# packages take the same engine for the same net; the port's own crossover
+# is not measured yet.
+EVENT_ACTIVITY_THRESHOLD = 0.002
 
 
 @dataclasses.dataclass(frozen=True)
 class StepEngineChoice:
-    engine: str  # "fused" or "unfused"
+    engine: str  # "fused", "fused_event" or "unfused"
     reason: str
     overlap: str = "off"  # no collective at k=1
 
@@ -113,12 +108,15 @@ class StepEngineChoice:
     def fused(self) -> bool:
         return self.engine != "unfused"
 
+    @property
+    def event(self) -> bool:
+        return self.engine == "fused_event"
+
 
 def _fusion_blocker(
     models_present: Sequence[str],
     identity_rows: bool,
     n_delay_buckets: int,
-    n_p: int,
 ) -> Optional[str]:
     if tuple(models_present) != ("lif",):
         return (
@@ -131,13 +129,8 @@ def _fusion_blocker(
         return "no synapses to propagate"
     if n_delay_buckets > FUSED_MAX_BUCKETS:
         return (
-            f"{n_delay_buckets} delay buckets exceed the fused kernel's "
+            f"{n_delay_buckets} delay buckets exceed the fused kernels' "
             f"argument table ({FUSED_MAX_BUCKETS})"
-        )
-    if n_p > FUSED_MAX_N_P:
-        return (
-            f"partition too large ({n_p} > {FUSED_MAX_N_P} neurons) for an "
-            "L2-resident spike vector"
         )
     return None
 
@@ -148,27 +141,37 @@ def select_step_engine(
     models_present: Sequence[str],
     identity_rows: bool,
     n_delay_buckets: int,
-    n_p: int,
     fused: Optional[bool] = None,
+    gather: str = "dense",
 ) -> StepEngineChoice:
-    """Pick ``fused`` or ``unfused`` for a k=1 partition.
+    """Pick ``fused``, ``fused_event`` or ``unfused`` for a k=1 partition.
 
     ``fused=None`` (auto) fuses whenever the partition is eligible and the
     backend runs the CUDA kernels; on ``ref`` it composes the plain versions
     unfused, as the reference does on its ``ref`` backend.  ``fused=True``
     demands fusion (raises if the partition is ineligible); ``fused=False``
-    disables it."""
+    disables it.  ``gather="event"`` takes the event-driven variant of the
+    fused engine; SimConfig's ``"auto"`` is resolved by ``Session`` per
+    chunk and never reaches here."""
+    if gather not in ("dense", "event"):
+        raise ValueError(
+            f"select_step_engine(gather={gather!r}): expected 'dense' or "
+            "'event' ('auto' is resolved by Session before selection)"
+        )
     if fused is False:
         return StepEngineChoice("unfused", "disabled by config")
-    blocker = _fusion_blocker(models_present, identity_rows, n_delay_buckets, n_p)
+    blocker = _fusion_blocker(models_present, identity_rows, n_delay_buckets)
     if blocker is not None:
         if fused is True:
             raise ValueError(f"fused step engine requested but: {blocker}")
         return StepEngineChoice("unfused", blocker)
+    target, placement = "fused", "identity exchange"
+    if gather == "event":
+        target, placement = "fused_event", "identity exchange, event-driven gather"
     if fused is True:
-        return StepEngineChoice("fused", "forced by config (identity exchange)")
+        return StepEngineChoice(target, f"forced by config ({placement})")
     if backend == "cuda":
-        return StepEngineChoice("fused", "auto: cuda backend (identity exchange)")
+        return StepEngineChoice(target, f"auto: cuda backend ({placement})")
     return StepEngineChoice(
         "unfused", "auto: 'ref' backend composes the plain torch versions"
     )

@@ -1,0 +1,219 @@
+"""Event-driven post-exchange step: the cooperative CUDA kernel
+``csrc/event_step.cu`` and its plain version.
+
+Counterpart of ``repro/kernels/event_step.py``.  Each delay bucket's panel
+is cut into row blocks, and a build-time ``touch`` bitmap records which
+presynaptic ids appear in a valid slot of each block.  Per step:
+
+  1. the spike vector is compressed to at most ``cap`` spike ids;
+  2. a row block is *flagged* iff an active id touches it; more active ids
+     than ``cap`` flag every block (a dense sweep in that step, never a
+     wrong answer);
+  3. the delivered ring slot is cleared, and only the flagged rows of each
+     bucket are gathered and added to their ring slot, bucket by bucket.
+
+The flags are conservative, so the ring equals the dense engines' ring on
+every flagged row, and an unflagged row, whose dense sum is a signed zero,
+keeps its value: the rasters of the event and the dense engines are
+identical.  The reference's ``sel`` block selectors exist only to alias
+TPU block fetches and have no counterpart here.
+
+:func:`event_post_exchange_cuda` launches the kernel on CUDA tensors and
+raises on any other; ``ops.event_post_exchange`` takes the plain version
+(:func:`event_post_exchange_plain`) only for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .ref import spike_gather_ref
+
+COUNTER = _build.LaunchCounter("event_post_exchange")
+
+# size of the kernel's per-bucket argument table (csrc/event_step.cu)
+MAX_BUCKETS = 32
+# rows of a flag block: the granularity at which the event gather skips
+EVENT_BLOCK_ROWS = 128
+
+__all__ = [
+    "COUNTER", "EVENT_BLOCK_ROWS", "EventPlan", "MAX_BUCKETS",
+    "build_touch_masks", "event_block_geometry", "event_id_cap",
+    "event_post_exchange_cuda", "event_post_exchange_plain",
+    "event_select_plain",
+]
+
+
+def event_id_cap(n_global: int, cap_frac: float) -> int:
+    """The compressed spike-id capacity (``SimConfig.event_cap_frac`` of
+    the activity width, at least 32), as the reference computes it
+    (``repro/kernels/dispatch.py:event_id_cap``)."""
+    return max(int(cap_frac * n_global), 32)
+
+
+def event_block_geometry(R: int, block_r: int = EVENT_BLOCK_ROWS) -> Tuple[int, int]:
+    """``(block_r, num_blocks)`` for panels of ``R`` rows; the last block
+    may be partial."""
+    block_r = max(min(block_r, R), 1)
+    return block_r, -(-R // block_r)
+
+
+def build_touch_masks(
+    cols: Sequence[np.ndarray],  # per delay bucket (R, K_d) presynaptic ids
+    valid: Sequence[np.ndarray],  # per delay bucket (R, K_d) 0/1 validity
+    n: int,  # width of the activity vector the ids index into
+    num_blocks: int,
+    block_r: int,
+) -> List[np.ndarray]:
+    """Per-bucket ``(num_blocks, n)`` uint8 bitmaps: ``touch[b, j] == 1``
+    iff id ``j`` appears in a valid slot of row block ``b`` (a copy of the
+    reference's builder that also takes a partial last block).  Padding
+    slots are excluded, so an id that only padding references never flags
+    a block."""
+    masks = []
+    for c, v in zip(cols, valid):
+        c = np.asarray(c)
+        v = np.asarray(v)
+        assert -(-c.shape[0] // block_r) == num_blocks, (c.shape, num_blocks, block_r)
+        m = np.zeros((num_blocks, n), np.uint8)
+        for b in range(num_blocks):
+            sl = slice(b * block_r, (b + 1) * block_r)
+            ids = c[sl][v[sl] > 0]
+            if ids.size:
+                m[b, ids.astype(np.int64)] = 1
+        masks.append(m)
+    return masks
+
+
+class EventPlan:
+    """The event engine's static schedule for one partition: row-block
+    geometry, the touch bitmaps stacked into one ``(nd, num_blocks, n)``
+    uint8 tensor on the run's device, and the id-buffer capacity."""
+
+    def __init__(self, block_r: int, num_blocks: int, cap: int, touch: torch.Tensor):
+        self.block_r = int(block_r)
+        self.num_blocks = int(num_blocks)
+        self.cap = int(cap)
+        self.touch = touch
+
+    @classmethod
+    def build(
+        cls,
+        cols: Sequence[np.ndarray],
+        valid: Sequence[np.ndarray],
+        n: int,
+        cap: int,
+        device,
+        *,
+        block_r: int = EVENT_BLOCK_ROWS,
+    ) -> "EventPlan":
+        block_r, nb = event_block_geometry(int(np.asarray(cols[0]).shape[0]), block_r)
+        masks = build_touch_masks(cols, valid, n, nb, block_r)
+        touch = torch.from_numpy(np.stack(masks)).to(device)
+        return cls(block_r, nb, cap, touch)
+
+
+def event_select_plain(act: torch.Tensor, touch: torch.Tensor, cap: int) -> torch.Tensor:
+    """``(nd, num_blocks)`` int32 flags: a block is flagged iff an active id
+    touches it, and every block is flagged when more than ``cap`` ids are
+    active (the reference's ``event_select`` without its ``sel``)."""
+    ids = torch.nonzero(act > 0).flatten()
+    nd, nb, _ = touch.shape
+    if ids.numel() > cap:
+        return torch.ones((nd, nb), dtype=torch.int32, device=act.device)
+    if ids.numel() == 0:
+        return torch.zeros((nd, nb), dtype=torch.int32, device=act.device)
+    return (touch.index_select(2, ids).amax(dim=2) > 0).to(torch.int32)
+
+
+def event_post_exchange_plain(
+    act: torch.Tensor,  # (n,) spike vector
+    ring: torch.Tensor,  # (D, n_p) ring, updated in place
+    slot: int,  # delivered slot, cleared
+    write_slots: Sequence[int],  # per bucket (t + d) % D
+    plan: EventPlan,
+    cols: Sequence[torch.Tensor],
+    weights: Sequence[torch.Tensor],
+) -> torch.Tensor:
+    """The kernel's contract: clear ``ring[slot]``, then per bucket in order
+    add the flagged rows' gathers to ``ring[write_slot]``.  Returns the
+    flags."""
+    flags = event_select_plain(act, plan.touch, plan.cap)
+    n_p = ring.shape[1]
+    ring[slot] = 0.0
+    for b, (c, w, ws) in enumerate(zip(cols, weights, write_slots)):
+        rows = flags[b].repeat_interleave(plan.block_r)[:n_p].bool()
+        cur = spike_gather_ref(act, c, w)[:n_p]
+        ring[ws] = torch.where(rows, ring[ws] + cur, ring[ws])
+    return flags
+
+
+def event_post_exchange_cuda(
+    act: torch.Tensor,
+    ring: torch.Tensor,
+    slot: int,
+    write_slots: Sequence[int],
+    plan: EventPlan,
+    cols: Sequence[torch.Tensor],
+    weights: Sequence[torch.Tensor],
+) -> torch.Tensor:
+    """Launch the kernel (one cooperative launch); updates ``ring`` in place
+    and returns the ``(nd, num_blocks)`` int32 flags."""
+    nd = len(cols)
+    if not 1 <= nd <= MAX_BUCKETS or len(weights) != nd or len(write_slots) != nd:
+        raise ValueError(
+            f"event_post_exchange takes 1..{MAX_BUCKETS} delay buckets with one "
+            f"weight panel and write slot each, got {nd} col panels, "
+            f"{len(weights)} weight panels and {len(write_slots)} write slots"
+        )
+    _build.require("act", act, torch.float32, 1)
+    dev = act.device
+    _build.require("ring", ring, torch.float32, 2, dev)
+    _build.require("touch", plan.touch, torch.uint8, 3, dev)
+    D, n_p = ring.shape
+    n = act.shape[0]
+    R = cols[0].shape[0]
+    for i, (c, w) in enumerate(zip(cols, weights)):
+        _build.require(f"cols[{i}]", c, torch.int32, 2, dev)
+        _build.require(f"weights[{i}]", w, torch.float32, 2, dev)
+        if c.shape != w.shape or c.shape[0] != R or c.shape[1] < 1:
+            raise ValueError(
+                "event_post_exchange needs (R, K_d) col/weight panels with a "
+                f"common R and K_d >= 1: {[tuple(c.shape) for c in cols]} vs "
+                f"{[tuple(w.shape) for w in weights]}"
+            )
+    if R < n_p:
+        raise ValueError(f"panels have R={R} rows for n_p={n_p} neurons")
+    if tuple(plan.touch.shape) != (nd, plan.num_blocks, n) or \
+            plan.num_blocks * plan.block_r < R:
+        raise ValueError(
+            f"touch bitmaps {tuple(plan.touch.shape)} do not cover {nd} buckets "
+            f"of {R} rows in blocks of {plan.block_r} over {n} ids"
+        )
+    if not all(0 <= s < D for s in (slot, *write_slots)):
+        raise ValueError(f"ring slots {slot}, {tuple(write_slots)} outside [0, {D})")
+    flags = torch.empty((nd, plan.num_blocks), dtype=torch.int32, device=dev)
+    if n_p == 0:
+        return flags.zero_()
+    ids = torch.empty(plan.cap, dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    ptrs = ctypes.c_void_p * nd
+    ints = ctypes.c_int * nd
+    stream, device = _build.launch_args(act)
+    rc = _build.library().repro_event_step(
+        act.data_ptr(), n, plan.touch.data_ptr(),
+        ids.data_ptr(), count.data_ptr(), plan.cap, flags.data_ptr(),
+        ring.data_ptr(), n_p, int(slot), plan.num_blocks, plan.block_r, nd,
+        ptrs(*[c.data_ptr() for c in cols]),
+        ptrs(*[w.data_ptr() for w in weights]),
+        ints(*[c.shape[1] for c in cols]),
+        ints(*[int(s) for s in write_slots]),
+        stream, device,
+    )
+    _build.check(rc, "event_post_exchange")
+    COUNTER.launches += 1
+    return flags

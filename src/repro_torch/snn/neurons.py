@@ -53,7 +53,6 @@ def make_neuron_step(
     registry: ModelRegistry,
     models_present: Sequence[str],
     dt: float,
-    backend: str,
 ) -> Callable:
     """Returns step(vtx_model, vtx_state, i_syn) -> (vtx_state', spikes).
 
@@ -79,7 +78,6 @@ def make_neuron_step(
                     vtx_state[:, LIF_REF].contiguous(),
                     i_tot,
                     params={**{k: p[k] for k in LIF_PARAM_KEYS}, "dt": dt},
-                    backend=backend,
                 )
                 new_state[:, LIF_V] = torch.where(mask, v, new_state[:, LIF_V])
                 new_state[:, LIF_REF] = torch.where(

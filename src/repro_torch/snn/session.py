@@ -15,6 +15,13 @@ Engine selection (``engine="auto"``), as in the reference:
 
 The run goes on the card unless the caller passes ``device="cpu"``.
 
+With ``SimConfig(gather="auto")``, the default, on a partition the event
+engine can serve, each chunk's mean spike rate feeds a running average;
+below ``EVENT_ACTIVITY_THRESHOLD`` the next chunk runs the event-driven
+gather, above it the dense one (``session.py:547-594`` of the reference).
+The engines give identical rasters, so the switch changes no trajectory;
+``last_gather_modes`` records what each chunk of the last run took.
+
 Not in this slice, each raising ``NotImplementedError`` that names the
 ROADMAP queue item porting it: snapshot paths as input and the
 save/restore pair, ``run(checkpoint_every=...)``, ``run_supervised``, and
@@ -31,7 +38,7 @@ import numpy as np
 import torch
 
 from ..core.dcsr import DCSRNetwork, merge_to_single
-from ..kernels.dispatch import resolve_device
+from ..kernels.dispatch import EVENT_ACTIVITY_THRESHOLD, resolve_device
 from .simulator import SimConfig, Simulator, _not_ported as _unported
 
 _DEFAULT_CHUNK = 128
@@ -101,6 +108,8 @@ class Session:
         # the recordings are per run, so the panels are uploaded only once
         self._sim = Simulator(self.net, self.cfg, device=self.device, _noise_fn=_noise_fn)
         self._state: Optional[Dict] = None
+        # gather mode each chunk of the last run() actually executed with
+        self.last_gather_modes: Tuple[str, ...] = ()
 
     # -- engine selection --------------------------------------------------
     @staticmethod
@@ -159,7 +168,7 @@ class Session:
 
     @property
     def engine_choice(self):
-        """Fused/unfused step-engine decision of the kernel layer."""
+        """Step-engine decision of the kernel layer for the next chunk."""
         return self._sim.engine_choice
 
     @property
@@ -178,7 +187,7 @@ class Session:
             n=self.n, m=self.m, k=self.k, source_k=self.source_k,
             engine=self.engine_kind, t=self.t,
             step_engine=self.engine_choice.engine,
-            gather="dense",
+            gather=sim.gather,
             overlap=self.engine_choice.overlap,
             backend=sim.backend,
             device=str(self.device),
@@ -212,11 +221,13 @@ class Session:
         record_raster = self.cfg.record_raster or "raster" in need
         record_v = self.cfg.record_v or "v_mean" in need
         self._ensure_state()
+        adaptive = self.cfg.gather == "auto" and self._sim.event_capable
+        rate_ema: Optional[float] = None
         chunk_size = max(1, int(chunk_size or min(steps, _DEFAULT_CHUNK)))
         t_run0 = self.t
         for mon in monitors:
             mon.begin(self)
-        counts, overflows, chunks = [], [], []
+        counts, overflows, chunks, gather_modes = [], [], [], []
         done = 0
         while done < steps:
             c = min(chunk_size, steps - done)
@@ -230,9 +241,17 @@ class Session:
             counts.append(outs["spike_count"])
             overflows.append(outs["overflow"])
             chunks.append(c)
+            gather_modes.append(self._sim.gather)
             done += c
+            if adaptive:
+                rate = float(np.mean(outs["spike_count"])) / max(self.n, 1)
+                rate_ema = rate if rate_ema is None else 0.5 * rate_ema + 0.5 * rate
+                self._sim.set_gather(
+                    "event" if rate_ema < EVENT_ACTIVITY_THRESHOLD else "dense"
+                )
         for mon in monitors:
             mon.finalize()
+        self.last_gather_modes = tuple(gather_modes)
         return RunResult(
             spike_count=np.concatenate(counts),
             t_final=t_run0 + done,

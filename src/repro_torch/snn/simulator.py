@@ -1,7 +1,8 @@
 """Clock-driven SNN simulator over one dCSR partition (k = 1), in torch.
 
-Counterpart of ``repro/snn/simulator.py`` for the non-plastic ``fused`` and
-``unfused`` engines.  One step, in the reference's documented order:
+Counterpart of ``repro/snn/simulator.py`` for the non-plastic ``fused``,
+``fused_event`` and ``unfused`` engines.  One step, in the reference's
+documented order:
 
   1. deliver: ``i_syn = ring[t % D]``; clear that slot.
   2. neuron update with ``i_syn + noise(t, permanent id) + bias`` -> spikes.
@@ -10,9 +11,12 @@ Counterpart of ``repro/snn/simulator.py`` for the non-plastic ``fused`` and
   4. history: ``hist[t % D] = spikes``; ``t += 1``.
 
 The ``fused`` engine does 2 and the gathers of 3 in one cooperative kernel
-launch; ``unfused`` launches ``lif_step`` and then one ``spike_gather`` per
-bucket.  Both go through the same device routines, so their rasters are
-bit-identical on the card, and through the same plain versions on the CPU.
+launch; ``fused_event`` launches ``lif_step`` and then one cooperative
+kernel that clears the slot of 1 and gathers only the row blocks the step's
+spikes touch; ``unfused`` launches ``lif_step`` and then one
+``spike_gather`` per bucket.  All go through the same device routines, so
+their rasters are bit-identical on the card, and through the same plain
+versions on the CPU.
 
 ``lax.scan`` becomes a Python loop over steps with no host sync inside a
 run: spike counts, raster rows and ``v_mean`` go into tensors preallocated
@@ -20,9 +24,12 @@ on the run's device and are copied to the host once, by the caller.  The
 carry's tensors are updated in place after ``run`` has copied them, so the
 state a caller passes in is never changed.
 
-``SimConfig(gather="auto")``, the default, is accepted and runs the dense
-gather: the event-driven gather is not ported yet, and the reference's
-trajectories are bit-identical across gather modes, so no result changes.
+``SimConfig(gather="auto")``, the default, starts on the dense gather and
+lets ``Session``'s chunk loop switch to the event-driven engine
+(``fused_event``: ``lif_step`` plus one event-gather launch, see
+``kernels/event_step.py``) while the running spike rate stays under
+``EVENT_ACTIVITY_THRESHOLD``, as the reference does.  The engines give
+identical rasters, so the switch never changes a trajectory.
 
 Noise is a pure function of (seed, t, permanent neuron id): a generator on
 the run's device, seeded from (seed, t), draws the ``(n_global,)`` normals,
@@ -43,8 +50,9 @@ from ..core.dcsr import DCSRNetwork, DCSRPartition
 from ..core.ell import DelayELL, build_delay_ell
 from ..kernels import ops
 from ..kernels.dispatch import (
-    BACKENDS, StepEngineChoice, backend_for, resolve_device, select_step_engine,
+    StepEngineChoice, backend_for, resolve_device, select_step_engine,
 )
+from ..kernels.event_step import EventPlan, event_id_cap
 from .neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V, make_neuron_step
 
 # in-flight runtime arrays of the carry (the serialization side-channel)
@@ -64,11 +72,9 @@ class SimConfig:
 
     Values the reference accepts but this slice does not run raise
     ``NotImplementedError`` at construction, naming the ROADMAP queue item
-    that ports them.  ``gather="auto"`` is accepted and stays dense: the
-    reference's trajectories are bit-identical across gather modes, so this
-    changes no result."""
+    that ports them.  There is no ``backend`` field: the run's device
+    decides between the CUDA kernels and the plain versions."""
 
-    backend: Optional[str] = None  # None = from the device; 'ref' | 'cuda'
     fused: Optional[bool] = None  # None=auto, True=require fused step, False=off
     align_k: int = 128
     align_rows: int = 8
@@ -83,11 +89,6 @@ class SimConfig:
     seed: int = 42
 
     def __post_init__(self):
-        if self.backend is not None and self.backend not in BACKENDS:
-            raise ValueError(
-                f"SimConfig(backend={self.backend!r}): unknown backend; "
-                f"expected one of {BACKENDS} or None (chosen from the device)"
-            )
         if self.exchange not in ("auto", "dense", "index"):
             raise ValueError(
                 f"SimConfig(exchange={self.exchange!r}): expected 'auto', "
@@ -120,8 +121,6 @@ class SimConfig:
                 f"SimConfig(align_k={self.align_k}, "
                 f"align_rows={self.align_rows}): ELL alignments must be >= 1"
             )
-        if self.gather == "event":
-            raise _not_ported("SimConfig(gather='event')", "event-gather slice")
         if self.exchange == "index":
             raise _not_ported("SimConfig(exchange='index')", "k>1 engine")
         if self.overlap not in ("auto", "off"):
@@ -206,34 +205,31 @@ def make_core_step(
     d_ring: int,
     n_global: int,
     dev: PartitionDeviceData,
-    backend: str,
     noise_ids: torch.Tensor,
-    fused: Optional[bool] = None,
+    engine_choice: StepEngineChoice,
+    event_plan: Optional[EventPlan] = None,
     noise_fn: Optional[Callable[[int], object]] = None,
 ) -> Callable:
     """The per-partition step: ``step(carry)`` advances ``carry`` in place
     by one step and returns the step's spike vector.
 
-    ``noise_ids`` are the permanent neuron ids of the local rows.
-    ``noise_fn(t)``, when given, supplies the ``(n_global,)`` noise of step
-    ``t`` (already scaled by sigma) in place of the port's own generator."""
+    ``engine_choice`` comes from ``dispatch.select_step_engine``; the event
+    engine needs the partition's ``event_plan``.  ``noise_ids`` are the
+    permanent neuron ids of the local rows.  ``noise_fn(t)``, when given,
+    supplies the ``(n_global,)`` noise of step ``t`` (already scaled by
+    sigma) in place of the port's own generator."""
     D = d_ring
     n_p = dev.n_p
     device = dev.vtx_state0.device
-    choice = select_step_engine(
-        backend=backend,
-        models_present=models_present,
-        identity_rows=all(dev.identity_rows),
-        n_delay_buckets=len(dev.delays),
-        n_p=n_p,
-        fused=fused,
-    )
+    choice = engine_choice
+    if choice.event and event_plan is None:
+        raise ValueError("the fused_event engine needs the partition's EventPlan")
     if choice.fused:
         neuron_step = None
         lif_p = dict(registry.spec("lif").params)
         lif_params = {"dt": dt, **{k: lif_p[k] for k in LIF_PARAM_KEYS}}
     else:
-        neuron_step = make_neuron_step(registry, models_present, dt, backend)
+        neuron_step = make_neuron_step(registry, models_present, dt)
     gen = torch.Generator(device=device) if noise_sigma > 0 else None
 
     def noise(t: int) -> Optional[torch.Tensor]:
@@ -255,27 +251,43 @@ def make_core_step(
         slot = t % D
         ring = carry["ring"]
         i_syn = ring[slot].clone()
-        ring[slot] = 0.0
+        if not choice.event:  # the event kernel clears the slot itself
+            ring[slot] = 0.0
         n_t = noise(t)
         if n_t is not None:
             i_syn = i_syn + n_t
         vtx = carry["vtx_state"]
-        if choice.fused:
+        currents = ()
+        if choice.engine == "fused":
             # one cooperative launch: LIF advance + spike emission + every
             # bucket's gather from the fresh spike vector
             i_tot = i_syn + vtx[:, LIF_BIAS]
             v2, r2, spikes, currents = ops.fused_step(
                 vtx[:, LIF_V].contiguous(), vtx[:, LIF_REF].contiguous(),
-                i_tot, dev.cols, carry["weights"],
-                params=lif_params, backend=backend,
+                i_tot, dev.cols, carry["weights"], params=lif_params,
             )
             vtx[:, LIF_V] = v2
             vtx[:, LIF_REF] = r2
+        elif choice.event:
+            # LIF advance, then one launch that compresses the spikes to
+            # ids, flags the touched row blocks and adds only their gathers
+            # to the ring (the delivered slot cleared first)
+            i_tot = i_syn + vtx[:, LIF_BIAS]
+            v2, r2, spikes = ops.lif_step(
+                vtx[:, LIF_V].contiguous(), vtx[:, LIF_REF].contiguous(),
+                i_tot, params=lif_params,
+            )
+            vtx[:, LIF_V] = v2
+            vtx[:, LIF_REF] = r2
+            ops.event_post_exchange(
+                spikes, ring, slot, [(t + d) % D for d in dev.delays],
+                event_plan, dev.cols, carry["weights"],
+            )
         else:
             new_vtx, spikes = neuron_step(dev.vtx_model, vtx, i_syn)
             vtx.copy_(new_vtx)
             currents = [
-                ops.spike_gather(spikes, c, w, backend=backend)
+                ops.spike_gather(spikes, c, w)
                 for c, w in zip(dev.cols, carry["weights"])
             ]
         for cur, d in zip(currents, dev.delays):
@@ -293,7 +305,13 @@ class Simulator:
 
     ``device`` is where it runs: the card unless the caller names another
     (``device="cpu"`` runs the plain torch versions).  ``_noise_fn`` is the
-    internal noise seam (see :func:`make_core_step`)."""
+    internal noise seam (see :func:`make_core_step`).
+
+    ``gather`` is the panel traversal the next :meth:`run` takes,
+    ``"dense"`` or ``"event"``; ``SimConfig(gather="auto")`` starts dense,
+    and ``Session`` moves it with :meth:`set_gather`.  The step function of
+    each mode is built on first use and kept, so a switch back and forth
+    costs nothing after the first."""
 
     def __init__(
         self,
@@ -309,7 +327,7 @@ class Simulator:
         self.net = net
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.backend = backend_for(self.device, cfg.backend)
+        self.backend = backend_for(self.device)
         self.dt = float(net.meta.get("dt", 0.1))
         self.noise_sigma = float(net.meta.get("noise_sigma", 0.0))
         part = net.parts[0]
@@ -321,21 +339,68 @@ class Simulator:
         )
         self.d_ring = max(self.ell.max_delay, 1)
         self.dev = partition_device_data(part, self.ell, self.device)
-        self._step = make_core_step(
-            registry=net.registry,
-            models_present=_models_present(net),
-            dt=self.dt,
-            noise_sigma=self.noise_sigma,
-            seed=cfg.seed,
-            d_ring=self.d_ring,
-            n_global=net.n,
-            dev=self.dev,
+        self._noise_ids = torch.from_numpy(part.global_ids).to(self.device)
+        self._noise_fn = _noise_fn
+        self._models = _models_present(net)
+        self._steps: Dict[str, Callable] = {}
+        self._event_plan: Optional[EventPlan] = None
+        try:
+            self.event_capable = self._choice("event").event
+        except ValueError:  # fused=True on a partition that cannot fuse
+            self.event_capable = False
+        if self.event_capable and cfg.gather == "auto":
+            self.set_gather("event")  # built here, not inside a later run
+        self.set_gather("dense" if cfg.gather == "auto" else cfg.gather)
+
+    def _choice(self, gather: str) -> StepEngineChoice:
+        return select_step_engine(
             backend=self.backend,
-            noise_ids=torch.from_numpy(part.global_ids).to(self.device),
-            fused=cfg.fused,
-            noise_fn=_noise_fn,
+            models_present=self._models,
+            identity_rows=all(self.dev.identity_rows),
+            n_delay_buckets=len(self.dev.delays),
+            fused=self.cfg.fused,
+            gather=gather,
         )
-        self.engine_choice: StepEngineChoice = self._step.engine_choice
+
+    @property
+    def event_plan(self) -> EventPlan:
+        """The event engine's touch bitmaps on the device, built on first
+        use from the host ELL."""
+        if self._event_plan is None:
+            self._event_plan = EventPlan.build(
+                [b.cols for b in self.ell.buckets],
+                [b.valid for b in self.ell.buckets],
+                self.net.n,
+                event_id_cap(self.net.n, self.cfg.event_cap_frac),
+                self.device,
+            )
+        return self._event_plan
+
+    def set_gather(self, gather: str) -> None:
+        """Run the next steps with the ``"dense"`` or ``"event"`` gather."""
+        if gather not in self._steps:
+            choice = self._choice(gather)
+            self._steps[gather] = make_core_step(
+                registry=self.net.registry,
+                models_present=self._models,
+                dt=self.dt,
+                noise_sigma=self.noise_sigma,
+                seed=self.cfg.seed,
+                d_ring=self.d_ring,
+                n_global=self.net.n,
+                dev=self.dev,
+                noise_ids=self._noise_ids,
+                engine_choice=choice,
+                event_plan=self.event_plan if choice.event else None,
+                noise_fn=self._noise_fn,
+            )
+        self.gather = gather
+        self._step = self._steps[gather]
+
+    @property
+    def engine_choice(self) -> StepEngineChoice:
+        """The step engine the next :meth:`run` takes."""
+        return self._step.engine_choice
 
     def init_state(self, t0: int = 0) -> Dict:
         n_p = self.dev.n_p

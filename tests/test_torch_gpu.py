@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import event_step as event_mod
 from repro_torch.kernels import fused_step as fused_mod
 from repro_torch.kernels import lif_step as lif_mod
 from repro_torch.kernels import spike_gather as gather_mod
@@ -56,6 +57,7 @@ def test_library_builds_with_ptxas_report(cuda):
     assert info.path.exists()
     lib = _build.library()
     assert lib.repro_fused_step_max_buckets() == fused_mod.MAX_BUCKETS
+    assert lib.repro_event_step_max_buckets() == event_mod.MAX_BUCKETS
 
 
 @pytest.mark.parametrize("n", [1, 1000, 77169])
@@ -125,17 +127,63 @@ def test_kernels_refuse_cpu_tensors_and_bad_operands(cuda):
         )
 
 
-def test_engines_bit_identical_on_card(cuda):
+@pytest.mark.parametrize("n_p,R,ks,block_r,p_active,cap", [
+    (64, 64, (16,), 16, 0.05, 32),
+    (100, 104, (8, 24), 8, 0.02, 32),
+    (500, 504, tuple(range(8, 8 * 16, 8)), 128, 0.01, 32),  # 15 buckets
+    (5000, 5000, (128, 384), 128, 0.001, 250),  # sparse: blocks skipped
+    (5000, 5000, (128, 384), 128, 0.2, 250),  # ids overflow: all flagged
+    (19288, 19288, (512, 1408), 128, 0.0008, 964),  # microcircuit(0.25)
+])
+def test_event_kernel_matches_plain_and_dense(cuda, rng, n_p, R, ks, block_r,
+                                              p_active, cap):
+    D, t = 16, 37
+    delays = [1 + (3 * i) % D for i in range(len(ks))]
+    cols, weights = _panels(rng, n_p, R, ks, n_p, cuda)
+    valid = [(w != 0).cpu().numpy() for w in weights]
+    plan = event_mod.EventPlan.build([c.cpu().numpy() for c in cols], valid, n_p,
+                                     cap, cuda, block_r=block_r)
+    act = torch.from_numpy((rng.random(n_p) < p_active).astype(np.float32)).to(cuda)
+    ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    slot, write = t % D, [(t + d) % D for d in delays]
+    got = ring.clone()
+    before = event_mod.COUNTER.launches
+    flags = ops.event_post_exchange(act, got, slot, write, plan, cols, weights)
+    assert event_mod.COUNTER.launches == before + 1
+    want = ring.clone()
+    want_flags = event_mod.event_post_exchange_plain(act, want, slot, write, plan,
+                                                     cols, weights)
+    assert torch.equal(flags, want_flags)
+    # f32 sums in another order: rtol=atol=1e-5
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # against the dense kernel: equal bits on every row
+    dense = ring.clone()
+    dense[slot] = 0.0
+    for c, w, ws in zip(cols, weights, write):
+        dense[ws] += ops.spike_gather(act, c, w)[:n_p]
+    assert torch.equal(got, dense)
+    # deterministic although the ids are compacted with atomics
+    again = ring.clone()
+    assert torch.equal(ops.event_post_exchange(act, again, slot, write, plan, cols,
+                                               weights), flags)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("fused,gather", [
+    (True, "dense"), (False, "dense"), (True, "event"), (None, "auto"),
+])
+def test_engines_bit_identical_on_card(cuda, fused, gather):
     from repro_torch.snn import (
         RasterMonitor, Session, SimConfig, microcircuit, to_dcsr,
     )
 
     net = to_dcsr(microcircuit(scale=0.05), k=1)
-    rasters = {}
-    for fused in (True, False):
-        ses = Session(net, SimConfig(fused=fused), device=cuda)
+    rasters = []
+    for cfg in (SimConfig(fused=True, gather="dense"), SimConfig(fused=fused, gather=gather)):
+        ses = Session(net, cfg, device=cuda)
         mon = RasterMonitor()
         ses.run(200, monitors=[mon], chunk_size=64)
-        rasters[fused] = mon.raster
-    assert rasters[True].sum() > 0
-    np.testing.assert_array_equal(rasters[True], rasters[False])
+        rasters.append(mon.raster)
+    base, other = rasters
+    assert base.sum() > 0
+    np.testing.assert_array_equal(other, base)

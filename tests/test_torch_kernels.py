@@ -162,26 +162,32 @@ def test_fused_plain_is_lif_then_gather_bit_for_bit(rng):
 def test_backend_follows_the_device():
     assert dispatch.backend_for(torch.device("cpu")) == "ref"
     assert dispatch.backend_for(torch.device("cuda", 0)) == "cuda"
-    with pytest.raises(ValueError, match="does not run"):
-        dispatch.backend_for(torch.device("cpu"), "cuda")
+    with pytest.raises(ValueError, match="no kernels"):
+        dispatch.backend_for(torch.device("meta"))
     x = torch.zeros(4)
-    with pytest.raises(ValueError, match="does not run"):
-        ops.lif_step(x, x, x, params=LIF_PARAMS, backend="cuda")
     with pytest.raises(ValueError, match="CUDA tensor"):
         dispatch.lookup("spike_gather", "cuda")(x, torch.zeros((4, 2), dtype=torch.int32), torch.zeros((4, 2)))
 
 
 def test_step_engine_selection():
-    sel = dict(models_present=("lif",), identity_rows=True, n_delay_buckets=2, n_p=1000)
+    sel = dict(models_present=("lif",), identity_rows=True, n_delay_buckets=2)
     assert dispatch.select_step_engine(backend="cuda", **sel).engine == "fused"
     assert dispatch.select_step_engine(backend="ref", **sel).engine == "unfused"
     assert dispatch.select_step_engine(backend="ref", fused=True, **sel).engine == "fused"
     assert dispatch.select_step_engine(backend="cuda", fused=False, **sel).engine == "unfused"
+    ev = dispatch.select_step_engine(backend="cuda", gather="event", **sel)
+    assert ev.engine == "fused_event" and ev.event and ev.fused
+    assert dispatch.select_step_engine(
+        backend="ref", fused=True, gather="event", **sel).engine == "fused_event"
+    assert dispatch.select_step_engine(
+        backend="ref", gather="event", **sel).engine == "unfused"
+    with pytest.raises(ValueError, match="resolved by Session"):
+        dispatch.select_step_engine(backend="cuda", gather="auto", **sel)
     many = dict(sel, n_delay_buckets=dispatch.FUSED_MAX_BUCKETS + 1)
     assert dispatch.select_step_engine(backend="cuda", **many).engine == "unfused"
     with pytest.raises(ValueError, match="argument table"):
         dispatch.select_step_engine(backend="cuda", fused=True, **many)
     mixed = dict(sel, models_present=("lif", "izhikevich"))
     assert dispatch.select_step_engine(backend="cuda", **mixed).engine == "unfused"
-    big = dict(sel, n_p=dispatch.FUSED_MAX_N_P + 1)
-    assert "L2" in dispatch.select_step_engine(backend="cuda", **big).reason
+    assert dispatch.select_step_engine(
+        backend="cuda", gather="event", **mixed).engine == "unfused"
