@@ -4,9 +4,10 @@ one card and check it.
 
     python3 chip_smoke.py [--seed 0] [--scale 1.0]
 
-The main path is the k=1 non-plastic LIF network at the full width of the
-Potjans-Diesmann microcircuit (scale 1.0: 77,169 neurons, about 0.3 B
-synapses, delay buckets d=8 and d=15, noise sigma 1.0):
+It drives two paths.  The main path is the k=1 non-plastic LIF network at
+the full width of the Potjans-Diesmann microcircuit (scale 1.0: 77,169
+neurons, about 0.3 B synapses, delay buckets d=8 and d=15, noise sigma
+1.0):
 ``microcircuit`` -> ``to_dcsr(k=1)`` -> ``Session(SimConfig())`` (which
 builds the delay-bucketed ELL panels) -> ``run`` with ``RateMonitor`` and
 ``RasterMonitor``.  With the default ``gather="auto"`` the first chunk runs
@@ -34,6 +35,26 @@ gather).  Phases, each printing its own lines:
      gathers, and the bound (bytes over 3.35 TB/s); and the dense and the
      event engine's us/step from one state of the main path.
 
+The plastic path is ``balanced_ei(n=12500, stdp=True)`` (Brunel's model A
+counts: 10,000 E and 2,500 I neurons, epsilon 0.1, 15.6 M synapses of which
+10 M plastic E->E, 15 delay buckets) -> ``to_dcsr(k=1)`` ->
+``Session(SimConfig())``, which takes the ``fused_plastic`` engine:
+  8. the plastic kernels against their plain versions on that session's
+     panels: ``stdp_update`` bit-exact for every bucket, ``fused_step_plastic``
+     bit-exact against ``lif_step`` + trace decay + ``spike_gather`` +
+     ``stdp_update`` and against its plain version but for the currents
+     (rtol=atol=1e-5);
+  9. 1000 steps with both monitors, every chunk on ``fused_plastic``, counts
+     set to 0 just before and read just after; plastic slots changed,
+     non-plastic and padding slots bit-identical to the initial weights,
+     plastic weights within ``[w_min, w_max]``;
+ 10. 256 steps of ``SimConfig(fused=False)`` (``lif_step``, then per bucket
+     ``spike_gather`` and ``stdp_update``), counts checked, whose raster,
+     traces and weights equal a fresh ``fused_plastic`` run's bit for bit;
+ 11. both plastic engines' us/step; a small plastic net on the card against
+     the CPU plain versions; timing of both plastic kernels, their plain
+     versions and their bounds.
+
 It ends with a JSON line of kernel figures, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a card it exits 1 before printing any result.
@@ -41,6 +62,7 @@ without a card it exits 1 before printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import resource
@@ -59,17 +81,20 @@ from repro_torch.kernels import event_step as event_mod  # noqa: E402
 from repro_torch.kernels import fused_step as fused_mod  # noqa: E402
 from repro_torch.kernels import lif_step as lif_mod  # noqa: E402
 from repro_torch.kernels import spike_gather as gather_mod  # noqa: E402
+from repro_torch.kernels import stdp_update as stdp_mod  # noqa: E402
 from repro_torch.snn import (  # noqa: E402
-    RasterMonitor, RateMonitor, Session, SimConfig, microcircuit, to_dcsr,
+    RasterMonitor, RateMonitor, Session, SimConfig, balanced_ei, microcircuit, to_dcsr,
 )
 from repro_torch.snn.neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_V  # noqa: E402
 
 STEPS = 1000
 PARITY_STEPS = 256
 ENGINE_STEPS = 100
+PLASTIC_N = 12500  # Brunel (2000) model A: 10,000 E and 2,500 I neurons
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor f32, published
-COUNTERS = (lif_mod.COUNTER, gather_mod.COUNTER, fused_mod.COUNTER, event_mod.COUNTER)
+COUNTERS = (lif_mod.COUNTER, gather_mod.COUNTER, fused_mod.COUNTER, event_mod.COUNTER,
+            stdp_mod.COUNTER, fused_mod.PLASTIC_COUNTER)
 SOURCES = {
     "lif_step": ("src/repro_torch/kernels/csrc/lif_step.cu",
                  "src/repro/kernels/lif_step.py:38"),
@@ -79,6 +104,10 @@ SOURCES = {
                    "src/repro/kernels/fused_step.py:140"),
     "event_post_exchange": ("src/repro_torch/kernels/csrc/event_step.cu",
                             "src/repro/kernels/event_step.py:198"),
+    "stdp_update": ("src/repro_torch/kernels/csrc/stdp_update.cu",
+                    "src/repro/kernels/stdp_update.py:70"),
+    "fused_plastic_step": ("src/repro_torch/kernels/csrc/fused_plastic_step.cu",
+                           "src/repro/kernels/fused_step.py:327"),
 }
 
 
@@ -225,6 +254,11 @@ def read_counts():
     return {c.name: c.launches for c in COUNTERS}
 
 
+def only(**launches):
+    """The counts of a run that launched these kernels and no other."""
+    return {c.name: launches.get(c.name, 0) for c in COUNTERS}
+
+
 def phase_main_path(ses, n):
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -236,8 +270,7 @@ def phase_main_path(ses, n):
     say("main", f"chunks {res.chunks}, gather modes {modes}")
     require(dense + event == STEPS, f"gather modes {modes}")
     require(event > 0, "the main path never took the event gather")
-    require(launches == {"lif_step": event, "spike_gather": 0, "fused_step": dense,
-                         "event_post_exchange": event},
+    require(launches == only(lif_step=event, fused_step=dense, event_post_exchange=event),
             f"launches {launches} for {dense} dense and {event} event steps")
     counts = res.spike_count
     require(counts.shape == (STEPS,) and np.isfinite(rate.rates).all(), "bad spike counts")
@@ -316,8 +349,7 @@ def phase_parity(net, main_raster, nd):
     reset_counts()
     _, _, raster, secs = run_session(ses, PARITY_STEPS)
     launches = read_counts()
-    require(launches == {"lif_step": PARITY_STEPS, "spike_gather": PARITY_STEPS * nd,
-                         "fused_step": 0, "event_post_exchange": 0},
+    require(launches == only(lif_step=PARITY_STEPS, spike_gather=PARITY_STEPS * nd),
             f"unfused path launches {launches}")
     require(np.array_equal(raster.raster, main_raster[:PARITY_STEPS]),
             "unfused raster differs from the main path's")
@@ -472,6 +504,238 @@ def phase_engines(ses):
         + "; ".join(f"{e} {', '.join(us)} us/step" for e, us in per.items()))
 
 
+# -- the plastic path ----------------------------------------------------------
+
+def stdp_taus(sim):
+    return sim.stdp_params["tau_plus"], sim.stdp_params["tau_minus"]
+
+
+def phase_plastic_kernels(sim, params, rng):
+    """The plastic kernels against their plain versions, and the fused one
+    against the unfused engine's kernels, on the session's own panels.  The
+    membranes are drawn up to 2 mV above threshold and the input current
+    carries sigma-5 noise, so that many neurons spike and the STDP terms of
+    both signs are exercised."""
+    dev, n_p = sim.device, sim.dev.n_p
+    stdp, taus, dt = sim.stdp_params, stdp_taus(sim), params["dt"]
+    vtx = sim.dev.vtx_state0
+    lo, hi = params["v_reset"], params["v_thresh"] + 2.0
+    v = torch.from_numpy((lo + (hi - lo) * rng.random(n_p)).astype(np.float32)).to(dev)
+    refrac = torch.from_numpy(rng.integers(0, 3, n_p).astype(np.float32)).to(dev)
+    i_tot = vtx[:, LIF_BIAS] + torch.from_numpy(
+        rng.normal(0.0, 5.0, n_p).astype(np.float32)).to(dev)
+    tp, tm = (torch.from_numpy(rng.random(n_p).astype(np.float32)).to(dev) for _ in range(2))
+    cols, weights, plastic = sim.dev.cols, sim.dev.weights0, sim.dev.plastic
+    R = cols[0].shape[0]
+
+    # the unfused engine: lif_step, the trace decays as torch ops, then per
+    # bucket spike_gather and stdp_update
+    v1, r1, s1 = lif_mod.lif_step_cuda(v, refrac, i_tot, params=params)
+    tp1 = ref.trace_decay_ref(tp, s1, dt=dt, tau=taus[0])
+    tm1 = ref.trace_decay_ref(tm, s1, dt=dt, tau=taus[1])
+    post_t = torch.nn.functional.pad(tm1, (0, R - n_p))
+    post_s = torch.nn.functional.pad(s1, (0, R - n_p))
+    stdp_args = (tp1, s1, post_t, post_s)
+    unfused_w, changed = [], 0
+    for c, w, pm, d in zip(cols, weights, plastic, sim.dev.delays):
+        got = stdp_mod.stdp_update_cuda(w, pm, c, *stdp_args, params=stdp)
+        want = stdp_mod.stdp_update_plain(w, pm, c, *stdp_args, params=stdp)
+        require(torch.equal(got, want), f"stdp_update d={d} differs from its plain version")
+        changed += int((got != w).sum())
+        unfused_w.append(got)
+    require(changed > 0, "stdp_update changed no weight")
+    say("plastic", f"stdp_update, {len(cols)} buckets of {tuple(cols[0].shape)}: bit-exact vs "
+        f"plain ({int(s1.sum())} of {n_p} neurons spike, {changed} slots change)")
+
+    out = fused_mod.fused_step_plastic_cuda(v, refrac, i_tot, tp, tm, cols, weights, plastic,
+                                            params=params, taus=taus, stdp=stdp)
+    names = ("v", "refrac", "spikes", "tr_plus", "tr_minus")
+    for name, a, b in zip(names, out[:5], (v1, r1, s1, tp1, tm1)):
+        require(torch.equal(a, b), f"fused_step_plastic {name} differs from the unfused engine's")
+    for cur, nw, c, w, uw in zip(out[5], out[6], cols, weights, unfused_w):
+        require(torch.equal(cur, gather_mod.spike_gather_cuda(s1, c, w)),
+                "fused_step_plastic currents differ from the spike_gather kernel's")
+        require(torch.equal(nw, uw), "fused_step_plastic weights differ from stdp_update's")
+    want = fused_mod.fused_step_plastic_plain(v, refrac, i_tot, tp, tm, cols, weights, plastic,
+                                              params=params, taus=taus, stdp=stdp)
+    for name, a, b in zip(names, out[:5], want[:5]):
+        require(torch.equal(a, b), f"fused_step_plastic {name} differs from its plain version")
+    for a, b in zip(out[6], want[6]):
+        require(torch.equal(a, b), "fused_step_plastic weights differ from its plain version")
+    err = 0.0
+    for a, b in zip(out[5], want[5]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        err = max(err, float((a - b).abs().max()))
+    say("plastic", "fused_step_plastic: bit-exact vs lif_step + trace decay + spike_gather + "
+        "stdp_update kernels, and vs its plain version in spikes, v, refrac, traces and "
+        f"weights; currents max |kernel - plain| = {err:.3e} (rtol=atol=1e-5)")
+    inputs = dict(v=v, refrac=refrac, i_tot=i_tot, tp=tp, tm=tm, stdp_args=stdp_args)
+    return inputs, {"stdp_update": 0.0, "fused_plastic_step": err}
+
+
+def check_learned(sim, weights):
+    """Plastic slots changed and stay within [w_min, w_max]; every other
+    slot (non-plastic or padding) keeps its initial bits.  Returns the
+    count of changed slots."""
+    stdp = sim.stdp_params
+    changed = 0
+    for w, w0, pm in zip(weights, sim.dev.weights0, sim.dev.plastic):
+        fixed = pm == 0
+        require(torch.equal(w[fixed], w0[fixed]), "a non-plastic or padding slot changed")
+        pw = w[pm > 0]
+        require(bool(torch.isfinite(pw).all()) and float(pw.min()) >= stdp["w_min"]
+                and float(pw.max()) <= stdp["w_max"], "a plastic weight left [w_min, w_max]")
+        changed += int((w != w0).sum())
+    require(changed > 0, "no plastic slot changed: the net never learned")
+    return changed
+
+
+def phase_plastic_path(ses, n):
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res, rate, raster, secs = run_session(ses, STEPS)
+    launches = read_counts()
+    chunks = len(res.chunks)
+    say("plastic", f"chunks {res.chunks}, gather modes {ses.last_gather_modes}")
+    require(ses.engine_choice.engine == "fused_plastic", f"engine {ses.engine_choice}")
+    require(ses.last_gather_modes == ("dense",) * chunks, "a plastic chunk left the dense gather")
+    require(launches == only(fused_plastic_step=STEPS), f"plastic path launches {launches}")
+    counts = res.spike_count
+    require(counts.shape == (STEPS,) and np.isfinite(rate.rates).all(), "bad spike counts")
+    require(int(counts.sum()) > 0, "the plastic net never spiked")
+    require(raster.raster.shape == (STEPS, n), f"raster {raster.raster.shape}")
+    require(int(raster.raster.sum()) == int(counts.sum()), "raster and counts disagree")
+    st = ses.state
+    require(all(bool(torch.isfinite(st[k]).all()) for k in ("tr_plus", "tr_minus", "vtx_state")),
+            "non-finite state")
+    changed = check_learned(ses.simulator, st["weights"])
+    peak = torch.cuda.max_memory_allocated()
+    say("plastic", f"{STEPS} steps on 'fused_plastic': {secs:.3f} s, {secs / STEPS * 1e6:.1f} "
+        "us/step (host clock, monitors included)")
+    say("plastic", f"launches {launches}; spikes: {int(counts.sum())} "
+        f"({counts.mean() / n:.6f} per neuron a step); mean rate {rate.rates.mean():.2f} Hz; "
+        f"{changed} weight slots changed, non-plastic and padding slots unchanged; peak device "
+        f"memory {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+    return raster.raster, launches
+
+
+def phase_plastic_parity(net, main_raster):
+    """256 steps of the unfused engine against a fresh fused_plastic run."""
+    unf = Session(net, SimConfig(fused=False))
+    require(unf.engine_choice.engine == "unfused", f"engine {unf.engine_choice}")
+    nd = len(unf.simulator.dev.cols)
+    reset_counts()
+    _, _, r_u, secs = run_session(unf, PARITY_STEPS)
+    launches = read_counts()
+    require(launches == only(lif_step=PARITY_STEPS, spike_gather=PARITY_STEPS * nd,
+                             stdp_update=PARITY_STEPS * nd),
+            f"unfused plastic path launches {launches}")
+    fus = Session(net, SimConfig())
+    _, _, r_f, _ = run_session(fus, PARITY_STEPS)
+    require(np.array_equal(r_u.raster, r_f.raster), "unfused raster differs from fused_plastic's")
+    require(np.array_equal(r_f.raster, main_raster[:PARITY_STEPS]),
+            "fresh fused_plastic raster differs from the plastic path's")
+    for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
+        require(torch.equal(unf.state[key], fus.state[key]), f"unfused {key} differs")
+    for a, b in zip(unf.state["weights"], fus.state["weights"]):
+        require(torch.equal(a, b), "unfused weights differ from fused_plastic's")
+    changed = check_learned(unf.simulator, unf.state["weights"])
+    say("plastic", f"unfused {PARITY_STEPS} steps: raster, v, ring, traces and weights "
+        f"bit-identical to fused_plastic's ({int(r_u.raster.sum())} spikes, {changed} slots "
+        f"changed); {secs / PARITY_STEPS * 1e6:.1f} us/step; launches {launches}")
+    return unf, launches
+
+
+def phase_plastic_small_net(seed):
+    """A small plastic net on the card against the plain versions on the
+    CPU, with the same numpy noise.  Up to 1% of the spikes may differ (the
+    gather sums in another order on the card)."""
+    small = to_dcsr(balanced_ei(n=2000, stdp=True, seed=seed + 1), k=1)
+    sigma = float(small.meta["noise_sigma"])
+    noise = (sigma * np.random.default_rng(4).normal(0.0, 1.0, (PARITY_STEPS, small.n))
+             ).astype(np.float32)
+    rasters, weights = [], []
+    for device in ("cuda", "cpu"):
+        s = Session(small, SimConfig(fused=True), device=device, _noise_fn=lambda t: noise[t])
+        mon = RasterMonitor()
+        s.run(PARITY_STEPS, monitors=[mon])
+        rasters.append(mon.raster)
+        weights.append([w.cpu() for w in s.state["weights"]])
+    spikes = int(rasters[0].sum())
+    n_diff = int((rasters[0] != rasters[1]).sum())
+    w_err = max(float((a - b).abs().max()) for a, b in zip(*weights))
+    say("plastic", f"balanced_ei(2000), {PARITY_STEPS} steps, card vs CPU plain versions: "
+        f"{spikes} vs {int(rasters[1].sum())} spikes, {n_diff} raster entries differ, "
+        f"max |weight difference| {w_err:.3e}")
+    require(spikes > 0, "small plastic net never spiked")
+    require(n_diff <= 0.01 * spikes, "card and CPU rasters disagree on the small plastic net")
+
+
+def phase_plastic_timing(sim, params, inputs, errs, launches):
+    v, refrac, i_tot, tp, tm = (inputs[k] for k in ("v", "refrac", "i_tot", "tp", "tm"))
+    stdp_args = inputs["stdp_args"]
+    n_p = sim.dev.n_p
+    cols, weights, plastic = sim.dev.cols, sim.dev.weights0, sim.dev.plastic
+    stdp, taus = sim.stdp_params, stdp_taus(sim)
+    nd, R = len(cols), cols[0].shape[0]
+    slots = sum(c.numel() for c in cols)
+    out = []
+
+    s_k = s_p = s_b = 0.0
+    for c, w, pm in zip(cols, weights, plastic):
+        tk = cuda_ms(lambda c=c, w=w, pm=pm: stdp_mod.stdp_update_cuda(
+            w, pm, c, *stdp_args, params=stdp), 50)
+        tp_ = cuda_ms(lambda c=c, w=w, pm=pm: stdp_mod.stdp_update_plain(
+            w, pm, c, *stdp_args, params=stdp), 5)
+        # col, weight and mask read and the weight written: 16 bytes a
+        # slot, plus the two presynaptic and two postsynaptic vectors
+        nb = c.numel() * 16 + 2 * n_p * 4 + 2 * R * 4
+        b, _ = bound_ms(nb, 6 * c.numel())
+        s_k, s_p, s_b = s_k + tk, s_p + tp_, s_b + b
+    say("timing", f"stdp_update, {nd} launches of {tuple(cols[0].shape)} (one step): kernel "
+        f"{s_k:.4f} ms ({s_k / nd * 1e3:.2f} us a launch), plain {s_p:.3f} ms, bound "
+        f"{s_b:.4f} ms ({slots * 16 / s_k / 1e6:.0f} GB/s of slot traffic)")
+    out.append(dict(name="stdp_update", ms=s_k, plain_ms=s_p, bound_ms=s_b, bound_by="bytes",
+                    library_ms=None, path="plastic_unfused"))
+
+    kw = dict(params=params, taus=taus, stdp=stdp)
+    f_bytes = slots * 16 + 10 * 4 * n_p + nd * R * 4
+    f_flops = 14 * n_p + 8 * slots
+    tk = cuda_ms(lambda: fused_mod.fused_step_plastic_cuda(
+        v, refrac, i_tot, tp, tm, cols, weights, plastic, **kw), 50)
+    tp_ = cuda_ms(lambda: fused_mod.fused_step_plastic_plain(
+        v, refrac, i_tot, tp, tm, cols, weights, plastic, **kw), 5)
+    b, by = bound_ms(f_bytes, f_flops)
+    say("timing", f"fused_plastic_step ({nd} buckets, {slots} slots): kernel {tk:.4f} ms "
+        f"({f_bytes / tk / 1e6:.0f} GB/s), plain {tp_:.3f} ms, bound {b:.4f} ms "
+        f"({f_bytes / 1e9:.4f} GB)")
+    out.append(dict(name="fused_plastic_step", ms=tk, plain_ms=tp_, bound_ms=b, bound_by=by,
+                    library_ms=None, path="plastic"))
+    for k in out:
+        src, rep = SOURCES[k["name"]]
+        k.update(route="cuda", source=src, replaces=rep, launches=launches[k["name"]],
+                 max_abs_err=errs[k["name"]])
+    return out
+
+
+def phase_plastic_engines(fused_ses, unfused_ses):
+    """Host-clock us/step of both plastic engines from the state the
+    plastic path ended in, alternating fused, unfused, fused, unfused."""
+    per = {}
+    state = fused_ses.state
+    for ses in (fused_ses, unfused_ses, fused_ses, unfused_ses):
+        sim = ses.simulator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(state, ENGINE_STEPS)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / ENGINE_STEPS * 1e6
+        per.setdefault(sim.engine_choice.engine, []).append(f"{us:.1f}")
+    say("timing", f"plastic engines from the plastic path's state, {ENGINE_STEPS} steps each, "
+        "no monitors (host clock): "
+        + "; ".join(f"{e} {', '.join(us)} us/step" for e, us in per.items()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="network and input seed")
@@ -510,6 +774,33 @@ def main(argv=None) -> int:
     phase_small_net()
     kernels = phase_timing(ses, params, inputs, event_act, errs, launches)
     phase_engines(ses)
+    del ses, sim, net, inputs  # the plastic path's memory is measured alone
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pnet = to_dcsr(balanced_ei(n=PLASTIC_N, stdp=True, seed=args.seed), k=1)
+    say("host", f"balanced_ei(n={PLASTIC_N}, stdp=True) -> to_dcsr: n={pnet.n}, "
+        f"m={pnet.m}, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pses = Session(pnet, SimConfig())
+    psim = pses.simulator
+    torch.cuda.synchronize()
+    n_plastic = sum(int(p.sum()) for p in psim.dev.plastic)
+    panel_gb = sum(c.numel() * 12 for c in psim.dev.cols) / 1e9
+    say("host", f"Session (ELL build, plastic masks, upload): {time.perf_counter() - t0:.1f} s; "
+        f"{len(psim.dev.cols)} buckets of {tuple(psim.dev.cols[0].shape)}, fill "
+        f"{psim.ell.fill_factor:.3f}, {n_plastic} plastic slots; {panel_gb:.3f} GB of cols, "
+        f"weights and masks on the card; engine {pses.engine_choice}; STDP {psim.stdp_params}")
+    pparams = lif_params(pnet)
+    p_inputs, p_errs = phase_plastic_kernels(psim, pparams, np.random.default_rng(args.seed))
+    p_raster, p_launches = phase_plastic_path(pses, pnet.n)
+    unf, unf_launches = phase_plastic_parity(pnet, p_raster)
+    # stdp_update runs only on the unfused plastic path: its count is that run's
+    p_launches["stdp_update"] = unf_launches["stdp_update"]
+    phase_plastic_engines(pses, unf)
+    phase_plastic_small_net(args.seed)
+    kernels += phase_plastic_timing(psim, pparams, p_inputs, p_errs, p_launches)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -2,10 +2,11 @@
 beside its plain torch version, behind the ``ops`` entry points.
 
   - :mod:`.ops`          -- ``lif_step``, ``spike_gather``, ``fused_step``,
-    ``event_post_exchange``
+    ``event_post_exchange``, ``stdp_update``, ``fused_step_plastic``
   - :mod:`.dispatch`     -- backend by device, step-engine selection
   - :mod:`.ref`          -- the plain torch versions (correctness contract)
   - :mod:`.lif_step`, :mod:`.spike_gather`, :mod:`.fused_step`,
-    :mod:`.event_step` -- kernel wrappers with their launch counters
+    :mod:`.event_step`, :mod:`.stdp_update` -- kernel wrappers with their
+    launch counters
   - :mod:`._build`       -- builds ``csrc/*.cu`` on first use
 """

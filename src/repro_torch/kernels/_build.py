@@ -141,6 +141,11 @@ _SIGNATURES = {
         [_P] * 6 + [_I, _I, _I] + [_P, _P, _P, _P] + [_F] * 7 + [_P, _I]
     ),
     "repro_fused_step_max_buckets": [],
+    "repro_stdp_update": [_P] * 8 + [_I, _I] + [_F] * 4 + [_P, _I],
+    "repro_fused_plastic_step": (
+        [_P] * 10 + [_I, _I, _I] + [_P] * 6 + [_F] * 13 + [_P, _I]
+    ),
+    "repro_fused_plastic_step_max_buckets": [],
     "repro_event_step": (
         [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P] * 5 + [_I]
     ),

@@ -86,6 +86,48 @@ __device__ __forceinline__ float row_dot(const int* cols, const float* w,
   return acc;
 }
 
+// Per-neuron e-trace: x' = x * decay + s, decay = exp(-dt/tau) rounded to
+// f32 on the host (kernels/ref.py:trace_decay_constant).  One rounded
+// multiply, then one rounded add, as the plain torch version (two eager
+// ops) does.
+__device__ __forceinline__ float trace_decay(float x, float s, float decay) {
+  return __fadd_rn(__fmul_rn(x, decay), s);
+}
+
+// Host-side STDP constants (the registry's syn_stdp params, as f32).
+struct StdpParams {
+  float a_plus;
+  float a_minus;
+  float w_min;
+  float w_max;
+};
+
+// Pair STDP of one ELL slot with the reference's operation order
+//   dw = (a_plus * pre_t) * post_s - (a_minus * post_t) * pre_s
+//   w' = mask > 0 ? clip(w + dw, w_min, w_max) : w
+// Every operation rounds on its own.  The clip is torch.clamp's: a NaN
+// passes through (fminf/fmaxf alone would drop it), and otherwise
+// min(max(x, w_min), w_max).
+__device__ __forceinline__ float stdp_slot(float w, float mask, float pre_t,
+                                           float pre_s, float post_t,
+                                           float post_s, const StdpParams& p) {
+  const float pot = __fmul_rn(__fmul_rn(p.a_plus, pre_t), post_s);
+  const float dep = __fmul_rn(__fmul_rn(p.a_minus, post_t), pre_s);
+  const float x = __fadd_rn(w, __fsub_rn(pot, dep));
+  const float clipped = isnan(x) ? x : fminf(fmaxf(x, p.w_min), p.w_max);
+  return mask > 0.0f ? clipped : w;
+}
+
+static inline StdpParams make_stdp_params(float a_plus, float a_minus,
+                                          float w_min, float w_max) {
+  StdpParams p;
+  p.a_plus = a_plus;
+  p.a_minus = a_minus;
+  p.w_min = w_min;
+  p.w_max = w_max;
+  return p;
+}
+
 static inline LifParams make_lif_params(float v_rest, float v_reset,
                                         float v_thresh, float decay,
                                         float one_minus_decay, float r_m,

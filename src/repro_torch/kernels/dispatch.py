@@ -11,12 +11,17 @@ kernel, and a CPU tensor the plain version.  This is the reverse of the
 reference, which sends everything off the TPU to ``ref``.
 
 ``select_step_engine`` picks ``fused`` (one cooperative launch per step),
-``fused_event`` (``lif_step`` plus one cooperative event-gather launch) or
-``unfused`` (``lif_step`` plus one ``spike_gather`` launch per delay
-bucket).  The reference's VMEM budgets have no counterpart: the kernels
-keep nothing resident beyond what L2 holds on its own, so the only limits
-are the ones the kernels really have (LIF-only, and a 32-entry per-bucket
-argument table).
+``fused_plastic`` (the same launch with both trace decays and the STDP
+update of every panel), ``fused_event`` (``lif_step`` plus one cooperative
+event-gather launch) or ``unfused`` (``lif_step`` plus one ``spike_gather``
+launch per delay bucket, and on plastic nets the trace decays as torch ops
+and one ``stdp_update`` launch per bucket).  The reference's VMEM budgets
+have no counterpart: the kernels keep nothing resident beyond what L2 holds
+on its own, so the only limits are the ones the kernels really have
+(LIF-only, and a 32-entry per-bucket argument table).  In particular the
+reference sends plastic partitions of more than ``FUSED_PLASTIC_MAX_N_P``
+(157,286) neurons to ``unfused``, for its ten VMEM-resident state and trace
+vectors; the port fuses them.
 """
 from __future__ import annotations
 
@@ -86,7 +91,8 @@ def lookup(op: str, backend: str) -> Callable:
 # -- step-engine selection ------------------------------------------------
 
 # the fused and event kernels' per-bucket argument tables
-# (csrc/fused_step.cu, csrc/event_step.cu: kMaxBuckets)
+# (csrc/fused_step.cu, csrc/fused_plastic_step.cu, csrc/event_step.cu:
+# kMaxBuckets)
 FUSED_MAX_BUCKETS = 32
 
 # Session's activity-adaptive dispatcher (SimConfig(gather="auto")) swaps to
@@ -100,7 +106,7 @@ EVENT_ACTIVITY_THRESHOLD = 0.002
 
 @dataclasses.dataclass(frozen=True)
 class StepEngineChoice:
-    engine: str  # "fused", "fused_event" or "unfused"
+    engine: str  # "fused", "fused_plastic", "fused_event" or "unfused"
     reason: str
     overlap: str = "off"  # no collective at k=1
 
@@ -109,8 +115,28 @@ class StepEngineChoice:
         return self.engine != "unfused"
 
     @property
+    def plastic(self) -> bool:
+        """True for the variant that folds the STDP pass into the fused
+        step."""
+        return self.engine == "fused_plastic"
+
+    @property
     def event(self) -> bool:
         return self.engine == "fused_event"
+
+
+def event_gather_blocker(any_plastic: bool) -> Optional[str]:
+    """Why the event-driven gather cannot serve this partition (None when
+    it can); the reference's rule (``repro/kernels/dispatch.py:367-389``)
+    without its VMEM budget on the id buffer.  An event-ineligible
+    partition still takes the dense fused engine."""
+    if any_plastic:
+        return (
+            "plastic nets stay dense for now: the STDP pass must visit "
+            "every synapse panel every step to apply trace-decay weight "
+            "updates, so skipping untouched panels would skip learning"
+        )
+    return None
 
 
 def _fusion_blocker(
@@ -141,18 +167,25 @@ def select_step_engine(
     models_present: Sequence[str],
     identity_rows: bool,
     n_delay_buckets: int,
+    any_plastic: bool = False,
     fused: Optional[bool] = None,
     gather: str = "dense",
 ) -> StepEngineChoice:
-    """Pick ``fused``, ``fused_event`` or ``unfused`` for a k=1 partition.
+    """Pick ``fused``, ``fused_plastic``, ``fused_event`` or ``unfused`` for
+    a k=1 partition.
 
     ``fused=None`` (auto) fuses whenever the partition is eligible and the
     backend runs the CUDA kernels; on ``ref`` it composes the plain versions
     unfused, as the reference does on its ``ref`` backend.  ``fused=True``
     demands fusion (raises if the partition is ineligible); ``fused=False``
-    disables it.  ``gather="event"`` takes the event-driven variant of the
-    fused engine; SimConfig's ``"auto"`` is resolved by ``Session`` per
-    chunk and never reaches here."""
+    disables it.  ``any_plastic`` selects the ``fused_plastic`` variant; it
+    never blocks fusion (the reference's ``FUSED_PLASTIC_MAX_N_P`` has no
+    counterpart here).  ``gather="event"`` takes the event-driven variant
+    of the fused engine; a plastic partition (``event_gather_blocker``)
+    falls back to ``fused_plastic`` with the reason attached, unless
+    ``fused=True`` demanded the event engine, which raises.  SimConfig's
+    ``"auto"`` is resolved by ``Session`` per chunk and never reaches
+    here."""
     if gather not in ("dense", "event"):
         raise ValueError(
             f"select_step_engine(gather={gather!r}): expected 'dense' or "
@@ -166,8 +199,16 @@ def select_step_engine(
             raise ValueError(f"fused step engine requested but: {blocker}")
         return StepEngineChoice("unfused", blocker)
     target, placement = "fused", "identity exchange"
+    if any_plastic:
+        target, placement = "fused_plastic", placement + ", STDP fused into the panel pass"
     if gather == "event":
-        target, placement = "fused_event", "identity exchange, event-driven gather"
+        eb = event_gather_blocker(any_plastic)
+        if eb is None:
+            target, placement = "fused_event", placement + ", event-driven gather"
+        elif fused is True:
+            raise ValueError(f"event-driven gather requested but: {eb}")
+        else:
+            placement += f" (event gather unavailable: {eb})"
     if fused is True:
         return StepEngineChoice(target, f"forced by config ({placement})")
     if backend == "cuda":

@@ -1,11 +1,15 @@
-"""Fused k=1 LIF step: the cooperative CUDA kernel ``csrc/fused_step.cu``
-and its plain version.
+"""Fused k=1 LIF steps: the cooperative CUDA kernels ``csrc/fused_step.cu``
+and ``csrc/fused_plastic_step.cu``, with their plain versions.
 
-Counterpart of ``repro/kernels/fused_step.py:fused_lif_step_pallas``: one
-launch advances every neuron, emits the spike vector and gathers every
-delay bucket from it.  :func:`fused_step_cuda` launches the kernel on CUDA
-tensors and raises on any other; ``ops.fused_step`` takes the plain version
-(:func:`fused_step_plain`, i.e. ``ref.fused_step_ref``) only for CPU
+Counterparts of ``repro/kernels/fused_step.py:fused_lif_step_pallas`` and
+``:fused_plastic_step_pallas``: one launch advances every neuron, emits the
+spike vector and gathers every delay bucket from it; the plastic variant
+also decays both e-traces and writes every bucket's STDP update, from the
+weights the gather read.  :func:`fused_step_cuda` and
+:func:`fused_step_plastic_cuda` launch the kernels on CUDA tensors and raise
+on any other; ``ops.fused_step`` and ``ops.fused_step_plastic`` take the
+plain versions (:func:`fused_step_plain`, :func:`fused_step_plastic_plain`,
+i.e. ``ref.fused_step_ref`` and ``ref.fused_step_plastic_ref``) only for CPU
 tensors.
 
 Preconditions: all buckets share R >= n_p, and every col id is a local id
@@ -20,17 +24,65 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from . import _build
-from .ref import fused_step_ref as fused_step_plain, lif_constants
+from .ref import (
+    fused_step_plastic_ref as fused_step_plastic_plain,
+    fused_step_ref as fused_step_plain,
+    lif_constants,
+    trace_decay_constant,
+)
 
 COUNTER = _build.LaunchCounter("fused_step")
+PLASTIC_COUNTER = _build.LaunchCounter("fused_plastic_step")
 
 # size of the kernel's per-bucket argument table (csrc/fused_step.cu)
 MAX_BUCKETS = 32
 
 __all__ = [
-    "COUNTER", "MAX_BUCKETS", "fused_step_cuda",
-    "fused_step_plain",
+    "COUNTER", "MAX_BUCKETS", "PLASTIC_COUNTER", "fused_step_cuda",
+    "fused_step_plain", "fused_step_plastic_cuda", "fused_step_plastic_plain",
 ]
+
+
+def _check_operands(
+    what: str,
+    v: torch.Tensor,
+    vectors: Dict[str, torch.Tensor],
+    cols: Sequence[torch.Tensor],
+    panels: Dict[str, Sequence[torch.Tensor]],
+) -> Tuple[int, int]:
+    """Validate the state vectors (``v`` and ``vectors``, all ``(n_p,)``
+    f32) and the per-bucket panels (``cols`` int32 and each of ``panels``
+    f32, all ``(R, K_d)`` with a common R >= n_p); returns ``(n_p, R)``."""
+    nd = len(cols)
+    if not 1 <= nd <= MAX_BUCKETS or any(len(p) != nd for p in panels.values()):
+        raise ValueError(
+            f"{what} takes 1..{MAX_BUCKETS} delay buckets with one panel of each "
+            f"kind, got {nd} col panels and "
+            + ", ".join(f"{len(p)} {name}" for name, p in panels.items())
+        )
+    _build.require("v", v, torch.float32, 1)
+    dev = v.device
+    for name, t in vectors.items():
+        _build.require(name, t, torch.float32, 1, dev)
+        if t.shape != v.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != v's {tuple(v.shape)}")
+    R = cols[0].shape[0]
+    for i, c in enumerate(cols):
+        _build.require(f"cols[{i}]", c, torch.int32, 2, dev)
+        for name, p in panels.items():
+            _build.require(f"{name}[{i}]", p[i], torch.float32, 2, dev)
+        if any(p[i].shape != c.shape for p in panels.values()) or c.shape[0] != R \
+                or c.shape[1] < 1:
+            raise ValueError(
+                f"{what} needs (R, K_d) panels of one shape per bucket, with a "
+                f"common R and K_d >= 1: cols {[tuple(c.shape) for c in cols]}, "
+                + ", ".join(f"{name} {[tuple(x.shape) for x in p]}"
+                            for name, p in panels.items())
+            )
+    n_p = v.shape[0]
+    if R < n_p:
+        raise ValueError(f"panels have R={R} rows for n_p={n_p} neurons")
+    return n_p, R
 
 
 def fused_step_cuda(
@@ -44,33 +96,12 @@ def fused_step_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, List[torch.Tensor]]:
     """Launch the kernel: ``(v', refrac', spikes, currents)`` with the
     state vectors ``(n_p,)`` and ``currents[i]`` of shape ``(R,)``."""
+    n_p, R = _check_operands(
+        "fused_step", v, dict(refrac=refrac, i_tot=i_tot), cols, dict(weights=weights)
+    )
     nd = len(cols)
-    if not 1 <= nd <= MAX_BUCKETS or len(weights) != nd:
-        raise ValueError(
-            f"fused_step takes 1..{MAX_BUCKETS} delay buckets with one weight "
-            f"panel each, got {nd} col and {len(weights)} weight panels"
-        )
-    _build.require("v", v, torch.float32, 1)
-    dev = v.device
-    for name, t in (("refrac", refrac), ("i_tot", i_tot)):
-        _build.require(name, t, torch.float32, 1, dev)
-        if t.shape != v.shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != v's {tuple(v.shape)}")
-    n_p = v.shape[0]
-    R = cols[0].shape[0]
-    for i, (c, w) in enumerate(zip(cols, weights)):
-        _build.require(f"cols[{i}]", c, torch.int32, 2, dev)
-        _build.require(f"weights[{i}]", w, torch.float32, 2, dev)
-        if c.shape != w.shape or c.shape[0] != R or c.shape[1] < 1:
-            raise ValueError(
-                "fused_step needs (R, K_d) col/weight panels with a common R "
-                f"and K_d >= 1: {[tuple(c.shape) for c in cols]} vs "
-                f"{[tuple(w.shape) for w in weights]}"
-            )
-    if R < n_p:
-        raise ValueError(f"panels have R={R} rows for n_p={n_p} neurons")
     v_out, r_out, s_out = (torch.empty_like(v) for _ in range(3))
-    currents = [torch.empty(R, dtype=torch.float32, device=dev) for _ in cols]
+    currents = [torch.empty(R, dtype=torch.float32, device=v.device) for _ in cols]
     if n_p == 0:
         return v_out, r_out, s_out, [c.zero_() for c in currents]
     ptrs = ctypes.c_void_p * nd
@@ -91,3 +122,58 @@ def fused_step_cuda(
     COUNTER.launches += 1
     return v_out, r_out, s_out, currents
 
+
+def fused_step_plastic_cuda(
+    v: torch.Tensor,
+    refrac: torch.Tensor,
+    i_tot: torch.Tensor,
+    tr_plus: torch.Tensor,
+    tr_minus: torch.Tensor,
+    cols: Sequence[torch.Tensor],
+    weights: Sequence[torch.Tensor],
+    plastic: Sequence[torch.Tensor],
+    *,
+    params: Dict[str, float],
+    taus: Tuple[float, float],
+    stdp: Dict[str, float],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           List[torch.Tensor], List[torch.Tensor]]:
+    """Launch the plastic kernel: ``(v', refrac', spikes, tr_plus',
+    tr_minus', currents, new_weights)`` with the vectors ``(n_p,)``,
+    ``currents[i]`` of shape ``(R,)`` and ``new_weights[i]`` new tensors of
+    the panels' shape (the kernel reads ``weights`` to the end)."""
+    n_p, R = _check_operands(
+        "fused_step_plastic", v,
+        dict(refrac=refrac, i_tot=i_tot, tr_plus=tr_plus, tr_minus=tr_minus),
+        cols, dict(weights=weights, plastic=plastic),
+    )
+    nd = len(cols)
+    dev = v.device
+    outs = [torch.empty_like(v) for _ in range(5)]
+    currents = [torch.empty(R, dtype=torch.float32, device=dev) for _ in cols]
+    new_weights = [torch.empty_like(w) for w in weights]
+    if n_p == 0:
+        return (*outs, [c.zero_() for c in currents], [w.clone() for w in weights])
+    ptrs = ctypes.c_void_p * nd
+    decay, ref_steps = lif_constants(params["dt"], params["tau_m"], params["t_ref"])
+    stream, device = _build.launch_args(v)
+    rc = _build.library().repro_fused_plastic_step(
+        v.data_ptr(), refrac.data_ptr(), i_tot.data_ptr(),
+        tr_plus.data_ptr(), tr_minus.data_ptr(), *[o.data_ptr() for o in outs],
+        n_p, R, nd,
+        ptrs(*[c.data_ptr() for c in cols]),
+        ptrs(*[w.data_ptr() for w in weights]),
+        ptrs(*[p.data_ptr() for p in plastic]),
+        ptrs(*[w.data_ptr() for w in new_weights]),
+        (ctypes.c_int * nd)(*[c.shape[1] for c in cols]),
+        ptrs(*[c.data_ptr() for c in currents]),
+        params["v_rest"], params["v_reset"], params["v_thresh"],
+        decay, 1.0 - decay, params["r_m"], ref_steps,
+        trace_decay_constant(params["dt"], taus[0]),
+        trace_decay_constant(params["dt"], taus[1]),
+        stdp["a_plus"], stdp["a_minus"], stdp["w_min"], stdp["w_max"],
+        stream, device,
+    )
+    _build.check(rc, "fused_step_plastic")
+    PLASTIC_COUNTER.launches += 1
+    return (*outs, currents, new_weights)

@@ -1,5 +1,5 @@
 """Public kernel entry points of the port (counterpart of
-``repro/kernels/ops.py:79-172, 362-393``).
+``repro/kernels/ops.py:79-204, 362-393``).
 
 Each op takes its backend from the device of its first tensor
 (``dispatch.backend_for``) and calls the recorded implementation: the CUDA
@@ -10,9 +10,12 @@ from __future__ import annotations
 from . import ref
 from .dispatch import backend_for, implementation, lookup
 from .event_step import event_post_exchange_cuda, event_post_exchange_plain
-from .fused_step import fused_step_cuda
+from .fused_step import (
+    fused_step_cuda, fused_step_plastic_cuda, fused_step_plastic_plain,
+)
 from .lif_step import lif_step_cuda
 from .spike_gather import spike_gather_cuda
+from .stdp_update import stdp_update_cuda, stdp_update_plain
 
 # -- spike_gather ---------------------------------------------------------
 
@@ -53,6 +56,49 @@ def fused_step(v, refrac, i_tot, cols, weights, *, params):
     R; eligibility rules live in ``dispatch.select_step_engine``."""
     return lookup("fused_step", backend_for(v.device))(
         v, refrac, i_tot, tuple(cols), tuple(weights), params=params
+    )
+
+
+# -- stdp_update (pair STDP over one panel) --------------------------------
+
+implementation("stdp_update", "ref")(stdp_update_plain)
+implementation("stdp_update", "cuda")(stdp_update_cuda)
+
+
+def stdp_update(
+    weights, valid, cols, pre_trace, pre_spike, post_trace, post_spike, *,
+    params, out=None,
+):
+    """Pair STDP: the ``(R, K)`` new weights of the ``valid`` slots, clipped
+    to ``[w_min, w_max]``; other slots keep theirs.  ``params`` carries
+    a_plus/a_minus/w_min/w_max (other keys are ignored).  With ``out`` the
+    result goes there, and ``out`` may be ``weights`` (in place)."""
+    return lookup("stdp_update", backend_for(weights.device))(
+        weights, valid, cols, pre_trace, pre_spike, post_trace, post_spike,
+        params=params, out=out,
+    )
+
+
+# -- fused_step_plastic (the fused step + trace decay + STDP write-back) ---
+
+implementation("fused_step_plastic", "ref")(fused_step_plastic_plain)
+implementation("fused_step_plastic", "cuda")(fused_step_plastic_cuda)
+
+
+def fused_step_plastic(
+    v, refrac, i_tot, tr_plus, tr_minus, cols, weights, plastic, *,
+    params, taus, stdp,
+):
+    """Plastic fused LIF step (identity exchange): LIF advance, spike
+    emission, both trace decays, every bucket's gather from the pre-update
+    weights and its masked STDP update, in one launch.  Returns ``(v',
+    refrac', spikes, tr_plus', tr_minus', currents, new_weights)``; the new
+    weights are new tensors.  ``stdp`` carries a_plus/a_minus/w_min/w_max
+    (other keys are ignored)."""
+    return lookup("fused_step_plastic", backend_for(v.device))(
+        v, refrac, i_tot, tr_plus, tr_minus,
+        tuple(cols), tuple(weights), tuple(plastic),
+        params=params, taus=tuple(taus), stdp=stdp,
     )
 
 

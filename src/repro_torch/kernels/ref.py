@@ -6,7 +6,9 @@ operation order.  The kernel wrappers take these for CPU tensors, the CPU
 tests hold them against the JAX oracles, and ``chip_smoke.py`` holds the
 kernels against them on the card.  ``alif_step_ref`` and
 ``izhikevich_step_ref`` have no kernel, as in the reference, where they run
-as jnp outside any Pallas kernel.
+as jnp outside any Pallas kernel; ``trace_decay_ref`` runs as torch ops on
+the unfused engine (the reference computes it as jnp there) and inside the
+fused plastic kernel on the fused one.
 """
 from __future__ import annotations
 
@@ -25,6 +27,14 @@ def lif_constants(dt: float, tau_m: float, t_ref: float) -> Tuple[float, float]:
     reference) and handed to the plain version and the kernels alike."""
     decay = torch.exp(torch.tensor(-dt / tau_m, dtype=torch.float32)).item()
     return decay, float(round(t_ref / dt))
+
+
+@functools.lru_cache(maxsize=64)
+def trace_decay_constant(dt: float, tau: float) -> float:
+    """``exp(-dt/tau)`` rounded to f32 once on the host, as the reference's
+    ``jnp.exp(-dt / tau).astype(f32)`` (``ref.py:122`` of the reference),
+    and handed to the plain version and the kernels alike."""
+    return torch.exp(torch.tensor(-dt / tau, dtype=torch.float32)).item()
 
 
 def spike_gather_ref(
@@ -102,6 +112,43 @@ def izhikevich_step_ref(v, u, i_syn, *, dt, a, b, c, d):
     return v0 + dt * dv, u0 + dt * du, spike.to(v.dtype)
 
 
+def trace_decay_ref(trace: Tensor, spike: Tensor, *, dt: float, tau: float) -> Tensor:
+    """``x' = x * exp(-dt/tau) + spike`` (per-neuron e-trace): one rounded
+    multiply, then one rounded add."""
+    return trace * trace_decay_constant(dt, tau) + spike
+
+
+def stdp_update_ref(
+    weights: Tensor,  # (R, K)
+    valid: Tensor,  # (R, K) 0/1 float mask (the plastic slots)
+    cols: Tensor,  # (R, K) int32 global pre ids
+    pre_trace: Tensor,  # (n,) presynaptic traces
+    pre_spike: Tensor,  # (n,) spike vector this step
+    post_trace: Tensor,  # (R,) postsynaptic traces of the rows
+    post_spike: Tensor,  # (R,) spikes of the rows this step
+    *,
+    a_plus: float,
+    a_minus: float,
+    w_min: float,
+    w_max: float,
+) -> Tensor:  # (R, K)
+    """Trace-based pair STDP: potentiation ``a_plus * pre_trace[col]`` on a
+    post spike, depression ``a_minus * post_trace[row]`` on a pre spike,
+    applied together, then clipped to ``[w_min, w_max]``.  Slots with
+    ``valid == 0`` (padding or non-plastic synapses) keep their weight.
+    The reference's operation order:
+    ``(a_plus * pre_t) * post_s - (a_minus * post_t) * pre_s``, then
+    ``w + dw``, then the clip, then the mask."""
+    pre_t = pre_trace.index_select(0, cols.reshape(-1)).reshape(cols.shape)
+    pre_s = pre_spike.index_select(0, cols.reshape(-1)).reshape(cols.shape)
+    dw = (
+        a_plus * pre_t * post_spike[:, None]
+        - a_minus * post_trace[:, None] * pre_s
+    )
+    w = torch.clamp(weights + dw, w_min, w_max)
+    return torch.where(valid > 0, w, weights)
+
+
 def fused_step_ref(
     v: Tensor,  # (n_p,)
     refrac: Tensor,  # (n_p,)
@@ -117,3 +164,42 @@ def fused_step_ref(
     v2, r2, s = lif_step_ref(v, refrac, i_tot, **params)
     currents = [spike_gather_ref(s, c, w) for c, w in zip(cols, weights)]
     return v2, r2, s, currents
+
+
+def fused_step_plastic_ref(
+    v: Tensor,  # (n_p,)
+    refrac: Tensor,  # (n_p,)
+    i_tot: Tensor,  # (n_p,) total input current
+    tr_plus: Tensor,  # (n_p,) presynaptic e-trace
+    tr_minus: Tensor,  # (n_p,) postsynaptic e-trace
+    cols: Sequence[Tensor],  # per delay bucket (R, K_d) int32, local ids
+    weights: Sequence[Tensor],  # per delay bucket (R, K_d)
+    plastic: Sequence[Tensor],  # per delay bucket (R, K_d) 0/1 STDP mask
+    *,
+    params: Dict[str, float],
+    taus: Tuple[float, float],  # (tau_plus, tau_minus)
+    stdp: Dict[str, float],  # a_plus / a_minus / w_min / w_max
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, List[Tensor], List[Tensor]]:
+    """The plastic fused step composed from the plain versions in the
+    reference's step order: LIF advance, both trace decays, then per bucket
+    the gather from the *pre-update* weights and the STDP update (identity
+    exchange: the pre-spike is the spike vector, the pre-trace is
+    ``tr_plus'``; rows ``r >= n_p`` take 0 for the post terms).  Returns
+    ``(v', refrac', spikes, tr_plus', tr_minus', currents, new_weights)``."""
+    v2, r2, s = lif_step_ref(v, refrac, i_tot, **params)
+    dt = params["dt"]
+    tp = trace_decay_ref(tr_plus, s, dt=dt, tau=taus[0])
+    tm = trace_decay_ref(tr_minus, s, dt=dt, tau=taus[1])
+    n_p = v.shape[0]
+    currents, new_weights = [], []
+    for c, w, pm in zip(cols, weights, plastic):
+        currents.append(spike_gather_ref(s, c, w))
+        pad_r = c.shape[0] - n_p
+        post_t = torch.nn.functional.pad(tm, (0, pad_r)) if pad_r else tm
+        post_s = torch.nn.functional.pad(s, (0, pad_r)) if pad_r else s
+        new_weights.append(stdp_update_ref(
+            w, pm, c, tp, s, post_t, post_s,
+            a_plus=stdp["a_plus"], a_minus=stdp["a_minus"],
+            w_min=stdp["w_min"], w_max=stdp["w_max"],
+        ))
+    return v2, r2, s, tp, tm, currents, new_weights

@@ -1,0 +1,91 @@
+"""Pair STDP over one ELL panel: the CUDA kernel ``csrc/stdp_update.cu`` and
+its plain version.
+
+Counterpart of ``repro/kernels/stdp_update.py:stdp_update_pallas``.
+:func:`stdp_update_cuda` launches the kernel on CUDA tensors and raises on
+any other; ``ops.stdp_update`` takes the plain version
+(:func:`stdp_update_plain`) only for CPU tensors.  Both take an optional
+``out``, which may be ``weights`` itself: the update is then in place.
+
+Precondition of the kernel: every col id lies in ``[0, len(pre_trace))``.
+The simulator checks it on the host when it builds the panels.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from . import _build
+from .ref import stdp_update_ref
+
+COUNTER = _build.LaunchCounter("stdp_update")
+
+__all__ = ["COUNTER", "stdp_update_cuda", "stdp_update_plain"]
+
+
+def stdp_update_plain(
+    weights, valid, cols, pre_trace, pre_spike, post_trace, post_spike, *,
+    params: Dict[str, float], out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``ref.stdp_update_ref``, written into ``out`` when one is given."""
+    w = stdp_update_ref(
+        weights, valid, cols, pre_trace, pre_spike, post_trace, post_spike,
+        a_plus=params["a_plus"], a_minus=params["a_minus"],
+        w_min=params["w_min"], w_max=params["w_max"],
+    )
+    return w if out is None else out.copy_(w)
+
+
+def stdp_update_cuda(
+    weights: torch.Tensor,
+    valid: torch.Tensor,
+    cols: torch.Tensor,
+    pre_trace: torch.Tensor,
+    pre_spike: torch.Tensor,
+    post_trace: torch.Tensor,
+    post_spike: torch.Tensor,
+    *,
+    params: Dict[str, float],
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the kernel: the ``(R, K)`` f32 new weights, in ``out`` when
+    one is given (``out`` may be ``weights``)."""
+    _build.require("weights", weights, torch.float32, 2)
+    dev = weights.device
+    _build.require("valid", valid, torch.float32, 2, dev)
+    _build.require("cols", cols, torch.int32, 2, dev)
+    if not weights.shape == valid.shape == cols.shape:
+        raise ValueError(
+            f"weights {tuple(weights.shape)}, valid {tuple(valid.shape)} and "
+            f"cols {tuple(cols.shape)} differ"
+        )
+    R, K = weights.shape
+    for name, t, n in (("pre_trace", pre_trace, None), ("pre_spike", pre_spike, None),
+                       ("post_trace", post_trace, R), ("post_spike", post_spike, R)):
+        _build.require(name, t, torch.float32, 1, dev)
+        if n is not None and t.shape[0] != n:
+            raise ValueError(f"{name}: {t.shape[0]} entries for {n} rows")
+    if pre_spike.shape != pre_trace.shape:
+        raise ValueError(
+            f"pre_spike {tuple(pre_spike.shape)} != pre_trace {tuple(pre_trace.shape)}"
+        )
+    if out is None:
+        out = torch.empty_like(weights)
+    else:
+        _build.require("out", out, torch.float32, 2, dev)
+        if out.shape != weights.shape:
+            raise ValueError(f"out {tuple(out.shape)} != weights {tuple(weights.shape)}")
+    if R == 0 or K == 0:
+        return out
+    stream, device = _build.launch_args(weights)
+    rc = _build.library().repro_stdp_update(
+        weights.data_ptr(), valid.data_ptr(), cols.data_ptr(),
+        pre_trace.data_ptr(), pre_spike.data_ptr(),
+        post_trace.data_ptr(), post_spike.data_ptr(), out.data_ptr(), R, K,
+        params["a_plus"], params["a_minus"], params["w_min"], params["w_max"],
+        stream, device,
+    )
+    _build.check(rc, "stdp_update")
+    COUNTER.launches += 1
+    return out

@@ -22,6 +22,11 @@ gather, above it the dense one (``session.py:547-594`` of the reference).
 The engines give identical rasters, so the switch changes no trajectory;
 ``last_gather_modes`` records what each chunk of the last run took.
 
+Plastic nets (``syn_stdp`` edges) run ``fused_plastic`` on the card and
+``unfused`` with ``SimConfig(fused=False)``; both update the weights and
+e-traces in the carry.  They never take the event gather, so every chunk
+of a plastic run with ``gather="auto"`` reports ``"dense"``.
+
 Not in this slice, each raising ``NotImplementedError`` that names the
 ROADMAP queue item porting it: snapshot paths as input and the
 save/restore pair, ``run(checkpoint_every=...)``, ``run_supervised``, and

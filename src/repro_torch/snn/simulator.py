@@ -1,28 +1,35 @@
 """Clock-driven SNN simulator over one dCSR partition (k = 1), in torch.
 
-Counterpart of ``repro/snn/simulator.py`` for the non-plastic ``fused``,
-``fused_event`` and ``unfused`` engines.  One step, in the reference's
-documented order:
+Counterpart of ``repro/snn/simulator.py`` for the ``fused``,
+``fused_plastic``, ``fused_event`` and ``unfused`` engines.  One step, in
+the reference's documented order:
 
   1. deliver: ``i_syn = ring[t % D]``; clear that slot.
-  2. neuron update with ``i_syn + noise(t, permanent id) + bias`` -> spikes.
+  2. neuron update with ``i_syn + noise(t, permanent id) + bias`` -> spikes;
+     on plastic nets both e-traces decay, ``x' = x * exp(-dt/tau) + s``.
   3. propagate: per delay bucket b in order,
-     ``ring[(t + d_b) % D] += spike_gather(spikes, cols_b, w_b)[:n_p]``.
+     ``ring[(t + d_b) % D] += spike_gather(spikes, cols_b, w_b)[:n_p]``;
+     on plastic nets the bucket's STDP update follows its gather, from the
+     weights the gather read.
   4. history: ``hist[t % D] = spikes``; ``t += 1``.
 
 The ``fused`` engine does 2 and the gathers of 3 in one cooperative kernel
-launch; ``fused_event`` launches ``lif_step`` and then one cooperative
-kernel that clears the slot of 1 and gathers only the row blocks the step's
-spikes touch; ``unfused`` launches ``lif_step`` and then one
-``spike_gather`` per bucket.  All go through the same device routines, so
-their rasters are bit-identical on the card, and through the same plain
-versions on the CPU.
+launch, and ``fused_plastic`` also the trace decays and the STDP updates;
+``fused_event`` launches ``lif_step`` and then one cooperative kernel that
+clears the slot of 1 and gathers only the row blocks the step's spikes
+touch; ``unfused`` launches ``lif_step`` and then one ``spike_gather`` per
+bucket, and on plastic nets decays the traces as torch ops and launches one
+``stdp_update`` per bucket.  All go through the same device routines, so
+their rasters, traces and weights are bit-identical on the card, and
+through the same plain versions on the CPU.  Plastic nets never take the
+event gather (``dispatch.event_gather_blocker``).
 
 ``lax.scan`` becomes a Python loop over steps with no host sync inside a
 run: spike counts, raster rows and ``v_mean`` go into tensors preallocated
 on the run's device and are copied to the host once, by the caller.  The
-carry's tensors are updated in place after ``run`` has copied them, so the
-state a caller passes in is never changed.
+carry's tensors are updated in place after ``run`` has copied them (the
+weights too, on plastic nets), so the state a caller passes in is never
+changed.
 
 ``SimConfig(gather="auto")``, the default, starts on the dense gather and
 lets ``Session``'s chunk loop switch to the event-driven engine
@@ -48,7 +55,7 @@ import torch
 
 from ..core.dcsr import DCSRNetwork, DCSRPartition
 from ..core.ell import DelayELL, build_delay_ell
-from ..kernels import ops
+from ..kernels import ops, ref
 from ..kernels.dispatch import (
     StepEngineChoice, backend_for, resolve_device, select_step_engine,
 )
@@ -137,8 +144,9 @@ class SimConfig:
 class PartitionDeviceData:
     """Device-resident constants and initial state for one partition.
 
-    Unlike the reference, no ``plastic``/``valid`` panels are built: they
-    are as large as the weights and no non-plastic engine reads them."""
+    Unlike the reference, no ``valid`` panels are built, and the
+    ``plastic`` panels only for plastic nets: they are as large as the
+    weights and no other engine reads them."""
 
     n_p: int
     vtx_model: torch.Tensor
@@ -147,10 +155,17 @@ class PartitionDeviceData:
     cols: List[torch.Tensor]  # per bucket (R, K) int32 (global ids)
     weights0: List[torch.Tensor]  # per bucket (R, K) f32
     identity_rows: Tuple[bool, ...]
+    # per bucket (R, K) f32 0/1 mask of the syn_stdp slots; None when the
+    # partition has no plastic synapse
+    plastic: Optional[List[torch.Tensor]] = None
+
+    @property
+    def any_plastic(self) -> bool:
+        return self.plastic is not None
 
 
 def partition_device_data(
-    part: DCSRPartition, ell: DelayELL, device: torch.device
+    part: DCSRPartition, ell: DelayELL, device: torch.device, stdp_id: int
 ) -> PartitionDeviceData:
     for b in ell.buckets:
         # the kernels read act[cols] without a bounds check
@@ -158,6 +173,14 @@ def partition_device_data(
             raise ValueError(
                 f"delay-{b.delay} panel has col ids outside [0, {ell.n_global})"
             )
+    plastic = None
+    if np.any(part.edge_model == stdp_id):
+        plastic = []
+        for b in ell.buckets:  # repro/snn/simulator.py:174-185
+            is_stdp = np.zeros(b.cols.shape, dtype=np.float32)
+            sel = b.edge_index >= 0
+            is_stdp[sel] = part.edge_model[b.edge_index[sel]] == stdp_id
+            plastic.append(torch.from_numpy(is_stdp).to(device))
     return PartitionDeviceData(
         n_p=part.n,
         vtx_model=torch.from_numpy(part.vtx_model).to(device),
@@ -166,6 +189,7 @@ def partition_device_data(
         cols=[torch.from_numpy(b.cols).to(device) for b in ell.buckets],
         weights0=[torch.from_numpy(b.weights).to(device) for b in ell.buckets],
         identity_rows=tuple(b.identity_rows for b in ell.buckets),
+        plastic=plastic,
     )
 
 
@@ -207,6 +231,7 @@ def make_core_step(
     dev: PartitionDeviceData,
     noise_ids: torch.Tensor,
     engine_choice: StepEngineChoice,
+    stdp_params: Optional[Dict[str, float]] = None,
     event_plan: Optional[EventPlan] = None,
     noise_fn: Optional[Callable[[int], object]] = None,
 ) -> Callable:
@@ -214,7 +239,9 @@ def make_core_step(
     by one step and returns the step's spike vector.
 
     ``engine_choice`` comes from ``dispatch.select_step_engine``; the event
-    engine needs the partition's ``event_plan``.  ``noise_ids`` are the
+    engine needs the partition's ``event_plan``.  ``stdp_params`` are the
+    registry's ``syn_stdp`` params, needed on plastic partitions (those
+    whose ``dev.plastic`` is set).  ``noise_ids`` are the
     permanent neuron ids of the local rows.  ``noise_fn(t)``, when given,
     supplies the ``(n_global,)`` noise of step ``t`` (already scaled by
     sigma) in place of the port's own generator."""
@@ -224,6 +251,13 @@ def make_core_step(
     choice = engine_choice
     if choice.event and event_plan is None:
         raise ValueError("the fused_event engine needs the partition's EventPlan")
+    plastic = dev.any_plastic
+    if plastic and stdp_params is None:
+        raise ValueError("a plastic partition needs the syn_stdp params")
+    if choice.plastic != plastic and choice.engine != "unfused":
+        raise ValueError(f"the {choice.engine} engine does not fit a "
+                         f"{'plastic' if plastic else 'non-plastic'} partition")
+    taus = (stdp_params["tau_plus"], stdp_params["tau_minus"]) if plastic else None
     if choice.fused:
         neuron_step = None
         lif_p = dict(registry.spec("lif").params)
@@ -268,6 +302,21 @@ def make_core_step(
             )
             vtx[:, LIF_V] = v2
             vtx[:, LIF_REF] = r2
+        elif choice.plastic:
+            # one cooperative launch: LIF advance + both trace decays, then
+            # per bucket the gather from the pre-update weights and the
+            # masked STDP update (identity exchange: the pre-spike is the
+            # spike vector, the pre-trace tr_plus')
+            i_tot = i_syn + vtx[:, LIF_BIAS]
+            (v2, r2, spikes, carry["tr_plus"], carry["tr_minus"], currents,
+             new_weights) = ops.fused_step_plastic(
+                vtx[:, LIF_V].contiguous(), vtx[:, LIF_REF].contiguous(), i_tot,
+                carry["tr_plus"], carry["tr_minus"], dev.cols, carry["weights"],
+                dev.plastic, params=lif_params, taus=taus, stdp=stdp_params,
+            )
+            vtx[:, LIF_V] = v2
+            vtx[:, LIF_REF] = r2
+            carry["weights"] = tuple(new_weights)
         elif choice.event:
             # LIF advance, then one launch that compresses the spikes to
             # ids, flags the touched row blocks and adds only their gathers
@@ -286,10 +335,22 @@ def make_core_step(
         else:
             new_vtx, spikes = neuron_step(dev.vtx_model, vtx, i_syn)
             vtx.copy_(new_vtx)
-            currents = [
-                ops.spike_gather(spikes, c, w)
-                for c, w in zip(dev.cols, carry["weights"])
-            ]
+            if plastic:
+                # the trace decays as torch ops, as the reference runs them
+                # as jnp outside any kernel
+                tr_plus = ref.trace_decay_ref(carry["tr_plus"], spikes, dt=dt, tau=taus[0])
+                tr_minus = ref.trace_decay_ref(carry["tr_minus"], spikes, dt=dt, tau=taus[1])
+                carry["tr_plus"], carry["tr_minus"] = tr_plus, tr_minus
+                pad_r = dev.cols[0].shape[0] - n_p  # rows >= n_p: post terms 0
+                post_t = torch.nn.functional.pad(tr_minus, (0, pad_r))
+                post_s = torch.nn.functional.pad(spikes, (0, pad_r))
+            for i, (c, w, d) in enumerate(zip(dev.cols, carry["weights"], dev.delays)):
+                ring[(t + d) % D] += ops.spike_gather(spikes, c, w)[:n_p]
+                if plastic:
+                    # in place: run() cloned the weights, and the gather
+                    # above read them first
+                    ops.stdp_update(w, dev.plastic[i], c, tr_plus, spikes, post_t,
+                                    post_s, params=stdp_params, out=w)
         for cur, d in zip(currents, dev.delays):
             ring[(t + d) % D] += cur[:n_p]
         carry["hist"][slot] = spikes.to(torch.uint8)
@@ -331,19 +392,24 @@ class Simulator:
         self.dt = float(net.meta.get("dt", 0.1))
         self.noise_sigma = float(net.meta.get("noise_sigma", 0.0))
         part = net.parts[0]
-        stdp_id = net.registry.edge_id("syn_stdp")
-        if bool(np.any(part.edge_model == stdp_id)):
-            raise _not_ported("simulating plastic (syn_stdp) nets", "plasticity slice")
         self.ell = build_delay_ell(
             part, net.n, align_k=cfg.align_k, align_rows=cfg.align_rows,
         )
         self.d_ring = max(self.ell.max_delay, 1)
-        self.dev = partition_device_data(part, self.ell, self.device)
+        self.dev = partition_device_data(
+            part, self.ell, self.device, net.registry.edge_id("syn_stdp")
+        )
+        # the registry's STDP params (repro/snn/simulator.py:734-738)
+        self.stdp_params = (
+            dict(net.registry.spec("syn_stdp").params) if self.dev.any_plastic else None
+        )
         self._noise_ids = torch.from_numpy(part.global_ids).to(self.device)
         self._noise_fn = _noise_fn
         self._models = _models_present(net)
         self._steps: Dict[str, Callable] = {}
         self._event_plan: Optional[EventPlan] = None
+        # False on plastic nets, whose every step must visit every panel
+        # (dispatch.event_gather_blocker): gather="auto" then stays dense
         try:
             self.event_capable = self._choice("event").event
         except ValueError:  # fused=True on a partition that cannot fuse
@@ -358,6 +424,7 @@ class Simulator:
             models_present=self._models,
             identity_rows=all(self.dev.identity_rows),
             n_delay_buckets=len(self.dev.delays),
+            any_plastic=self.dev.any_plastic,
             fused=self.cfg.fused,
             gather=gather,
         )
@@ -391,6 +458,7 @@ class Simulator:
                 dev=self.dev,
                 noise_ids=self._noise_ids,
                 engine_choice=choice,
+                stdp_params=self.stdp_params,
                 event_plan=self.event_plan if choice.event else None,
                 noise_fn=self._noise_fn,
             )
@@ -435,8 +503,10 @@ class Simulator:
         if record_v is None:
             record_v = self.cfg.record_v
         carry = dict(state)
-        for key in ("vtx_state", "ring", "hist"):
+        for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
             carry[key] = state[key].clone()
+        if self.dev.any_plastic:  # the weights change only on plastic nets
+            carry["weights"] = tuple(w.clone() for w in state["weights"])
         carry["t"] = int(state["t"])
         on = dict(device=self.device)
         outs = dict(

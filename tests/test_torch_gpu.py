@@ -18,6 +18,7 @@ from repro_torch.kernels import event_step as event_mod
 from repro_torch.kernels import fused_step as fused_mod
 from repro_torch.kernels import lif_step as lif_mod
 from repro_torch.kernels import spike_gather as gather_mod
+from repro_torch.kernels import stdp_update as stdp_mod
 
 pytestmark = pytest.mark.gpu
 
@@ -25,6 +26,9 @@ LIF_PARAMS = dict(
     dt=0.1, tau_m=10.0, v_rest=-65.0, v_reset=-65.0, v_thresh=-50.0,
     t_ref=2.0, r_m=1.0,
 )
+# w_min/w_max inside the normal weights' range, so the clip is exercised
+STDP = dict(a_plus=0.01, a_minus=0.012, w_min=-2.0, w_max=2.0)
+TAUS = (20.0, 15.0)
 
 
 @pytest.fixture
@@ -57,6 +61,7 @@ def test_library_builds_with_ptxas_report(cuda):
     assert info.path.exists()
     lib = _build.library()
     assert lib.repro_fused_step_max_buckets() == fused_mod.MAX_BUCKETS
+    assert lib.repro_fused_plastic_step_max_buckets() == fused_mod.MAX_BUCKETS
     assert lib.repro_event_step_max_buckets() == event_mod.MAX_BUCKETS
 
 
@@ -187,3 +192,148 @@ def test_engines_bit_identical_on_card(cuda, fused, gather):
     base, other = rasters
     assert base.sum() > 0
     np.testing.assert_array_equal(other, base)
+
+
+def _masks(rng, R, ks, n_rows, device, p=0.5):
+    out = []
+    for K in ks:
+        m = (rng.random((R, K)) < p).astype(np.float32)
+        m[n_rows:] = 0.0  # padded rows hold no plastic slot
+        out.append(torch.from_numpy(m).to(device))
+    return out
+
+
+def _vec(rng, n, device):
+    return torch.from_numpy(rng.random(n).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("n,R,K,p_mask", [
+    (64, 8, 32, 0.5), (100, 104, 24, 0.5), (1000, 1000, 37, 0.3),
+    (12500, 12504, 128, 0.65), (500, 504, 40, 0.0),  # all-zero mask
+])
+def test_stdp_update_kernel_bit_exact(cuda, rng, n, R, K, p_mask):
+    (c,), (w,) = _panels(rng, n, R, (K,), R, cuda)
+    (m,) = _masks(rng, R, (K,), R, cuda, p_mask)
+    pre_t, post_t = _vec(rng, n, cuda), _vec(rng, R, cuda)
+    pre_s = (_vec(rng, n, cuda) < 0.3).float()
+    post_s = (_vec(rng, R, cuda) < 0.3).float()
+    args = (w, m, c, pre_t, pre_s, post_t, post_s)
+    before = stdp_mod.COUNTER.launches
+    got = ops.stdp_update(*args, params=STDP)
+    assert stdp_mod.COUNTER.launches == before + 1
+    want = stdp_mod.stdp_update_plain(*args, params=STDP)
+    assert torch.equal(got, want)
+    if p_mask == 0.0:
+        assert torch.equal(got, w)
+    else:
+        assert not torch.equal(got, w)
+    # in place and into a separate buffer: the same weights
+    inplace = w.clone()
+    assert ops.stdp_update(inplace, m, c, pre_t, pre_s, post_t, post_s,
+                           params=STDP, out=inplace) is inplace
+    assert torch.equal(inplace, got)
+    other = torch.full_like(w, float("nan"))
+    ops.stdp_update(*args, params=STDP, out=other)
+    assert torch.equal(other, got)
+
+
+def _plastic_case(rng, n_p, R, ks, device, p_mask=0.5):
+    v, r, i = _lif_inputs(rng, n_p, device)
+    cols, weights = _panels(rng, n_p, R, ks, n_p, device)
+    plastic = _masks(rng, R, ks, n_p, device, p_mask)
+    return v, r, i, _vec(rng, n_p, device), _vec(rng, n_p, device), cols, weights, plastic
+
+
+@pytest.mark.parametrize("n_p,R,ks,p_mask", [
+    (64, 64, (16,), 0.5),
+    (100, 104, (8, 24), 0.5),  # R > n_p
+    (37, 40, (4, 12, 20), 0.5),  # K not a multiple of 32
+    (500, 504, tuple(range(8, 8 * 16, 8)), 0.5),  # 15 buckets, as balanced_ei
+    (1000, 1000, (37,), 0.0),  # one bucket, all-zero mask
+    (12500, 12504, (128,) * 15, 0.65),  # balanced_ei(12500) panel widths
+])
+def test_fused_plastic_kernel_vs_unfused_kernels_and_plain(cuda, rng, n_p, R, ks, p_mask):
+    v, r, i, tp, tm, cols, weights, plastic = _plastic_case(rng, n_p, R, ks, cuda, p_mask)
+    kw = dict(params=LIF_PARAMS, taus=TAUS, stdp=STDP)
+    before = fused_mod.PLASTIC_COUNTER.launches
+    out = ops.fused_step_plastic(v, r, i, tp, tm, cols, weights, plastic, **kw)
+    assert fused_mod.PLASTIC_COUNTER.launches == before + 1
+    v2, r2, s2, tp2, tm2, curs, new_w = out
+    assert int(s2.sum()) > 0
+    # the unfused engine's kernels and torch ops
+    v1, r1, s1 = ops.lif_step(v, r, i, params=LIF_PARAMS)
+    tp1 = ref.trace_decay_ref(tp, s1, dt=LIF_PARAMS["dt"], tau=TAUS[0])
+    tm1 = ref.trace_decay_ref(tm, s1, dt=LIF_PARAMS["dt"], tau=TAUS[1])
+    for a, b in zip((v2, r2, s2, tp2, tm2), (v1, r1, s1, tp1, tm1)):
+        assert torch.equal(a, b)
+    pad = R - n_p
+    post_t = torch.nn.functional.pad(tm1, (0, pad))
+    post_s = torch.nn.functional.pad(s1, (0, pad))
+    for cur, nw, c, w, pm in zip(curs, new_w, cols, weights, plastic):
+        assert torch.equal(cur, ops.spike_gather(s1, c, w))
+        assert torch.equal(nw, ops.stdp_update(w, pm, c, tp1, s1, post_t, post_s,
+                                               params=STDP))
+        frozen = pm == 0
+        assert torch.equal(nw[frozen], w[frozen])
+    # the plain version: bit-exact but for the currents (f32 sums in another
+    # order: rtol=atol=1e-5)
+    want = fused_mod.fused_step_plastic_plain(v, r, i, tp, tm, cols, weights, plastic, **kw)
+    for a, b in zip(out[:5], want[:5]):
+        assert torch.equal(a, b)
+    for a, b in zip(curs, want[5]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for a, b in zip(new_w, want[6]):
+        assert torch.equal(a, b)
+    if p_mask > 0:
+        assert any(not torch.equal(a, b) for a, b in zip(new_w, weights))
+
+
+def test_plastic_kernels_refuse_cpu_tensors_and_bad_operands(cuda, rng):
+    w = torch.zeros((8, 4))
+    c = torch.zeros((8, 4), dtype=torch.int32)
+    vec = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        stdp_mod.stdp_update_cuda(w, w, c, vec, vec, vec, vec, params=STDP)
+    wg, cg, vg = w.to(cuda), c.to(cuda), vec.to(cuda)
+    with pytest.raises(TypeError):
+        stdp_mod.stdp_update_cuda(wg, wg, cg.long(), vg, vg, vg, vg, params=STDP)
+    with pytest.raises(ValueError, match="rows"):
+        stdp_mod.stdp_update_cuda(wg, wg, cg, vg, vg, vg[:4], vg, params=STDP)
+    with pytest.raises(ValueError, match="out"):
+        stdp_mod.stdp_update_cuda(wg, wg, cg, vg, vg, vg, vg, params=STDP,
+                                  out=torch.empty((4, 4), device=cuda))
+    kw = dict(params=LIF_PARAMS, taus=TAUS, stdp=STDP)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mod.fused_step_plastic_cuda(vec, vec, vec, vec, vec, [c], [w], [w], **kw)
+    too_many = [cg] * (fused_mod.MAX_BUCKETS + 1)
+    panels = [wg] * len(too_many)
+    with pytest.raises(ValueError, match="delay buckets"):
+        fused_mod.fused_step_plastic_cuda(vg, vg, vg, vg, vg, too_many, panels, panels, **kw)
+    with pytest.raises(ValueError, match="delay buckets"):
+        fused_mod.fused_step_plastic_cuda(vg, vg, vg, vg, vg, [cg], [wg], [], **kw)
+    with pytest.raises(ValueError, match="shape"):
+        fused_mod.fused_step_plastic_cuda(vg, vg, vg, vg, vg[:4], [cg], [wg], [wg], **kw)
+
+
+def test_plastic_engines_bit_identical_on_card(cuda):
+    from repro_torch.snn import RasterMonitor, Session, SimConfig, balanced_ei, to_dcsr
+
+    net = to_dcsr(balanced_ei(n=2000, stdp=True, seed=0), k=1)
+    runs = []
+    for fused in (None, False):
+        ses = Session(net, SimConfig(fused=fused), device=cuda)
+        mon = RasterMonitor()
+        ses.run(400, monitors=[mon], chunk_size=128)
+        runs.append((ses, mon.raster))
+    (fs, fr), (us, ur) = runs
+    assert fs.engine_choice.engine == "fused_plastic"
+    assert us.engine_choice.engine == "unfused"
+    assert fs.last_gather_modes == ("dense",) * 4
+    assert fr.sum() > 0
+    np.testing.assert_array_equal(ur, fr)
+    for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
+        assert torch.equal(fs.state[key], us.state[key]), key
+    w0 = fs.simulator.dev.weights0
+    assert any(not torch.equal(a, b) for a, b in zip(fs.state["weights"], w0))
+    for a, b in zip(fs.state["weights"], us.state["weights"]):
+        assert torch.equal(a, b)

@@ -124,7 +124,8 @@ def test_unported_session_surfaces_raise(tmp_path):
         Session(str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="procedural"):
         Session(microcircuit_rules(scale=0.01), device="cpu")
-    plastic = tnet.to_dcsr(tnet.balanced_ei(n=200, stdp=True), k=1)
-    with pytest.raises(NotImplementedError, match="plasticity slice"):
-        Session(plastic, device="cpu")
+    # plastic nets run since the plasticity slice
+    plastic = Session(tnet.to_dcsr(tnet.balanced_ei(n=200, stdp=True), k=1), device="cpu")
+    assert plastic.simulator.dev.any_plastic
+    assert plastic.run(5).t_final == 5
     assert ses.t == 0

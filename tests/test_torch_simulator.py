@@ -87,6 +87,26 @@ def test_run_leaves_the_callers_state_alone():
     assert st0["t"] == 0
     for k, v in copy.items():
         assert torch.equal(st0[k], v)
+    # on a plastic net the weights and traces change too: neither the
+    # caller's state nor the initial weights may, with either engine, and
+    # two runs from init_state() give the same bits
+    plastic = tnet.to_dcsr(tnet.balanced_ei(n=400, stdp=True), k=1)
+    for fused in (True, False):
+        sim = Simulator(plastic, SimConfig(align_k=32, fused=fused), device="cpu")
+        st0 = sim.init_state()
+        keys = ("vtx_state", "ring", "hist", "tr_plus", "tr_minus")
+        copy = {k: st0[k].clone() for k in keys}
+        w0 = [w.clone() for w in sim.dev.weights0]
+        runs = [sim.run(st0, 60)[0], sim.run(sim.init_state(), 60)[0]]
+        assert any(not torch.equal(a, b) for a, b in zip(runs[0]["weights"], w0))
+        for k, v in copy.items():
+            assert torch.equal(st0[k], v), k
+        for a, b, c in zip(st0["weights"], sim.dev.weights0, w0):
+            assert torch.equal(a, c) and torch.equal(b, c)
+        for k in keys:
+            assert torch.equal(runs[0][k], runs[1][k]), k
+        for a, b in zip(runs[0]["weights"], runs[1]["weights"]):
+            assert torch.equal(a, b)
 
 
 def test_state_to_dcsr_and_runtime_state():
