@@ -4,16 +4,20 @@ one card and check it.
 
     python3 chip_smoke.py [--seed 0] [--scale 1.0]
 
-It drives two paths.  The main path is the k=1 non-plastic LIF network at
-the full width of the Potjans-Diesmann microcircuit (scale 1.0: 77,169
-neurons, about 0.3 B synapses, delay buckets d=8 and d=15, noise sigma
-1.0):
-``microcircuit`` -> ``to_dcsr(k=1)`` -> ``Session(SimConfig())`` (which
-builds the delay-bucketed ELL panels) -> ``run`` with ``RateMonitor`` and
-``RasterMonitor``.  With the default ``gather="auto"`` the first chunk runs
-the ``fused`` engine and, while the spike rate stays under the event
-threshold, later chunks run ``fused_event`` (``lif_step`` plus the event
-gather).  Phases, each printing its own lines:
+It drives two networks, each at k=1 and at k=4.  The microcircuit is
+built once, as the uniform k=4 net ``to_dcsr(net,
+assignment=block_partition(net.n, 4), uniform=True)`` (3 inert padding
+neurons); the k=1 paths run its ``merge_to_single``, which has the same
+labelling, so the k=4 rasters are compared with the k=1 ones entry by
+entry.  The main path is the k=1 non-plastic LIF network at the full
+width of the Potjans-Diesmann microcircuit (scale 1.0: 77,169 neurons,
+about 0.3 B synapses, delay buckets d=8 and d=15, noise sigma 1.0):
+``Session(SimConfig())`` (which builds the delay-bucketed ELL panels) ->
+``run`` with ``RateMonitor`` and ``RasterMonitor``.  With the default
+``gather="auto"`` the first chunk runs the ``fused`` engine and, while
+the spike rate stays under the event threshold, later chunks run
+``fused_event`` (``lif_step`` plus the event gather).  Phases, each
+printing its own lines:
 
   1. device: the card's name, count, name and power limit from nvidia-smi;
   2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``,
@@ -35,10 +39,30 @@ gather).  Phases, each printing its own lines:
      gathers, and the bound (bytes over 3.35 TB/s); and the dense and the
      event engine's us/step from one state of the main path.
 
+The k>1 microcircuit path: ``Session(d4, SimConfig(), engine="spmd",
+devices=[card] * 4)``, four partitions on the one card, stepped in lockstep
+(index exchange, overlap ``local``, ``fused_split`` and then
+``fused_split_event``):
+  k1. the split kernels at that path's shapes on partition 0:
+      ``post_exchange`` (full, local and remote pass) and the event
+      kernel's split use (with and without the clear), each bit-exact
+      against ``spike_gather`` composed with the reference's ring
+      formulation and within rtol=atol=1e-5 of its plain version;
+  k2. 1000 steps with both monitors, counts set to 0 before and read after
+      and matched to the chunks' gather modes; overflow 0; the raster equal
+      to the k=1 main path's;
+  k3. 200 steps each of ``overlap="off"``, ``"double_buffer"`` and
+      ``fused=False`` (the k>1 ``unfused`` engine), each with its counts
+      and a raster equal to k2's;
+  k4. timing of the split kernels (the bound, the plain version,
+      ``torch.sparse.mm`` over the partition's synapses) and the split
+      engines' us/step.
+
 The plastic path is ``balanced_ei(n=12500, stdp=True)`` (Brunel's model A
 counts: 10,000 E and 2,500 I neurons, epsilon 0.1, 15.6 M synapses of which
-10 M plastic E->E, 15 delay buckets) -> ``to_dcsr(k=1)`` ->
-``Session(SimConfig())``, which takes the ``fused_plastic`` engine:
+10 M plastic E->E, 15 delay buckets), built as the uniform k=4 net and
+merged -> ``Session(SimConfig())``, which takes the ``fused_plastic``
+engine:
   8. the plastic kernels against their plain versions on that session's
      panels: ``stdp_update`` bit-exact for every bucket, ``fused_step_plastic``
      bit-exact against ``lif_step`` + trace decay + ``spike_gather`` +
@@ -54,6 +78,18 @@ counts: 10,000 E and 2,500 I neurons, epsilon 0.1, 15.6 M synapses of which
  11. both plastic engines' us/step; a small plastic net on the card against
      the CPU plain versions; timing of both plastic kernels, their plain
      versions and their bounds.
+
+The k>1 plastic path: the k=4 net on the one card with ``SimConfig()``
+(dense exchange of spikes and pre-traces, overlap ``local``,
+``fused_split_plastic``: ``pre_exchange``, the local ``post_exchange``
+pass, the remote ``post_exchange_plastic`` pass):
+ 12. ``pre_exchange`` and both variants of ``post_exchange_plastic`` on
+     partition 0 against their plain versions and the unfused kernels;
+ 13. 1000 steps, counts checked; raster, hist, traces and weights
+     bit-identical to the k=1 plastic path's;
+ 14. 256 steps each of ``overlap="off"``, ``"double_buffer"``,
+     ``exchange="index"`` and ``fused=False``, each bit-identical in hist,
+     traces and weights to a fresh k=1 ``fused_plastic`` run; timing.
 
 It ends with a JSON line of kernel figures, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -81,20 +117,26 @@ from repro_torch.kernels import event_step as event_mod  # noqa: E402
 from repro_torch.kernels import fused_step as fused_mod  # noqa: E402
 from repro_torch.kernels import lif_step as lif_mod  # noqa: E402
 from repro_torch.kernels import spike_gather as gather_mod  # noqa: E402
+from repro_torch.kernels import split_step as split_mod  # noqa: E402
 from repro_torch.kernels import stdp_update as stdp_mod  # noqa: E402
+from repro_torch.core import block_partition, merge_to_single  # noqa: E402
 from repro_torch.snn import (  # noqa: E402
     RasterMonitor, RateMonitor, Session, SimConfig, balanced_ei, microcircuit, to_dcsr,
 )
 from repro_torch.snn.neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_V  # noqa: E402
+from repro_torch.snn.simulator import slot_tables  # noqa: E402
 
 STEPS = 1000
 PARITY_STEPS = 256
+VARIANT_STEPS = 200
 ENGINE_STEPS = 100
+K_PARTS = 4  # partitions of the k>1 paths, all on the one card
 PLASTIC_N = 12500  # Brunel (2000) model A: 10,000 E and 2,500 I neurons
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor f32, published
 COUNTERS = (lif_mod.COUNTER, gather_mod.COUNTER, fused_mod.COUNTER, event_mod.COUNTER,
-            stdp_mod.COUNTER, fused_mod.PLASTIC_COUNTER)
+            stdp_mod.COUNTER, fused_mod.PLASTIC_COUNTER, split_mod.PRE_COUNTER,
+            split_mod.POST_COUNTER, split_mod.PLASTIC_COUNTER)
 SOURCES = {
     "lif_step": ("src/repro_torch/kernels/csrc/lif_step.cu",
                  "src/repro/kernels/lif_step.py:38"),
@@ -108,6 +150,16 @@ SOURCES = {
                     "src/repro/kernels/stdp_update.py:70"),
     "fused_plastic_step": ("src/repro_torch/kernels/csrc/fused_plastic_step.cu",
                            "src/repro/kernels/fused_step.py:327"),
+    "pre_exchange": ("src/repro_torch/kernels/csrc/pre_exchange.cu",
+                     "src/repro/kernels/fused_step.py:450"),
+    "post_exchange": ("src/repro_torch/kernels/csrc/post_exchange.cu",
+                      "src/repro/kernels/fused_step.py:545"),
+    "post_exchange_remote_plastic": ("src/repro_torch/kernels/csrc/post_exchange_plastic.cu",
+                                     "src/repro/kernels/fused_step.py:751"),
+    "post_exchange_plastic": ("src/repro_torch/kernels/csrc/post_exchange_plastic.cu",
+                              "src/repro/kernels/fused_step.py:901"),
+    "event_post_exchange_split": ("src/repro_torch/kernels/csrc/event_step.cu",
+                                  "src/repro/kernels/event_step.py:198"),
 }
 
 
@@ -643,7 +695,7 @@ def phase_plastic_parity(net, main_raster):
     say("plastic", f"unfused {PARITY_STEPS} steps: raster, v, ring, traces and weights "
         f"bit-identical to fused_plastic's ({int(r_u.raster.sum())} spikes, {changed} slots "
         f"changed); {secs / PARITY_STEPS * 1e6:.1f} us/step; launches {launches}")
-    return unf, launches
+    return unf, fus, launches
 
 
 def phase_plastic_small_net(seed):
@@ -736,6 +788,500 @@ def phase_plastic_engines(fused_ses, unfused_ses):
         + "; ".join(f"{e} {', '.join(us)} us/step" for e, us in per.items()))
 
 
+# -- the k>1 paths: K_PARTS partitions on one card ------------------------------
+
+def spmd_session(d, card, share=None, **cfg):
+    """``K_PARTS`` partitions of ``d`` on the one card; ``share``, a spmd
+    session of the same net, lends its panels (the host build of the
+    microcircuit's panels takes minutes)."""
+    return Session(d, SimConfig(**cfg), engine="spmd", devices=[card] * K_PARTS, _share=share)
+
+
+def split_launches(modes, chunks, overlap):
+    """Expected counts of a k>1 microcircuit run on the split engines: per
+    partition and step one ``lif_step`` (the trace-free pre-exchange), then
+    on dense chunks the post-exchange pass (two with an overlap mode: local
+    and remote) and on event chunks the local pass (with an overlap mode)
+    and the event kernel."""
+    dense = sum(c for c, m in zip(chunks, modes) if m == "dense")
+    event = sum(c for c, m in zip(chunks, modes) if m == "event")
+    two = overlap != "off"
+    return only(lif_step=K_PARTS * (dense + event),
+                post_exchange=K_PARTS * (dense * (2 if two else 1) + event * two),
+                event_post_exchange=K_PARTS * event)
+
+
+def compose_ring(act, ring, clear, onehot, cols, weights, n_p):
+    """The reference's ring formulation around the ``spike_gather`` kernel:
+    what every post-exchange kernel must give bit for bit."""
+    curs = [gather_mod.spike_gather_cuda(act, c, w)[:n_p] for c, w in zip(cols, weights)]
+    return ref._ring_accumulate(ring, clear, onehot, curs)
+
+
+def split_case(dsim, t, seed):
+    """A random ring and the slot tables of step ``t`` for partition 0."""
+    dev = dsim.devs[0]
+    D, card = dsim.d_ring, dev.vtx_state0.device
+    ring = torch.from_numpy(np.random.default_rng(seed).normal(
+        0.0, 1.0, (D, dev.n_p)).astype(np.float32)).to(card)
+    clear_tab, onehot_tab = slot_tables(D, dev.delays, card)
+    return ring, clear_tab[t % D], onehot_tab[t % D], t % D, [(t + d) % D for d in dev.delays]
+
+
+def phase_k4_kernels(dsim, act_np):
+    """Rows 6 and 9 (split use) at the k>1 microcircuit's shapes, on
+    partition 0's panels and an exchanged spike vector of the main path:
+    each kernel bit-exact against the ``spike_gather`` kernel composed with
+    the reference's ring formulation, and within rtol=atol=1e-5 of its plain
+    version (which sums in another order)."""
+    dev, n_p = dsim.devs[0], dsim.devs[0].n_p
+    card = dev.vtx_state0.device
+    act = torch.from_numpy(act_np.astype(np.float32)).to(card)
+    act_local = act[:n_p].contiguous()
+    act_remote = act.clone()
+    act_remote[:n_p] = 0.0
+    ring, clear, onehot, slot, write = split_case(dsim, STEPS, 7)
+    cases = [
+        ("full pass (overlap off)", act, clear, dev.cols, dev.weights0, False),
+        ("local pass", act_local, clear, dev.cols_local, dev.weights_local, False),
+        ("remote pass", act, None, dev.cols_remote, dev.weights_remote, True),
+    ]
+    err = 0.0
+    for what, a, cl, cols, weights, remote in cases:
+        if remote:
+            got = split_mod.post_exchange_cuda(a, ring, None, onehot, cols, weights)
+            want = ref.fused_post_exchange_remote_ref(a, ring, onehot, cols, weights)
+        else:
+            got = split_mod.post_exchange_cuda(a, ring, cl, onehot, cols, weights)
+            want = ref.fused_post_exchange_ref(a, ring, cl, onehot, cols, weights)
+        exact = compose_ring(a, ring, cl, onehot, cols, weights, n_p)
+        require(torch.equal(got.view(torch.int32), exact.view(torch.int32)),
+                f"post_exchange {what} differs from spike_gather + the ring formulation")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        inplace = ring.clone()
+        split_mod.post_exchange_cuda(a, inplace, cl, onehot, cols, weights, out=inplace)
+        require(torch.equal(inplace.view(torch.int32), got.view(torch.int32)),
+                f"post_exchange {what} differs when written in place")
+        say("k4", f"post_exchange {what}, panels {[tuple(c.shape) for c in cols]}: bit-exact "
+            f"vs spike_gather + ring formulation, in place too; max |kernel - plain| = "
+            f"{e:.3e} (rtol=atol=1e-5)")
+    # the local pass then the remote pass give the full pass's ring to the
+    # rounding of the split sum
+    two = split_mod.post_exchange_cuda(act_local, ring, clear, onehot, dev.cols_local,
+                                       dev.weights_local)
+    split_mod.post_exchange_cuda(act, two, None, onehot, dev.cols_remote, dev.weights_remote,
+                                 out=two)
+    full = split_mod.post_exchange_cuda(act, ring, clear, onehot, dev.cols, dev.weights0)
+    torch.testing.assert_close(two, full, rtol=1e-5, atol=1e-5)
+    say("k4", "local + remote pass vs the full pass: max |difference| = "
+        f"{float((two - full).abs().max()):.3e} (rtol=atol=1e-5; the split sums round "
+        "in another order)")
+
+    plan = dsim.event_plans[0]
+    e_err = 0.0
+    for what, a, s in (("remote pass (no clear)", act_remote, None),
+                       ("serialized (clear)", act, slot)):
+        got, want, dense = ring.clone(), ring.clone(), ring.clone()
+        flags = event_mod.event_post_exchange_cuda(a, got, s, write, plan, dev.cols, dev.weights0)
+        want_flags = event_mod.event_post_exchange_plain(a, want, s, write, plan, dev.cols,
+                                                         dev.weights0)
+        require(torch.equal(flags, want_flags), f"split event flags differ from plain ({what})")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        if s is not None:
+            dense[s] = 0.0
+        for c, w, ws in zip(dev.cols, dev.weights0, write):
+            dense[ws] += gather_mod.spike_gather_cuda(a, c, w)[:n_p]
+        require(torch.equal(got, dense), f"split event ring differs from the dense kernels' "
+                f"({what})")
+        e = float((got - want).abs().max())
+        e_err = max(e_err, e)
+        say("k4", f"event_post_exchange split use, {what}: act ({a.shape[0]},) with "
+            f"{int(a.sum())} spikes, ring {tuple(ring.shape)}, {float(flags.float().mean()):.4f} "
+            f"of {flags.numel()} (bucket, block) pairs flagged; flags equal plain, ring "
+            f"bit-equal to the dense kernels, max |kernel - plain| = {e:.3e} (rtol=atol=1e-5)")
+    return {"post_exchange": err, "event_post_exchange_split": e_err}
+
+
+def phase_k4_main(ses, k1_raster):
+    """The k>1 microcircuit, 1000 steps of ``SimConfig()``: index exchange,
+    overlap ``local``, ``fused_split`` then ``fused_split_event``."""
+    reset_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, rate, raster, secs = run_session(ses, STEPS)
+    launches = read_counts()
+    modes = ses.last_gather_modes
+    dsim = ses.simulator
+    say("k4", f"chunks {res.chunks}, gather modes {modes}, engine {ses.engine_choice}, "
+        f"exchange {dsim.exchange} (cap {dsim.index_cap} ids a partition)")
+    require(dsim.exchange == "index" and ses.engine_choice.overlap == "local",
+            f"k>1 default resolved to {dsim.exchange}/{ses.engine_choice.overlap}")
+    require("event" in modes, "the k>1 path never took the event gather")
+    require(launches == split_launches(modes, res.chunks, "local"),
+            f"k>1 launches {launches} for gather modes {modes}")
+    require(int(res.overflow.sum()) == 0, f"index exchange dropped {int(res.overflow.sum())}")
+    require(raster.raster.shape == k1_raster.shape, f"raster {raster.raster.shape}")
+    n_diff = int((raster.raster != k1_raster).sum())
+    require(n_diff == 0, f"k>1 raster differs from the k=1 run of the merged net in {n_diff} "
+            "entries")
+    counts = res.spike_count
+    peak = torch.cuda.max_memory_allocated()
+    say("k4", f"{STEPS} steps, {K_PARTS} partitions on one card: {secs:.3f} s, "
+        f"{secs / STEPS * 1e6:.1f} us/step (host clock, monitors included); raster identical "
+        f"to the k=1 run of the merged net ({int(counts.sum())} spikes); overflow 0")
+    say("k4", f"launches {launches}; peak device memory {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated), {held / 2**30:.2f} GiB of it held before the run "
+        "(panels, sub-panels, touch bitmaps, initial state)")
+    return raster.raster, launches, secs / STEPS * 1e6
+
+
+def phase_k4_variants(base, card, default_raster, nd):
+    """Short runs of the other split engines on ``base``'s panels, counts set
+    to 0 before and read after each, every raster equal to the default's."""
+    out = {}
+    for label, cfg in (("overlap off", dict(overlap="off")),
+                       ("double_buffer", dict(overlap="double_buffer")),
+                       ("unfused", dict(fused=False))):
+        ses = spmd_session(base.net, card, share=base, **cfg)
+        reset_counts()
+        res, _, raster, secs = run_session(ses, VARIANT_STEPS)
+        launches = read_counts()
+        choice = ses.engine_choice
+        if choice.fused:
+            want = split_launches(ses.last_gather_modes, res.chunks, choice.overlap)
+        else:
+            want = only(lif_step=K_PARTS * VARIANT_STEPS,
+                        spike_gather=K_PARTS * nd * VARIANT_STEPS)
+        require(launches == want, f"k>1 {label} launches {launches}, expected {want}")
+        require(int(res.overflow.sum()) == 0, f"k>1 {label} overflow")
+        require(np.array_equal(raster.raster, default_raster[:VARIANT_STEPS]),
+                f"k>1 {label} raster differs from the default's")
+        say("k4", f"{label} ({choice.engine}, overlap {choice.overlap}, gather modes "
+            f"{ses.last_gather_modes}), {VARIANT_STEPS} steps: raster identical to the "
+            f"default's; {secs / VARIANT_STEPS * 1e6:.1f} us/step; launches {launches}")
+        out[label] = launches
+        del ses
+    return out
+
+
+def _csr_from(cols, weights, valid, n, dev):
+    """Real synapses of a stacked panel as a CSR matrix (see ``_csr``)."""
+    crow = np.concatenate([[0], np.cumsum(valid.sum(axis=1))]).astype(np.int64)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(crow), torch.from_numpy(cols[valid].astype(np.int64)),
+            torch.from_numpy(weights[valid]), size=(cols.shape[0], n),
+            check_invariants=False,
+        ).to(dev)
+
+
+def post_bytes(cols, n_act, D, n_p):
+    """What a post-exchange pass must move: every slot's col and weight, the
+    activity, the ring read and written, the slot tables."""
+    return sum(c.numel() * 8 for c in cols) + n_act * 4 + 2 * D * n_p * 4 + (len(cols) + 1) * D * 4
+
+
+def phase_k4_timing(dsim, act_np, errs, launches):
+    dev, n_p, n = dsim.devs[0], dsim.devs[0].n_p, dsim.n_global
+    card = dev.vtx_state0.device
+    D, s = dsim.d_ring, dsim.stacked
+    act = torch.from_numpy(act_np.astype(np.float32)).to(card)
+    act_local = act[:n_p].contiguous()
+    ring, clear, onehot, slot, write = split_case(dsim, STEPS, 7)
+    work = ring.clone()
+
+    def time_pass(a, cl, cols, weights):
+        tk = cuda_ms(lambda: split_mod.post_exchange_cuda(a, work, cl, onehot, cols, weights,
+                                                          out=work), 20)
+        if cl is None:
+            tp = cuda_ms(lambda: ref.fused_post_exchange_remote_ref(a, ring, onehot, cols,
+                                                                    weights), 5)
+        else:
+            tp = cuda_ms(lambda: ref.fused_post_exchange_ref(a, ring, cl, onehot, cols,
+                                                             weights), 5)
+        nb = post_bytes(cols, a.shape[0], D, n_p)
+        b, _ = bound_ms(nb, 2 * sum(c.numel() for c in cols))
+        return tk, tp, b, nb
+
+    lib = 0.0
+    for i in range(len(s.delays)):
+        csr = _csr_from(s.cols[i][0], s.weights[i][0], s.valid[i][0], n, card)
+        a2 = act[:, None].contiguous()
+        torch.testing.assert_close(torch.sparse.mm(csr, a2)[:n_p, 0],
+                                   gather_mod.spike_gather_cuda(act, dev.cols[i],
+                                                                dev.weights0[i])[:n_p],
+                                   rtol=1e-5, atol=1e-5)
+        lib += cuda_ms(lambda csr=csr, a2=a2: torch.sparse.mm(csr, a2), 20)
+        del csr
+    full = time_pass(act, clear, dev.cols, dev.weights0)
+    loc = time_pass(act_local, clear, dev.cols_local, dev.weights_local)
+    rem = time_pass(act, None, dev.cols_remote, dev.weights_remote)
+    for what, (tk, tp, b, nb) in (("full pass (overlap off)", full), ("local pass", loc),
+                                  ("remote pass", rem)):
+        say("timing", f"post_exchange {what}, partition 0: kernel {tk:.3f} ms "
+            f"({nb / tk / 1e6:.0f} GB/s), plain {tp:.3f} ms, bound {b:.3f} ms ({nb / 1e9:.3f} GB)")
+    say("timing", f"library: torch.sparse.mm over partition 0's real synapses, both buckets: "
+        f"{lib:.3f} ms")
+    out = [dict(name="post_exchange", ms=loc[0] + rem[0], plain_ms=loc[1] + rem[1],
+                bound_ms=loc[2] + rem[2], bound_by="bytes", library_ms=lib,
+                ms_full_pass=full[0], bound_ms_full_pass=full[2], path="k4_main",
+                per="one partition's local + remote pass")]
+
+    plan = dsim.event_plans[0]
+    act_remote = act.clone()
+    act_remote[:n_p] = 0.0
+    flags = event_mod.event_post_exchange_cuda(act_remote, work, None, write, plan, dev.cols,
+                                               dev.weights0)
+    n_ids = int(act_remote.sum())
+    block_rows = np.clip(n_p - plan.block_r * np.arange(plan.num_blocks), 0, plan.block_r)
+    rows = [int(block_rows[f > 0].sum()) for f in flags.cpu().numpy()]
+    slots = sum(r * c.shape[1] for r, c in zip(rows, dev.cols))
+    nd = len(dev.cols)
+    e_bytes = (slots * 8 + n * 4 + sum(rows) * 8 + n_ids * (8 + nd * plan.num_blocks)
+               + flags.numel() * 4)
+    tk = cuda_ms(lambda: event_mod.event_post_exchange_cuda(act_remote, work, None, write, plan,
+                                                            dev.cols, dev.weights0), 20)
+    tp = cuda_ms(lambda: event_mod.event_post_exchange_plain(act_remote, work, None, write,
+                                                             plan, dev.cols, dev.weights0), 5)
+    b, by = bound_ms(e_bytes, 2 * slots)
+    say("timing", f"event_post_exchange split use (remote pass, {n_ids} remote spikes, "
+        f"{sum(rows)} of {nd * n_p} (bucket, row) pairs flagged), partition 0: kernel "
+        f"{tk:.3f} ms ({e_bytes / tk / 1e6:.0f} GB/s), plain {tp:.3f} ms, bound {b:.3f} ms "
+        f"({e_bytes / 1e9:.3f} GB)")
+    out.append(dict(name="event_post_exchange_split", ms=tk, plain_ms=tp, bound_ms=b,
+                    bound_by=by, library_ms=lib, path="k4_main",
+                    per="one partition's remote pass"))
+    for k in out:
+        src, rep = SOURCES[k["name"]]
+        k.update(route="cuda", source=src, replaces=rep, max_abs_err=errs[k["name"]],
+                 launches=launches["event_post_exchange" if k["name"].startswith("event")
+                                   else k["name"]])
+    return out
+
+
+def phase_k4_engines(ses):
+    """Host-clock us/step of the split engines from the k>1 path's end state."""
+    dsim, per = ses.simulator, {}
+    mode0 = dsim.gather
+    for mode in ("dense", "event", "dense", "event"):
+        dsim.set_gather(mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dsim.run(ses.state, ENGINE_STEPS)
+        torch.cuda.synchronize()
+        per.setdefault(dsim.engine_choice.engine, []).append(
+            f"{(time.perf_counter() - t0) / ENGINE_STEPS * 1e6:.1f}")
+    dsim.set_gather(mode0)
+    say("timing", f"k>1 engines from the k>1 path's state, {ENGINE_STEPS} steps each, overlap "
+        "local, no monitors (host clock): "
+        + "; ".join(f"{e} {', '.join(us)} us/step" for e, us in per.items()))
+
+
+def cat_state(ses, key):
+    """A k>1 carry's per-partition vectors in the merged labelling."""
+    return torch.cat([c[key] for c in ses.state], dim=1 if key in ("ring", "hist") else 0)
+
+
+def require_plastic_equal(ses4, ses1, what):
+    """Raster-driving state of the k>1 plastic run against the k=1 run of
+    the merged net: hist, traces and weights bit for bit."""
+    n_p = ses4.simulator.stacked.n_p
+    for key in ("hist", "tr_plus", "tr_minus"):
+        require(torch.equal(cat_state(ses4, key), ses1.state[key]), f"{what}: {key} differs")
+    for i, w1 in enumerate(ses1.state["weights"]):
+        w4 = torch.cat([c["weights"][i][:n_p] for c in ses4.state])
+        require(torch.equal(w4, w1[: w4.shape[0]]), f"{what}: weights of bucket {i} differ")
+    v4 = cat_state(ses4, "vtx_state")[:, LIF_V]
+    v1 = ses1.state["vtx_state"][:, LIF_V]
+    return float((v4 - v1).abs().max())
+
+
+def plastic_k4_launches(overlap, fused, steps, nd):
+    if not fused:
+        return only(lif_step=K_PARTS * steps, spike_gather=K_PARTS * nd * steps,
+                    stdp_update=K_PARTS * nd * steps)
+    local = overlap != "off"
+    return only(pre_exchange=K_PARTS * steps, post_exchange=K_PARTS * steps * local,
+                post_exchange_plastic=K_PARTS * steps)
+
+
+def phase_k4_plastic_kernels(dsim, params, rng):
+    """Rows 5, 7 and 8 at the k>1 Brunel net's shapes, partition 0."""
+    dev, n_p, n = dsim.devs[0], dsim.devs[0].n_p, dsim.n_global
+    card = dev.vtx_state0.device
+    stdp = dsim.stdp_params
+    taus = (stdp["tau_plus"], stdp["tau_minus"])
+    lo, hi = params["v_reset"], params["v_thresh"] + 2.0
+    v = torch.from_numpy((lo + (hi - lo) * rng.random(n_p)).astype(np.float32)).to(card)
+    refrac = torch.from_numpy(rng.integers(0, 3, n_p).astype(np.float32)).to(card)
+    i_tot = dev.vtx_state0[:, LIF_BIAS] + torch.from_numpy(
+        rng.normal(0.0, 5.0, n_p).astype(np.float32)).to(card)
+    tp, tm = (torch.from_numpy(rng.random(n_p).astype(np.float32)).to(card) for _ in range(2))
+    got = split_mod.pre_exchange_cuda(v, refrac, i_tot, tp, tm, params=params, taus=taus)
+    want = ref.fused_pre_exchange_ref(v, refrac, i_tot, tp, tm, params=params, taus=taus)
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "pre_exchange differs from its plain version")
+    lif = lif_mod.lif_step_cuda(v, refrac, i_tot, params=params)
+    require(all(torch.equal(a, b) for a, b in zip(got[:3], lif)),
+            "pre_exchange LIF differs from the lif_step kernel")
+    say("k4", f"pre_exchange n_p={n_p}: bit-exact vs plain and vs lif_step + trace decay "
+        f"({int(got[2].sum())} spikes)")
+
+    # an exchanged activity: partition 0's spikes, then random others
+    act = (torch.rand(n, generator=torch.Generator(card).manual_seed(2), device=card)
+           < 0.05).float()
+    act[:n_p] = got[2]
+    pre = torch.rand(n, generator=torch.Generator(card).manual_seed(3), device=card)
+    pre[:n_p] = got[3]
+    post_t, post_s = got[4], got[2]
+    act_remote = act.clone()
+    act_remote[:n_p] = 0.0
+    ring, clear, onehot, _, _ = split_case(dsim, 9, 11)
+    cols, weights, plastic = dev.cols, dev.weights0, dev.plastic
+    R = cols[0].shape[0]
+    pt, ps = (torch.nn.functional.pad(x, (0, R - n_p)) for x in (post_t, post_s))
+    errs = {}
+    for name, a, cl in (("post_exchange_plastic", act, clear),
+                        ("post_exchange_remote_plastic", act_remote, None)):
+        new_ring, new_w = split_mod.post_exchange_plastic_cuda(
+            a, act, pre, ring, cl, onehot, post_t, post_s, cols, weights, plastic, stdp=stdp)
+        if cl is None:
+            want = ref.fused_post_exchange_remote_plastic_ref(
+                a, act, pre, ring, onehot, post_t, post_s, cols, weights, plastic, stdp=stdp)
+        else:
+            want = ref.fused_post_exchange_plastic_ref(
+                act, pre, ring, cl, onehot, post_t, post_s, cols, weights, plastic, stdp=stdp)
+        exact = compose_ring(a, ring, cl, onehot, cols, weights, n_p)
+        require(torch.equal(new_ring.view(torch.int32), exact.view(torch.int32)),
+                f"{name} ring differs from spike_gather + the ring formulation")
+        torch.testing.assert_close(new_ring, want[0], rtol=1e-5, atol=1e-5)
+        changed = 0
+        for nw, c, w, pm, pw in zip(new_w, cols, weights, plastic, want[1]):
+            require(torch.equal(nw, pw), f"{name} weights differ from the plain version")
+            require(torch.equal(nw, stdp_mod.stdp_update_cuda(w, pm, c, pre, act, pt, ps,
+                                                              params=stdp)),
+                    f"{name} weights differ from the stdp_update kernel")
+            changed += int((nw != w).sum())
+        require(changed > 0, f"{name} changed no weight")
+        errs[name] = float((new_ring - want[0]).abs().max())
+        say("k4", f"{name}, {len(cols)} buckets of {tuple(cols[0].shape)}: ring bit-exact vs "
+            "spike_gather + ring formulation, weights bit-exact vs plain and vs stdp_update "
+            f"({changed} slots change); ring max |kernel - plain| = {errs[name]:.3e} "
+            "(rtol=atol=1e-5)")
+    errs["pre_exchange"] = 0.0
+    inputs = dict(v=v, refrac=refrac, i_tot=i_tot, tp=tp, tm=tm, act=act, act_remote=act_remote,
+                  pre=pre, post_t=post_t, post_s=post_s, ring=ring, clear=clear, onehot=onehot)
+    return inputs, errs
+
+
+def phase_k4_plastic_path(ses4, ses1, k1_raster):
+    reset_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, _, raster, secs = run_session(ses4, STEPS)
+    launches = read_counts()
+    choice, dsim = ses4.engine_choice, ses4.simulator
+    nd = len(dsim.devs[0].cols)
+    say("k4p", f"engine {choice}, exchange {dsim.exchange}, gather modes "
+        f"{ses4.last_gather_modes}")
+    require(choice.engine == "fused_split_plastic" and choice.overlap == "local"
+            and dsim.exchange == "dense", f"k>1 plastic default resolved to {choice}")
+    require(launches == plastic_k4_launches("local", True, STEPS, nd),
+            f"k>1 plastic launches {launches}")
+    require(np.array_equal(raster.raster, k1_raster),
+            "k>1 plastic raster differs from the k=1 run of the merged net")
+    dv = require_plastic_equal(ses4, ses1, "k>1 plastic path")
+    peak = torch.cuda.max_memory_allocated()
+    say("k4p", f"{STEPS} steps, {K_PARTS} partitions on one card: {secs:.3f} s, "
+        f"{secs / STEPS * 1e6:.1f} us/step (host clock, monitors included); raster, hist, "
+        f"traces and weights bit-identical to the k=1 run of the merged net "
+        f"({int(raster.raster.sum())} spikes), max |v difference| {dv:.3e}")
+    say("k4p", f"launches {launches}; peak device memory {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated), {held / 2**30:.3f} GiB of it held before the run "
+        "(the k=1 plastic sessions' panels and states too)")
+    return launches
+
+
+def phase_k4_plastic_variants(base, card, fus1, k1_raster, nd):
+    """256 steps of each other split configuration on ``base``'s panels
+    against a fresh k=1 ``fused_plastic`` run of the merged net
+    (``fus1``)."""
+    out = {}
+    for label, cfg in (("overlap off", dict(overlap="off")),
+                       ("double_buffer", dict(overlap="double_buffer")),
+                       ("index exchange", dict(exchange="index")),
+                       ("unfused", dict(fused=False))):
+        ses = spmd_session(base.net, card, share=base, **cfg)
+        reset_counts()
+        res, _, raster, secs = run_session(ses, PARITY_STEPS)
+        launches = read_counts()
+        choice = ses.engine_choice
+        want = plastic_k4_launches(choice.overlap, choice.fused, PARITY_STEPS, nd)
+        require(launches == want, f"k>1 plastic {label} launches {launches}, expected {want}")
+        require(int(res.overflow.sum()) == 0, f"k>1 plastic {label} overflow")
+        require(np.array_equal(raster.raster, k1_raster[:PARITY_STEPS]),
+                f"k>1 plastic {label} raster differs from the k=1 plastic path's")
+        dv = require_plastic_equal(ses, fus1, f"k>1 plastic {label}")
+        say("k4p", f"{label} ({choice.engine}, overlap {choice.overlap}, exchange "
+            f"{ses.simulator.exchange}), {PARITY_STEPS} steps: raster, hist, traces and "
+            f"weights bit-identical to k=1 fused_plastic's, max |v difference| {dv:.3e}; "
+            f"{secs / PARITY_STEPS * 1e6:.1f} us/step; launches {launches}")
+        out[label] = launches
+        del ses
+    return out
+
+
+def phase_k4_plastic_timing(dsim, params, inputs, errs, launches):
+    dev, n_p, n = dsim.devs[0], dsim.devs[0].n_p, dsim.n_global
+    stdp = dsim.stdp_params
+    taus = (stdp["tau_plus"], stdp["tau_minus"])
+    x = inputs
+    cols, weights, plastic = dev.cols, dev.weights0, dev.plastic
+    D, nd, R = dsim.d_ring, len(cols), cols[0].shape[0]
+    slots = sum(c.numel() for c in cols)
+    out = []
+    tk = cuda_ms(lambda: split_mod.pre_exchange_cuda(x["v"], x["refrac"], x["i_tot"], x["tp"],
+                                                     x["tm"], params=params, taus=taus), 200)
+    tp = cuda_ms(lambda: ref.fused_pre_exchange_ref(x["v"], x["refrac"], x["i_tot"], x["tp"],
+                                                    x["tm"], params=params, taus=taus), 50)
+    b, by = bound_ms(40 * n_p, 14 * n_p)
+    say("timing", f"pre_exchange n_p={n_p}: kernel {tk * 1e3:.2f} us, plain {tp * 1e3:.2f} us, "
+        f"bound {b * 1e3:.3f} us ({40 * n_p} B)")
+    out.append(dict(name="pre_exchange", ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
+                    library_ms=None, path="k4_plastic"))
+    # 16 bytes a slot (col, weight, mask read, weight written), the three
+    # global vectors, the post terms, the ring read and written
+    nb = slots * 16 + 3 * n * 4 + 2 * n_p * 4 + 2 * D * n_p * 4 + (nd + 1) * D * 4
+    b, by = bound_ms(nb, 10 * slots)
+    work = x["ring"].clone()
+    for name, a, cl in (("post_exchange_remote_plastic", x["act_remote"], None),
+                        ("post_exchange_plastic", x["act"], x["clear"])):
+        tk = cuda_ms(lambda a=a, cl=cl: split_mod.post_exchange_plastic_cuda(
+            a, x["act"], x["pre"], work, cl, x["onehot"], x["post_t"], x["post_s"], cols,
+            weights, plastic, stdp=stdp, out=work), 50)
+        if cl is None:
+            tp = cuda_ms(lambda a=a: ref.fused_post_exchange_remote_plastic_ref(
+                a, x["act"], x["pre"], x["ring"], x["onehot"], x["post_t"], x["post_s"], cols,
+                weights, plastic, stdp=stdp), 5)
+        else:
+            tp = cuda_ms(lambda cl=cl: ref.fused_post_exchange_plastic_ref(
+                x["act"], x["pre"], x["ring"], cl, x["onehot"], x["post_t"], x["post_s"], cols,
+                weights, plastic, stdp=stdp), 5)
+        say("timing", f"{name} ({nd} buckets, {slots} slots, partition 0): kernel {tk:.4f} ms "
+            f"({nb / tk / 1e6:.0f} GB/s), plain {tp:.3f} ms, bound {b:.4f} ms ({nb / 1e9:.4f} GB)")
+        out.append(dict(name=name, ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
+                        library_ms=None,
+                        path="k4_plastic" if cl is None else "k4_plastic_overlap_off"))
+    for k in out:
+        src, rep = SOURCES[k["name"]]
+        k.update(route="cuda", source=src, replaces=rep, launches=launches[k["name"]],
+                 max_abs_err=errs[k["name"]], per="one partition's launch")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="network and input seed")
@@ -745,13 +1291,23 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the port's main path runs on the card",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
+    card = torch.device("cuda", torch.cuda.current_device())
 
+    # one build of the microcircuit, as the uniform k>1 net; the k=1 paths
+    # run its merge (the same labelling, with the inert padding neurons)
     t0 = time.perf_counter()
-    net = to_dcsr(microcircuit(scale=args.scale, seed=args.seed), k=1)
-    say("host", f"microcircuit(scale={args.scale}) -> to_dcsr: n={net.n}, m={net.m}, "
+    mdef = microcircuit(scale=args.scale, seed=args.seed)
+    d4 = to_dcsr(mdef, assignment=block_partition(mdef.n, K_PARTS), uniform=True)
+    say("host", f"microcircuit(scale={args.scale}) -> to_dcsr, {K_PARTS} uniform blocks: "
+        f"n={d4.n} ({d4.n - mdef.n} inert padding neurons), m={d4.m}, "
         f"{time.perf_counter() - t0:.1f} s")
+    del mdef
+    t0 = time.perf_counter()
+    net = merge_to_single(d4)
+    say("host", f"merge_to_single: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ses = Session(net, SimConfig())
     sim = ses.simulator
@@ -774,14 +1330,39 @@ def main(argv=None) -> int:
     phase_small_net()
     kernels = phase_timing(ses, params, inputs, event_act, errs, launches)
     phase_engines(ses)
-    del ses, sim, net, inputs  # the plastic path's memory is measured alone
+    del ses, sim, net, inputs  # the k>1 path's memory is measured alone
     gc.collect()
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    pnet = to_dcsr(balanced_ei(n=PLASTIC_N, stdp=True, seed=args.seed), k=1)
-    say("host", f"balanced_ei(n={PLASTIC_N}, stdp=True) -> to_dcsr: n={pnet.n}, "
-        f"m={pnet.m}, {time.perf_counter() - t0:.1f} s")
+    ses4 = spmd_session(d4, card)
+    dsim = ses4.simulator
+    torch.cuda.synchronize()
+    sub = {key: [tuple(a.shape) for a in getattr(dsim.devs[0], key)]
+           for key in ("cols", "cols_local", "cols_remote")}
+    gb = sum(a.numel() * 8 for dev in dsim.devs
+             for a in dev.cols + dev.cols_local + dev.cols_remote) / 1e9
+    say("host", f"Session(engine='spmd', devices=[card] * {K_PARTS}) (stack_partitions, "
+        f"split_overlap_panels, touch bitmaps, upload): {time.perf_counter() - t0:.1f} s; "
+        f"partition 0 panels {sub}; {gb:.3f} GB of cols + weights (whole and local/remote "
+        f"sub-panels) on the card; engine {ses4.engine_choice}; host peak RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f} GiB")
+    k4_act = main_raster[STEPS // 2]
+    k4_errs = phase_k4_kernels(dsim, k4_act)
+    k4_raster, k4_launches, _ = phase_k4_main(ses4, main_raster)
+    phase_k4_variants(ses4, card, k4_raster, len(dsim.devs[0].cols))
+    kernels += phase_k4_timing(dsim, k4_act, k4_errs, k4_launches)
+    phase_k4_engines(ses4)
+    del ses4, dsim, d4  # the plastic paths' memory is measured alone
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pd4 = to_dcsr(balanced_ei(n=PLASTIC_N, stdp=True, seed=args.seed),
+                  assignment=block_partition(PLASTIC_N, K_PARTS), uniform=True)
+    pnet = merge_to_single(pd4)
+    say("host", f"balanced_ei(n={PLASTIC_N}, stdp=True) -> to_dcsr, {K_PARTS} uniform blocks, "
+        f"and its merge: n={pnet.n}, m={pnet.m}, {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     pses = Session(pnet, SimConfig())
     psim = pses.simulator
@@ -795,12 +1376,28 @@ def main(argv=None) -> int:
     pparams = lif_params(pnet)
     p_inputs, p_errs = phase_plastic_kernels(psim, pparams, np.random.default_rng(args.seed))
     p_raster, p_launches = phase_plastic_path(pses, pnet.n)
-    unf, unf_launches = phase_plastic_parity(pnet, p_raster)
+    unf, fus, unf_launches = phase_plastic_parity(pnet, p_raster)
     # stdp_update runs only on the unfused plastic path: its count is that run's
     p_launches["stdp_update"] = unf_launches["stdp_update"]
     phase_plastic_engines(pses, unf)
     phase_plastic_small_net(args.seed)
     kernels += phase_plastic_timing(psim, pparams, p_inputs, p_errs, p_launches)
+
+    t0 = time.perf_counter()
+    pses4 = spmd_session(pd4, card)
+    pdsim = pses4.simulator
+    say("host", f"Session(engine='spmd', devices=[card] * {K_PARTS}) of the plastic net: "
+        f"{time.perf_counter() - t0:.1f} s; {len(pdsim.devs[0].cols)} buckets of "
+        f"{tuple(pdsim.devs[0].cols[0].shape)} a partition; engine {pses4.engine_choice}")
+    k4p_inputs, k4p_errs = phase_k4_plastic_kernels(pdsim, pparams,
+                                                    np.random.default_rng(args.seed))
+    k4p_launches = phase_k4_plastic_path(pses4, pses, p_raster)
+    k4p_var = phase_k4_plastic_variants(pses4, card, fus, p_raster, len(pdsim.devs[0].cols))
+    kernels += phase_k4_plastic_timing(pdsim, pparams, k4p_inputs, k4p_errs, dict(
+        pre_exchange=k4p_launches["pre_exchange"],
+        post_exchange_remote_plastic=k4p_launches["post_exchange_plastic"],
+        post_exchange_plastic=k4p_var["overlap off"]["post_exchange_plastic"]))
+    say("done", f"every phase passed; whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -7,11 +7,13 @@ packages:
   * :func:`network_from_arrays` builds the port's ``DCSRNetwork`` from the
     reference's partition arrays, registry entries and meta;
   * :func:`carry_from_arrays` builds the port's step carry from the
-    reference ``Simulator``'s carry.
+    reference ``Simulator``'s carry, or the list of per-partition carries
+    of the port's ``DistSimulator`` from the reference ``DistSimulator``'s
+    stacked ``(k, ...)`` carry.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,18 +64,34 @@ def carry_from_arrays(
     tr_plus: np.ndarray,
     tr_minus: np.ndarray,
     device,
-) -> Dict:
+) -> Union[Dict, List[Dict]]:
     """The port's step carry on ``device`` from the reference carry's
-    arrays (``t`` as a host int, the tensors in the reference's dtypes)."""
-    def put(a, dtype):
-        return torch.as_tensor(np.array(a, copy=True), dtype=dtype, device=device)
+    arrays (``t`` as a host int, the tensors in the reference's dtypes).
 
-    return dict(
-        t=int(t),
-        vtx_state=put(vtx_state, torch.float32),
-        ring=put(ring, torch.float32),
-        hist=put(hist, torch.uint8),
-        weights=tuple(put(w, torch.float32) for w in weights),
-        tr_plus=put(tr_plus, torch.float32),
-        tr_minus=put(tr_minus, torch.float32),
-    )
+    A stacked carry of the reference ``DistSimulator`` (``vtx_state`` of
+    shape ``(k, n_p, S)``, every other array with the same leading
+    partition axis) gives the list of k per-partition carries that the
+    port's ``DistSimulator`` runs; ``device`` is then one device for all
+    partitions or a sequence of k."""
+    def put(a, dtype, dev):
+        return torch.as_tensor(np.array(a, copy=True), dtype=dtype, device=dev)
+
+    def one(p, dev):
+        pick = (lambda a: np.asarray(a)) if p is None else (lambda a: np.asarray(a)[p])
+        return dict(
+            t=int(t),
+            vtx_state=put(pick(vtx_state), torch.float32, dev),
+            ring=put(pick(ring), torch.float32, dev),
+            hist=put(pick(hist), torch.uint8, dev),
+            weights=tuple(put(pick(w), torch.float32, dev) for w in weights),
+            tr_plus=put(pick(tr_plus), torch.float32, dev),
+            tr_minus=put(pick(tr_minus), torch.float32, dev),
+        )
+
+    if np.ndim(vtx_state) == 2:
+        return one(None, device)
+    k = np.shape(vtx_state)[0]
+    devices = [device] * k if isinstance(device, (str, torch.device)) else list(device)
+    if len(devices) != k:
+        raise ValueError(f"{len(devices)} devices for a carry of {k} partitions")
+    return [one(p, dev) for p, dev in enumerate(devices)]

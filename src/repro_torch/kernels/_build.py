@@ -150,6 +150,13 @@ _SIGNATURES = {
         [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P] * 5 + [_I]
     ),
     "repro_event_step_max_buckets": [],
+    "repro_pre_exchange": [_P] * 10 + [_I] + [_F] * 9 + [_P, _I],
+    "repro_post_exchange": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P, _I],
+    "repro_post_exchange_max_buckets": [],
+    "repro_post_exchange_plastic": (
+        [_P] * 9 + [_I] * 4 + [_P] * 5 + [_F] * 4 + [_P, _I]
+    ),
+    "repro_post_exchange_plastic_max_buckets": [],
 }
 
 

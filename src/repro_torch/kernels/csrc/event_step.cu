@@ -1,7 +1,12 @@
-// Event-driven post-exchange step at k=1 in one cooperative launch: compress
-// the spike vector to spike ids, flag the row blocks those ids touch, then
+// Event-driven post-exchange step in one cooperative launch: compress the
+// activity vector to spike ids, flag the row blocks those ids touch, then
 // clear the delivered ring slot and gather-accumulate only the flagged rows
-// of every delay bucket into the ring.
+// of every delay bucket into the ring.  At k=1 the activity is the
+// partition's own spike vector; in the split engine (fused_split_event) it is
+// the exchanged (n_global,) vector while the ring has the partition's n_p
+// rows, and the overlap mode's remote pass runs with no clear (slot < 0), as
+// the reference passes a clear mask of ones there
+// (src/repro/snn/simulator.py:370-376, :608-614).
 //
 // Replaces: src/repro/kernels/event_step.py:event_post_exchange_pallas
 // (pallas_call at :198, body _make_event_kernel:135), together with the
@@ -48,7 +53,7 @@ struct EventArgs {
   int* flags;   // (nd, nb) out
   float* ring;  // (D, n_p), updated in place
   int n_p;
-  int slot;  // ring slot delivered this step (cleared here)
+  int slot;  // ring slot delivered this step (cleared here); < 0: no clear
   int nb;
   int block_r;
   int nd;
@@ -61,14 +66,16 @@ struct EventArgs {
 __global__ void __launch_bounds__(kThreads) event_step_kernel(const EventArgs a) {
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nthreads = gridDim.x * blockDim.x;
-  float* ring_slot = a.ring + static_cast<size_t>(a.slot) * a.n_p;
+  float* ring_slot = a.ring + static_cast<size_t>(a.slot < 0 ? 0 : a.slot) * a.n_p;
   for (int j = tid; j < a.n; j += nthreads) {
     if (a.act[j] > 0.0f) {
       const int pos = atomicAdd(a.count, 1);
       if (pos < a.cap) a.ids[pos] = j;
     }
   }
-  for (int r = tid; r < a.n_p; r += nthreads) ring_slot[r] = 0.0f;
+  if (a.slot >= 0) {
+    for (int r = tid; r < a.n_p; r += nthreads) ring_slot[r] = 0.0f;
+  }
   cg::grid_group grid = cg::this_grid();
   grid.sync();
 

@@ -10,18 +10,40 @@ The backend follows the tensor's device: a CUDA tensor always takes the
 kernel, and a CPU tensor the plain version.  This is the reverse of the
 reference, which sends everything off the TPU to ``ref``.
 
-``select_step_engine`` picks ``fused`` (one cooperative launch per step),
-``fused_plastic`` (the same launch with both trace decays and the STDP
-update of every panel), ``fused_event`` (``lif_step`` plus one cooperative
-event-gather launch) or ``unfused`` (``lif_step`` plus one ``spike_gather``
-launch per delay bucket, and on plastic nets the trace decays as torch ops
-and one ``stdp_update`` launch per bucket).  The reference's VMEM budgets
-have no counterpart: the kernels keep nothing resident beyond what L2 holds
-on its own, so the only limits are the ones the kernels really have
-(LIF-only, and a 32-entry per-bucket argument table).  In particular the
-reference sends plastic partitions of more than ``FUSED_PLASTIC_MAX_N_P``
-(157,286) neurons to ``unfused``, for its ten VMEM-resident state and trace
-vectors; the port fuses them.
+``select_step_engine`` picks one of ``STEP_ENGINES``:
+
+  * ``fused`` -- one cooperative launch per step (identity exchange, k=1);
+  * ``fused_plastic`` -- the same launch with both trace decays and the
+    STDP update of every panel;
+  * ``fused_event`` -- ``lif_step`` plus one cooperative event-gather launch;
+  * ``fused_split`` -- the fusion split at the exchange (k>1):
+    ``lif_step``, the exchange, then one ``post_exchange`` launch (ring
+    rotate and every bucket's gather);
+  * ``fused_split_plastic`` -- ``pre_exchange`` (LIF and both trace
+    decays), the exchange of spikes and pre-traces, then one
+    ``post_exchange_plastic`` launch (ring, gathers and STDP);
+  * ``fused_split_event`` -- ``lif_step``, the exchange, then the event
+    gather over the exchanged activity;
+  * ``unfused`` -- ``lif_step`` plus one ``spike_gather`` launch per delay
+    bucket, and on plastic nets the trace decays as torch ops and one
+    ``stdp_update`` launch per bucket.
+
+The split engines carry an overlap mode (``StepEngineChoice.overlap``):
+``off`` runs the post-exchange pass after the exchange; ``local`` splits it
+into a pass over the own partition's synapses and a remote pass behind the
+exchange; ``double_buffer`` defers the remote pass of step t to the top of
+step t+1.  ``overlap="auto"`` resolves to ``local`` on the ``cuda`` backend
+and to ``off`` on ``ref``, as the reference resolves it per backend
+(``local`` on its compiled kernels).
+
+The reference's VMEM budgets (``FUSED_*_MAX_N_P``,
+``FUSED_SPLIT_*_MAX_N_GLOBAL``, the event id-buffer budget) have no
+counterpart: the kernels keep nothing resident beyond what L2 holds on its
+own, so the only limits are the ones the kernels really have (LIF-only, and
+a 32-entry per-bucket argument table).  In particular the reference sends
+plastic partitions of more than ``FUSED_PLASTIC_MAX_N_P`` (157,286) neurons
+to ``unfused``, for its ten VMEM-resident state and trace vectors; the port
+fuses them.
 """
 from __future__ import annotations
 
@@ -104,25 +126,40 @@ FUSED_MAX_BUCKETS = 32
 EVENT_ACTIVITY_THRESHOLD = 0.002
 
 
+STEP_ENGINES = (
+    "fused", "fused_plastic", "fused_event",
+    "fused_split", "fused_split_plastic", "fused_split_event",
+    "unfused",
+)
+OVERLAP_MODES = ("off", "local", "double_buffer")
+
+
 @dataclasses.dataclass(frozen=True)
 class StepEngineChoice:
-    engine: str  # "fused", "fused_plastic", "fused_event" or "unfused"
+    engine: str  # one of STEP_ENGINES
     reason: str
-    overlap: str = "off"  # no collective at k=1
+    # resolved overlap mode (one of OVERLAP_MODES); "off" for the engines
+    # that are not split: there is no exchange to overlap
+    overlap: str = "off"
 
     @property
     def fused(self) -> bool:
         return self.engine != "unfused"
 
     @property
+    def split(self) -> bool:
+        """True for the engines split at the exchange (k>1)."""
+        return self.engine in ("fused_split", "fused_split_plastic", "fused_split_event")
+
+    @property
     def plastic(self) -> bool:
-        """True for the variant that folds the STDP pass into the fused
+        """True for the variants that fold the STDP pass into the fused
         step."""
-        return self.engine == "fused_plastic"
+        return self.engine in ("fused_plastic", "fused_split_plastic")
 
     @property
     def event(self) -> bool:
-        return self.engine == "fused_event"
+        return self.engine in ("fused_event", "fused_split_event")
 
 
 def event_gather_blocker(any_plastic: bool) -> Optional[str]:
@@ -168,29 +205,46 @@ def select_step_engine(
     identity_rows: bool,
     n_delay_buckets: int,
     any_plastic: bool = False,
+    identity_exchange: bool = True,
+    n_global: Optional[int] = None,
     fused: Optional[bool] = None,
     gather: str = "dense",
+    overlap: str = "off",
 ) -> StepEngineChoice:
-    """Pick ``fused``, ``fused_plastic``, ``fused_event`` or ``unfused`` for
-    a k=1 partition.
+    """Pick one of ``STEP_ENGINES`` for a partition's step.
+
+    ``identity_exchange`` is a placement input, as in the reference: the
+    identity exchange (k=1 dense) takes the single-launch engines, any other
+    exchange (k>1, over ``n_global`` ids) the split ones.  ``any_plastic``
+    selects the ``*_plastic`` variant and never blocks fusion.
 
     ``fused=None`` (auto) fuses whenever the partition is eligible and the
     backend runs the CUDA kernels; on ``ref`` it composes the plain versions
     unfused, as the reference does on its ``ref`` backend.  ``fused=True``
     demands fusion (raises if the partition is ineligible); ``fused=False``
-    disables it.  ``any_plastic`` selects the ``fused_plastic`` variant; it
-    never blocks fusion (the reference's ``FUSED_PLASTIC_MAX_N_P`` has no
-    counterpart here).  ``gather="event"`` takes the event-driven variant
-    of the fused engine; a plastic partition (``event_gather_blocker``)
-    falls back to ``fused_plastic`` with the reason attached, unless
-    ``fused=True`` demanded the event engine, which raises.  SimConfig's
-    ``"auto"`` is resolved by ``Session`` per chunk and never reaches
-    here."""
+    disables it.  ``gather="event"`` takes the event-driven variant; a
+    plastic partition (``event_gather_blocker``) keeps the dense variant with
+    the reason attached, unless ``fused=True`` demanded the event engine,
+    which raises.  SimConfig's ``gather="auto"`` is resolved by ``Session``
+    per chunk and never reaches here.
+
+    ``overlap`` is SimConfig's mode; ``"auto"`` resolves to ``"local"`` on
+    ``cuda`` and to ``"off"`` on ``ref`` and for identity exchanges.  An
+    explicit mode on an identity exchange has no exchange to overlap: it
+    falls back to ``"off"`` with the reason attached, or raises with
+    ``fused=True``.  The resolved mode is ``StepEngineChoice.overlap``."""
     if gather not in ("dense", "event"):
         raise ValueError(
             f"select_step_engine(gather={gather!r}): expected 'dense' or "
             "'event' ('auto' is resolved by Session before selection)"
         )
+    if overlap not in ("auto",) + OVERLAP_MODES:
+        raise ValueError(
+            f"select_step_engine(overlap={overlap!r}): expected 'auto' or one "
+            f"of {OVERLAP_MODES}"
+        )
+    if overlap == "auto":
+        overlap = "local" if backend == "cuda" and not identity_exchange else "off"
     if fused is False:
         return StepEngineChoice("unfused", "disabled by config")
     blocker = _fusion_blocker(models_present, identity_rows, n_delay_buckets)
@@ -198,21 +252,39 @@ def select_step_engine(
         if fused is True:
             raise ValueError(f"fused step engine requested but: {blocker}")
         return StepEngineChoice("unfused", blocker)
-    target, placement = "fused", "identity exchange"
+    target = "fused" if identity_exchange else "fused_split"
+    placement = (
+        "identity exchange" if identity_exchange
+        else f"split at the exchange of {n_global} global ids"
+    )
     if any_plastic:
-        target, placement = "fused_plastic", placement + ", STDP fused into the panel pass"
+        target += "_plastic"
+        placement += ", STDP fused into the panel pass"
     if gather == "event":
         eb = event_gather_blocker(any_plastic)
         if eb is None:
-            target, placement = "fused_event", placement + ", event-driven gather"
+            target = "fused_event" if identity_exchange else "fused_split_event"
+            placement += ", event-driven gather"
         elif fused is True:
             raise ValueError(f"event-driven gather requested but: {eb}")
         else:
             placement += f" (event gather unavailable: {eb})"
+    resolved = "off"
+    if overlap != "off":
+        if not identity_exchange:
+            resolved = overlap
+            placement += f", {overlap} exchange/compute overlap"
+        elif fused is True:
+            raise ValueError(
+                f"overlap={overlap!r} requested but: identity exchange has no "
+                "collective to overlap"
+            )
+        else:
+            placement += " (overlap unavailable: identity exchange has no collective to overlap)"
     if fused is True:
-        return StepEngineChoice(target, f"forced by config ({placement})")
+        return StepEngineChoice(target, f"forced by config ({placement})", resolved)
     if backend == "cuda":
-        return StepEngineChoice(target, f"auto: cuda backend ({placement})")
+        return StepEngineChoice(target, f"auto: cuda backend ({placement})", resolved)
     return StepEngineChoice(
         "unfused", "auto: 'ref' backend composes the plain torch versions"
     )

@@ -18,6 +18,12 @@ keeps its value: the rasters of the event and the dense engines are
 identical.  The reference's ``sel`` block selectors exist only to alias
 TPU block fetches and have no counterpart here.
 
+In the split engine (``fused_split_event``, k>1) the activity is the
+exchanged ``(n_global,)`` vector, the touch bitmaps of each partition run
+over ``n_global`` ids, and the ring has the partition's ``n_p`` rows; the
+overlap mode's remote pass passes ``slot=None`` (no clear), where the
+reference passes a clear mask of ones.
+
 :func:`event_post_exchange_cuda` launches the kernel on CUDA tensors and
 raises on any other; ``ops.event_post_exchange`` takes the plain version
 (:func:`event_post_exchange_plain`) only for CPU tensors.
@@ -25,7 +31,7 @@ raises on any other; ``ops.event_post_exchange`` takes the plain version
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -133,18 +139,19 @@ def event_select_plain(act: torch.Tensor, touch: torch.Tensor, cap: int) -> torc
 def event_post_exchange_plain(
     act: torch.Tensor,  # (n,) spike vector
     ring: torch.Tensor,  # (D, n_p) ring, updated in place
-    slot: int,  # delivered slot, cleared
+    slot: Optional[int],  # delivered slot, cleared (None: no clear)
     write_slots: Sequence[int],  # per bucket (t + d) % D
     plan: EventPlan,
     cols: Sequence[torch.Tensor],
     weights: Sequence[torch.Tensor],
 ) -> torch.Tensor:
-    """The kernel's contract: clear ``ring[slot]``, then per bucket in order
-    add the flagged rows' gathers to ``ring[write_slot]``.  Returns the
-    flags."""
+    """The kernel's contract: clear ``ring[slot]`` (unless ``slot`` is
+    None), then per bucket in order add the flagged rows' gathers to
+    ``ring[write_slot]``.  Returns the flags."""
     flags = event_select_plain(act, plan.touch, plan.cap)
     n_p = ring.shape[1]
-    ring[slot] = 0.0
+    if slot is not None:
+        ring[slot] = 0.0
     for b, (c, w, ws) in enumerate(zip(cols, weights, write_slots)):
         rows = flags[b].repeat_interleave(plan.block_r)[:n_p].bool()
         cur = spike_gather_ref(act, c, w)[:n_p]
@@ -155,14 +162,15 @@ def event_post_exchange_plain(
 def event_post_exchange_cuda(
     act: torch.Tensor,
     ring: torch.Tensor,
-    slot: int,
+    slot: Optional[int],
     write_slots: Sequence[int],
     plan: EventPlan,
     cols: Sequence[torch.Tensor],
     weights: Sequence[torch.Tensor],
 ) -> torch.Tensor:
     """Launch the kernel (one cooperative launch); updates ``ring`` in place
-    and returns the ``(nd, num_blocks)`` int32 flags."""
+    (``slot=None``: no clear) and returns the ``(nd, num_blocks)`` int32
+    flags."""
     nd = len(cols)
     if not 1 <= nd <= MAX_BUCKETS or len(weights) != nd or len(write_slots) != nd:
         raise ValueError(
@@ -194,7 +202,7 @@ def event_post_exchange_cuda(
             f"touch bitmaps {tuple(plan.touch.shape)} do not cover {nd} buckets "
             f"of {R} rows in blocks of {plan.block_r} over {n} ids"
         )
-    if not all(0 <= s < D for s in (slot, *write_slots)):
+    if not all(0 <= s < D for s in ((0 if slot is None else slot), *write_slots)):
         raise ValueError(f"ring slots {slot}, {tuple(write_slots)} outside [0, {D})")
     flags = torch.empty((nd, plan.num_blocks), dtype=torch.int32, device=dev)
     if n_p == 0:
@@ -207,7 +215,8 @@ def event_post_exchange_cuda(
     rc = _build.library().repro_event_step(
         act.data_ptr(), n, plan.touch.data_ptr(),
         ids.data_ptr(), count.data_ptr(), plan.cap, flags.data_ptr(),
-        ring.data_ptr(), n_p, int(slot), plan.num_blocks, plan.block_r, nd,
+        ring.data_ptr(), n_p, -1 if slot is None else int(slot),
+        plan.num_blocks, plan.block_r, nd,
         ptrs(*[c.data_ptr() for c in cols]),
         ptrs(*[w.data_ptr() for w in weights]),
         ints(*[c.shape[1] for c in cols]),

@@ -1,5 +1,5 @@
 """Public kernel entry points of the port (counterpart of
-``repro/kernels/ops.py:79-204, 362-393``).
+``repro/kernels/ops.py:79-426``).
 
 Each op takes its backend from the device of its first tensor
 (``dispatch.backend_for``) and calls the recorded implementation: the CUDA
@@ -15,6 +15,7 @@ from .fused_step import (
 )
 from .lif_step import lif_step_cuda
 from .spike_gather import spike_gather_cuda
+from .split_step import post_exchange_cuda, post_exchange_plastic_cuda, pre_exchange_cuda
 from .stdp_update import stdp_update_cuda, stdp_update_plain
 
 # -- spike_gather ---------------------------------------------------------
@@ -114,4 +115,168 @@ def event_post_exchange(act, ring, slot, write_slots, plan, cols, weights):
     for the active ids of ``act``.  Returns the ``(nd, num_blocks)`` flags."""
     return lookup("event_post_exchange", backend_for(act.device))(
         act, ring, slot, tuple(write_slots), plan, tuple(cols), tuple(weights)
+    )
+
+
+# -- the split (k>1) step ----------------------------------------------------
+#
+# Each post-exchange op returns the new ring; with ``out`` it writes it there
+# (``out`` may be ``ring``: every ring element is read before it is written,
+# by the same thread on the card).
+
+def _into(out, ring):
+    if out is not None:
+        out.copy_(ring)
+        return out
+    return ring
+
+
+@implementation("fused_pre_exchange", "ref")
+def _fused_pre_exchange_ref(v, refrac, i_tot, tr_plus=None, tr_minus=None, *,
+                            params, taus=None):
+    return ref.fused_pre_exchange_ref(
+        v, refrac, i_tot, tr_plus, tr_minus, params=params, taus=taus
+    )
+
+
+@implementation("fused_pre_exchange", "cuda")
+def _fused_pre_exchange_cuda(v, refrac, i_tot, tr_plus=None, tr_minus=None, *,
+                             params, taus=None):
+    if tr_plus is None:  # the trace-free variant is lif_step, as in the reference
+        return lif_step_cuda(v, refrac, i_tot, params=params)
+    return pre_exchange_cuda(v, refrac, i_tot, tr_plus, tr_minus, params=params, taus=taus)
+
+
+def fused_pre_exchange(v, refrac, i_tot, tr_plus=None, tr_minus=None, *, params,
+                       taus=None):
+    """Pre-exchange half of the split step: LIF advance and spike emission,
+    plus both trace decays when traces are passed.  Returns ``(v', refrac',
+    spikes[, tr_plus', tr_minus'])``."""
+    return lookup("fused_pre_exchange", backend_for(v.device))(
+        v, refrac, i_tot, tr_plus, tr_minus, params=params, taus=taus
+    )
+
+
+@implementation("fused_post_exchange", "ref")
+def _fused_post_exchange_ref(act, ring, clear_mask, write_onehot, cols, weights, *,
+                             out=None):
+    return _into(out, ref.fused_post_exchange_ref(
+        act, ring, clear_mask, write_onehot, cols, weights))
+
+
+implementation("fused_post_exchange", "cuda")(post_exchange_cuda)
+
+
+def fused_post_exchange(act, ring, clear_mask, write_onehot, cols, weights, *, out=None):
+    """Post-exchange half of the split step: ``ring * clear_mask``, then per
+    bucket in order ``+ write_onehot[i] (x) gather_i(act)``."""
+    return lookup("fused_post_exchange", backend_for(ring.device))(
+        act, ring, clear_mask, write_onehot, tuple(cols), tuple(weights), out=out
+    )
+
+
+@implementation("fused_post_exchange_local", "ref")
+def _fused_post_exchange_local_ref(act_local, ring, clear_mask, write_onehot, cols,
+                                   weights, *, out=None):
+    return _into(out, ref.fused_post_exchange_local_ref(
+        act_local, ring, clear_mask, write_onehot, cols, weights))
+
+
+implementation("fused_post_exchange_local", "cuda")(post_exchange_cuda)
+
+
+def fused_post_exchange_local(act_local, ring, clear_mask, write_onehot, cols, weights,
+                              *, out=None):
+    """Local pass of the overlapped split step: the ring rotate and the
+    gathers of the local sub-panels (local ids) from the partition's own
+    ``(n_p,)`` activity."""
+    return lookup("fused_post_exchange_local", backend_for(ring.device))(
+        act_local, ring, clear_mask, write_onehot, tuple(cols), tuple(weights), out=out
+    )
+
+
+@implementation("fused_post_exchange_remote", "ref")
+def _fused_post_exchange_remote_ref(act, ring, write_onehot, cols, weights, *, out=None):
+    return _into(out, ref.fused_post_exchange_remote_ref(
+        act, ring, write_onehot, cols, weights))
+
+
+@implementation("fused_post_exchange_remote", "cuda")
+def _fused_post_exchange_remote_cuda(act, ring, write_onehot, cols, weights, *, out=None):
+    return post_exchange_cuda(act, ring, None, write_onehot, cols, weights, out=out)
+
+
+def fused_post_exchange_remote(act, ring, write_onehot, cols, weights, *, out=None):
+    """Remote pass of the overlapped split step: the remote sub-panels'
+    gathers added on top of the local pass's ring, with no clear."""
+    return lookup("fused_post_exchange_remote", backend_for(ring.device))(
+        act, ring, write_onehot, tuple(cols), tuple(weights), out=out
+    )
+
+
+@implementation("fused_post_exchange_plastic", "ref")
+def _fused_post_exchange_plastic_ref(act, pre_trace, ring, clear_mask, write_onehot,
+                                     post_trace, post_spike, cols, weights, plastic, *,
+                                     stdp, out=None):
+    new_ring, new_w = ref.fused_post_exchange_plastic_ref(
+        act, pre_trace, ring, clear_mask, write_onehot, post_trace, post_spike,
+        cols, weights, plastic, stdp=stdp,
+    )
+    return _into(out, new_ring), new_w
+
+
+@implementation("fused_post_exchange_plastic", "cuda")
+def _fused_post_exchange_plastic_cuda(act, pre_trace, ring, clear_mask, write_onehot,
+                                      post_trace, post_spike, cols, weights, plastic, *,
+                                      stdp, out=None):
+    return post_exchange_plastic_cuda(
+        act, act, pre_trace, ring, clear_mask, write_onehot, post_trace, post_spike,
+        cols, weights, plastic, stdp=stdp, out=out,
+    )
+
+
+def fused_post_exchange_plastic(act, pre_trace, ring, clear_mask, write_onehot,
+                                post_trace, post_spike, cols, weights, plastic, *,
+                                stdp, out=None):
+    """Plastic post-exchange half: ring rotate, every bucket's gather from
+    the pre-update weights and its masked STDP update.  Returns
+    ``(new_ring, new_weights)``; the new weights are new tensors.  ``stdp``
+    carries a_plus/a_minus/w_min/w_max (other keys are ignored)."""
+    return lookup("fused_post_exchange_plastic", backend_for(ring.device))(
+        act, pre_trace, ring, clear_mask, write_onehot, post_trace, post_spike,
+        tuple(cols), tuple(weights), tuple(plastic), stdp=stdp, out=out,
+    )
+
+
+@implementation("fused_post_exchange_remote_plastic", "ref")
+def _fused_post_exchange_remote_plastic_ref(act_remote, act, pre_trace, ring,
+                                            write_onehot, post_trace, post_spike, cols,
+                                            weights, plastic, *, stdp, out=None):
+    new_ring, new_w = ref.fused_post_exchange_remote_plastic_ref(
+        act_remote, act, pre_trace, ring, write_onehot, post_trace, post_spike,
+        cols, weights, plastic, stdp=stdp,
+    )
+    return _into(out, new_ring), new_w
+
+
+@implementation("fused_post_exchange_remote_plastic", "cuda")
+def _fused_post_exchange_remote_plastic_cuda(act_remote, act, pre_trace, ring,
+                                             write_onehot, post_trace, post_spike, cols,
+                                             weights, plastic, *, stdp, out=None):
+    return post_exchange_plastic_cuda(
+        act_remote, act, pre_trace, ring, None, write_onehot, post_trace, post_spike,
+        cols, weights, plastic, stdp=stdp, out=out,
+    )
+
+
+def fused_post_exchange_remote_plastic(act_remote, act, pre_trace, ring, write_onehot,
+                                       post_trace, post_spike, cols, weights, plastic, *,
+                                       stdp, out=None):
+    """Plastic remote pass of the overlapped split step: the gathers of
+    ``act_remote`` (own slice zeroed) added to the ring with no clear, and
+    the STDP update from the full ``act`` and ``pre_trace``.  Returns
+    ``(new_ring, new_weights)``."""
+    return lookup("fused_post_exchange_remote_plastic", backend_for(ring.device))(
+        act_remote, act, pre_trace, ring, write_onehot, post_trace, post_spike,
+        tuple(cols), tuple(weights), tuple(plastic), stdp=stdp, out=out,
     )

@@ -203,3 +203,151 @@ def fused_step_plastic_ref(
             w_min=stdp["w_min"], w_max=stdp["w_max"],
         ))
     return v2, r2, s, tp, tm, currents, new_weights
+
+
+# -- the split (k>1) step: pre-exchange and post-exchange halves -----------
+
+def fused_pre_exchange_ref(
+    v: Tensor,  # (n_p,)
+    refrac: Tensor,  # (n_p,)
+    i_tot: Tensor,  # (n_p,) total input current (syn + noise + bias)
+    tr_plus: Tensor = None,  # (n_p,) presynaptic e-trace (optional)
+    tr_minus: Tensor = None,  # (n_p,) postsynaptic e-trace (optional)
+    *,
+    params: Dict[str, float],
+    taus: Tuple[float, float] = None,  # (tau_plus, tau_minus) with traces
+):
+    """Everything before the spike exchange: LIF advance and spike
+    emission, plus both trace decays when traces are passed.  Returns
+    ``(v', refrac', spikes)`` or ``(v', refrac', spikes, tr_plus',
+    tr_minus')``."""
+    v2, r2, s = lif_step_ref(v, refrac, i_tot, **params)
+    if tr_plus is None:
+        return v2, r2, s
+    dt = params["dt"]
+    return (
+        v2, r2, s,
+        trace_decay_ref(tr_plus, s, dt=dt, tau=taus[0]),
+        trace_decay_ref(tr_minus, s, dt=dt, tau=taus[1]),
+    )
+
+
+def _ring_accumulate(ring, clear_mask, write_onehot, currents):
+    """The reference's ring formulation (ground rule (e)): the rotate as a
+    mask multiply, then per bucket in order ``+ onehot[i] (x) cur_i``.
+    ``clear_mask=None`` is the remote passes' clear of ones (``x * 1`` is
+    ``x`` bit for bit, so the multiply is left out)."""
+    new_ring = ring if clear_mask is None else ring * clear_mask[:, None]
+    for i, cur in enumerate(currents):
+        new_ring = new_ring + write_onehot[i][:, None] * cur[None, :]
+    return new_ring
+
+
+def fused_post_exchange_ref(
+    act: Tensor,  # (n,) exchanged global activity
+    ring: Tensor,  # (D, n_p) future-current ring buffer (uncleared)
+    clear_mask: Tensor,  # (D,) 0 at the just-delivered slot, 1 else
+    write_onehot: Tensor,  # (nd, D) one-hot of (t + d) % D per bucket
+    cols: Sequence[Tensor],  # per delay bucket (R, K_d) int32, global ids
+    weights: Sequence[Tensor],  # per delay bucket (R, K_d)
+) -> Tensor:
+    """Everything after the spike exchange: the ring rotate (clear the
+    delivered slot) and every delay bucket's gather-accumulate.  Returns
+    the new ring."""
+    n_p = ring.shape[1]
+    currents = [spike_gather_ref(act, c, w)[:n_p] for c, w in zip(cols, weights)]
+    return _ring_accumulate(ring, clear_mask, write_onehot, currents)
+
+
+def fused_post_exchange_local_ref(
+    act_local: Tensor,  # (n_p,) own-partition activity (before the exchange)
+    ring: Tensor,  # (D, n_p) ring (uncleared)
+    clear_mask: Tensor,  # (D,)
+    write_onehot: Tensor,  # (nd, D)
+    cols: Sequence[Tensor],  # per delay bucket (R, K_l) int32, LOCAL ids
+    weights: Sequence[Tensor],
+) -> Tensor:
+    """The local pass of the overlapped split step: the ring rotate and the
+    gathers of the local sub-panels from the partition's own activity."""
+    return fused_post_exchange_ref(act_local, ring, clear_mask, write_onehot, cols, weights)
+
+
+def fused_post_exchange_remote_ref(
+    act: Tensor,  # (n,) exchanged global activity
+    ring: Tensor,  # (D, n_p) ring already rotated by the local pass
+    write_onehot: Tensor,  # (nd, D)
+    cols: Sequence[Tensor],  # per delay bucket (R, K_r) int32, remote ids
+    weights: Sequence[Tensor],
+) -> Tensor:
+    """The remote pass of the overlapped split step: the remote sub-panels'
+    gathers added on top of the local pass's ring, with no clear."""
+    n_p = ring.shape[1]
+    currents = [spike_gather_ref(act, c, w)[:n_p] for c, w in zip(cols, weights)]
+    return _ring_accumulate(ring, None, write_onehot, currents)
+
+
+def _post_exchange_plastic(
+    act_gather, act, pre_trace, ring, clear_mask, write_onehot, post_trace,
+    post_spike, cols, weights, plastic, stdp,
+):
+    n_p = ring.shape[1]
+    currents, new_weights = [], []
+    for c, w, pm in zip(cols, weights, plastic):
+        currents.append(spike_gather_ref(act_gather, c, w)[:n_p])
+        pad_r = c.shape[0] - n_p
+        post_t = torch.nn.functional.pad(post_trace, (0, pad_r)) if pad_r else post_trace
+        post_s = torch.nn.functional.pad(post_spike, (0, pad_r)) if pad_r else post_spike
+        new_weights.append(stdp_update_ref(
+            w, pm, c, pre_trace, act, post_t, post_s,
+            a_plus=stdp["a_plus"], a_minus=stdp["a_minus"],
+            w_min=stdp["w_min"], w_max=stdp["w_max"],
+        ))
+    return _ring_accumulate(ring, clear_mask, write_onehot, currents), new_weights
+
+
+def fused_post_exchange_plastic_ref(
+    act: Tensor,  # (n,) exchanged global activity
+    pre_trace: Tensor,  # (n,) exchanged global presynaptic traces
+    ring: Tensor,  # (D, n_p) ring (uncleared)
+    clear_mask: Tensor,  # (D,)
+    write_onehot: Tensor,  # (nd, D)
+    post_trace: Tensor,  # (n_p,) local postsynaptic traces (updated)
+    post_spike: Tensor,  # (n_p,) local spikes this step
+    cols: Sequence[Tensor],  # per delay bucket (R, K_d) int32, global ids
+    weights: Sequence[Tensor],
+    plastic: Sequence[Tensor],  # per delay bucket (R, K_d) 0/1 STDP mask
+    *,
+    stdp: Dict[str, float],  # a_plus / a_minus / w_min / w_max
+) -> Tuple[Tensor, List[Tensor]]:
+    """The plastic post-exchange half: ring rotate, every bucket's gather
+    from the pre-update weights and its masked STDP update, in one pass
+    over the panels.  Returns ``(new_ring, new_weights)``."""
+    return _post_exchange_plastic(
+        act, act, pre_trace, ring, clear_mask, write_onehot, post_trace,
+        post_spike, cols, weights, plastic, stdp,
+    )
+
+
+def fused_post_exchange_remote_plastic_ref(
+    act_remote: Tensor,  # (n,) exchanged activity, own slice zeroed
+    act: Tensor,  # (n,) full exchanged activity (for STDP)
+    pre_trace: Tensor,  # (n,) exchanged global presynaptic traces
+    ring: Tensor,  # (D, n_p) ring already rotated by the local pass
+    write_onehot: Tensor,  # (nd, D)
+    post_trace: Tensor,  # (n_p,)
+    post_spike: Tensor,  # (n_p,)
+    cols: Sequence[Tensor],  # per delay bucket (R, K_d), the FULL panels
+    weights: Sequence[Tensor],
+    plastic: Sequence[Tensor],
+    *,
+    stdp: Dict[str, float],
+) -> Tuple[Tensor, List[Tensor]]:
+    """The plastic remote pass of the overlapped split step: the gathers of
+    ``act_remote`` added to the ring with no clear, and the STDP update
+    from the full ``act`` and ``pre_trace`` (elementwise per slot, so the
+    weights equal the serialized pass's).  Returns ``(new_ring,
+    new_weights)``."""
+    return _post_exchange_plastic(
+        act_remote, act, pre_trace, ring, None, write_onehot, post_trace,
+        post_spike, cols, weights, plastic, stdp,
+    )

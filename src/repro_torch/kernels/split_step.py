@@ -1,0 +1,247 @@
+"""The split (k>1) step's kernels: ``csrc/pre_exchange.cu``,
+``csrc/post_exchange.cu`` and ``csrc/post_exchange_plastic.cu``, with their
+plain versions.
+
+Counterparts of ``repro/kernels/fused_step.py``'s split kernels:
+
+  * :func:`pre_exchange_cuda` -- ``fused_pre_exchange_pallas``, trace
+    variant: LIF advance, spike emission and both trace decays (the
+    trace-free variant is ``lif_step``, as in the reference);
+  * :func:`post_exchange_cuda` -- ``fused_post_exchange_pallas`` and its
+    ``_local`` and ``_remote`` wrappers: the ring rotate (``clear_mask``,
+    or none for the remote pass) and every bucket's gather-accumulate;
+  * :func:`post_exchange_plastic_cuda` --
+    ``fused_post_exchange_plastic_pallas`` and
+    ``fused_post_exchange_remote_plastic_pallas``: the same with the STDP
+    update of every slot; the gather reads ``act_gather`` (the full
+    activity, or the remote pass's activity with the own slice zeroed), the
+    STDP update the full ``act`` and ``pre_trace``.
+
+The ``*_cuda`` wrappers launch on CUDA tensors and raise on any other;
+``ops.fused_pre_exchange`` and the ``ops.fused_post_exchange*`` entry points
+take the plain versions of ``kernels/ref.py`` only for CPU tensors.  The
+slot arithmetic arrives as device tensors (``clear_mask`` ``(D,)`` and
+``write_onehot`` ``(nd, D)``), as in the reference, so nothing is read back
+to the host.  Col ids are not range-checked here (the kernels read
+``act[cols]`` unchecked); the simulator checks them when it builds the
+panels.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from . import _build
+from .ref import lif_constants, trace_decay_constant
+
+PRE_COUNTER = _build.LaunchCounter("pre_exchange")
+POST_COUNTER = _build.LaunchCounter("post_exchange")
+PLASTIC_COUNTER = _build.LaunchCounter("post_exchange_plastic")
+
+# size of the post-exchange kernels' per-bucket argument tables
+# (csrc/post_exchange.cu, csrc/post_exchange_plastic.cu: kMaxBuckets)
+MAX_BUCKETS = 32
+
+__all__ = [
+    "MAX_BUCKETS", "PLASTIC_COUNTER", "POST_COUNTER", "PRE_COUNTER",
+    "post_exchange_cuda", "post_exchange_plastic_cuda", "pre_exchange_cuda",
+]
+
+
+def pre_exchange_cuda(
+    v: torch.Tensor,
+    refrac: torch.Tensor,
+    i_tot: torch.Tensor,
+    tr_plus: torch.Tensor,
+    tr_minus: torch.Tensor,
+    *,
+    params: Dict[str, float],
+    taus: Tuple[float, float],
+) -> Tuple[torch.Tensor, ...]:
+    """Launch the trace variant: ``(v', refrac', spikes, tr_plus',
+    tr_minus')``, all ``(n_p,)`` f32."""
+    _build.require("v", v, torch.float32, 1)
+    for name, t in (("refrac", refrac), ("i_tot", i_tot), ("tr_plus", tr_plus),
+                    ("tr_minus", tr_minus)):
+        _build.require(name, t, torch.float32, 1, v.device)
+        if t.shape != v.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != v's {tuple(v.shape)}")
+    n = v.shape[0]
+    outs = [torch.empty_like(v) for _ in range(5)]
+    if n == 0:
+        return tuple(outs)
+    decay, ref_steps = lif_constants(params["dt"], params["tau_m"], params["t_ref"])
+    stream, device = _build.launch_args(v)
+    rc = _build.library().repro_pre_exchange(
+        v.data_ptr(), refrac.data_ptr(), i_tot.data_ptr(), tr_plus.data_ptr(),
+        tr_minus.data_ptr(), *[o.data_ptr() for o in outs], n,
+        params["v_rest"], params["v_reset"], params["v_thresh"],
+        decay, 1.0 - decay, params["r_m"], ref_steps,
+        trace_decay_constant(params["dt"], taus[0]),
+        trace_decay_constant(params["dt"], taus[1]),
+        stream, device,
+    )
+    _build.check(rc, "pre_exchange")
+    PRE_COUNTER.launches += 1
+    return tuple(outs)
+
+
+def _check_post(
+    what: str,
+    acts: Dict[str, torch.Tensor],
+    ring: torch.Tensor,
+    clear_mask: Optional[torch.Tensor],
+    write_onehot: torch.Tensor,
+    cols: Sequence[torch.Tensor],
+    panels: Dict[str, Sequence[torch.Tensor]],
+    out: Optional[torch.Tensor],
+) -> Tuple[int, int, int]:
+    """Validate the operands of a post-exchange launch; returns ``(D, n_p,
+    R)``."""
+    nd = len(cols)
+    if not 1 <= nd <= MAX_BUCKETS or any(len(p) != nd for p in panels.values()):
+        raise ValueError(
+            f"{what} takes 1..{MAX_BUCKETS} delay buckets with one panel of each "
+            f"kind, got {nd} col panels and "
+            + ", ".join(f"{len(p)} {name}" for name, p in panels.items())
+        )
+    _build.require("ring", ring, torch.float32, 2)
+    dev = ring.device
+    D, n_p = ring.shape
+    for name, a in acts.items():
+        _build.require(name, a, torch.float32, 1, dev)
+    if clear_mask is not None:
+        _build.require("clear_mask", clear_mask, torch.float32, 1, dev)
+        if clear_mask.shape != (D,):
+            raise ValueError(f"clear_mask {tuple(clear_mask.shape)} for a ring of {D} slots")
+    _build.require("write_onehot", write_onehot, torch.float32, 2, dev)
+    if write_onehot.shape != (nd, D):
+        raise ValueError(
+            f"write_onehot {tuple(write_onehot.shape)} for {nd} buckets and {D} slots"
+        )
+    if out is not None:
+        _build.require("out", out, torch.float32, 2, dev)
+        if out.shape != ring.shape:
+            raise ValueError(f"out {tuple(out.shape)} != ring {tuple(ring.shape)}")
+    R = cols[0].shape[0]
+    for i, c in enumerate(cols):
+        _build.require(f"cols[{i}]", c, torch.int32, 2, dev)
+        for name, p in panels.items():
+            _build.require(f"{name}[{i}]", p[i], torch.float32, 2, dev)
+        if any(p[i].shape != c.shape for p in panels.values()) or c.shape[0] != R \
+                or c.shape[1] < 1:
+            raise ValueError(
+                f"{what} needs (R, K_d) panels of one shape per bucket, with a "
+                f"common R and K_d >= 1: cols {[tuple(c.shape) for c in cols]}, "
+                + ", ".join(f"{name} {[tuple(x.shape) for x in p]}"
+                            for name, p in panels.items())
+            )
+    if R < n_p:
+        raise ValueError(f"panels have R={R} rows for a ring of n_p={n_p} neurons")
+    return D, n_p, R
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def post_exchange_cuda(
+    act: torch.Tensor,
+    ring: torch.Tensor,
+    clear_mask: Optional[torch.Tensor],
+    write_onehot: torch.Tensor,
+    cols: Sequence[torch.Tensor],
+    weights: Sequence[torch.Tensor],
+    *,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the post-exchange kernel: ``ring * clear_mask`` (no rotate
+    when ``clear_mask`` is None), then per bucket in order ``+
+    write_onehot[i] (x) gather_i``.  Returns the new ring, written into
+    ``out`` when given (``out`` may be ``ring``)."""
+    D, n_p, _ = _check_post(
+        "post_exchange", dict(act=act), ring, clear_mask, write_onehot, cols,
+        dict(weights=weights), out,
+    )
+    out = torch.empty_like(ring) if out is None else out
+    if n_p == 0:
+        return out
+    nd = len(cols)
+    ptrs = ctypes.c_void_p * nd
+    stream, device = _build.launch_args(ring)
+    rc = _build.library().repro_post_exchange(
+        act.data_ptr(), ring.data_ptr(), out.data_ptr(), _ptr(clear_mask),
+        write_onehot.data_ptr(), n_p, D, nd,
+        ptrs(*[c.data_ptr() for c in cols]),
+        ptrs(*[w.data_ptr() for w in weights]),
+        (ctypes.c_int * nd)(*[c.shape[1] for c in cols]),
+        stream, device,
+    )
+    _build.check(rc, "post_exchange")
+    POST_COUNTER.launches += 1
+    return out
+
+
+def post_exchange_plastic_cuda(
+    act_gather: torch.Tensor,
+    act: torch.Tensor,
+    pre_trace: torch.Tensor,
+    ring: torch.Tensor,
+    clear_mask: Optional[torch.Tensor],
+    write_onehot: torch.Tensor,
+    post_trace: torch.Tensor,
+    post_spike: torch.Tensor,
+    cols: Sequence[torch.Tensor],
+    weights: Sequence[torch.Tensor],
+    plastic: Sequence[torch.Tensor],
+    *,
+    stdp: Dict[str, float],
+    out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Launch the plastic post-exchange kernel: the ring as
+    :func:`post_exchange_cuda` computes it from ``act_gather``, and every
+    bucket's STDP update from ``act`` and ``pre_trace``.  Returns
+    ``(new_ring, new_weights)``; the new weights are new tensors, the ring
+    goes into ``out`` when given."""
+    D, n_p, R = _check_post(
+        "post_exchange_plastic",
+        dict(act_gather=act_gather, act=act, pre_trace=pre_trace,
+             post_trace=post_trace, post_spike=post_spike),
+        ring, clear_mask, write_onehot, cols,
+        dict(weights=weights, plastic=plastic), out,
+    )
+    n = act.shape[0]
+    if act_gather.shape != (n,) or pre_trace.shape != (n,):
+        raise ValueError(
+            f"act_gather {tuple(act_gather.shape)}, act {tuple(act.shape)} and "
+            f"pre_trace {tuple(pre_trace.shape)} must share one length"
+        )
+    if post_trace.shape != (n_p,) or post_spike.shape != (n_p,):
+        raise ValueError(
+            f"post_trace {tuple(post_trace.shape)} and post_spike "
+            f"{tuple(post_spike.shape)} for a ring of n_p={n_p} neurons"
+        )
+    out = torch.empty_like(ring) if out is None else out
+    new_weights = [torch.empty_like(w) for w in weights]
+    if R == 0:
+        return out, new_weights
+    nd = len(cols)
+    ptrs = ctypes.c_void_p * nd
+    stream, device = _build.launch_args(ring)
+    rc = _build.library().repro_post_exchange_plastic(
+        act_gather.data_ptr(), act.data_ptr(), pre_trace.data_ptr(),
+        ring.data_ptr(), out.data_ptr(), _ptr(clear_mask), write_onehot.data_ptr(),
+        post_trace.data_ptr(), post_spike.data_ptr(), n_p, D, R, nd,
+        ptrs(*[c.data_ptr() for c in cols]),
+        ptrs(*[w.data_ptr() for w in weights]),
+        ptrs(*[p.data_ptr() for p in plastic]),
+        ptrs(*[w.data_ptr() for w in new_weights]),
+        (ctypes.c_int * nd)(*[c.shape[1] for c in cols]),
+        stdp["a_plus"], stdp["a_minus"], stdp["w_min"], stdp["w_max"],
+        stream, device,
+    )
+    _build.check(rc, "post_exchange_plastic")
+    PLASTIC_COUNTER.launches += 1
+    return out, new_weights

@@ -1,19 +1,29 @@
-"""``Session``: the port's entry point for build -> simulate, at k = 1.
+"""``Session``: the port's entry point for build -> simulate.
 
 Counterpart of ``repro/snn/session.py``.  ``Session(net, cfg)`` picks the
 engine, runs the simulation in chunks so recordings stream to host-side
 monitors (the device holds one ``(chunk, n)`` raster block at a time, copied
 to the host once per chunk), and reports what it chose.
 
-Engine selection (``engine="auto"``), as in the reference:
+Engine selection (``engine="auto"``), as in the reference
+(``session.py:372-394``):
 
-  * ``k == 1``                        -> single-partition engine;
-  * ``k > 1``, uniform partitions and -> one partition per card (not
-    at least k cards                     ported yet: raises);
-  * otherwise                         -> single engine over
+  * ``k == 1``                          -> single-partition engine;
+  * ``k > 1``, uniform partitions and   -> ``spmd``: ``DistSimulator``, each
+    at least k cards (or ``devices=``)     partition on a card of its own;
+  * otherwise                           -> single engine over
     ``merge_to_single(net)`` (same global labelling, same trajectory).
 
-The run goes on the card unless the caller passes ``device="cpu"``.
+``engine="spmd", devices=[...]`` places the k partitions on the given
+devices, which may repeat: ``devices=["cuda:0"] * k`` runs k partitions on
+one card, ``["cpu"] * k`` on the CPU with the plain versions.  The spmd
+engine's spike counts and overflow are summed over partitions, its raster
+has the merged labelling ``(steps, k * n_p)`` and ``v_mean`` is the mean of
+the partitions' means.  A lossy index exchange (``RunResult.overflow``
+nonzero) always comes with a ``UserWarning``.
+
+The run goes on the card unless the caller passes ``device="cpu"`` (or CPU
+``devices``).
 
 With ``SimConfig(gather="auto")``, the default, on a partition the event
 engine can serve, each chunk's mean spike rate feeds a running average;
@@ -22,10 +32,11 @@ gather, above it the dense one (``session.py:547-594`` of the reference).
 The engines give identical rasters, so the switch changes no trajectory;
 ``last_gather_modes`` records what each chunk of the last run took.
 
-Plastic nets (``syn_stdp`` edges) run ``fused_plastic`` on the card and
-``unfused`` with ``SimConfig(fused=False)``; both update the weights and
-e-traces in the carry.  They never take the event gather, so every chunk
-of a plastic run with ``gather="auto"`` reports ``"dense"``.
+Plastic nets (``syn_stdp`` edges) run ``fused_plastic`` (k = 1) or
+``fused_split_plastic`` (spmd) on the card and ``unfused`` with
+``SimConfig(fused=False)``; all update the weights and e-traces in the
+carry.  They never take the event gather, so every chunk of a plastic run
+with ``gather="auto"`` reports ``"dense"``.
 
 Not in this slice, each raising ``NotImplementedError`` that names the
 ROADMAP queue item porting it: snapshot paths as input and the
@@ -37,13 +48,15 @@ from __future__ import annotations
 import collections.abc
 import dataclasses
 import os
-from typing import Dict, Iterable, Optional, Tuple
+import warnings
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.dcsr import DCSRNetwork, merge_to_single
 from ..kernels.dispatch import EVENT_ACTIVITY_THRESHOLD, resolve_device
+from .dist_sim import DistSimulator
 from .simulator import SimConfig, Simulator, _not_ported as _unported
 
 _DEFAULT_CHUNK = 128
@@ -65,7 +78,7 @@ class RunResult(collections.abc.Mapping):
     spike_count: np.ndarray  # (steps,) int32
     t_final: int
     chunks: Tuple[int, ...]  # chunk lengths actually executed
-    overflow: np.ndarray = None  # (steps,) int32; zeros at k=1
+    overflow: np.ndarray = None  # (steps,) int32, summed over partitions
 
     def __getitem__(self, key):
         if key == "spike_count":
@@ -91,7 +104,9 @@ class Session:
         *,
         engine: str = "auto",
         device=None,
+        devices: Optional[Sequence] = None,
         _noise_fn=None,
+        _share: Optional["Session"] = None,
     ):
         if isinstance(net_or_path, (str, os.PathLike)):
             raise _unported("Session(snapshot path)", "snapshots in the reference format")
@@ -105,34 +120,58 @@ class Session:
             )
         net = net_or_path
         self.cfg = cfg if cfg is not None else SimConfig()
-        self.device = resolve_device(device)
         self.source_k = net.k
-        self.engine_kind = self._select_engine_kind(net, engine, self.device)
-        self.net = merge_to_single(net) if net.k > 1 else net
-        # built once, eagerly: surfaces SimConfig/device errors here, and
-        # the recordings are per run, so the panels are uploaded only once
-        self._sim = Simulator(self.net, self.cfg, device=self.device, _noise_fn=_noise_fn)
-        self._state: Optional[Dict] = None
+        self.engine_kind = self._select_engine_kind(net, engine, device, devices)
+        if self.engine_kind == "spmd":
+            # built once, eagerly: surfaces SimConfig/device errors here
+            # _share: a spmd Session of the same net lends its panels
+            self._sim = DistSimulator(
+                net, self.cfg, devices=devices, _noise_fn=_noise_fn,
+                _share=None if _share is None else _share.simulator,
+            )
+            self.net = net
+            self.device = self._sim.devices[0]
+        else:
+            self.device = resolve_device(device)
+            self.net = merge_to_single(net) if net.k > 1 else net
+            self._sim = Simulator(self.net, self.cfg, device=self.device, _noise_fn=_noise_fn)
+        self._state = None
         # gather mode each chunk of the last run() actually executed with
         self.last_gather_modes: Tuple[str, ...] = ()
 
     # -- engine selection --------------------------------------------------
     @staticmethod
-    def _select_engine_kind(net: DCSRNetwork, engine: str, device) -> str:
+    def _select_engine_kind(net: DCSRNetwork, engine: str, device, devices) -> str:
         if engine not in ("auto", "single", "spmd"):
             raise ValueError(
                 f"engine={engine!r}: expected 'auto', 'single' or 'spmd'"
             )
-        cards = torch.cuda.device_count() if device.type == "cuda" else 1
         uniform = len({p.n for p in net.parts}) == 1
-        if engine == "spmd" or (
-            engine == "auto" and net.k > 1 and uniform and cards >= net.k
-        ):
-            raise _unported(
-                f"the one-partition-per-card engine (k={net.k} on {cards} cards)",
-                "k>1 engine",
-            )
-        return "single"
+        if devices is not None:
+            enough = len(devices) == net.k
+        elif device is None or torch.device(device).type == "cuda":
+            enough = torch.cuda.is_available() and torch.cuda.device_count() >= net.k
+        else:
+            enough = False  # one CPU device for k partitions: merge
+        if engine == "spmd":
+            if net.k == 1:
+                raise ValueError("engine='spmd' needs a k>1 network")
+            if not uniform:
+                raise ValueError(
+                    "engine='spmd' needs uniform partitions; build with "
+                    "to_dcsr(..., uniform=True)"
+                )
+            if not enough:
+                raise ValueError(
+                    f"engine='spmd' needs {net.k} devices: devices=[...] with one "
+                    f"entry per partition, or {net.k} CUDA cards"
+                )
+            return "spmd"
+        if devices is not None and engine == "single":
+            raise ValueError("devices=[...] places partitions; the single engine takes device=")
+        if engine == "single" or net.k == 1:
+            return "single"
+        return "spmd" if (uniform and enough) else "single"
 
     def _ensure_state(self) -> None:
         if self._state is None:
@@ -163,11 +202,14 @@ class Session:
     @property
     def t(self) -> int:
         """Next step index (steps completed since t=0)."""
-        return int(self._state["t"]) if self._state is not None else 0
+        if self._state is None:
+            return 0
+        return int((self._state[0] if self.engine_kind == "spmd" else self._state)["t"])
 
     @property
-    def state(self) -> Dict:
-        """The device-side carry, made on first access."""
+    def state(self):
+        """The device-side carry, made on first access: a dict at k = 1, the
+        list of per-partition carries on the spmd engine."""
         self._ensure_state()
         return self._state
 
@@ -177,8 +219,9 @@ class Session:
         return self._sim.engine_choice
 
     @property
-    def simulator(self) -> Simulator:
-        """The k=1 engine behind this session: its ELL and device panels."""
+    def simulator(self):
+        """The engine behind this session: the k = 1 :class:`Simulator`
+        (its ELL and device panels) or the spmd :class:`DistSimulator`."""
         return self._sim
 
     @property
@@ -188,7 +231,7 @@ class Session:
 
     def describe(self) -> Dict:
         sim = self.simulator
-        return dict(
+        d = dict(
             n=self.n, m=self.m, k=self.k, source_k=self.source_k,
             engine=self.engine_kind, t=self.t,
             step_engine=self.engine_choice.engine,
@@ -196,8 +239,13 @@ class Session:
             overlap=self.engine_choice.overlap,
             backend=sim.backend,
             device=str(self.device),
-            ell_fill=sim.ell.fill_factor,
         )
+        if self.engine_kind == "spmd":
+            d["exchange"] = sim.exchange
+            d["devices"] = [str(x) for x in sim.devices]
+        else:
+            d["ell_fill"] = sim.ell.fill_factor
+        return d
 
     # -- simulate ----------------------------------------------------------
     def run(
@@ -241,6 +289,13 @@ class Session:
             )
             # one copy to the host per chunk and output
             outs = {k: v.cpu().numpy() for k, v in dev_outs.items()}
+            if self.engine_kind == "spmd":  # (c, k, ...) -> merged labelling
+                outs["spike_count"] = outs["spike_count"].sum(axis=1).astype(np.int32)
+                outs["overflow"] = outs["overflow"].sum(axis=1).astype(np.int32)
+                if "raster" in outs:
+                    outs["raster"] = outs["raster"].reshape(c, -1)
+                if "v_mean" in outs:
+                    outs["v_mean"] = outs["v_mean"].mean(axis=1).astype(np.float32)
             for mon in monitors:
                 mon.on_chunk(t_run0 + done, outs)
             counts.append(outs["spike_count"])
@@ -257,11 +312,23 @@ class Session:
         for mon in monitors:
             mon.finalize()
         self.last_gather_modes = tuple(gather_modes)
+        overflow = np.concatenate(overflows)
+        dropped = int(overflow.sum())
+        if dropped:
+            warnings.warn(
+                f"compressed index exchange dropped {dropped} spikes over {done} "
+                f"steps (effective cap: {getattr(self._sim, 'index_cap', None)} "
+                "spike ids per partition per step); raise "
+                "SimConfig(index_cap_frac=...) or use exchange='dense' for a "
+                "lossless run",
+                UserWarning,
+                stacklevel=2,
+            )
         return RunResult(
             spike_count=np.concatenate(counts),
             t_final=t_run0 + done,
             chunks=tuple(chunks),
-            overflow=np.concatenate(overflows),
+            overflow=overflow,
         )
 
     # -- not ported yet (ROADMAP queue) ------------------------------------

@@ -1,28 +1,45 @@
-"""Clock-driven SNN simulator over one dCSR partition (k = 1), in torch.
+"""Clock-driven SNN simulator over one dCSR partition, in torch.
 
-Counterpart of ``repro/snn/simulator.py`` for the ``fused``,
-``fused_plastic``, ``fused_event`` and ``unfused`` engines.  One step, in
-the reference's documented order:
+Counterpart of ``repro/snn/simulator.py``: the shared per-partition step
+(:func:`make_core_step`) of every engine, and the k = 1 :class:`Simulator`
+(``snn/dist_sim.py`` drives the same step for k > 1).  One step, in the
+reference's documented order:
 
   1. deliver: ``i_syn = ring[t % D]``; clear that slot.
   2. neuron update with ``i_syn + noise(t, permanent id) + bias`` -> spikes;
      on plastic nets both e-traces decay, ``x' = x * exp(-dt/tau) + s``.
-  3. propagate: per delay bucket b in order,
-     ``ring[(t + d_b) % D] += spike_gather(spikes, cols_b, w_b)[:n_p]``;
+  3. exchange: the spike vector (and on plastic nets the pre-trace) becomes
+     the global activity (identity at k = 1).
+  4. propagate: per delay bucket b in order,
+     ``ring[(t + d_b) % D] += spike_gather(act, cols_b, w_b)[:n_p]``;
      on plastic nets the bucket's STDP update follows its gather, from the
      weights the gather read.
-  4. history: ``hist[t % D] = spikes``; ``t += 1``.
+  5. history: ``hist[t % D] = spikes``; ``t += 1``.
 
-The ``fused`` engine does 2 and the gathers of 3 in one cooperative kernel
-launch, and ``fused_plastic`` also the trace decays and the STDP updates;
-``fused_event`` launches ``lif_step`` and then one cooperative kernel that
-clears the slot of 1 and gathers only the row blocks the step's spikes
-touch; ``unfused`` launches ``lif_step`` and then one ``spike_gather`` per
-bucket, and on plastic nets decays the traces as torch ops and launches one
-``stdp_update`` per bucket.  All go through the same device routines, so
-their rasters, traces and weights are bit-identical on the card, and
-through the same plain versions on the CPU.  Plastic nets never take the
-event gather (``dispatch.event_gather_blocker``).
+The k = 1 engines: ``fused`` does 2 and the gathers of 4 in one cooperative
+kernel launch, and ``fused_plastic`` also the trace decays and the STDP
+updates; ``fused_event`` launches ``lif_step`` and then one cooperative
+kernel that clears the slot of 1 and gathers only the row blocks the step's
+spikes touch.  The split engines (k > 1) run ``fused_pre_exchange`` (2),
+the exchange, then one post-exchange launch that rotates the ring with the
+reference's mask multiply and adds every bucket through a one-hot
+(``fused_split``, ``fused_split_plastic`` with STDP, ``fused_split_event``
+over the flagged row blocks).  ``unfused`` launches ``lif_step`` and then
+one ``spike_gather`` per bucket, and on plastic nets decays the traces as
+torch ops and launches one ``stdp_update`` per bucket.  All go through the
+same device routines, so their rasters, traces and weights are
+bit-identical on the card (the split engines' ring may hold ``-0.0`` where
+the others hold ``+0.0``), and through the same plain versions on the CPU.
+Plastic nets never take the event gather
+(``dispatch.event_gather_blocker``).
+
+``SimConfig(overlap=...)`` splits the split engines' post-exchange pass
+into a local pass over the own partition's synapses and a remote pass
+(``local``), or defers the remote pass of step t to the top of step t + 1
+(``double_buffer``, a ``_pending`` entry of the carry that the run flushes
+at its end); the remote pass adds on top of the local pass's ring, so the
+ring may differ from ``off`` in its last bits, while raster, traces and
+weights are the reference's observable set.
 
 ``lax.scan`` becomes a Python loop over steps with no host sync inside a
 run: spike counts, raster rows and ``v_mean`` go into tensors preallocated
@@ -32,18 +49,17 @@ weights too, on plastic nets), so the state a caller passes in is never
 changed.
 
 ``SimConfig(gather="auto")``, the default, starts on the dense gather and
-lets ``Session``'s chunk loop switch to the event-driven engine
-(``fused_event``: ``lif_step`` plus one event-gather launch, see
-``kernels/event_step.py``) while the running spike rate stays under
-``EVENT_ACTIVITY_THRESHOLD``, as the reference does.  The engines give
-identical rasters, so the switch never changes a trajectory.
+lets ``Session``'s chunk loop switch to the event-driven engine while the
+running spike rate stays under ``EVENT_ACTIVITY_THRESHOLD``, as the
+reference does.  The engines give identical rasters, so the switch never
+changes a trajectory.
 
 Noise is a pure function of (seed, t, permanent neuron id): a generator on
-the run's device, seeded from (seed, t), draws the ``(n_global,)`` normals,
-and each row takes the value of its permanent id.  The reference draws
-with ``jax.random``, which torch cannot reproduce, so cross-package tests
-inject the reference's noise through the ``_noise_fn`` seam of
-:class:`Simulator`.
+the run's device, seeded from (seed, t), draws the ``(n_global,)`` normals
+once a step, and each row takes the value of its permanent id.  The
+reference draws with ``jax.random``, which torch cannot reproduce, so
+cross-package tests inject the reference's noise through the ``_noise_fn``
+seam of :class:`Simulator` and ``DistSimulator``.
 """
 from __future__ import annotations
 
@@ -61,9 +77,7 @@ from ..kernels.dispatch import (
 )
 from ..kernels.event_step import EventPlan, event_id_cap
 from .neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V, make_neuron_step
-
-# in-flight runtime arrays of the carry (the serialization side-channel)
-RUNTIME_KEYS = ("ring", "hist", "tr_plus", "tr_minus")
+from .reshard import RUNTIME_KEYS
 
 
 def _not_ported(what: str, queue_item: str) -> NotImplementedError:
@@ -128,10 +142,6 @@ class SimConfig:
                 f"SimConfig(align_k={self.align_k}, "
                 f"align_rows={self.align_rows}): ELL alignments must be >= 1"
             )
-        if self.exchange == "index":
-            raise _not_ported("SimConfig(exchange='index')", "k>1 engine")
-        if self.overlap not in ("auto", "off"):
-            raise _not_ported(f"SimConfig(overlap={self.overlap!r})", "k>1 engine")
         if self.max_k is not None:
             raise _not_ported(
                 "SimConfig(max_k=...) heavy-row split (segment_sum on CUDA "
@@ -146,7 +156,10 @@ class PartitionDeviceData:
 
     Unlike the reference, no ``valid`` panels are built, and the
     ``plastic`` panels only for plastic nets: they are as large as the
-    weights and no other engine reads them."""
+    weights and no other engine reads them.  The overlap sub-panels
+    (``split_overlap_panels``) exist only for the non-plastic split engines
+    with an overlap mode: local panels hold LOCAL ids (``< n_p``), remote
+    panels global ids of other partitions."""
 
     n_p: int
     vtx_model: torch.Tensor
@@ -158,38 +171,55 @@ class PartitionDeviceData:
     # per bucket (R, K) f32 0/1 mask of the syn_stdp slots; None when the
     # partition has no plastic synapse
     plastic: Optional[List[torch.Tensor]] = None
+    cols_local: Optional[List[torch.Tensor]] = None  # per bucket (R, K_l)
+    weights_local: Optional[List[torch.Tensor]] = None
+    cols_remote: Optional[List[torch.Tensor]] = None  # per bucket (R, K_r)
+    weights_remote: Optional[List[torch.Tensor]] = None
 
     @property
     def any_plastic(self) -> bool:
         return self.plastic is not None
 
 
+def checked_cols(panels: Sequence[np.ndarray], bound: int, what: str, device) -> List[torch.Tensor]:
+    """Upload col panels after checking every id lies in ``[0, bound)``:
+    the kernels read ``act[cols]`` without a bounds check."""
+    out = []
+    for i, c in enumerate(panels):
+        if c.size and not 0 <= int(c.min()) <= int(c.max()) < bound:
+            raise ValueError(f"{what} panel {i} has col ids outside [0, {bound})")
+        out.append(torch.from_numpy(np.ascontiguousarray(c)).to(device))
+    return out
+
+
+def plastic_masks(part: DCSRPartition, ell: DelayELL, stdp_id: int) -> Optional[List[np.ndarray]]:
+    """Per bucket (R, K) f32 0/1 masks of the syn_stdp slots
+    (``repro/snn/simulator.py:174-185``), or None when the partition has no
+    plastic synapse."""
+    if not np.any(part.edge_model == stdp_id):
+        return None
+    masks = []
+    for b in ell.buckets:
+        is_stdp = np.zeros(b.cols.shape, dtype=np.float32)
+        sel = b.edge_index >= 0
+        is_stdp[sel] = part.edge_model[b.edge_index[sel]] == stdp_id
+        masks.append(is_stdp)
+    return masks
+
+
 def partition_device_data(
     part: DCSRPartition, ell: DelayELL, device: torch.device, stdp_id: int
 ) -> PartitionDeviceData:
-    for b in ell.buckets:
-        # the kernels read act[cols] without a bounds check
-        if b.cols.size and not 0 <= int(b.cols.min()) <= int(b.cols.max()) < ell.n_global:
-            raise ValueError(
-                f"delay-{b.delay} panel has col ids outside [0, {ell.n_global})"
-            )
-    plastic = None
-    if np.any(part.edge_model == stdp_id):
-        plastic = []
-        for b in ell.buckets:  # repro/snn/simulator.py:174-185
-            is_stdp = np.zeros(b.cols.shape, dtype=np.float32)
-            sel = b.edge_index >= 0
-            is_stdp[sel] = part.edge_model[b.edge_index[sel]] == stdp_id
-            plastic.append(torch.from_numpy(is_stdp).to(device))
+    plastic = plastic_masks(part, ell, stdp_id)
     return PartitionDeviceData(
         n_p=part.n,
         vtx_model=torch.from_numpy(part.vtx_model).to(device),
         vtx_state0=torch.from_numpy(part.vtx_state).to(device),
         delays=tuple(b.delay for b in ell.buckets),
-        cols=[torch.from_numpy(b.cols).to(device) for b in ell.buckets],
+        cols=checked_cols([b.cols for b in ell.buckets], ell.n_global, "delay-bucket", device),
         weights0=[torch.from_numpy(b.weights).to(device) for b in ell.buckets],
         identity_rows=tuple(b.identity_rows for b in ell.buckets),
-        plastic=plastic,
+        plastic=None if plastic is None else [torch.from_numpy(m).to(device) for m in plastic],
     )
 
 
@@ -219,6 +249,42 @@ def _step_seed(seed: int, t: int) -> int:
     return _mix64(_mix64(seed & _MASK64) ^ (t & _MASK64))
 
 
+def make_noise(
+    *, seed: int, noise_sigma: float, n_global: int, device,
+    noise_fn: Optional[Callable[[int], object]] = None,
+) -> Callable[[int], Optional[torch.Tensor]]:
+    """``noise(t)``: the ``(n_global,)`` f32 noise of step ``t`` on
+    ``device`` (already scaled by sigma), or None on a noise-free net.
+    ``noise_fn(t)``, when given, supplies it in place of the port's own
+    generator (the cross-package seam)."""
+    gen = torch.Generator(device=device) if noise_sigma > 0 else None
+
+    def noise(t: int) -> Optional[torch.Tensor]:
+        if noise_fn is not None:
+            return torch.tensor(np.asarray(noise_fn(t)), dtype=torch.float32, device=device)
+        if gen is None:
+            return None
+        gen.manual_seed(_step_seed(seed, t))
+        return noise_sigma * torch.randn(
+            n_global, generator=gen, dtype=torch.float32, device=device
+        )
+
+    return noise
+
+
+def slot_tables(d_ring: int, delays: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split engines' slot arithmetic as device tables, indexed by
+    ``t % D`` on the host (a view, no transfer): ``clear[t % D]`` is the
+    ``(D,)`` mask with 0 at the delivered slot, ``onehot[t % D]`` the
+    ``(nd, D)`` one-hot of each bucket's write slot ``(t + d) % D``
+    (``repro/snn/simulator.py:420-431``)."""
+    rows = torch.arange(d_ring)
+    clear = (rows[:, None] != rows[None, :]).to(torch.float32)
+    write = (rows[:, None] + torch.tensor(list(delays), dtype=torch.int64)[None, :]) % d_ring
+    onehot = (write[:, :, None] == rows[None, None, :]).to(torch.float32)
+    return clear.to(device), onehot.to(device)
+
+
 def make_core_step(
     *,
     registry,
@@ -234,29 +300,55 @@ def make_core_step(
     stdp_params: Optional[Dict[str, float]] = None,
     event_plan: Optional[EventPlan] = None,
     noise_fn: Optional[Callable[[int], object]] = None,
+    overlap_ctx: Optional[Dict[str, Callable]] = None,
 ) -> Callable:
     """The per-partition step: ``step(carry)`` advances ``carry`` in place
     by one step and returns the step's spike vector.
 
     ``engine_choice`` comes from ``dispatch.select_step_engine``; the event
-    engine needs the partition's ``event_plan``.  ``stdp_params`` are the
+    engines need the partition's ``event_plan``.  ``stdp_params`` are the
     registry's ``syn_stdp`` params, needed on plastic partitions (those
-    whose ``dev.plastic`` is set).  ``noise_ids`` are the
-    permanent neuron ids of the local rows.  ``noise_fn(t)``, when given,
-    supplies the ``(n_global,)`` noise of step ``t`` (already scaled by
-    sigma) in place of the port's own generator."""
+    whose ``dev.plastic`` is set).  ``noise_ids`` are the permanent neuron
+    ids of the local rows.  ``noise_fn(t)``, when given, supplies the
+    ``(n_global,)`` noise of step ``t`` in place of the port's generator.
+
+    ``step`` runs the k = 1 step, whose exchange is the identity.  A driver
+    of k partitions (``snn/dist_sim.py``) calls the halves itself:
+    ``step.pre(carry, noise_g)`` up to the exchange (returns ``(spikes,
+    tr_plus)``; ``noise_g`` is the step's ``(n_global,)`` noise, drawn once
+    for all partitions), then its exchange over all partitions, then
+    ``step.post(carry, spikes, act, pre_trace)`` with the exchanged
+    activity and pre-trace.
+
+    ``overlap_ctx`` (needed when ``engine_choice.overlap`` is not
+    ``"off"``) holds the partition-geometry closures of the overlap
+    engines: ``local(spikes)`` the own slice of the activity as the
+    exchange would deliver it, ``embed(v)`` the own slice placed into a
+    zeroed global vector, ``mask_remote(act)`` the activity with the own
+    slice zeroed.  With ``double_buffer`` the carry holds a ``_pending``
+    entry (step t's deferred remote pass), applied at the top of step t+1
+    and by ``step.pending_flush(carry)``, which a run calls at its end."""
     D = d_ring
     n_p = dev.n_p
     device = dev.vtx_state0.device
     choice = engine_choice
     if choice.event and event_plan is None:
-        raise ValueError("the fused_event engine needs the partition's EventPlan")
+        raise ValueError(f"the {choice.engine} engine needs the partition's EventPlan")
     plastic = dev.any_plastic
     if plastic and stdp_params is None:
         raise ValueError("a plastic partition needs the syn_stdp params")
     if choice.plastic != plastic and choice.engine != "unfused":
         raise ValueError(f"the {choice.engine} engine does not fit a "
                          f"{'plastic' if plastic else 'non-plastic'} partition")
+    overlap_on = choice.overlap in ("local", "double_buffer")
+    if overlap_on and overlap_ctx is None:
+        raise ValueError(
+            f"engine {choice.engine!r} resolved overlap={choice.overlap!r} but no "
+            "overlap_ctx was given: the driver must supply the local/embed/"
+            "mask_remote closures"
+        )
+    if overlap_on and not plastic and dev.cols_local is None:
+        raise ValueError("the non-plastic overlap engines need the local and remote sub-panels")
     taus = (stdp_params["tau_plus"], stdp_params["tau_minus"]) if plastic else None
     if choice.fused:
         neuron_step = None
@@ -264,105 +356,185 @@ def make_core_step(
         lif_params = {"dt": dt, **{k: lif_p[k] for k in LIF_PARAM_KEYS}}
     else:
         neuron_step = make_neuron_step(registry, models_present, dt)
-    gen = torch.Generator(device=device) if noise_sigma > 0 else None
+    draw_noise = make_noise(
+        seed=seed, noise_sigma=noise_sigma, n_global=n_global, device=device,
+        noise_fn=noise_fn,
+    )
+    clear_tab, onehot_tab = slot_tables(D, dev.delays, device) if choice.split else (None, None)
 
-    def noise(t: int) -> Optional[torch.Tensor]:
-        if noise_fn is not None:
-            noise_g = torch.tensor(
-                np.asarray(noise_fn(t)), dtype=torch.float32, device=device
+    def apply_pending(carry: Dict) -> None:
+        """Step t-1's deferred remote pass, before step t reads or clears a
+        slot (a delay-1 contribution from t-1 lands in the slot delivered at
+        t), so the per-slot add sequence is that of ``local``.  An empty
+        record applies nothing: the reference's ``where`` guard, taken on
+        the host."""
+        pend = carry.pop("_pending", None)
+        if pend is None:
+            return
+        ring = carry["ring"]
+        if choice.plastic:
+            _, new_w = ops.fused_post_exchange_remote_plastic(
+                overlap_ctx["mask_remote"](pend["act"]), pend["act"], pend["pre_trace"],
+                ring, pend["onehot"], pend["post_trace"], pend["post_spike"],
+                dev.cols, carry["weights"], dev.plastic, stdp=stdp_params, out=ring,
             )
-        elif gen is not None:
-            gen.manual_seed(_step_seed(seed, t))
-            noise_g = noise_sigma * torch.randn(
-                n_global, generator=gen, dtype=torch.float32, device=device
+            carry["weights"] = tuple(new_w)
+        elif choice.event:
+            ops.event_post_exchange(
+                overlap_ctx["mask_remote"](pend["act"]), ring, None, pend["write_slots"],
+                event_plan, dev.cols, carry["weights"],
             )
         else:
-            return None
-        return noise_g.index_select(0, noise_ids)
+            ops.fused_post_exchange_remote(
+                pend["act"], ring, pend["onehot"], dev.cols_remote, dev.weights_remote,
+                out=ring,
+            )
 
-    def step(carry: Dict) -> torch.Tensor:
+    def pre(carry: Dict, noise_g: Optional[torch.Tensor]):
+        """Deliver, add the noise, advance the neurons (and the traces);
+        returns ``(spikes, tr_plus)`` for the exchange.  The k = 1
+        single-launch engines also propagate here."""
+        if choice.overlap == "double_buffer":
+            apply_pending(carry)
         t = carry["t"]
         slot = t % D
         ring = carry["ring"]
         i_syn = ring[slot].clone()
-        if not choice.event:  # the event kernel clears the slot itself
+        if not (choice.split or choice.event):
+            # the split and event kernels rotate the ring themselves
             ring[slot] = 0.0
-        n_t = noise(t)
-        if n_t is not None:
-            i_syn = i_syn + n_t
+        if noise_g is not None:
+            i_syn = i_syn + noise_g.to(device).index_select(0, noise_ids)
         vtx = carry["vtx_state"]
-        currents = ()
-        if choice.engine == "fused":
-            # one cooperative launch: LIF advance + spike emission + every
-            # bucket's gather from the fresh spike vector
-            i_tot = i_syn + vtx[:, LIF_BIAS]
-            v2, r2, spikes, currents = ops.fused_step(
-                vtx[:, LIF_V].contiguous(), vtx[:, LIF_REF].contiguous(),
-                i_tot, dev.cols, carry["weights"], params=lif_params,
-            )
-            vtx[:, LIF_V] = v2
-            vtx[:, LIF_REF] = r2
-        elif choice.plastic:
-            # one cooperative launch: LIF advance + both trace decays, then
-            # per bucket the gather from the pre-update weights and the
-            # masked STDP update (identity exchange: the pre-spike is the
-            # spike vector, the pre-trace tr_plus')
-            i_tot = i_syn + vtx[:, LIF_BIAS]
-            (v2, r2, spikes, carry["tr_plus"], carry["tr_minus"], currents,
-             new_weights) = ops.fused_step_plastic(
-                vtx[:, LIF_V].contiguous(), vtx[:, LIF_REF].contiguous(), i_tot,
-                carry["tr_plus"], carry["tr_minus"], dev.cols, carry["weights"],
-                dev.plastic, params=lif_params, taus=taus, stdp=stdp_params,
-            )
-            vtx[:, LIF_V] = v2
-            vtx[:, LIF_REF] = r2
-            carry["weights"] = tuple(new_weights)
-        elif choice.event:
-            # LIF advance, then one launch that compresses the spikes to
-            # ids, flags the touched row blocks and adds only their gathers
-            # to the ring (the delivered slot cleared first)
-            i_tot = i_syn + vtx[:, LIF_BIAS]
-            v2, r2, spikes = ops.lif_step(
-                vtx[:, LIF_V].contiguous(), vtx[:, LIF_REF].contiguous(),
-                i_tot, params=lif_params,
-            )
-            vtx[:, LIF_V] = v2
-            vtx[:, LIF_REF] = r2
-            ops.event_post_exchange(
-                spikes, ring, slot, [(t + d) % D for d in dev.delays],
-                event_plan, dev.cols, carry["weights"],
-            )
-        else:
+        if not choice.fused:
             new_vtx, spikes = neuron_step(dev.vtx_model, vtx, i_syn)
             vtx.copy_(new_vtx)
             if plastic:
                 # the trace decays as torch ops, as the reference runs them
                 # as jnp outside any kernel
-                tr_plus = ref.trace_decay_ref(carry["tr_plus"], spikes, dt=dt, tau=taus[0])
-                tr_minus = ref.trace_decay_ref(carry["tr_minus"], spikes, dt=dt, tau=taus[1])
-                carry["tr_plus"], carry["tr_minus"] = tr_plus, tr_minus
+                carry["tr_plus"] = ref.trace_decay_ref(carry["tr_plus"], spikes, dt=dt, tau=taus[0])
+                carry["tr_minus"] = ref.trace_decay_ref(carry["tr_minus"], spikes, dt=dt, tau=taus[1])
+            return spikes, carry["tr_plus"]
+        i_tot = i_syn + vtx[:, LIF_BIAS]
+        v, refrac = vtx[:, LIF_V].contiguous(), vtx[:, LIF_REF].contiguous()
+        if choice.engine == "fused":
+            # one cooperative launch: LIF advance + spike emission + every
+            # bucket's gather from the fresh spike vector
+            v2, r2, spikes, currents = ops.fused_step(
+                v, refrac, i_tot, dev.cols, carry["weights"], params=lif_params,
+            )
+            for cur, d in zip(currents, dev.delays):
+                ring[(t + d) % D] += cur[:n_p]
+        elif choice.engine == "fused_plastic":
+            # one cooperative launch: LIF advance + both trace decays, then
+            # per bucket the gather from the pre-update weights and the
+            # masked STDP update (identity exchange: the pre-spike is the
+            # spike vector, the pre-trace tr_plus')
+            (v2, r2, spikes, carry["tr_plus"], carry["tr_minus"], currents,
+             new_weights) = ops.fused_step_plastic(
+                v, refrac, i_tot, carry["tr_plus"], carry["tr_minus"], dev.cols,
+                carry["weights"], dev.plastic, params=lif_params, taus=taus,
+                stdp=stdp_params,
+            )
+            carry["weights"] = tuple(new_weights)
+            for cur, d in zip(currents, dev.delays):
+                ring[(t + d) % D] += cur[:n_p]
+        elif choice.engine == "fused_event":
+            # LIF advance, then one launch that compresses the spikes to
+            # ids, flags the touched row blocks and adds only their gathers
+            # to the ring (the delivered slot cleared first)
+            v2, r2, spikes = ops.lif_step(v, refrac, i_tot, params=lif_params)
+            ops.event_post_exchange(
+                spikes, ring, slot, [(t + d) % D for d in dev.delays],
+                event_plan, dev.cols, carry["weights"],
+            )
+        elif choice.plastic:  # fused_split_plastic: LIF + both trace decays
+            v2, r2, spikes, carry["tr_plus"], carry["tr_minus"] = ops.fused_pre_exchange(
+                v, refrac, i_tot, carry["tr_plus"], carry["tr_minus"],
+                params=lif_params, taus=taus,
+            )
+        else:  # fused_split, fused_split_event: the trace-free pre-exchange
+            v2, r2, spikes = ops.fused_pre_exchange(v, refrac, i_tot, params=lif_params)
+        vtx[:, LIF_V] = v2
+        vtx[:, LIF_REF] = r2
+        return spikes, carry["tr_plus"]
+
+    def post(carry: Dict, spikes: torch.Tensor, act: torch.Tensor, pre_trace: torch.Tensor) -> None:
+        """Propagate the exchanged activity into the ring (and learn), then
+        record the history and advance ``t``."""
+        t = carry["t"]
+        slot = t % D
+        ring = carry["ring"]
+        weights = carry["weights"]
+        if choice.split:
+            clear, onehot = clear_tab[slot], onehot_tab[slot]
+            write_slots = [(t + d) % D for d in dev.delays]
+        if choice.split and overlap_on:
+            if choice.plastic:
+                # plastic panels are never split (the weights are state):
+                # the local pass gathers the full panels from the own slice
+                # embedded in a zeroed global vector
+                ops.fused_post_exchange_local(
+                    overlap_ctx["embed"](overlap_ctx["local"](spikes)), ring, clear,
+                    onehot, dev.cols, weights, out=ring,
+                )
+            else:
+                ops.fused_post_exchange_local(
+                    overlap_ctx["local"](spikes), ring, clear, onehot, dev.cols_local,
+                    dev.weights_local, out=ring,
+                )
+            pend = dict(act=act, onehot=onehot, write_slots=write_slots)
+            if choice.plastic:
+                pend.update(pre_trace=pre_trace, post_trace=carry["tr_minus"], post_spike=spikes)
+            carry["_pending"] = pend
+            if choice.overlap == "local":
+                apply_pending(carry)
+        elif choice.engine == "fused_split":
+            ops.fused_post_exchange(act, ring, clear, onehot, dev.cols, weights, out=ring)
+        elif choice.engine == "fused_split_event":
+            ops.event_post_exchange(act, ring, slot, write_slots, event_plan, dev.cols, weights)
+        elif choice.engine == "fused_split_plastic":
+            _, new_w = ops.fused_post_exchange_plastic(
+                act, pre_trace, ring, clear, onehot, carry["tr_minus"], spikes, dev.cols,
+                weights, dev.plastic, stdp=stdp_params, out=ring,
+            )
+            carry["weights"] = tuple(new_w)
+        elif not choice.fused:
+            if plastic:
                 pad_r = dev.cols[0].shape[0] - n_p  # rows >= n_p: post terms 0
-                post_t = torch.nn.functional.pad(tr_minus, (0, pad_r))
+                post_t = torch.nn.functional.pad(carry["tr_minus"], (0, pad_r))
                 post_s = torch.nn.functional.pad(spikes, (0, pad_r))
-            for i, (c, w, d) in enumerate(zip(dev.cols, carry["weights"], dev.delays)):
-                ring[(t + d) % D] += ops.spike_gather(spikes, c, w)[:n_p]
+            for i, (c, w, d) in enumerate(zip(dev.cols, weights, dev.delays)):
+                ring[(t + d) % D] += ops.spike_gather(act, c, w)[:n_p]
                 if plastic:
                     # in place: run() cloned the weights, and the gather
                     # above read them first
-                    ops.stdp_update(w, dev.plastic[i], c, tr_plus, spikes, post_t,
+                    ops.stdp_update(w, dev.plastic[i], c, pre_trace, act, post_t,
                                     post_s, params=stdp_params, out=w)
-        for cur, d in zip(currents, dev.delays):
-            ring[(t + d) % D] += cur[:n_p]
         carry["hist"][slot] = spikes.to(torch.uint8)
         carry["t"] = t + 1
+
+    def step(carry: Dict) -> torch.Tensor:
+        spikes, tr_plus = pre(carry, draw_noise(carry["t"]))
+        post(carry, spikes, spikes, tr_plus)  # the identity exchange
         return spikes
 
+    def pending_flush(carry: Dict) -> None:
+        """Apply and drop a trailing ``_pending`` entry (the run's end)."""
+        apply_pending(carry)
+
     step.engine_choice = choice
+    step.pre = pre
+    step.post = post
+    step.pending_flush = pending_flush
     return step
 
 
 class Simulator:
-    """Single-partition (k = 1) step engine behind :class:`Session`.
+    """Single-partition (k = 1) step engine behind :class:`Session`; its
+    exchange is the identity, so an explicit ``SimConfig(overlap=...)``
+    resolves to ``"off"`` (and raises with ``fused=True``), as in the
+    reference.
 
     ``device`` is where it runs: the card unless the caller names another
     (``device="cpu"`` runs the plain torch versions).  ``_noise_fn`` is the
@@ -425,8 +597,11 @@ class Simulator:
             identity_rows=all(self.dev.identity_rows),
             n_delay_buckets=len(self.dev.delays),
             any_plastic=self.dev.any_plastic,
+            identity_exchange=True,
+            n_global=self.net.n,
             fused=self.cfg.fused,
             gather=gather,
+            overlap=self.cfg.overlap,
         )
 
     @property

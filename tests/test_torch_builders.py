@@ -48,6 +48,30 @@ def test_to_dcsr_byte_identical(name, k):
             _assert_same_array(getattr(jp, key), getattr(tp, key), key)
 
 
+@pytest.mark.parametrize("name,k,uniform", [
+    ("microcircuit", 4, True),  # edges already in merged order: the sort is skipped
+    ("balanced_ei_stdp", 3, False),
+    ("spatial_random", 2, False),
+])
+def test_merge_and_repartition_byte_identical(name, k, uniform):
+    from repro.core import block_partition as j_block, merge_to_single as j_merge
+    from repro.core import repartition as j_repartition
+    from repro_torch.core import block_partition, merge_to_single, repartition
+
+    n = _build(jnet, name, BUILDERS[name]).n
+    jd = jnet.to_dcsr(_build(jnet, name, BUILDERS[name]), assignment=j_block(n, k),
+                      uniform=uniform)
+    td = tnet.to_dcsr(_build(tnet, name, BUILDERS[name]), assignment=block_partition(n, k),
+                      uniform=uniform)
+    assign = (np.arange(jd.n) * 7) % 3  # a relabelling repartition: the sort runs
+    for jm, tm in ((j_merge(jd), merge_to_single(td)),
+                   (j_repartition(jd, assign), repartition(td, assign))):
+        _assert_same_array(jm.dist, tm.dist, "dist")
+        for jp, tp in zip(jm.parts, tm.parts, strict=True):
+            for key in _PART_ARRAYS:
+                _assert_same_array(getattr(jp, key), getattr(tp, key), key)
+
+
 @pytest.mark.parametrize("k", [1, 4])
 @pytest.mark.parametrize("align_k", [32, 128])
 def test_build_delay_ell_byte_identical(k, align_k):

@@ -18,6 +18,7 @@ from repro_torch.kernels import event_step as event_mod
 from repro_torch.kernels import fused_step as fused_mod
 from repro_torch.kernels import lif_step as lif_mod
 from repro_torch.kernels import spike_gather as gather_mod
+from repro_torch.kernels import split_step as split_mod
 from repro_torch.kernels import stdp_update as stdp_mod
 
 pytestmark = pytest.mark.gpu
@@ -337,3 +338,213 @@ def test_plastic_engines_bit_identical_on_card(cuda):
     assert any(not torch.equal(a, b) for a, b in zip(fs.state["weights"], w0))
     for a, b in zip(fs.state["weights"], us.state["weights"]):
         assert torch.equal(a, b)
+
+
+# -- the split (k>1) step's kernels -----------------------------------------
+
+def test_split_kernels_build(cuda):
+    lib = _build.library()
+    assert lib.repro_post_exchange_max_buckets() == split_mod.MAX_BUCKETS
+    assert lib.repro_post_exchange_plastic_max_buckets() == split_mod.MAX_BUCKETS
+
+
+@pytest.mark.parametrize("n", [1, 1000, 19293])
+def test_pre_exchange_kernel_bit_exact(cuda, rng, n):
+    v, r, i = _lif_inputs(rng, n, cuda)
+    tp, tm = _vec(rng, n, cuda), _vec(rng, n, cuda)
+    before = split_mod.PRE_COUNTER.launches
+    got = ops.fused_pre_exchange(v, r, i, tp, tm, params=LIF_PARAMS, taus=TAUS)
+    assert split_mod.PRE_COUNTER.launches == before + 1
+    want = ref.fused_pre_exchange_ref(v, r, i, tp, tm, params=LIF_PARAMS, taus=TAUS)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # the trace-free variant is the lif_step kernel
+    before = lif_mod.COUNTER.launches
+    three = ops.fused_pre_exchange(v, r, i, params=LIF_PARAMS)
+    assert lif_mod.COUNTER.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(three, got))
+
+
+def _slots(D, t, delays, device):
+    clear = (torch.arange(D) != t % D).float().to(device)
+    write = [(t + d) % D for d in delays]
+    onehot = (torch.tensor(write)[:, None] == torch.arange(D)[None, :]).float().to(device)
+    return clear, onehot, write
+
+
+def _ring_by_kernels(act, ring, clear, onehot, cols, weights, n_p):
+    """The reference's ring formulation around the spike_gather kernel."""
+    curs = [ops.spike_gather(act, c, w)[:n_p] for c, w in zip(cols, weights)]
+    return ref._ring_accumulate(ring, clear, onehot, curs)
+
+
+@pytest.mark.parametrize("n_p,n,R,ks,clear_it", [
+    (64, 256, 64, (16,), True),
+    (100, 400, 104, (8, 24), True),  # R > n_p
+    (37, 37, 40, (4, 12, 20), True),  # local ids
+    (500, 2000, 504, tuple(range(8, 8 * 16, 8)), False),  # 15 buckets, remote
+    (19293, 77172, 19296, (384, 1280), True),  # microcircuit k=4 widths
+])
+def test_post_exchange_kernel_bit_exact_vs_gather_kernel(cuda, rng, n_p, n, R, ks, clear_it):
+    D, t = 16, 21
+    delays = [1 + (3 * i) % D for i in range(len(ks))]
+    cols, weights = _panels(rng, n, R, ks, n_p, cuda)
+    act = (torch.from_numpy(rng.random(n)).to(cuda) < 0.05).float()
+    ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    clear, onehot, _ = _slots(D, t, delays, cuda)
+    before = split_mod.POST_COUNTER.launches
+    if clear_it:
+        got = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights)
+        want = ref.fused_post_exchange_ref(act, ring, clear, onehot, cols, weights)
+    else:
+        got = ops.fused_post_exchange_remote(act, ring, onehot, cols, weights)
+        want = ref.fused_post_exchange_remote_ref(act, ring, onehot, cols, weights)
+    assert split_mod.POST_COUNTER.launches == before + 1
+    exact = _ring_by_kernels(act, ring, clear if clear_it else None, onehot, cols, weights, n_p)
+    assert torch.equal(got, exact)
+    assert torch.equal(got.view(torch.int32), exact.view(torch.int32))  # signed zeros too
+    # f32 sums in another order: rtol=atol=1e-5
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    inplace = ring.clone()
+    if clear_it:
+        ops.fused_post_exchange(act, inplace, clear, onehot, cols, weights, out=inplace)
+    else:
+        ops.fused_post_exchange_remote(act, inplace, onehot, cols, weights, out=inplace)
+    assert torch.equal(inplace.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_p,n,R,ks,remote", [
+    (64, 256, 64, (16,), False),
+    (100, 400, 104, (8, 24), True),
+    (3125, 12500, 3128, (128,) * 15, False),  # balanced_ei(12500) at k=4
+    (3125, 12500, 3128, (128,) * 15, True),
+])
+def test_post_exchange_plastic_kernel_vs_unfused_kernels(cuda, rng, n_p, n, R, ks, remote):
+    D, t = 16, 9
+    delays = list(range(1, len(ks) + 1))
+    cols, weights = _panels(rng, n, R, ks, n_p, cuda)
+    plastic = _masks(rng, R, ks, n_p, cuda)
+    act = (_vec(rng, n, cuda) < 0.1).float()
+    pre = _vec(rng, n, cuda)
+    post_t, post_s = _vec(rng, n_p, cuda), (_vec(rng, n_p, cuda) < 0.2).float()
+    ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    clear, onehot, _ = _slots(D, t, delays, cuda)
+    act_g = act.clone()
+    if remote:
+        act_g[:n_p] = 0.0  # partition 0's own slice
+    before = split_mod.PLASTIC_COUNTER.launches
+    if remote:
+        new_ring, new_w = ops.fused_post_exchange_remote_plastic(
+            act_g, act, pre, ring, onehot, post_t, post_s, cols, weights, plastic, stdp=STDP)
+        want = ref.fused_post_exchange_remote_plastic_ref(
+            act_g, act, pre, ring, onehot, post_t, post_s, cols, weights, plastic, stdp=STDP)
+    else:
+        new_ring, new_w = ops.fused_post_exchange_plastic(
+            act, pre, ring, clear, onehot, post_t, post_s, cols, weights, plastic, stdp=STDP)
+        want = ref.fused_post_exchange_plastic_ref(
+            act, pre, ring, clear, onehot, post_t, post_s, cols, weights, plastic, stdp=STDP)
+    assert split_mod.PLASTIC_COUNTER.launches == before + 1
+    exact = _ring_by_kernels(act_g, ring, None if remote else clear, onehot, cols, weights, n_p)
+    assert torch.equal(new_ring.view(torch.int32), exact.view(torch.int32))
+    torch.testing.assert_close(new_ring, want[0], rtol=1e-5, atol=1e-5)
+    pad = R - n_p
+    pt, ps = (torch.nn.functional.pad(x, (0, pad)) for x in (post_t, post_s))
+    for nw, c, w, pm, pw in zip(new_w, cols, weights, plastic, want[1]):
+        assert torch.equal(nw, ops.stdp_update(w, pm, c, pre, act, pt, ps, params=STDP))
+        assert torch.equal(nw, pw)
+    assert any(not torch.equal(a, b) for a, b in zip(new_w, weights))
+
+
+@pytest.mark.parametrize("slot", [5, None])
+def test_event_kernel_split_use(cuda, rng, slot):
+    """(n_global,) activity, (D, n_p) ring, per-partition touch bitmaps over
+    n_global ids, with and without the clear."""
+    n_p, n, R, ks, cap = 5000, 20000, 5000, (128, 384), 1000
+    D, t = 16, 21
+    delays = (8, 15)
+    cols, weights = _panels(rng, n, R, ks, n_p, cuda)
+    # each 128-row block reads a window of 500 ids of its own, so a few
+    # spikes flag a few blocks and leave the rest
+    window = torch.arange(R, device=cuda)[:, None] // 128 * 500
+    cols = [(c % 500 + window).to(torch.int32) for c in cols]
+    valid = [(w != 0).cpu().numpy() for w in weights]
+    plan = event_mod.EventPlan.build([c.cpu().numpy() for c in cols], valid, n, cap, cuda)
+    act = (_vec(rng, n, cuda) < 0.0005).float()
+    ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    write = [(t + d) % D for d in delays]
+    got, want = ring.clone(), ring.clone()
+    flags = ops.event_post_exchange(act, got, slot, write, plan, cols, weights)
+    want_flags = event_mod.event_post_exchange_plain(act, want, slot, write, plan, cols, weights)
+    assert torch.equal(flags, want_flags) and 0 < int(flags.sum()) < flags.numel()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    dense = ring.clone()
+    if slot is not None:
+        dense[slot] = 0.0
+    for c, w, ws in zip(cols, weights, write):
+        dense[ws] += ops.spike_gather(act, c, w)[:n_p]
+    assert torch.equal(got, dense)
+
+
+def test_split_kernels_refuse_bad_operands(cuda):
+    D, n_p = 4, 8
+    ring = torch.zeros((D, n_p), device=cuda)
+    act = torch.zeros(32, device=cuda)
+    c = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    w = torch.zeros((8, 4), device=cuda)
+    oh = torch.zeros((1, D), device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        split_mod.post_exchange_cuda(act.cpu(), ring.cpu(), None, oh.cpu(), [c.cpu()], [w.cpu()])
+    with pytest.raises(ValueError, match="write_onehot"):
+        split_mod.post_exchange_cuda(act, ring, None, torch.zeros((2, D), device=cuda), [c], [w])
+    with pytest.raises(ValueError, match="clear_mask"):
+        split_mod.post_exchange_cuda(act, ring, torch.ones(3, device=cuda), oh, [c], [w])
+    with pytest.raises(ValueError, match="rows"):
+        split_mod.post_exchange_cuda(act, ring, None, oh, [c[:4]], [w[:4]])
+    with pytest.raises(ValueError, match="post_trace"):
+        split_mod.post_exchange_plastic_cuda(act, act, act, ring, None, oh, act, act, [c], [w],
+                                             [w], stdp=STDP)
+    with pytest.raises(ValueError, match="shape"):
+        split_mod.pre_exchange_cuda(act, act, act, act, act[:4], params=LIF_PARAMS, taus=TAUS)
+
+
+@pytest.mark.parametrize("kind,exchange,overlap", [
+    ("plain", "index", "auto"), ("plain", "dense", "off"), ("plain", "index", "double_buffer"),
+    ("plastic", "dense", "auto"), ("plastic", "index", "off"),
+])
+def test_dist_engine_on_one_card_matches_k1(cuda, kind, exchange, overlap):
+    """k=4 partitions on one card (devices=[card] * 4) against the k=1 run
+    of the merged net on the card: the same raster, traces and weights."""
+    from repro_torch.core import block_partition, merge_to_single
+    from repro_torch.snn import (
+        RasterMonitor, Session, SimConfig, balanced_ei, microcircuit, to_dcsr,
+    )
+
+    net = balanced_ei(n=2000, stdp=True, seed=0) if kind == "plastic" else \
+        microcircuit(scale=0.05, seed=0)
+    d = to_dcsr(net, assignment=block_partition(net.n, 4), uniform=True)
+    base = Session(merge_to_single(d), SimConfig(), device=cuda)
+    mb = RasterMonitor()
+    base.run(300, monitors=[mb])
+    ses = Session(d, SimConfig(exchange=exchange, overlap=overlap), engine="spmd",
+                  devices=[cuda] * 4)
+    want = "fused_split_plastic" if kind == "plastic" else "fused_split"
+    assert ses.engine_choice.engine == want
+    assert ses.engine_choice.overlap == ("local" if overlap == "auto" else overlap)
+    m = RasterMonitor()
+    res = ses.run(300, monitors=[m])
+    assert mb.raster.sum() > 0 and int(res.overflow.sum()) == 0
+    np.testing.assert_array_equal(m.raster, mb.raster)
+    if kind == "plain":
+        assert "event" in ses.last_gather_modes
+    for name in ("tr_plus", "tr_minus", "hist", "vtx_state", "ring"):
+        got = torch.cat([c[name] for c in ses.state], dim=1 if name in ("hist", "ring") else 0)
+        if name in ("vtx_state", "ring") and ses.engine_choice.overlap != "off":
+            # the remote pass adds on top of the local pass's ring: the
+            # sums round in another order
+            torch.testing.assert_close(got, base.state[name], rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(got, base.state[name]), name
+    n_p = d.parts[0].n
+    for i, w1 in enumerate(base.state["weights"]):
+        got = torch.cat([c["weights"][i][:n_p] for c in ses.state])
+        assert torch.equal(got, w1[: 4 * n_p])

@@ -87,13 +87,21 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(exchange="index"), "k>1 engine"),
-    (dict(overlap="local"), "k>1 engine"),
     (dict(max_k=64), "heavy-row split"),
 ])
 def test_unported_config_values_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         SimConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [dict(exchange="index"), dict(overlap="local")])
+def test_k_gt_1_config_values_run(kw):
+    """The k>1 engine's knobs construct since its slice; at k = 1 the
+    exchange is the identity, so they change nothing, as in the reference."""
+    d = tnet.to_dcsr(tnet.microcircuit(scale=0.01), k=1)
+    ses = Session(d, SimConfig(align_k=32, **kw), device="cpu")
+    assert ses.describe()["overlap"] == "off"
+    assert ses.run(5).overflow.sum() == 0
 
 
 def test_config_checks_mirror_the_reference():
