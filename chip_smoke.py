@@ -4,8 +4,9 @@ one card and check it.
 
     python3 chip_smoke.py [--seed 0] [--scale 1.0]
 
-It drives two networks, each at k=1 and at k=4.  The microcircuit is
-built once, as the uniform k=4 net ``to_dcsr(net,
+It drives two networks, each at k=1 and at k=4, and then two built from
+procedural rules (``--scale`` sizes both microcircuits).  The microcircuit
+is built once, as the uniform k=4 net ``to_dcsr(net,
 assignment=block_partition(net.n, 4), uniform=True)`` (3 inert padding
 neurons); the k=1 paths run its ``merge_to_single``, which has the same
 labelling, so the k=4 rasters are compared with the k=1 ones entry by
@@ -91,6 +92,31 @@ pass, the remote ``post_exchange_plastic`` pass):
      ``exchange="index"`` and ``fused=False``, each bit-identical in hist,
      traces and weights to a fresh k=1 ``fused_plastic`` run; timing.
 
+Procedural construction, ``RuleSpec`` -> ``build_network`` (the keystream
+kernel on the card, the float assembly in numpy on the host) -> ``Session``:
+ p1. the keystream kernel bit-exact against its plain version on the card
+     and against numpy ``crng.word_matrix``: 8,192 x 11,136 words (a bound
+     on the build's calls), the build's largest call (8,192 x 8,348), odd
+     j0 with odd n_words, gathered ids with repeats up to 2^31-1, and a
+     zero-row and a zero-word call, which launch nothing;
+ p2. ``balanced_ei_rules(n=12500, stdp=True)`` built as 4 uniform blocks on
+     the card and by the numpy oracle: every partition array, dist, meta
+     and rule_spec equal; then ``Session(spec)`` (k=1, ``fused_plastic``)
+     and ``Session(spec, k=4, engine="spmd")`` on the card, 256 steps each,
+     raster, hist, traces and weights bit-identical;
+ p3. the slice's main path, ``Session(microcircuit_rules(scale))`` with
+     ``SimConfig()``: the build's host seconds split into the keystream
+     (launches and copies), the numpy assembly and the ELL and upload, the
+     keystream's launches (set to 0 before the build, equal to its calls);
+     1000 steps with both monitors, counts per chunk gather mode; rows of
+     three partitions of a k=64 block partition, built by the numpy oracle,
+     equal to the card-built net's;
+ p4. the keystream kernel's time with CUDA events at 8,192 x 11,136 words,
+     its plain version's, and its bound (the larger of the bytes over the
+     HBM rate and the cipher's ALU-pipe instructions over the ALU pipe's
+     rate); the built kernel's row loop read from its SASS (``cuobjdump``)
+     and counted by pipe.
+
 It ends with a JSON line of kernel figures, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a card it exits 1 before printing any result.
@@ -101,11 +127,14 @@ import argparse
 import gc
 import json
 import os
+import re
 import resource
 import subprocess
 import sys
 import time
 import warnings
+from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -119,6 +148,10 @@ from repro_torch.kernels import lif_step as lif_mod  # noqa: E402
 from repro_torch.kernels import spike_gather as gather_mod  # noqa: E402
 from repro_torch.kernels import split_step as split_mod  # noqa: E402
 from repro_torch.kernels import stdp_update as stdp_mod  # noqa: E402
+from repro_torch.kernels import keystream as ks_mod  # noqa: E402
+from repro_torch.builder import (  # noqa: E402
+    balanced_ei_rules, build_network, build_partition, crng, microcircuit_rules,
+)
 from repro_torch.core import block_partition, merge_to_single  # noqa: E402
 from repro_torch.snn import (  # noqa: E402
     RasterMonitor, RateMonitor, Session, SimConfig, balanced_ei, microcircuit, to_dcsr,
@@ -134,9 +167,35 @@ K_PARTS = 4  # partitions of the k>1 paths, all on the one card
 PLASTIC_N = 12500  # Brunel (2000) model A: 10,000 E and 2,500 I neurons
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor f32, published
+# H100 SXM ALU pipe (integer add, logic, shift): 132 SMs x 64 lanes x 1.98
+# GHz boost clock (the clock behind the published 67 TFLOP/s f32: 132 x 128
+# lanes x 2 x 1.98 GHz).  The FMA pipe beside it runs integer adds too, as
+# IMAD, at the same rate, and an SM issues 128 lanes' instructions a clock.
+INT32_ALU_OPS_PER_S = 132 * 64 * 1.98e9
+# Threefry-2x32-20 takes 20 funnel-shift rotates (SHF) and 20 xors (LOP3) a
+# cipher, which only the ALU pipe executes, and 27 adds (the key injections
+# fold into three-input IADD3), which may issue as IMAD on the FMA pipe at
+# the same time.  So the ALU pipe's 40 bound it: 67 instructions over the
+# issue rate take less (keystream_sass reads what the compiler emitted).
+INT_OPS_PER_CIPHER = 20 + 20
+# SASS opcodes by the sm_90 pipe that executes them (Nsight Compute's pipe
+# names); any other counts as "other"
+SASS_PIPES = {"IADD3": "alu", "LOP3": "alu", "SHF": "alu", "PRMT": "alu", "ISETP": "alu",
+              "LEA": "alu", "SEL": "alu", "IMAD": "fma", "LDG": "lsu", "STG": "lsu",
+              "BRA": "control", "BSSY": "control", "BSYNC": "control"}
+# keystream shapes of microcircuit_rules(scale=1.0): a bound on its calls, a
+# full chunk of 8,192 rows x 4 Irwin-Hall words for each of the largest
+# rule's 2,784 candidate sources (L23E->L23I, whose 5,834 target rows never
+# fill a chunk); and its largest real call, the weight words of rule 0
+# (L23E->L23E, 2,087 candidates) for the chunk of rows 8,192-16,383
+KS_ROWS, KS_WORDS = 8192, 11136
+KS_REAL_R0, KS_REAL_WORDS = 8192, 8348
+ROW_CHECK_K, ROW_CHECK_PARTS = 64, (0, 31, 63)
+BUILD_ARRAYS = ("global_ids", "row_ptr", "col_idx", "vtx_model", "edge_model", "vtx_state",
+                "edge_state", "coords")
 COUNTERS = (lif_mod.COUNTER, gather_mod.COUNTER, fused_mod.COUNTER, event_mod.COUNTER,
             stdp_mod.COUNTER, fused_mod.PLASTIC_COUNTER, split_mod.PRE_COUNTER,
-            split_mod.POST_COUNTER, split_mod.PLASTIC_COUNTER)
+            split_mod.POST_COUNTER, split_mod.PLASTIC_COUNTER, ks_mod.COUNTER)
 SOURCES = {
     "lif_step": ("src/repro_torch/kernels/csrc/lif_step.cu",
                  "src/repro/kernels/lif_step.py:38"),
@@ -160,6 +219,8 @@ SOURCES = {
                               "src/repro/kernels/fused_step.py:901"),
     "event_post_exchange_split": ("src/repro_torch/kernels/csrc/event_step.cu",
                                   "src/repro/kernels/event_step.py:198"),
+    "keystream": ("src/repro_torch/kernels/csrc/keystream.cu",
+                  "src/repro/kernels/keystream.py:58"),
 }
 
 
@@ -198,9 +259,9 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -311,7 +372,10 @@ def only(**launches):
     return {c.name: launches.get(c.name, 0) for c in COUNTERS}
 
 
-def phase_main_path(ses, n):
+def phase_main_path(ses, n, pops, tag="main", need_event=True):
+    """1000 steps with both monitors; the launch counts, set to 0 just before
+    the run and read just after, must match every chunk's gather mode.
+    ``pops`` maps each population to its range of permanent ids."""
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     res, rate, raster, secs = run_session(ses, STEPS)
@@ -319,9 +383,9 @@ def phase_main_path(ses, n):
     modes = ses.last_gather_modes
     dense = sum(c for c, m in zip(res.chunks, modes) if m == "dense")
     event = sum(c for c, m in zip(res.chunks, modes) if m == "event")
-    say("main", f"chunks {res.chunks}, gather modes {modes}")
+    say(tag, f"chunks {res.chunks}, gather modes {modes}")
     require(dense + event == STEPS, f"gather modes {modes}")
-    require(event > 0, "the main path never took the event gather")
+    require(event > 0 or not need_event, "the main path never took the event gather")
     require(launches == only(lif_step=event, fused_step=dense, event_post_exchange=event),
             f"launches {launches} for {dense} dense and {event} event steps")
     counts = res.spike_count
@@ -330,27 +394,32 @@ def phase_main_path(ses, n):
     require(raster.raster.shape == (STEPS, n), f"raster {raster.raster.shape}")
     require(int(raster.raster.sum()) == int(counts.sum()), "raster and counts disagree")
     peak = torch.cuda.max_memory_allocated()
-    say("main", f"{STEPS} steps ({STEPS * ses.dt:.0f} ms model time), {dense} on 'fused' and "
+    say(tag, f"{STEPS} steps ({STEPS * ses.dt:.0f} ms model time), {dense} on 'fused' and "
         f"{event} on 'fused_event': {secs:.3f} s, {secs / STEPS * 1e6:.1f} us/step "
         "(host clock, monitors included)")
-    say("main", f"launches {launches}; spikes: {int(counts.sum())} "
+    say(tag, f"launches {launches}; spikes: {int(counts.sum())} "
         f"({counts.mean() / n:.6f} per neuron a step); mean rate {rate.rates.mean():.2f} Hz; "
         f"peak device memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
-    pops = _population_rates(raster.raster, ses)
-    say("main", "population rates (Hz): " + ", ".join(f"{k} {v:.2f}" for k, v in pops.items()))
+    rates = _population_rates(raster.raster, ses, pops)
+    say(tag, "population rates (Hz): " + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()))
+    require(all(np.isfinite(v) for v in rates.values()) and any(rates.values()),
+            f"population rates {rates}")
     return raster.raster, launches
 
 
-def _population_rates(raster, ses):
+def pd14_populations(scale):
+    """Permanent-id ranges of ``microcircuit(scale)``'s populations."""
     from repro_torch.snn.network import PD14_POPS, PD14_SIZES
 
-    scale = float(ses.net.meta["scale"])
     sizes = np.maximum((np.asarray(PD14_SIZES) * scale).astype(np.int64), 2)
     edges = np.concatenate([[0], np.cumsum(sizes)])
+    return dict(zip(PD14_POPS, zip(edges[:-1], edges[1:])))
+
+
+def _population_rates(raster, ses, pops):
     per = raster[:, np.argsort(ses.permanent_ids)].sum(axis=0)
     secs = raster.shape[0] * ses.dt * 1e-3
-    return {p: float(per[a:b].sum()) / ((b - a) * secs)
-            for p, a, b in zip(PD14_POPS, edges[:-1], edges[1:])}
+    return {p: float(per[a:b].sum()) / ((b - a) * secs) for p, (a, b) in pops.items()}
 
 
 def event_case(sim, t=STEPS):
@@ -1282,6 +1351,238 @@ def phase_k4_plastic_timing(dsim, params, inputs, errs, launches):
     return out
 
 
+# -- procedural construction ---------------------------------------------------
+
+def keystream_bound(n_rows, j0, n_words):
+    """(ms, what bounds it, bytes, ciphers) of one keystream call: the
+    counters read once and the words written once, against one cipher per
+    counter pair the call touches."""
+    pairs = ((j0 + n_words - 1) >> 1) - (j0 >> 1) + 1 if n_words else 0
+    n_bytes = n_rows * 8 + n_rows * n_words * 4
+    ms, by = bound_ms(n_bytes, n_rows * pairs * INT_OPS_PER_CIPHER, INT32_ALU_OPS_PER_S)
+    return ms, by, n_bytes, n_rows * pairs
+
+
+def keystream_sass():
+    """The built keystream kernel's row loop (one cipher, its counter load
+    and its stores), read from the library's SASS with ``cuobjdump``:
+    (instructions by pipe, rotates, xors).  Fails unless the loop holds the
+    one cipher's 20 rotates and 20 xors that ``INT_OPS_PER_CIPHER`` counts."""
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build.build().path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
+             if "keystream_kernel" in f.split("\n", 1)[0]]
+    require(len(funcs) == 1, f"{len(funcs)} keystream kernels in the SASS")
+    code = []  # (address, opcode, operands)
+    for line in funcs[0].splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);", line)
+        if m:
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = [(int(re.findall(r"0x[0-9a-f]+", args)[-1], 16), at) for at, op, args in code
+             if op.split(".")[0] == "BRA" and re.findall(r"0x[0-9a-f]+", args)]
+    loops = [(lo, hi) for lo, hi in loops if lo < hi]
+    require(len(loops) == 1, f"keystream SASS: {len(loops)} backward branches")
+    lo, hi = loops[0]
+    body = [(op, args) for at, op, args in code if lo <= at <= hi]
+    pipes = Counter(SASS_PIPES.get(op.split(".")[0], "other") for op, _ in body)
+    rotates = sum(op.startswith("SHF.L.W") for op, _ in body)
+    xors = sum(op.startswith("LOP3") and ", 0x3c," in args for op, args in body)
+    require(rotates == 20 and xors == 20,
+            f"keystream SASS loop: {rotates} rotates and {xors} xors, not one cipher's 20 and 20")
+    return dict(pipes), rotates, xors
+
+
+def keystream_cases(seed):
+    """The p1 inputs: (label, stream, rows, j0, n_words)."""
+    rng = np.random.default_rng(seed)
+    gathered = rng.integers(0, 2**31, 200_000, dtype=np.int64)
+    gathered[::7] = gathered[3]  # repeats
+    gathered[-5:] = 2**31 - 1
+    return [
+        ("bound on the build's calls", crng.rule_stream(6, crng.WEIGHT_OFF),
+         np.arange(KS_ROWS, dtype=np.int64) + 20683, 0, KS_WORDS),
+        ("largest call of the build", crng.rule_stream(0, crng.WEIGHT_OFF),
+         np.arange(KS_REAL_R0, KS_REAL_R0 + KS_ROWS, dtype=np.int64), 0, KS_REAL_WORDS),
+        ("odd j0 and odd n_words", crng.rule_stream(3, crng.SRC_OFF),
+         rng.integers(0, 77169, 5000, dtype=np.int64), 3, 1001),
+        ("gathered ids with repeats up to 2^31-1", crng.STREAM_COORD, gathered, 0, 4),
+        ("zero rows", crng.STREAM_V, np.zeros(0, np.int64), 0, 7),
+        ("zero words", crng.STREAM_V, np.arange(10, dtype=np.int64), 5, 0),
+    ]
+
+
+def phase_keystream_kernel(seed, card):
+    """p1: the keystream kernel bit-exact against its plain version on the
+    card and against numpy ``word_matrix``; empty calls launch nothing.
+    Returns the largest |kernel - plain| over the words as integers."""
+    err = 0
+    for label, stream, rows, j0, n_words in keystream_cases(seed):
+        rows_t = torch.from_numpy(rows).to(card)
+        before = ks_mod.COUNTER.launches
+        got = ks_mod.keystream_cuda(seed, stream, rows_t, j0, n_words)
+        torch.cuda.synchronize()
+        launched = ks_mod.COUNTER.launches - before
+        require(launched == (1 if rows.size and n_words else 0),
+                f"keystream {label}: {launched} launches")
+        want = ks_mod.keystream_plain(seed, stream, rows_t, j0, n_words)
+        require(got.shape == (rows.size, n_words) and torch.equal(got, want),
+                f"keystream {label}: kernel differs from its plain version")
+        if got.numel():
+            err = max(err, int((got.long() - want.long()).abs().max()))
+        oracle = crng.word_matrix(seed, stream, rows, j0, n_words)
+        require(np.array_equal(ks_mod.as_uint32(got), oracle),
+                f"keystream {label}: kernel differs from numpy word_matrix")
+        say("p1", f"keystream {label}: {rows.size} x {n_words} (j0={j0}), {launched} launch, "
+            "bit-exact vs plain (card) and numpy word_matrix")
+        del got, want, oracle
+    return float(err)
+
+
+def require_same_build(a, b, what):
+    """Every array of every partition, dist, meta and rule_spec equal."""
+    require((a.n, a.m, a.k) == (b.n, b.m, b.k), f"{what}: shapes differ")
+    require(np.array_equal(a.dist, b.dist), f"{what}: dist differs")
+    for pa, pb in zip(a.parts, b.parts):
+        for key in BUILD_ARRAYS:
+            require(np.array_equal(getattr(pa, key), getattr(pb, key)),
+                    f"{what}: partition {pa.part_id} {key} differs")
+    require(a.meta == b.meta and a.rule_spec == b.rule_spec, f"{what}: meta or rule_spec")
+
+
+def build_line(rep):
+    return (f"{rep.seconds:.1f} s: keystream {rep.keystream_seconds:.2f} s ({rep.path}, "
+            f"{rep.keystream_calls} calls, {rep.keystream_words} words, "
+            f"{rep.d2h_bytes / 1e9:.3f} GB copied back), numpy assembly "
+            f"{rep.assembly_seconds:.1f} s")
+
+
+def phase_rules_brunel(seed, card):
+    """p2: the Brunel rules net built on the card equals the numpy build;
+    k=4 on one card equals k=1 in raster, traces and weights."""
+    spec = balanced_ei_rules(n=PLASTIC_N, stdp=True, seed=seed)
+    reset_counts()
+    dev_net = build_network(spec, K_PARTS, uniform=True, path="device", device=card)
+    launches = read_counts()
+    rep = dev_net.build_report
+    require(rep.keystream_calls > 0 and launches == only(keystream=rep.keystream_calls),
+            f"device build launches {launches}, {rep.keystream_calls} keystream calls")
+    ref_net = build_network(spec, K_PARTS, uniform=True, path="ref")
+    require_same_build(dev_net, ref_net, "balanced_ei_rules device vs ref build")
+    say("p2", f"balanced_ei_rules(n={PLASTIC_N}, stdp=True) k={K_PARTS} uniform: n={dev_net.n}, "
+        f"m={dev_net.m}; every partition array, dist, meta and rule_spec equal between the "
+        f"card build ({build_line(rep)}) and the numpy build ({build_line(ref_net.build_report)})")
+    del dev_net, ref_net
+
+    t0 = time.perf_counter()
+    ses1 = Session(spec, SimConfig())
+    ses4 = Session(spec, SimConfig(), k=K_PARTS, engine="spmd", devices=[card] * K_PARTS)
+    torch.cuda.synchronize()
+    say("p2", f"Session(spec) and Session(spec, k={K_PARTS}, engine='spmd'): "
+        f"{time.perf_counter() - t0:.1f} s (two builds, ELL, upload); engines "
+        f"{ses1.engine_choice.engine}, {ses4.engine_choice.engine}")
+    require(ses1.engine_choice.engine == "fused_plastic", f"engine {ses1.engine_choice}")
+    require(ses4.net.n == ses1.net.n == PLASTIC_N, "the k=4 rules net has padding")
+    reset_counts()
+    _, _, r1, s1 = run_session(ses1, PARITY_STEPS)
+    l1 = read_counts()
+    require(l1 == only(fused_plastic_step=PARITY_STEPS), f"k=1 launches {l1}")
+    reset_counts()
+    _, _, r4, s4 = run_session(ses4, PARITY_STEPS)
+    l4 = read_counts()
+    nd = len(ses4.simulator.devs[0].cols)
+    require(l4 == plastic_k4_launches("local", True, PARITY_STEPS, nd), f"k=4 launches {l4}")
+    require(int(r1.raster.sum()) > 0, "the Brunel rules net never spiked")
+    require(np.array_equal(r4.raster, r1.raster), "k=4 raster differs from k=1's")
+    dv = require_plastic_equal(ses4, ses1, "Brunel rules net k=4")
+    changed = check_learned(ses1.simulator, ses1.state["weights"])
+    say("p2", f"{PARITY_STEPS} steps: k=1 fused_plastic {s1 / PARITY_STEPS * 1e6:.1f} us/step, "
+        f"k={K_PARTS} fused_split_plastic {s4 / PARITY_STEPS * 1e6:.1f} us/step; raster "
+        f"({int(r1.raster.sum())} spikes), hist, traces and weights ({changed} slots changed) "
+        f"bit-identical, max |v difference| {dv:.3e}; launches {l1}, {l4}")
+
+
+def phase_rules_microcircuit(args, card):
+    """p3: the slice's main path, ``Session(microcircuit_rules(scale))`` with
+    the keystream on the card, then 1000 steps, then rows of the card-built
+    net against the numpy oracle's ``build_partition``."""
+    spec = microcircuit_rules(scale=args.scale, seed=args.seed)
+    reset_counts()
+    t0 = time.perf_counter()
+    ses = Session(spec, SimConfig())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    rep, sim = ses.net.build_report, ses.simulator
+    require(rep.path == "device" and rep.device == str(card), f"build on {rep.path} {rep.device}")
+    require(rep.keystream_calls > 0 and rep.keystream_words > 0
+            and launches == only(keystream=rep.keystream_calls),
+            f"build launches {launches}, {rep.keystream_calls} keystream calls")
+    shapes = [(b.delay, b.cols.shape) for b in sim.ell.buckets]
+    say("p3", f"Session(microcircuit_rules(scale={args.scale})): n={ses.n}, m={ses.m}, "
+        f"{len(spec.rules)} rules; {secs:.1f} s = build {build_line(rep)}; ELL and upload "
+        f"{secs - rep.seconds:.1f} s; buckets {shapes}, fill {sim.ell.fill_factor:.3f}; engine "
+        f"{ses.engine_choice}; host peak RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f} GiB")
+    pops = {p: spec.offsets()[p] for p in (q.name for q in spec.populations)}
+    phase_main_path(ses, ses.n, pops, tag="p3", need_event=False)
+
+    part = ses.net.parts[0]
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(block_partition(spec.n, ROW_CHECK_K)))])
+    t0 = time.perf_counter()
+    for p in ROW_CHECK_PARTS:
+        want = build_partition(spec, ROW_CHECK_K, p, path="ref")
+        a, b = int(bounds[p]), int(bounds[p + 1])
+        e0, e1 = int(part.row_ptr[a]), int(part.row_ptr[b])
+        require(np.array_equal(np.diff(part.row_ptr[a:b + 1]), np.diff(want.row_ptr)),
+                f"partition {p} of {ROW_CHECK_K}: row lengths differ")
+        for key, got in (("col_idx", part.col_idx[e0:e1]), ("edge_model", part.edge_model[e0:e1]),
+                         ("edge_state", part.edge_state[e0:e1]),
+                         ("vtx_state", part.vtx_state[a:b]), ("coords", part.coords[a:b]),
+                         ("global_ids", part.global_ids[a:b])):
+            require(np.array_equal(got, getattr(want, key)),
+                    f"partition {p} of {ROW_CHECK_K}: {key} differs from the numpy oracle's")
+    say("p3", f"rows of partitions {ROW_CHECK_PARTS} of a k={ROW_CHECK_K} block partition "
+        "(numpy oracle build_partition) equal the card-built net's in row lengths, col_idx, "
+        f"edge_model, edge_state, vtx_state, coords and global_ids "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches["keystream"]
+
+
+def phase_keystream_timing(seed, card, launches, err):
+    """p4: the kernel at the largest build call with CUDA events, beside its
+    plain version and its bound."""
+    cases = keystream_cases(seed)
+    _, stream, rows, j0, n_words = cases[1]
+    rows_t = torch.from_numpy(rows).to(card)
+    t_real = cuda_ms(lambda: ks_mod._launch(seed, stream, rows_t, j0, n_words), 20)
+    b_real = keystream_bound(rows.size, j0, n_words)[0]
+    say("p4", f"keystream {rows.size} x {n_words} (the build's largest call): kernel "
+        f"{t_real:.4f} ms, bound {b_real:.4f} ms")
+    _, stream, rows, j0, n_words = cases[0]
+    rows_t = torch.from_numpy(rows).to(card)
+    tk = cuda_ms(lambda: ks_mod._launch(seed, stream, rows_t, j0, n_words), 20)
+    tp = cuda_ms(lambda: ks_mod.keystream_plain(seed, stream, rows_t, j0, n_words), 3)
+    b, by, n_bytes, ciphers = keystream_bound(rows.size, j0, n_words)
+    pipes, rotates, xors = keystream_sass()
+    say("p4", f"keystream SASS (cuobjdump), the row loop: {sum(pipes.values())} instructions, "
+        f"by pipe {pipes}: {rotates} rotates (SHF.L.W) and {xors} xors (LOP3) on the ALU "
+        f"pipe, the rest loop and store work; its {pipes.get('alu', 0)} ALU-pipe "
+        f"instructions over {INT32_ALU_OPS_PER_S / 1e12:.2f} T/s would take "
+        f"{ciphers * pipes.get('alu', 0) / INT32_ALU_OPS_PER_S * 1e3:.4f} ms at this shape")
+    t_d2h = cuda_ms(lambda: ks_mod._launch(seed, stream, rows_t, j0, n_words).cpu(), 3)
+    say("p4", f"keystream {rows.size} x {n_words}: kernel {tk:.4f} ms "
+        f"({ciphers / tk / 1e6:.1f} G ciphers/s, {n_bytes / tk / 1e6:.0f} GB/s), plain {tp:.3f} ms, "
+        f"bound {b:.4f} ms ({by}: {ciphers} ciphers x {INT_OPS_PER_CIPHER} ALU-pipe "
+        f"instructions over {INT32_ALU_OPS_PER_S / 1e12:.2f} T/s; bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms for "
+        f"{n_bytes / 1e9:.3f} GB); with the copy to the host {t_d2h:.3f} ms; library: none "
+        "(torch's generators are Philox; no PyTorch call computes Threefry words)")
+    src, rep = SOURCES["keystream"]
+    return dict(name="keystream", route="cuda", source=src, replaces=rep, launches=launches,
+                max_abs_err=err, ms=tk, plain_ms=tp, bound_ms=b, bound_by=by, library_ms=None,
+                path="procedural build of microcircuit_rules")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="network and input seed")
@@ -1322,7 +1623,7 @@ def main(argv=None) -> int:
 
     params = lif_params(net)
     inputs, errs = phase_kernels(sim, params, np.random.default_rng(args.seed))
-    main_raster, launches = phase_main_path(ses, net.n)
+    main_raster, launches = phase_main_path(ses, net.n, pd14_populations(args.scale))
     errs["event_post_exchange"], event_act = phase_event(sim, main_raster)
     unfused = phase_parity(net, main_raster, len(sim.dev.cols))
     # spike_gather runs only on the unfused path: its count is that run's
@@ -1397,6 +1698,20 @@ def main(argv=None) -> int:
         pre_exchange=k4p_launches["pre_exchange"],
         post_exchange_remote_plastic=k4p_launches["post_exchange_plastic"],
         post_exchange_plastic=k4p_var["overlap off"]["post_exchange_plastic"]))
+    del pses4, pdsim, pses, psim, pnet, pd4, unf, fus, k4p_inputs, p_inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # procedural construction: RuleSpec -> build_network (keystream on the
+    # card) -> Session
+    ks_err = phase_keystream_kernel(args.seed, card)
+    phase_rules_brunel(args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ks_launches = phase_rules_microcircuit(args, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.append(phase_keystream_timing(args.seed, card, ks_launches, ks_err))
     say("done", f"every phase passed; whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

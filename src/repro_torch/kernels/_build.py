@@ -134,6 +134,8 @@ def build() -> BuildInfo:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
+_L = ctypes.c_int64
 _SIGNATURES = {
     "repro_lif_step": [_P] * 6 + [_I] + [_F] * 7 + [_P, _I],
     "repro_spike_gather": [_P] * 4 + [_I, _I, _P, _I],
@@ -157,6 +159,7 @@ _SIGNATURES = {
         [_P] * 9 + [_I] * 4 + [_P] * 5 + [_F] * 4 + [_P, _I]
     ),
     "repro_post_exchange_plastic_max_buckets": [],
+    "repro_keystream": [_P, _P, _L, _I, _U, _U, _U, _P, _I],
 }
 
 

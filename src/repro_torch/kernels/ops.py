@@ -1,7 +1,7 @@
 """Public kernel entry points of the port (counterpart of
-``repro/kernels/ops.py:79-426``).
+``repro/kernels/ops.py:53-426``).
 
-Each op takes its backend from the device of its first tensor
+Each op takes its backend from the device of its tensors
 (``dispatch.backend_for``) and calls the recorded implementation: the CUDA
 kernel wrapper for CUDA tensors, the plain torch version for CPU tensors.
 """
@@ -13,10 +13,26 @@ from .event_step import event_post_exchange_cuda, event_post_exchange_plain
 from .fused_step import (
     fused_step_cuda, fused_step_plastic_cuda, fused_step_plastic_plain,
 )
+from .keystream import keystream_cuda, keystream_plain
 from .lif_step import lif_step_cuda
 from .spike_gather import spike_gather_cuda
 from .split_step import post_exchange_cuda, post_exchange_plastic_cuda, pre_exchange_cuda
 from .stdp_update import stdp_update_cuda, stdp_update_plain
+
+# -- builder_keystream (procedural construction word matrix) --------------
+
+implementation("builder_keystream", "ref")(keystream_plain)
+implementation("builder_keystream", "cuda")(keystream_cuda)
+
+
+def builder_keystream(seed, stream, rows, j0, n_words):
+    """Counter-based keystream words for the procedural network builder: a
+    ``(len(rows), n_words)`` int32 tensor of uint32 bit patterns on
+    ``rows``' device, bit-identical to ``builder/crng.py:word_matrix``."""
+    return lookup("builder_keystream", backend_for(rows.device))(
+        seed, stream, rows, j0, n_words
+    )
+
 
 # -- spike_gather ---------------------------------------------------------
 

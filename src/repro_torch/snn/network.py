@@ -9,8 +9,8 @@ milliseconds and benchmarks extrapolate to the paper's numbers.
 
 A copy of ``repro/snn/network.py`` for the port: the same numpy RNG calls in
 the same order, so every builder's arrays are byte-identical to the
-reference's.  ``to_dcsr`` takes a :class:`NetworkDef`; procedural
-``RuleSpec`` input is not ported yet.
+reference's.  ``to_dcsr`` also takes a procedural ``RuleSpec``
+(:mod:`repro_torch.builder`).
 """
 from __future__ import annotations
 
@@ -49,18 +49,40 @@ def to_dcsr(
     assignment: Optional[Array] = None,
     k: int = 1,
     uniform: bool = False,
+    *,
+    chunk_rows: Optional[int] = None,
+    path: str = "auto",
+    device=None,
 ) -> DCSRNetwork:
     """Partition a NetworkDef.  ``uniform=True`` pads with isolated dummy
-    vertices so every partition has exactly the same size."""
+    vertices so every partition has exactly the same size.
+
+    Also accepts a :class:`repro_torch.builder.RuleSpec`: with the default
+    block assignment each partition's rows are emitted *directly*
+    (procedural chunked construction, bit-identical for any k, chunk size
+    and sampling path; the keystream runs on ``device``, the card by
+    default); a custom ``assignment`` goes through the eager ``NetworkDef``
+    bridge, since non-contiguous partitions need the global relabelling."""
     if not isinstance(net, NetworkDef):
-        if type(net).__name__ == "RuleSpec":
-            raise NotImplementedError(
-                "to_dcsr(RuleSpec): procedural construction is not ported "
-                "yet (ROADMAP.md, modules still to port: procedural "
-                "construction and streaming ingest)"
+        from ..builder.procedural import (
+            DEFAULT_CHUNK_ROWS, build_network, network_def,
+        )
+        from ..builder.rules import RuleSpec
+
+        if not isinstance(net, RuleSpec):
+            raise TypeError(
+                f"to_dcsr expects a NetworkDef or RuleSpec, got "
+                f"{type(net).__name__}"
             )
-        raise TypeError(
-            f"to_dcsr expects a NetworkDef, got {type(net).__name__}"
+        if assignment is None:
+            return build_network(
+                net, k=k, uniform=uniform,
+                chunk_rows=chunk_rows or DEFAULT_CHUNK_ROWS, path=path,
+                device=device,
+            )
+        net = network_def(
+            net, chunk_rows=chunk_rows or DEFAULT_CHUNK_ROWS, path=path,
+            device=device,
         )
     n, src, dst = net.n, net.src, net.dst
     vtx_model, vtx_state, coords = net.vtx_model, net.vtx_state, net.coords

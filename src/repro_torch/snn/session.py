@@ -38,10 +38,15 @@ Plastic nets (``syn_stdp`` edges) run ``fused_plastic`` (k = 1) or
 carry.  They never take the event gather, so every chunk of a plastic run
 with ``gather="auto"`` reports ``"dense"``.
 
+``Session(spec, cfg, k=...)`` builds from a procedural ``RuleSpec``
+(``builder.build_network``, ``uniform`` when k > 1): each partition's dCSR
+rows are emitted directly, with the keystream on the session's device
+(``devices[0]`` for spmd) unless ``build_path="ref"`` asks for the numpy
+oracle; ``k`` applies only to a ``RuleSpec``, as in the reference.
+
 Not in this slice, each raising ``NotImplementedError`` that names the
 ROADMAP queue item porting it: snapshot paths as input and the
-save/restore pair, ``run(checkpoint_every=...)``, ``run_supervised``, and
-``RuleSpec`` input.
+save/restore pair, ``run(checkpoint_every=...)`` and ``run_supervised``.
 """
 from __future__ import annotations
 
@@ -54,6 +59,8 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..builder.procedural import DEFAULT_CHUNK_ROWS, build_network
+from ..builder.rules import RuleSpec
 from ..core.dcsr import DCSRNetwork, merge_to_single
 from ..kernels.dispatch import EVENT_ACTIVITY_THRESHOLD, resolve_device
 from .dist_sim import DistSimulator
@@ -105,20 +112,36 @@ class Session:
         engine: str = "auto",
         device=None,
         devices: Optional[Sequence] = None,
+        k: Optional[int] = None,
+        build_chunk_rows: Optional[int] = None,
+        build_path: str = "auto",
         _noise_fn=None,
         _share: Optional["Session"] = None,
     ):
-        if isinstance(net_or_path, (str, os.PathLike)):
+        if isinstance(net_or_path, RuleSpec):
+            # procedural one-call build: each partition's dCSR rows are
+            # emitted directly (chunked, counter-based seeding), with the
+            # keystream on the device the session runs on
+            kk = 1 if k is None else int(k)
+            net = build_network(
+                net_or_path, k=kk, uniform=kk > 1,
+                chunk_rows=build_chunk_rows or DEFAULT_CHUNK_ROWS,
+                path=build_path, device=devices[0] if devices else device,
+            )
+        elif k is not None:
+            raise ValueError(
+                "Session(k=...) only applies when building from a RuleSpec; "
+                "use Session.restore(path, k=...) for snapshots"
+            )
+        elif isinstance(net_or_path, (str, os.PathLike)):
             raise _unported("Session(snapshot path)", "snapshots in the reference format")
-        if type(net_or_path).__name__ == "RuleSpec":
-            raise _unported(
-                "Session(RuleSpec)", "procedural construction and streaming ingest"
-            )
-        if not isinstance(net_or_path, DCSRNetwork):
+        elif isinstance(net_or_path, DCSRNetwork):
+            net = net_or_path
+        else:
             raise TypeError(
-                f"Session expects a DCSRNetwork, got {type(net_or_path).__name__}"
+                "Session expects a DCSRNetwork, a RuleSpec or a snapshot "
+                f"path, got {type(net_or_path).__name__}"
             )
-        net = net_or_path
         self.cfg = cfg if cfg is not None else SimConfig()
         self.source_k = net.k
         self.engine_kind = self._select_engine_kind(net, engine, device, devices)

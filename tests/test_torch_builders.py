@@ -114,9 +114,14 @@ def test_network_from_arrays_round_trips_the_reference_net():
 
 
 def test_to_dcsr_rejects_other_inputs():
-    from repro.builder.rules import microcircuit_rules
+    from repro.builder.rules import microcircuit_rules as jmicrocircuit_rules
+    from repro_torch.builder import microcircuit_rules
 
-    with pytest.raises(NotImplementedError, match="procedural construction"):
-        tnet.to_dcsr(microcircuit_rules(scale=0.01))
+    # a RuleSpec of the port builds procedurally since its slice; one of the
+    # JAX package is another type, which the port does not take
+    d = tnet.to_dcsr(microcircuit_rules(scale=0.01), k=2, device="cpu")
+    assert d.k == 2 and d.n == microcircuit_rules(scale=0.01).n and d.m > 0
+    with pytest.raises(TypeError, match="NetworkDef or RuleSpec"):
+        tnet.to_dcsr(jmicrocircuit_rules(scale=0.01))
     with pytest.raises(TypeError, match="NetworkDef"):
         tnet.to_dcsr(object())

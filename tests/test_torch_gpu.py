@@ -6,8 +6,9 @@ fixture when there is no card.  On a machine with one:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 The file imports no JAX: the kernels are held against the port's own plain
-versions, which ``tests/test_torch_kernels.py`` holds against the JAX
-oracles on the CPU.
+versions, which ``tests/test_torch_kernels.py`` (and, for the keystream,
+``tests/test_torch_procedural.py``) holds against the JAX oracles on the
+CPU.
 """
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import event_step as event_mod
 from repro_torch.kernels import fused_step as fused_mod
+from repro_torch.kernels import keystream as ks_mod
 from repro_torch.kernels import lif_step as lif_mod
 from repro_torch.kernels import spike_gather as gather_mod
 from repro_torch.kernels import split_step as split_mod
@@ -548,3 +550,73 @@ def test_dist_engine_on_one_card_matches_k1(cuda, kind, exchange, overlap):
     for i, w1 in enumerate(base.state["weights"]):
         got = torch.cat([c["weights"][i][:n_p] for c in ses.state])
         assert torch.equal(got, w1[: 4 * n_p])
+
+
+# -- the builder keystream ----------------------------------------------------
+
+def _keystream_rows(kind, rng):
+    if kind == "chunk":  # the largest build call's rows (8,192 x 11,136 words)
+        return np.arange(20683, 20683 + 8192, dtype=np.int64)
+    rows = rng.integers(0, 2**31, 50_000, dtype=np.int64)
+    rows[::7] = rows[3]  # repeats
+    rows[-3:] = 2**31 - 1
+    return rows
+
+
+@pytest.mark.parametrize("kind,j0,n_words", [
+    ("chunk", 0, 11136), ("gathered", 3, 1001), ("gathered", 0, 4), ("gathered", 1, 1),
+    ("gathered", 2, 6), ("gathered", 5, 2),
+])
+def test_keystream_kernel_bit_exact(cuda, rng, kind, j0, n_words):
+    from repro_torch.builder import crng
+
+    rows = _keystream_rows(kind, rng)
+    t = torch.from_numpy(rows).to(cuda)
+    seed, stream = 7, crng.rule_stream(6, crng.WEIGHT_OFF)
+    before = ks_mod.COUNTER.launches
+    got = ops.builder_keystream(seed, stream, t, j0, n_words)
+    assert ks_mod.COUNTER.launches == before + 1
+    assert got.shape == (len(rows), n_words) and got.dtype == torch.int32
+    assert torch.equal(got, ks_mod.keystream_plain(seed, stream, t, j0, n_words))
+    np.testing.assert_array_equal(ks_mod.as_uint32(got),
+                                  crng.word_matrix(seed, stream, rows, j0, n_words))
+
+
+@pytest.mark.parametrize("n_rows,n_words", [(0, 5), (3, 0), (0, 0)])
+def test_keystream_empty_calls_launch_nothing(cuda, n_rows, n_words):
+    before = ks_mod.COUNTER.launches
+    got = ops.builder_keystream(1, 2, torch.arange(n_rows, device=cuda), 0, n_words)
+    assert got.shape == (n_rows, n_words) and got.device.type == "cuda"
+    assert ks_mod.COUNTER.launches == before
+
+
+def test_keystream_kernel_refuses_bad_operands(cuda):
+    with pytest.raises(ValueError, match="CUDA"):
+        ks_mod.keystream_cuda(1, 2, torch.arange(4), 0, 4)
+    with pytest.raises(TypeError):
+        ks_mod.keystream_cuda(1, 2, torch.arange(4, device=cuda).int(), 0, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ks_mod.keystream_cuda(1, 2, torch.arange(8, device=cuda)[::2], 0, 4)
+    for rows in ([-1, 3], [2**32]):
+        with pytest.raises(ValueError, match="rows"):
+            ks_mod.keystream_cuda(1, 2, torch.tensor(rows, device=cuda), 0, 4)
+    with pytest.raises(ValueError, match="seed"):
+        ks_mod.keystream_cuda(2**32, 2, torch.arange(4, device=cuda), 0, 4)
+    with pytest.raises(ValueError, match="2\\^32"):
+        ks_mod.keystream_cuda(1, 2, torch.arange(4, device=cuda), 2**32 - 1, 4)
+
+
+def test_rule_built_net_on_card_equals_numpy_build(cuda):
+    from repro_torch.builder import balanced_ei_rules, build_network, microcircuit_rules
+
+    for spec in (microcircuit_rules(scale=0.02, seed=1), balanced_ei_rules(n=1000, seed=2)):
+        before = ks_mod.COUNTER.launches
+        got = build_network(spec, 4, uniform=True, device=cuda)
+        want = build_network(spec, 4, uniform=True, path="ref")
+        rep = got.build_report
+        assert rep.keystream_calls > 0 and rep.d2h_bytes == 4 * rep.keystream_words
+        assert ks_mod.COUNTER.launches - before == rep.keystream_calls
+        for a, b in zip(got.parts, want.parts):
+            for key in ("row_ptr", "col_idx", "edge_model", "edge_state", "vtx_state", "coords",
+                        "global_ids"):
+                np.testing.assert_array_equal(getattr(a, key), getattr(b, key), err_msg=key)

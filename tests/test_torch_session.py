@@ -116,8 +116,6 @@ def test_config_checks_mirror_the_reference():
 
 
 def test_unported_session_surfaces_raise(tmp_path):
-    from repro.builder.rules import microcircuit_rules
-
     d = tnet.to_dcsr(tnet.microcircuit(scale=0.01), k=1)
     ses = Session(d, SimConfig(align_k=32), device="cpu")
     with pytest.raises(NotImplementedError, match="snapshots"):
@@ -130,8 +128,6 @@ def test_unported_session_surfaces_raise(tmp_path):
         ses.run_supervised(10)
     with pytest.raises(NotImplementedError, match="snapshots"):
         Session(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="procedural"):
-        Session(microcircuit_rules(scale=0.01), device="cpu")
     # plastic nets run since the plasticity slice
     plastic = Session(tnet.to_dcsr(tnet.balanced_ei(n=200, stdp=True), k=1), device="cpu")
     assert plastic.simulator.dev.any_plastic
