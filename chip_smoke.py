@@ -25,20 +25,29 @@ printing its own lines:
      with nvcc's register, shared-memory and spill report;
   3. kernels vs plain at the main path's shapes (the session's own panels,
      inputs from ``--seed``): ``lif_step`` bit-exact, ``spike_gather``
-     within rtol=atol=1e-5, ``fused_step`` bit-exact against ``lif_step``
-     then ``spike_gather`` and within 1e-5 of its plain version;
+     (with the panels' row lengths) within rtol=atol=1e-5, equal to itself
+     over whole rows and with the bitmask in device memory, and, through
+     the reference's ring formulation, bit-equal to the ``row_dot`` kernel
+     ``post_exchange``; ``fused_step`` bit-exact against ``lif_step`` then
+     ``spike_gather`` and within 1e-5 of its plain version;
   4. main path: 1000 steps; the launch counts, set to 0 just before the run
      and read just after, must match the gather mode of every chunk;
   5. the event kernel against its plain version and against the dense
-     kernels, on spike vectors of the main path's raster;
+     kernels (``spike_gather`` and ``post_exchange``), on spike vectors of
+     the main path's raster;
   6. the unfused path: 256 steps on the ``unfused`` engine, counts set to
      0 before and read after, whose raster must equal the main path's
      first 256 steps; then a small network on the card against the plain
      torch versions on the CPU;
   7. timing with CUDA events at the main path's shapes: each kernel, its
      plain version, ``torch.sparse.mm`` over the same synapses for the
-     gathers, and the bound (bytes over 3.35 TB/s); and the dense and the
-     event engine's us/step from one state of the main path.
+     gathers, and the bound (bytes over 3.35 TB/s); the two gathers at a
+     5% vector and at a spike vector of the main path, each beside
+     ``torch.sparse.mm`` on the same vector, with the bytes they move and
+     the bytes their bound counts (the real slots' cols and the active
+     slots' weights), and with the bitmask read from device memory; and
+     the dense and the event engine's us/step from one state of the main
+     path.
 
 The k>1 microcircuit path: ``Session(d4, SimConfig(), engine="spmd",
 devices=[card] * 4)``, four partitions on the one card, stepped in lockstep
@@ -56,7 +65,8 @@ devices=[card] * 4)``, four partitions on the one card, stepped in lockstep
       ``fused=False`` (the k>1 ``unfused`` engine), each with its counts
       and a raster equal to k2's;
   k4. timing of the split kernels (the bound, the plain version,
-      ``torch.sparse.mm`` over the partition's synapses) and the split
+      ``torch.sparse.mm`` over the partition's synapses; the event
+      kernel's remote pass at two vectors, as in 7) and the split
       engines' us/step.
 
 The plastic path is ``balanced_ei(n=12500, stdp=True)`` (Brunel's model A
@@ -321,22 +331,42 @@ def phase_kernels(sim, params, rng):
 
     act = (torch.rand(n_p, generator=torch.Generator(dev).manual_seed(1), device=dev)
            < 0.05).float()
+    row_len = sim.dev.row_len
     errs["spike_gather"] = 0.0
-    for c, w, d in zip(cols, weights, sim.dev.delays):
-        got = gather_mod.spike_gather_cuda(act, c, w)
+    curs = []
+    for c, w, rl, d in zip(cols, weights, row_len, sim.dev.delays):
+        got = gather_mod.spike_gather_cuda(act, c, w, rl)
         want = ref.spike_gather_ref(act, c, w)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        require(torch.equal(got, gather_mod.spike_gather_cuda(act, c, w)),
+                "spike_gather with row_len differs from spike_gather over whole rows")
+        require(torch.equal(got, gather_mod.spike_gather_cuda(act, c, w, rl,
+                                                              shared_bitmask=False)),
+                "spike_gather differs with the bitmask read from device memory")
+        curs.append(got[:n_p])
         err = float((got - want).abs().max())
         errs["spike_gather"] = max(errs["spike_gather"], err)
-        say("kernels", f"spike_gather d={d} panel {tuple(c.shape)}: "
-            f"max |kernel - plain| = {err:.3e} (rtol=atol=1e-5)")
+        say("kernels", f"spike_gather d={d} panel {tuple(c.shape)}, row_len: equal to "
+            f"whole rows and to the bitmask in device memory; max |kernel - plain| = "
+            f"{err:.3e} (rtol=atol=1e-5)")
+    # against the row_dot kernels: post_exchange, through the reference's ring
+    # formulation, on the session's panels
+    ring, slot, _ = event_case(sim)
+    clear_tab, onehot_tab = slot_tables(sim.d_ring, sim.dev.delays, dev)
+    clear, onehot = clear_tab[slot], onehot_tab[slot]
+    row_dot = split_mod.post_exchange_cuda(act, ring, clear, onehot, cols, weights)
+    exact = ref._ring_accumulate(ring, clear, onehot, curs)
+    require(torch.equal(row_dot.view(torch.int32), exact.view(torch.int32)),
+            "spike_gather with row_len differs from the row_dot kernel (post_exchange)")
+    say("kernels", "spike_gather with row_len: ring bit-equal (signed zeros too) to the "
+        "row_dot kernel's (post_exchange, 5% active)")
 
     v2, r2, s2, curs = fused_mod.fused_step_cuda(v, refrac, i_tot, cols, weights, params=params)
     v1, r1, s1 = lif_mod.lif_step_cuda(v, refrac, i_tot, params=params)
     require(torch.equal(v2, v1) and torch.equal(r2, r1) and torch.equal(s2, s1),
             "fused_step LIF phase differs from the lif_step kernel")
-    for cur, c, w in zip(curs, cols, weights):
-        require(torch.equal(cur, gather_mod.spike_gather_cuda(s1, c, w)),
+    for cur, c, w, rl in zip(curs, cols, weights, row_len):
+        require(torch.equal(cur, gather_mod.spike_gather_cuda(s1, c, w, rl)),
                 "fused_step gather phase differs from the spike_gather kernel")
     _, _, s_p, curs_p = ref.fused_step_ref(v, refrac, i_tot, cols, weights, params=params)
     require(torch.equal(s2, s_p), "fused_step spikes differ from the plain version")
@@ -435,7 +465,9 @@ def phase_event(sim, raster):
     """The event kernel against its plain version and the dense kernels, on
     spike vectors of the main path (and one whose ids overflow the buffer)."""
     plan, cols, weights = sim.event_plan, sim.dev.cols, sim.dev.weights0
+    row_len = sim.dev.row_len
     n_p = sim.dev.n_p
+    clear_tab, onehot_tab = slot_tables(sim.d_ring, sim.dev.delays, sim.device)
     busiest = int(raster.sum(axis=1)[128:].argmax()) + 128
     acts = {f"main-path step {j}": raster[j] for j in (STEPS // 2, busiest)}
     acts["10% active (overflow)"] = (
@@ -445,21 +477,27 @@ def phase_event(sim, raster):
         act = torch.from_numpy(a.astype(np.float32)).to(sim.device)
         ring, slot, write = event_case(sim)
         got, want, dense = ring.clone(), ring.clone(), ring.clone()
-        flags = event_mod.event_post_exchange_cuda(act, got, slot, write, plan, cols, weights)
+        flags = event_mod.event_post_exchange_cuda(act, got, slot, write, plan, cols, weights,
+                                                   row_len)
         want_flags = event_mod.event_post_exchange_plain(act, want, slot, write, plan,
                                                          cols, weights)
         require(torch.equal(flags, want_flags), f"event flags differ from plain ({what})")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         dense[slot] = 0.0
-        for c, w, ws in zip(cols, weights, write):
-            dense[ws] += gather_mod.spike_gather_cuda(act, c, w)[:n_p]
+        for c, w, rl, ws in zip(cols, weights, row_len, write):
+            dense[ws] += gather_mod.spike_gather_cuda(act, c, w, rl)[:n_p]
         require(torch.equal(got, dense), f"event ring differs from the dense kernels' ({what})")
+        row_dot = split_mod.post_exchange_cuda(act, ring, clear_tab[slot], onehot_tab[slot],
+                                               cols, weights)
+        require(torch.equal(got, row_dot), f"event ring differs from the row_dot kernel's "
+                f"(post_exchange) ({what})")
         err = max(err, float((got - want).abs().max()))
         frac = float(flags.float().mean())
         flagged.append(frac)
         say("event", f"{what}: {int(a.sum())} spikes, {frac:.4f} of {flags.numel()} "
             f"(bucket, block) pairs flagged (blocks of {plan.block_r} rows); flags equal "
-            "plain, ring bit-equal to the dense kernels, max |kernel - plain| = "
+            "plain, ring bit-equal to spike_gather's and to post_exchange's (row_dot), "
+            "max |kernel - plain| = "
             f"{float((got - want).abs().max()):.3e} (rtol=atol=1e-5)")
     return err, acts[f"main-path step {STEPS // 2}"]
 
@@ -519,6 +557,34 @@ def _csr(bucket, n, dev):
         ).to(dev)
 
 
+def gather_traffic(act, cols, row_len, rows=None):
+    """``(real, active, moved)`` of a row_len gather over one panel: its real
+    slots, those whose source is active in ``act``, and the bytes it moves
+    in 32-byte sectors (each row's cols, and one sector of weights for each
+    aligned group of 8 slots holding an active one).  ``rows``, a bool
+    ``(R,)`` mask, keeps only the rows read (the event kernel's flagged
+    rows).  Counted on the card from this run's inputs."""
+    R, K = cols.shape
+    require(K % 8 == 0, f"panel width {K} is not a whole number of sectors")
+    lens = row_len.long() if rows is None else row_len.long() * rows
+    live = torch.arange(K, device=cols.device)[None, :] < lens[:, None]
+    on = live & (act.index_select(0, cols.view(-1)).view(R, K) != 0)
+    moved = 32 * (int(((lens + 7) // 8).sum()) + int(on.view(R, K // 8, 8).any(-1).sum()))
+    return int(lens.sum()), int(on.sum()), moved
+
+
+def event_traffic(act, plan, flags, cols, row_len, n_p):
+    """``gather_traffic`` over the rows < ``n_p`` of the flagged blocks of
+    every bucket, and the number of those (bucket, row) pairs."""
+    real = active = moved = n_rows = 0
+    for f, c, rl in zip(flags, cols, row_len):
+        rows = f.bool().repeat_interleave(plan.block_r)[: c.shape[0]]
+        rows[n_p:] = False
+        r_, a_, m_ = gather_traffic(act, c, rl, rows)
+        real, active, moved, n_rows = real + r_, active + a_, moved + m_, n_rows + int(rows.sum())
+    return real, active, moved, n_rows
+
+
 def phase_timing(ses, params, inputs, event_act, errs, launches):
     sim = ses.simulator
     v, refrac, i_tot, act = inputs
@@ -536,31 +602,62 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
     out.append(dict(name="lif_step", ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by,
                     library_ms=None))
 
-    g_k = g_p = g_b = g_lib = g_real = 0.0
-    panel_bytes = 0
-    for c, w, bucket in zip(cols, weights, sim.ell.buckets):
-        R, K = c.shape
-        nb = R * K * 8 + n_p * 4 + R * 4
-        real = int(bucket.valid.sum()) * 8 + n_p * 4 + R * 4
-        panel_bytes += R * K * 8
-        tk = cuda_ms(lambda c=c, w=w: gather_mod.spike_gather_cuda(act, c, w), 20)
-        tp = cuda_ms(lambda c=c, w=w: ref.spike_gather_ref(act, c, w), 5)
-        csr = _csr(bucket, n_p, v.device)
-        act2 = act[:, None].contiguous()
-        lib = torch.sparse.mm(csr, act2)[:, 0]
-        torch.testing.assert_close(lib, gather_mod.spike_gather_cuda(act, c, w),
-                                   rtol=1e-5, atol=1e-5)
-        tl = cuda_ms(lambda csr=csr: torch.sparse.mm(csr, act2), 20)
-        del csr
-        bb, _ = bound_ms(nb, 2 * R * K)
-        br, _ = bound_ms(real, 2 * int(bucket.valid.sum()))
-        say("timing", f"spike_gather d={bucket.delay} ({R}x{K}, fill "
-            f"{bucket.valid.mean():.3f}): kernel {tk:.3f} ms ({nb / tk / 1e6:.0f} GB/s), "
-            f"plain {tp:.3f} ms, torch.sparse.mm {tl:.3f} ms, bound {bb:.3f} ms padded ELL "
-            f"/ {br:.3f} ms real synapses")
-        g_k, g_p, g_b, g_lib, g_real = g_k + tk, g_p + tp, g_b + bb, g_lib + tl, g_real + br
-    out.append(dict(name="spike_gather", ms=g_k, plain_ms=g_p, bound_ms=g_b, bound_by="bytes",
-                    library_ms=g_lib, bound_ms_real_synapses=g_real))
+    # spike_gather at two activity vectors: the 5% vector of phase 3 and a
+    # spike vector of the main path; the bytes it must move depend on both
+    row_len = sim.dev.row_len
+    R = cols[0].shape[0]
+    panel_bytes = sum(c.numel() * 8 for c in cols)
+    real_syn = sum(int(b.valid.sum()) for b in sim.ell.buckets)
+    csrs = [_csr(bucket, n_p, v.device) for bucket in sim.ell.buckets]
+    eact = torch.from_numpy(event_act.astype(np.float32)).to(v.device)
+    gathers = {}
+    for label, a in (("5% active", act), ("main-path step", eact)):
+        a2 = a[:, None].contiguous()
+        t = dict(ms=0.0, ms_no_row_len=0.0, ms_bitmask_l2=0.0, library_ms=0.0)
+        real = active = moved = 0
+        for c, w, rl, csr in zip(cols, weights, row_len, csrs):
+            torch.testing.assert_close(torch.sparse.mm(csr, a2)[:, 0],
+                                       gather_mod.spike_gather_cuda(a, c, w, rl),
+                                       rtol=1e-5, atol=1e-5)
+            t["ms"] += cuda_ms(lambda c=c, w=w, rl=rl: gather_mod.spike_gather_cuda(a, c, w, rl),
+                               20)
+            t["ms_no_row_len"] += cuda_ms(
+                lambda c=c, w=w: gather_mod.spike_gather_cuda(a, c, w), 20)
+            t["ms_bitmask_l2"] += cuda_ms(lambda c=c, w=w, rl=rl: gather_mod.spike_gather_cuda(
+                a, c, w, rl, shared_bitmask=False), 20)
+            t["library_ms"] += cuda_ms(lambda csr=csr: torch.sparse.mm(csr, a2), 20)
+            r_, a_, m_ = gather_traffic(a, c, rl)
+            real, active, moved = real + r_, active + a_, moved + m_
+        # each launch reads the activity and row_len and writes R currents
+        nb = 4 * (real + active) + nd * (4 * n_p + 8 * R)
+        t["bound_ms"], t["bound_by"] = bound_ms(nb, 2 * active)
+        t.update(real=real, active=active, moved=moved, bytes=nb)
+        gathers[label] = t
+        say("timing", f"spike_gather, both buckets, {label} ({int(a.sum())} of {n_p} ids): "
+            f"kernel {t['ms']:.4f} ms; whole rows (no row_len) {t['ms_no_row_len']:.4f} ms; "
+            f"bitmask in device memory {t['ms_bitmask_l2']:.4f} ms; torch.sparse.mm "
+            f"{t['library_ms']:.4f} ms; moves about {moved / 1e9:.4f} GB ({real} real slots' "
+            f"cols and one sector per 8 slots holding an active one, in 32-byte sectors: "
+            f"{moved / t['ms'] / 1e6:.0f} GB/s); bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+            f"{nb / 1e9:.4f} GB = 4 B x {real} real slots' cols + 4 B x {active} active "
+            "slots' weights + activity, row_len and currents)")
+    del csrs
+    g_p = sum(cuda_ms(lambda c=c, w=w: ref.spike_gather_ref(act, c, w), 5)
+              for c, w in zip(cols, weights))
+    g5, gm = gathers["5% active"], gathers["main-path step"]
+    g_pad, _ = bound_ms(panel_bytes + nd * (4 * n_p + 4 * R), 2 * sum(c.numel() for c in cols))
+    g_real, _ = bound_ms(8 * real_syn + nd * (4 * n_p + 4 * R), 2 * real_syn)
+    say("timing", f"spike_gather plain version (5% active) {g_p:.3f} ms; earlier bounds: "
+        f"{g_pad:.4f} ms padded ELL ({panel_bytes / 1e9:.3f} GB), {g_real:.4f} ms every real "
+        "synapse's col and weight")
+    out.append(dict(name="spike_gather", ms=g5["ms"], plain_ms=g_p, bound_ms=g5["bound_ms"],
+                    bound_by=g5["bound_by"], library_ms=g5["library_ms"],
+                    bound_ms_real_synapses=g_real, bound_ms_padded_ell=g_pad,
+                    ms_no_row_len=g5["ms_no_row_len"], ms_bitmask_l2=g5["ms_bitmask_l2"],
+                    ms_main_path=gm["ms"], library_ms_main_path=gm["library_ms"],
+                    bound_ms_main_path=gm["bound_ms"],
+                    ms_main_path_bitmask_l2=gm["ms_bitmask_l2"],
+                    vector="5% active; *_main_path: a spike vector of the main path"))
 
     f_bytes = lif_bytes + panel_bytes + nd * cols[0].shape[0] * 4
     f_flops = 10 * n_p + sum(2 * c.numel() for c in cols)
@@ -574,29 +671,43 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
     out.append(dict(name="fused_step", ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
                     library_ms=None))
 
-    # the event kernel on a spike vector of the main path: what it must move
-    # depends on the blocks this vector flags
+    # the event kernel on the same two vectors: what it must move depends on
+    # the blocks the vector flags and on its active ids
     plan = sim.event_plan
-    eact = torch.from_numpy(event_act.astype(np.float32)).to(v.device)
+    events = {}
+    for label, a in (("main-path step", eact), ("5% active", act)):
+        ring, slot, write = event_case(sim)
+        flags = event_mod.event_post_exchange_cuda(a, ring, slot, write, plan, cols, weights,
+                                                   row_len)
+        real, active, moved, rows = event_traffic(a, plan, flags, cols, row_len, n_p)
+        n_ids = int(a.sum())
+        e_bytes = (4 * (real + active) + n_p * 4 * 2 + rows * 12
+                   + n_ids * (8 + nd * plan.num_blocks) + flags.numel() * 4)
+        t = dict(
+            ms=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
+                a, ring, slot, write, plan, cols, weights, row_len), 20),
+            ms_bitmask_l2=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
+                a, ring, slot, write, plan, cols, weights, row_len, shared_bitmask=False), 20),
+        )
+        t["bound_ms"], t["bound_by"] = bound_ms(e_bytes, 2 * active)
+        events[label] = t
+        say("timing", f"event_post_exchange, {label} ({n_ids} spikes, {rows} of {nd * n_p} "
+            f"(bucket, row) pairs in flagged blocks): kernel {t['ms']:.4f} ms, bitmask in L2 "
+            f"{t['ms_bitmask_l2']:.4f} ms; torch.sparse.mm over both buckets "
+            f"{gathers[label]['library_ms']:.4f} ms; moves about {moved / 1e9:.4f} GB of panel "
+            f"({moved / t['ms'] / 1e6:.0f} GB/s); bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {e_bytes / 1e9:.4f} GB = 4 B x {real} real slots' cols + 4 B x "
+            f"{active} active slots' weights + activity, ring, row_len, ids and touch bytes)")
+    em, e5 = events["main-path step"], events["5% active"]
     ring, slot, write = event_case(sim)
-    flags = event_mod.event_post_exchange_cuda(eact, ring, slot, write, plan, cols, weights)
-    n_ids = int(event_act.sum())
-    block_rows = np.clip(n_p - plan.block_r * np.arange(plan.num_blocks), 0, plan.block_r)
-    rows = [int(block_rows[f > 0].sum()) for f in flags.cpu().numpy()]
-    slots = sum(r * c.shape[1] for r, c in zip(rows, cols))
-    e_bytes = (slots * 8 + n_p * 4 * 2 + sum(rows) * 8 + n_ids * (8 + nd * plan.num_blocks)
-               + flags.numel() * 4)
-    tk = cuda_ms(lambda: event_mod.event_post_exchange_cuda(eact, ring, slot, write, plan,
-                                                            cols, weights), 20)
     tp = cuda_ms(lambda: event_mod.event_post_exchange_plain(eact, ring, slot, write, plan,
                                                              cols, weights), 5)
-    b, by = bound_ms(e_bytes, 2 * slots)
-    say("timing", f"event_post_exchange ({n_ids} spikes, {sum(rows)} of {nd * n_p} "
-        f"(bucket, row) pairs in flagged blocks): kernel {tk:.3f} ms "
-        f"({e_bytes / tk / 1e6:.0f} GB/s), plain {tp:.3f} ms, bound {b:.3f} ms "
-        f"({e_bytes / 1e9:.3f} GB); library: torch.sparse.mm over both buckets {g_lib:.3f} ms")
-    out.append(dict(name="event_post_exchange", ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
-                    library_ms=g_lib))
+    say("timing", f"event_post_exchange plain version (main-path step) {tp:.3f} ms")
+    out.append(dict(name="event_post_exchange", ms=em["ms"], plain_ms=tp, bound_ms=em["bound_ms"],
+                    bound_by=em["bound_by"], library_ms=gm["library_ms"],
+                    ms_bitmask_l2=em["ms_bitmask_l2"], ms_5pct=e5["ms"],
+                    bound_ms_5pct=e5["bound_ms"], library_ms_5pct=g5["library_ms"],
+                    vector="a spike vector of the main path; *_5pct: 5% active"))
 
     for k in out:
         src, rep = SOURCES[k["name"]]
@@ -953,23 +1064,29 @@ def phase_k4_kernels(dsim, act_np):
     for what, a, s in (("remote pass (no clear)", act_remote, None),
                        ("serialized (clear)", act, slot)):
         got, want, dense = ring.clone(), ring.clone(), ring.clone()
-        flags = event_mod.event_post_exchange_cuda(a, got, s, write, plan, dev.cols, dev.weights0)
+        flags = event_mod.event_post_exchange_cuda(a, got, s, write, plan, dev.cols, dev.weights0,
+                                                   dev.row_len)
         want_flags = event_mod.event_post_exchange_plain(a, want, s, write, plan, dev.cols,
                                                          dev.weights0)
         require(torch.equal(flags, want_flags), f"split event flags differ from plain ({what})")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         if s is not None:
             dense[s] = 0.0
-        for c, w, ws in zip(dev.cols, dev.weights0, write):
-            dense[ws] += gather_mod.spike_gather_cuda(a, c, w)[:n_p]
+        for c, w, rl, ws in zip(dev.cols, dev.weights0, dev.row_len, write):
+            dense[ws] += gather_mod.spike_gather_cuda(a, c, w, rl)[:n_p]
         require(torch.equal(got, dense), f"split event ring differs from the dense kernels' "
                 f"({what})")
+        row_dot = split_mod.post_exchange_cuda(a, ring, None if s is None else clear, onehot,
+                                               dev.cols, dev.weights0)
+        require(torch.equal(got, row_dot), f"split event ring differs from the row_dot kernel's "
+                f"(post_exchange) ({what})")
         e = float((got - want).abs().max())
         e_err = max(e_err, e)
         say("k4", f"event_post_exchange split use, {what}: act ({a.shape[0]},) with "
             f"{int(a.sum())} spikes, ring {tuple(ring.shape)}, {float(flags.float().mean()):.4f} "
             f"of {flags.numel()} (bucket, block) pairs flagged; flags equal plain, ring "
-            f"bit-equal to the dense kernels, max |kernel - plain| = {e:.3e} (rtol=atol=1e-5)")
+            f"bit-equal to spike_gather's and to post_exchange's (row_dot), max |kernel - plain| "
+            f"= {e:.3e} (rtol=atol=1e-5)")
     return {"post_exchange": err, "event_post_exchange_split": e_err}
 
 
@@ -1099,30 +1216,59 @@ def phase_k4_timing(dsim, act_np, errs, launches):
                 ms_full_pass=full[0], bound_ms_full_pass=full[2], path="k4_main",
                 per="one partition's local + remote pass")]
 
-    plan = dsim.event_plans[0]
-    act_remote = act.clone()
-    act_remote[:n_p] = 0.0
-    flags = event_mod.event_post_exchange_cuda(act_remote, work, None, write, plan, dev.cols,
-                                               dev.weights0)
-    n_ids = int(act_remote.sum())
-    block_rows = np.clip(n_p - plan.block_r * np.arange(plan.num_blocks), 0, plan.block_r)
-    rows = [int(block_rows[f > 0].sum()) for f in flags.cpu().numpy()]
-    slots = sum(r * c.shape[1] for r, c in zip(rows, dev.cols))
-    nd = len(dev.cols)
-    e_bytes = (slots * 8 + n * 4 + sum(rows) * 8 + n_ids * (8 + nd * plan.num_blocks)
-               + flags.numel() * 4)
-    tk = cuda_ms(lambda: event_mod.event_post_exchange_cuda(act_remote, work, None, write, plan,
-                                                            dev.cols, dev.weights0), 20)
+    # the event kernel's remote pass (own slice of the activity zeroed) at a
+    # spike vector of the main path and at a 5% vector, each beside
+    # torch.sparse.mm over partition 0's synapses on the same vector
+    plan, nd = dsim.event_plans[0], len(dev.cols)
+    five = (torch.rand(n, generator=torch.Generator(card).manual_seed(2), device=card)
+            < 0.05).float()
+    csrs = [_csr_from(s.cols[i][0], s.weights[i][0], s.valid[i][0], n, card)
+            for i in range(len(s.delays))]
+    events = {}
+    for label, a in (("main-path step", act), ("5% active", five)):
+        a = a.clone()
+        a[:n_p] = 0.0
+        a2 = a[:, None].contiguous()
+        lib_a = sum(cuda_ms(lambda csr=csr: torch.sparse.mm(csr, a2), 20) for csr in csrs)
+        flags = event_mod.event_post_exchange_cuda(a, work, None, write, plan, dev.cols,
+                                                   dev.weights0, dev.row_len)
+        real, active, moved, rows = event_traffic(a, plan, flags, dev.cols, dev.row_len, n_p)
+        n_ids = int(a.sum())
+        e_bytes = (4 * (real + active) + n * 4 + rows * 12
+                   + n_ids * (8 + nd * plan.num_blocks) + flags.numel() * 4)
+        t = dict(
+            ms=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
+                a, work, None, write, plan, dev.cols, dev.weights0, dev.row_len), 20),
+            ms_bitmask_l2=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
+                a, work, None, write, plan, dev.cols, dev.weights0, dev.row_len,
+                shared_bitmask=False), 20),
+            library_ms=lib_a,
+        )
+        t["bound_ms"], t["bound_by"] = bound_ms(e_bytes, 2 * active)
+        events[label] = t
+        say("timing", f"event_post_exchange split use (remote pass), partition 0, {label} "
+            f"({n_ids} remote spikes, {rows} of {nd * n_p} (bucket, row) pairs flagged): "
+            f"kernel {t['ms']:.4f} ms, bitmask in L2 {t['ms_bitmask_l2']:.4f} ms; "
+            f"torch.sparse.mm on the same vector {lib_a:.4f} ms; moves about "
+            f"{moved / 1e9:.4f} GB of panel ({moved / t['ms'] / 1e6:.0f} GB/s); bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {e_bytes / 1e9:.4f} GB = 4 B x {real} "
+            f"real slots' cols + 4 B x {active} active slots' weights + activity, ring, "
+            "row_len, ids and touch bytes)")
+        if label == "main-path step":
+            act_remote = a
+    del csrs
     tp = cuda_ms(lambda: event_mod.event_post_exchange_plain(act_remote, work, None, write,
                                                              plan, dev.cols, dev.weights0), 5)
-    b, by = bound_ms(e_bytes, 2 * slots)
-    say("timing", f"event_post_exchange split use (remote pass, {n_ids} remote spikes, "
-        f"{sum(rows)} of {nd * n_p} (bucket, row) pairs flagged), partition 0: kernel "
-        f"{tk:.3f} ms ({e_bytes / tk / 1e6:.0f} GB/s), plain {tp:.3f} ms, bound {b:.3f} ms "
-        f"({e_bytes / 1e9:.3f} GB)")
-    out.append(dict(name="event_post_exchange_split", ms=tk, plain_ms=tp, bound_ms=b,
-                    bound_by=by, library_ms=lib, path="k4_main",
-                    per="one partition's remote pass"))
+    say("timing", f"event_post_exchange split use plain version (main-path step) {tp:.3f} ms")
+    em, e5 = events["main-path step"], events["5% active"]
+    out.append(dict(name="event_post_exchange_split", ms=em["ms"], plain_ms=tp,
+                    bound_ms=em["bound_ms"], bound_by=em["bound_by"],
+                    library_ms=em["library_ms"], ms_bitmask_l2=em["ms_bitmask_l2"],
+                    ms_5pct=e5["ms"], bound_ms_5pct=e5["bound_ms"],
+                    library_ms_5pct=e5["library_ms"], path="k4_main",
+                    per="one partition's remote pass",
+                    vector="a spike vector of the main path, own slice zeroed; *_5pct: 5% "
+                           "active, own slice zeroed"))
     for k in out:
         src, rep = SOURCES[k["name"]]
         k.update(route="cuda", source=src, replaces=rep, max_abs_err=errs[k["name"]],

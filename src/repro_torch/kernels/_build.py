@@ -138,7 +138,7 @@ _U = ctypes.c_uint32
 _L = ctypes.c_int64
 _SIGNATURES = {
     "repro_lif_step": [_P] * 6 + [_I] + [_F] * 7 + [_P, _I],
-    "repro_spike_gather": [_P] * 4 + [_I, _I, _P, _I],
+    "repro_spike_gather": [_P, _I] + [_P] * 5 + [_I] * 3 + [_P, _I],
     "repro_fused_step": (
         [_P] * 6 + [_I, _I, _I] + [_P, _P, _P, _P] + [_F] * 7 + [_P, _I]
     ),
@@ -149,7 +149,7 @@ _SIGNATURES = {
     ),
     "repro_fused_plastic_step_max_buckets": [],
     "repro_event_step": (
-        [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P] * 5 + [_I]
+        [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P] * 6 + [_I, _P, _I]
     ),
     "repro_event_step_max_buckets": [],
     "repro_pre_exchange": [_P] * 10 + [_I] + [_F] * 9 + [_P, _I],

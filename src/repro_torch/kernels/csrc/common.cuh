@@ -1,10 +1,13 @@
-// Device routines shared by the three kernels of the k=1 LIF step.
+// Device routines shared by the port's kernels.
 //
 // lif_advance is the one definition of the LIF arithmetic on the card
-// (lif_step.cu and phase 1 of fused_step.cu); row_dot is the one definition
-// of the ELL row reduction (spike_gather.cu and phase 2 of fused_step.cu).
-// Because both engines go through the same two routines, the fused and the
-// unfused engine give bit-identical rasters on the card.
+// (lif_step.cu and phase 1 of fused_step.cu).  row_dot is the ELL row
+// reduction of the dense kernels (fused_step.cu, post_exchange.cu and the
+// plastic kernels); row_dot_active is the same reduction that reads only
+// the real slots and only the weights of active sources (spike_gather.cu,
+// event_step.cu), and gives row_dot's result bit for bit (argument below).
+// Because every engine goes through these routines, the fused, unfused and
+// event engines give bit-identical rasters on the card.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -84,6 +87,166 @@ __device__ __forceinline__ float row_dot(const int* cols, const float* w,
     acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
   }
   return acc;
+}
+
+// The activity bitmask: bit (j & 31) of word (j >> 5) is set iff act[j] != 0
+// (a NaN counts as active).  One warp packs 32 ids with one ballot; `word`
+// must be warp-uniform.  Ids past n are inactive.
+__device__ __forceinline__ void pack_active_bits(const float* act, int n,
+                                                 uint32_t* bits, int word,
+                                                 int lane) {
+  const int j = word * 32 + lane;
+  const bool on = j < n && act[j] != 0.0f;
+  const uint32_t m = __ballot_sync(0xffffffffu, on);
+  if (lane == 0) bits[word] = m;
+}
+
+// Where row_dot_active reads the bitmask words from: a block's copy in
+// shared memory; device memory written by an earlier launch (read-only
+// path); or device memory written earlier in the same launch (L2 only,
+// never a stale L1 line).
+struct SharedBits {
+  const uint32_t* w;
+  __device__ __forceinline__ uint32_t word(int i) const { return w[i]; }
+};
+struct LdgBits {
+  const uint32_t* w;
+  __device__ __forceinline__ uint32_t word(int i) const { return __ldg(w + i); }
+};
+struct L2Bits {
+  const uint32_t* w;
+  __device__ __forceinline__ uint32_t word(int i) const { return __ldcg(w + i); }
+};
+
+// row_dot over the first `len` slots of a row, reading a weight and an
+// activity only where the source's bit is set.
+//
+// Kept from row_dot, exactly: lane j takes slots j, j+32, j+64, ... in
+// ascending order; each slot it takes adds __fmaf_rn(w[k], act[c], acc);
+// the same xor-shuffle tree combines the lanes.  What changes is which
+// slots a lane takes: only those below len, and only those whose source is
+// active.  Per iteration a lane loads kChunks cols (coalesced: a warp reads
+// 32 neighbouring slots per chunk), with the next iteration's cols already
+// in flight, tests their bits, and only for set bits loads w[k] and act[c].
+//
+// Why the result equals row_dot's bit for bit.  A skipped slot is either
+// past len, where the row holds (col 0, weight 0) by construction, or has
+// act[c] == +-0 with a finite weight.  Either way row_dot would add an exact
+// +-0 product: fma(w, +-0, acc) == acc + (+-0), which is acc itself unless
+// acc is -0.  acc is never -0: it starts at +0; an exact zero sum with a +0
+// among its terms rounds to +0; and a nonzero exact sum never rounds to
+// zero, because every product of an active slot is exact in f32 (the
+// precondition below), so the sum is a nonzero multiple of the subnormal
+// step 2^-149.  So every skipped fma leaves acc's bits unchanged, each
+// lane's partial sum is row_dot's, and so is the tree.
+// Precondition: weights and activity are finite (inf * 0 is NaN, which
+// row_dot would add and this routine skips), and every product
+// w[k] * act[c] of an active slot is exact in f32.  Spike vectors (0/1)
+// satisfy the second always; other activity values unless a product
+// underflows.  The builders' weights and STDP-clipped weights are finite.
+template <class Bits>
+__device__ __forceinline__ float row_dot_active(const int* cols, const float* w,
+                                                const float* act, Bits bits,
+                                                int len, int lane) {
+  constexpr int kChunks = 8;
+  constexpr int kStep = 32 * kChunks;
+  float acc = 0.0f;
+  int next[kChunks];
+#pragma unroll
+  for (int u = 0; u < kChunks; ++u) {
+    const int k = 32 * u + lane;
+    next[u] = k < len ? __ldg(cols + k) : 0;
+  }
+  for (int base = 0; base < len; base += kStep) {
+    int c[kChunks];
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) c[u] = next[u];
+    if (base + kStep < len) {  // warp-uniform
+#pragma unroll
+      for (int u = 0; u < kChunks; ++u) {
+        const int k = base + kStep + 32 * u + lane;
+        next[u] = k < len ? __ldg(cols + k) : 0;
+      }
+    }
+    bool on[kChunks];
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const int k = base + 32 * u + lane;
+      on[u] = k < len && ((bits.word(c[u] >> 5) >> (c[u] & 31)) & 1u);
+    }
+    float wv[kChunks];
+    float av[kChunks];
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const int k = base + 32 * u + lane;
+      wv[u] = on[u] ? __ldg(w + k) : 0.0f;
+      av[u] = on[u] ? act[c[u]] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      if (on[u]) acc = __fmaf_rn(wv[u], av[u], acc);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+  }
+  return acc;
+}
+
+// Blocks of `kernel` (with `threads` threads and `smem` bytes of dynamic
+// shared memory) that fit on the card at once.  Above the default 48 KB the
+// kernel is first allowed that much dynamic shared memory.  The last answer
+// per (device, kernel, smem) is kept: the wrappers call this every launch.
+static inline cudaError_t resident_blocks(const void* kernel, int device,
+                                          int threads, size_t smem,
+                                          int* blocks) {
+  struct Entry {
+    const void* kernel;
+    int device;
+    size_t smem;
+    int blocks;
+  };
+  static Entry cache[16] = {};
+  for (const Entry& e : cache) {
+    if (e.kernel == kernel && e.device == device && e.smem == smem) {
+      *blocks = e.blocks;
+      return cudaSuccess;
+    }
+  }
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int sms = 0;
+  int per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = sms * per_sm;
+  static int next = 0;
+  cache[next] = Entry{kernel, device, smem, *blocks};
+  next = (next + 1) % 16;
+  return cudaSuccess;
+}
+
+// Whether a bitmask of `words` words goes to shared memory: it must fit the
+// card's opt-in limit per block and the caller's cap (bytes; < 0: none).
+static inline cudaError_t bits_in_shared(int device, int words, int cap,
+                                         bool* shared) {
+  int optin = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const long long bytes = 4LL * words;
+  *shared = bytes <= optin && (cap < 0 || bytes <= cap);
+  return cudaSuccess;
 }
 
 // Per-neuron e-trace: x' = x * decay + s, decay = exp(-dt/tau) rounded to

@@ -1,11 +1,11 @@
 // Event-driven post-exchange step in one cooperative launch: compress the
-// activity vector to spike ids, flag the row blocks those ids touch, then
-// clear the delivered ring slot and gather-accumulate only the flagged rows
-// of every delay bucket into the ring.  At k=1 the activity is the
-// partition's own spike vector; in the split engine (fused_split_event) it is
-// the exchanged (n_global,) vector while the ring has the partition's n_p
-// rows, and the overlap mode's remote pass runs with no clear (slot < 0), as
-// the reference passes a clear mask of ones there
+// activity vector to spike ids and a bitmask, flag the row blocks those ids
+// touch, then clear the delivered ring slot and gather-accumulate only the
+// flagged rows of every delay bucket into the ring.  At k=1 the activity is
+// the partition's own spike vector; in the split engine (fused_split_event)
+// it is the exchanged (n_global,) vector while the ring has the partition's
+// n_p rows, and the overlap mode's remote pass runs with no clear (slot < 0),
+// as the reference passes a clear mask of ones there
 // (src/repro/snn/simulator.py:370-376, :608-614).
 //
 // Replaces: src/repro/kernels/event_step.py:event_post_exchange_pallas
@@ -15,24 +15,41 @@
 // block index in a scalar-prefetch index map, so Pallas skips the HBM fetch.
 // CUDA has no such fetch to skip: here a warp reads a block's flag and does
 // not touch its panel rows at all.
-// Bound on the H100: HBM bytes.  The flagged rows' col and weight slots (8
-// bytes a slot, one fma) dominate; the compaction reads the (n,) spike
-// vector once and the flag phase reads one touch byte per (block, spike id).
+// Bound on the H100: HBM bytes.  On the microcircuit a step's few hundred
+// spikes flag every block, so the flagged rows' slots dominate: the col of
+// every real slot (4 bytes) and the weight of every slot whose source is
+// active.  Padding and the weights of silent sources are never read.  The
+// compaction reads the (n,) spike vector once and the flag phase reads one
+// touch byte per (block, spike id).
 // Design, three phases separated by grid.sync():
-//   1. grid-stride over the spike vector: each spiking neuron takes a slot
-//      of the id buffer with atomicAdd on a counter the host zeroed; the
-//      same loop clears the delivered ring slot.  The ids land in no fixed
-//      order, but only their set is used: a block's flag is an OR over the
-//      ids, and more ids than the buffer holds flags every block (the
-//      reference's in-step dense fallback), so the result is deterministic;
-//   2. one thread block per (bucket, row block) pair ORs the touch bytes of
-//      the ids (__syncthreads_or) and writes the flag;
-//   3. the (bucket, row) walk of fused_step.cu, one warp per row and the
-//      same row_dot, skipping rows whose block is not flagged; lane 0 adds
-//      the row's sum to its ring slot, bucket by bucket in order, so the
-//      ring is bit-identical to the dense engines' on flagged rows, and
-//      unflagged rows (whose dense sum is a signed zero) keep their value.
+//   1. one warp per 32 ids of the spike vector: each spiking neuron takes a
+//      slot of the id buffer with atomicAdd on a counter the host zeroed,
+//      and a ballot packs the 32 ids' activity (act != 0) into one word of
+//      the bitmask; the same phase clears the delivered ring slot.  The ids
+//      land in no fixed order, but only their set is used: a block's flag
+//      is an OR over the ids, and more ids than the buffer holds flags
+//      every block (the reference's in-step dense fallback), so the result
+//      is deterministic;
+//   2. each block copies the bitmask (9.6 KB for 77,172 ids) into its
+//      dynamic shared memory; one thread block per (bucket, row block) pair
+//      ORs the touch bytes of the ids (__syncthreads_or) and writes the
+//      flag;
+//   3. the (bucket, row) walk, one warp per row, skipping rows whose block
+//      is not flagged: row_dot_active (common.cuh) reads the row's first
+//      row_len[r] cols, tests each source's bit in shared memory, and only
+//      for a set bit loads the weight and act[c]; lane 0 adds the row's sum
+//      to its ring slot, bucket by bucket in order.  row_dot_active equals
+//      the dense row_dot bit for bit (the argument and its precondition,
+//      finite weights and activity, are in common.cuh), so the ring is
+//      bit-identical to the dense engines' on flagged rows, and unflagged
+//      rows (whose dense sum is a signed zero) keep their value.
+// A bitmask larger than the card's shared memory per block (about 1.8 M
+// ids) is read from L2 instead (ld.cg: it was written in this launch); no
+// case falls back to the plain version.  The occupancy query that sizes the
+// cooperative grid counts the dynamic shared memory.
 #include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -46,6 +63,8 @@ constexpr int kMaxBuckets = 32;  // kernels/event_step.py:MAX_BUCKETS
 struct EventArgs {
   const float* act;  // (n,) spike vector, 0/1 floats
   int n;
+  uint32_t* bits;  // (words,) activity bitmask, written in phase 1
+  int words;       // ceil(n / 32)
   const uint8_t* touch;  // (nd, nb, n): 1 iff id j has a valid slot in block
   int* ids;              // (cap,) id buffer
   int* count;            // spikes this step; zeroed by the host
@@ -59,19 +78,28 @@ struct EventArgs {
   int nd;
   const int* cols[kMaxBuckets];
   const float* w[kMaxBuckets];
+  const int* row_len[kMaxBuckets];  // (R,) real slots a row; null: K
   int K[kMaxBuckets];
   int wslot[kMaxBuckets];  // (t + d_b) % D
 };
 
-__global__ void __launch_bounds__(kThreads) event_step_kernel(const EventArgs a) {
+// at most 64 registers a thread, so that 4 blocks (32 warps) fit an SM
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads, 4) event_step_kernel(const EventArgs a) {
+  extern __shared__ uint32_t staged[];
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nthreads = gridDim.x * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthreads >> 5;
   float* ring_slot = a.ring + static_cast<size_t>(a.slot < 0 ? 0 : a.slot) * a.n_p;
-  for (int j = tid; j < a.n; j += nthreads) {
-    if (a.act[j] > 0.0f) {
+  for (int word = warp; word < a.words; word += nwarps) {  // warp-uniform
+    const int j = word * 32 + lane;
+    if (j < a.n && a.act[j] > 0.0f) {
       const int pos = atomicAdd(a.count, 1);
       if (pos < a.cap) a.ids[pos] = j;
     }
+    pack_active_bits(a.act, a.n, a.bits, word, lane);
   }
   if (a.slot >= 0) {
     for (int r = tid; r < a.n_p; r += nthreads) ring_slot[r] = 0.0f;
@@ -79,8 +107,12 @@ __global__ void __launch_bounds__(kThreads) event_step_kernel(const EventArgs a)
   cg::grid_group grid = cg::this_grid();
   grid.sync();
 
-  // the counter and the ids were written by other blocks in this launch:
-  // read them from L2 (ld.cg), never from a stale L1 line
+  // the counter, the ids and the bitmask were written by other blocks in
+  // this launch: read them from L2 (ld.cg), never from a stale L1 line
+  if (kShared) {
+    for (int i = threadIdx.x; i < a.words; i += blockDim.x) staged[i] = __ldcg(a.bits + i);
+    __syncthreads();
+  }
   const int total = __ldcg(a.count);
   const bool overflow = total > a.cap;
   const int n_ids = overflow ? 0 : total;
@@ -95,54 +127,40 @@ __global__ void __launch_bounds__(kThreads) event_step_kernel(const EventArgs a)
   }
   grid.sync();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = tid >> 5;
-  const int nwarps = nthreads >> 5;
   for (int b = 0; b < a.nd; ++b) {
     const int K = a.K[b];
     const int* cols = a.cols[b];
     const float* w = a.w[b];
+    const int* row_len = a.row_len[b];
     const int* flags = a.flags + static_cast<size_t>(b) * a.nb;
     float* ring_w = a.ring + static_cast<size_t>(a.wslot[b]) * a.n_p;
     for (int r = warp; r < a.n_p; r += nwarps) {
       if (!__ldcg(flags + r / a.block_r)) continue;  // warp-uniform
+      const int len = row_len == nullptr ? K : min(__ldg(row_len + r), K);
       const size_t off = static_cast<size_t>(r) * K;
-      const float s = row_dot(cols + off, w + off, a.act, K, lane);
+      const float s =
+          kShared ? row_dot_active(cols + off, w + off, a.act, SharedBits{staged}, len, lane)
+                  : row_dot_active(cols + off, w + off, a.act, L2Bits{a.bits}, len, lane);
       if (lane == 0) ring_w[r] = __fadd_rn(ring_w[r], s);
     }
   }
-}
-
-int co_resident_blocks(int device, int* blocks) {
-  static int cached[64] = {0};
-  if (device >= 0 && device < 64 && cached[device] > 0) {
-    *blocks = cached[device];
-    return cudaSuccess;
-  }
-  int sms = 0;
-  int per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, event_step_kernel, kThreads, 0);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *blocks = sms * per_sm;
-  if (device >= 0 && device < 64) cached[device] = *blocks;
-  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" int repro_event_step_max_buckets() { return kMaxBuckets; }
 
+// bits: scratch of ceil(n / 32) words.  row_len: per bucket a pointer to
+// (R,) int32, or null for rows K long.  smem_cap: the most bytes of shared
+// memory the bitmask may take (< 0: the card's limit; 0: read it from L2).
 extern "C" int repro_event_step(const float* act, int n, const uint8_t* touch,
                                 int* ids, int* count, int cap, int* flags,
                                 float* ring, int n_p, int slot, int nb,
                                 int block_r, int nd, const void* const* cols,
-                                const void* const* w, const int* K,
-                                const int* wslot, void* stream, int device) {
+                                const void* const* w,
+                                const void* const* row_len, const int* K,
+                                const int* wslot, uint32_t* bits, int smem_cap,
+                                void* stream, int device) {
   if (nd < 1 || nd > kMaxBuckets || block_r < 1 || cap < 1)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -153,6 +171,8 @@ extern "C" int repro_event_step(const float* act, int n, const uint8_t* touch,
   EventArgs a;
   a.act = act;
   a.n = n;
+  a.bits = bits;
+  a.words = (n + 31) / 32;
   a.touch = touch;
   a.ids = ids;
   a.count = count;
@@ -168,23 +188,29 @@ extern "C" int repro_event_step(const float* act, int n, const uint8_t* touch,
     const bool used = b < nd;
     a.cols[b] = used ? static_cast<const int*>(cols[b]) : nullptr;
     a.w[b] = used ? static_cast<const float*>(w[b]) : nullptr;
+    a.row_len[b] = used ? static_cast<const int*>(row_len[b]) : nullptr;
     a.K[b] = used ? K[b] : 0;
     a.wslot[b] = used ? wslot[b] : 0;
   }
+  bool shared = false;
+  err = bits_in_shared(device, a.words, smem_cap, &shared);
+  if (err != cudaSuccess) return err;
+  const void* kernel = shared ? reinterpret_cast<const void*>(event_step_kernel<true>)
+                              : reinterpret_cast<const void*>(event_step_kernel<false>);
+  const size_t smem = shared ? 4 * static_cast<size_t>(a.words) : 0;
   int grid = 0;
-  err = static_cast<cudaError_t>(co_resident_blocks(device, &grid));
+  err = resident_blocks(kernel, device, kThreads, smem, &grid);
   if (err != cudaSuccess) return err;
   // no more blocks than the largest phase has work for
-  const long long scan_blocks = ((n > n_p ? n : n_p) + kThreads - 1) / kThreads;
+  const long long scan_blocks =
+      (std::max(32LL * a.words, static_cast<long long>(n_p)) + kThreads - 1) / kThreads;
   const long long flag_blocks = static_cast<long long>(nd) * nb;
   const long long row_blocks =
       (static_cast<long long>(n_p) * 32 + kThreads - 1) / kThreads;
-  long long work = scan_blocks > flag_blocks ? scan_blocks : flag_blocks;
-  if (row_blocks > work) work = row_blocks;
+  const long long work = std::max(scan_blocks, std::max(flag_blocks, row_blocks));
   if (work < grid) grid = static_cast<int>(work > 0 ? work : 1);
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(event_step_kernel),
-                                    dim3(grid), dim3(kThreads), args, 0, s);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, smem, s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -16,8 +16,9 @@
 // add 40 bytes a neuron and the currents 4 bytes a row and bucket.
 // Design: phase 1 is lif_advance plus two trace_decay calls over a grid-
 // stride loop.  Phase 2 walks (bucket, row) pairs, one warp per row: first
-// row_dot over the pre-update weights, the same routine as spike_gather, so
-// the currents are bit-identical to the unfused engine's; then a second pass
+// row_dot over the pre-update weights, which spike_gather's row_dot_active
+// matches bit for bit, so the currents are bit-identical to the unfused
+// engine's; then a second pass
 // over the row's slots applies stdp_slot, the same routine as stdp_update.
 // The second pass re-reads the row's cols and weights, which mostly hit L1
 // and L2 right after the first pass; loading each slot once is left to a
@@ -102,26 +103,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int co_resident_blocks(int device, int* blocks) {
-  static int cached[64] = {0};
-  if (device >= 0 && device < 64 && cached[device] > 0) {
-    *blocks = cached[device];
-    return cudaSuccess;
-  }
-  int sms = 0;
-  int per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_plastic_step_kernel, kThreads, 0);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *blocks = sms * per_sm;
-  if (device >= 0 && device < 64) cached[device] = *blocks;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" int repro_fused_plastic_step_max_buckets() { return kMaxBuckets; }
@@ -167,7 +148,8 @@ extern "C" int repro_fused_plastic_step(
     a.K[b] = used ? K[b] : 0;
   }
   int grid = 0;
-  err = static_cast<cudaError_t>(co_resident_blocks(device, &grid));
+  err = resident_blocks(reinterpret_cast<const void*>(fused_plastic_step_kernel), device, kThreads,
+                        0, &grid);
   if (err != cudaSuccess) return err;
   // no more blocks than the larger phase has work for
   const long long lif_blocks = (n_p + kThreads - 1) / kThreads;

@@ -10,14 +10,15 @@
 // grid.sync(), and the grid is sized to what can be co-resident
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SM count), which
 // cudaLaunchCooperativeKernel requires.
-// Bound on the H100: HBM bytes, as for spike_gather: the panels of all
-// buckets (8 bytes a slot) dominate; the state vectors add 24 bytes a
+// Bound on the H100: HBM bytes: the panels of all buckets (8 bytes a slot,
+// as row_dot reads them) dominate; the state vectors add 24 bytes a
 // neuron.  Design: phase 1 is lif_advance over a grid-stride loop; phase 2
-// walks (bucket, row) pairs, one warp per row, with the same row_dot as
-// spike_gather.  The spike vector goes to global memory once and is read
-// back through L2.  No state padding is needed: unlike the TPU kernel's
-// lane-padded vectors (fused_step.py:182-188, padded v = v_reset with zero
-// input), the loops here are bounds-checked.  Rows R > n_p carry weight 0
+// walks (bucket, row) pairs, one warp per row, with row_dot (common.cuh),
+// which spike_gather's row_dot_active matches bit for bit.  The spike
+// vector goes to global memory once and is read back through L2.  No state
+// padding is needed: unlike the TPU kernel's lane-padded vectors
+// (fused_step.py:182-188, padded v = v_reset with zero input), the loops
+// here are bounds-checked.  Rows R > n_p carry weight 0
 // and give current 0.
 #include <cooperative_groups.h>
 
@@ -72,26 +73,6 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const FusedArgs a)
   }
 }
 
-int co_resident_blocks(int device, int* blocks) {
-  static int cached[64] = {0};
-  if (device >= 0 && device < 64 && cached[device] > 0) {
-    *blocks = cached[device];
-    return cudaSuccess;
-  }
-  int sms = 0;
-  int per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_step_kernel, kThreads, 0);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *blocks = sms * per_sm;
-  if (device >= 0 && device < 64) cached[device] = *blocks;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" int repro_fused_step_max_buckets() { return kMaxBuckets; }
@@ -127,7 +108,8 @@ extern "C" int repro_fused_step(const float* v, const float* refrac,
     a.K[b] = used ? K[b] : 0;
   }
   int grid = 0;
-  err = static_cast<cudaError_t>(co_resident_blocks(device, &grid));
+  err = resident_blocks(reinterpret_cast<const void*>(fused_step_kernel), device, kThreads,
+                        0, &grid);
   if (err != cudaSuccess) return err;
   // no more blocks than the larger phase has work for
   const long long lif_blocks = (n_p + kThreads - 1) / kThreads;

@@ -14,8 +14,9 @@
 // written once; the activity vector (308 KB at microcircuit scale) stays in
 // L2 while the panels stream past.
 // Design: one warp per row r < n_p.  For each bucket the warp runs row_dot
-// (common.cuh, the routine of spike_gather.cu and fused_step.cu, so the
-// currents are bit-identical to every other engine's) and parks the sum in
+// (common.cuh, the routine of fused_step.cu, which the gathers'
+// row_dot_active matches bit for bit, so the currents are bit-identical to
+// every other engine's) and parks the sum in
 // shared memory; then lane j updates ring slots j, j+32, ... of the row with
 // the reference's formulation (ground rule (e) of ROADMAP.md):
 //   x = ring[s][r] * clear[s];  then per bucket in order  x += onehot[b][s] * cur_b

@@ -19,8 +19,9 @@
 // written once; the global activity and pre-trace vectors stay in L2.
 // Design: one warp per row r < R (rows >= n_p are padding: no gather, and 0
 // for the post terms, as the plain version pads them).  Per bucket the warp
-// runs row_dot over the pre-update weights (the routine of spike_gather.cu,
-// so the currents are bit-identical to the unfused engine's), then a second
+// runs row_dot over the pre-update weights (which spike_gather.cu's
+// row_dot_active matches bit for bit, so the currents are bit-identical to
+// the unfused engine's), then a second
 // pass over the row's slots applies stdp_slot (the routine of
 // stdp_update.cu, so the weights are bit-identical too).  The new weights go
 // to separate buffers: row_dot reads the weights through the read-only

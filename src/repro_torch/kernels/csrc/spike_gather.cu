@@ -1,45 +1,104 @@
 // ELL gather-accumulate: cur[r] = sum_k w[r,k] * act[cols[r,k]], one warp per
-// row.
+// row, reading only the real slots and only the weights of active sources.
 //
 // Replaces: src/repro/kernels/spike_gather.py:spike_gather_pallas
 // (pallas_call at :65), which keeps the whole activity vector resident in
 // VMEM and streams (block_r, block_k) col/weight panels past it.
-// Bound on the H100: HBM bytes.  Every col (int32) and weight (f32) slot of
-// the panel is read once: 8 bytes for one fma, so the kernel sits two orders
-// of magnitude below the ridge point.  Design: one warp per row with the
-// fixed per-row reduction order of row_dot (common.cuh), coalesced panel
-// loads, four slots a lane in flight; the activity vector is not staged in
-// shared memory but read through L2, where a microcircuit's 308 KB stay
-// resident while the panels stream past.  No atomics, so the result does
+// Bound on the H100: HBM bytes, and only the bytes that carry information:
+// the col of every real slot (4 bytes) and the weight of every slot whose
+// source is active.  Reading every padded slot's col and weight, as the
+// dense kernels do, costs 8 bytes a slot; on the microcircuit 45% of the
+// slots are padding and more than 99% of the real weights meet a silent
+// source, so those bytes would be three quarters of the traffic.
+// Design, two launches on the caller's stream:
+//   1. pack: one warp per 32 ids packs the activity into a bitmask with
+//      __ballot_sync (bit set iff act != 0; 9.6 KB for 77,172 ids);
+//   2. gather: a persistent grid (as many blocks as fit on the card) whose
+//      blocks each copy the bitmask into dynamic shared memory, then walk
+//      rows warp by warp: row_dot_active (common.cuh) reads the row's first
+//      row_len[r] cols, tests each source's bit in shared memory, and only
+//      for a set bit loads the weight and act[c].  A bitmask larger than the
+//      card's shared memory per block (about 1.8 M ids) is read from device
+//      memory through the read-only path instead; no case falls back to the
+//      plain version.
+// The result equals the dense row_dot's bit for bit (the argument and its
+// precondition, finite weights and activity, are in common.cuh).  row_len
+// may be null: every row is then K long.  No atomics, so the result does
 // not depend on scheduling.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kPackThreads = 256;
+constexpr int kThreads = 1024;
 constexpr int kWarpsPerBlock = kThreads / 32;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPackThreads)
+    pack_kernel(const float* act, int n, uint32_t* bits, int words) {
+  const int word = (blockIdx.x * kPackThreads + threadIdx.x) >> 5;
+  if (word >= words) return;  // warp-uniform
+  pack_active_bits(act, n, bits, word, threadIdx.x & 31);
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads, 1)
     spike_gather_kernel(const float* act, const int* cols, const float* w,
+                        const int* row_len, const uint32_t* bits, int words,
                         float* __restrict__ out, int R, int K) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  extern __shared__ uint32_t staged[];
+  if (kShared) {
+    for (int i = threadIdx.x; i < words; i += kThreads) staged[i] = __ldg(bits + i);
+    __syncthreads();
+  }
   const int lane = threadIdx.x & 31;
-  if (row >= R) return;  // warp-uniform: every lane of a warp shares row
-  const size_t off = static_cast<size_t>(row) * K;
-  const float s = row_dot(cols + off, w + off, act, K, lane);
-  if (lane == 0) out[row] = s;
+  const int nwarps = gridDim.x * kWarpsPerBlock;
+  for (int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); row < R;
+       row += nwarps) {
+    const int len = row_len == nullptr ? K : min(__ldg(row_len + row), K);
+    const size_t off = static_cast<size_t>(row) * K;
+    const float s =
+        kShared ? row_dot_active(cols + off, w + off, act, SharedBits{staged}, len, lane)
+                : row_dot_active(cols + off, w + off, act, LdgBits{bits}, len, lane);
+    if (lane == 0) out[row] = s;
+  }
 }
 
 }  // namespace
 
-extern "C" int repro_spike_gather(const float* act, const int* cols,
-                                  const float* w, float* out, int R, int K,
-                                  void* stream, int device) {
+// bits: scratch of ceil(n / 32) words.  smem_cap: the most bytes of shared
+// memory the bitmask may take (< 0: the card's limit; 0: read it from
+// device memory).
+extern "C" int repro_spike_gather(const float* act, int n, const int* cols,
+                                  const float* w, const int* row_len,
+                                  uint32_t* bits, float* out, int R, int K,
+                                  int smem_cap, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  spike_gather_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(act, cols, w, out,
-                                                             R, K);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int words = (n + 31) / 32;
+  if (words > 0) {
+    pack_kernel<<<(words * 32 + kPackThreads - 1) / kPackThreads, kPackThreads,
+                  0, s>>>(act, n, bits, words);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  bool shared = false;
+  err = bits_in_shared(device, words, smem_cap, &shared);
+  if (err != cudaSuccess) return err;
+  const void* kernel = shared ? reinterpret_cast<const void*>(spike_gather_kernel<true>)
+                              : reinterpret_cast<const void*>(spike_gather_kernel<false>);
+  const size_t smem = shared ? 4 * static_cast<size_t>(words) : 0;
+  int grid = 0;
+  err = resident_blocks(kernel, device, kThreads, smem, &grid);
+  if (err != cudaSuccess) return err;
+  const int needed = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (needed < grid) grid = needed;
+  if (shared) {
+    spike_gather_kernel<true><<<grid, kThreads, smem, s>>>(act, cols, w, row_len, bits,
+                                                           words, out, R, K);
+  } else {
+    spike_gather_kernel<false><<<grid, kThreads, 0, s>>>(act, cols, w, row_len, bits,
+                                                         words, out, R, K);
+  }
   return cudaGetLastError();
 }

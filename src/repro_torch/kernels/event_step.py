@@ -12,6 +12,18 @@ presynaptic ids appear in a valid slot of each block.  Per step:
   3. the delivered ring slot is cleared, and only the flagged rows of each
      bucket are gathered and added to their ring slot, bucket by bucket.
 
+The kernel also packs the activity into a bitmask (one bit per id, set iff
+``act != 0``) and stages it in each block's shared memory; a flagged row's
+gather reads its first ``row_len[r]`` cols, tests each source's bit and
+loads a weight and an activity only for a set bit, so neither the padding
+nor the weights of silent sources cross the memory bus.  ``row_len`` is
+per bucket the ``(R,)`` int32 count of real slots per row
+(``PartitionDeviceData.row_len``); ``None`` takes every row as ``K`` long.
+The plain version ignores it: the slots past it are ``(col 0, weight 0)``.
+Preconditions, as for ``spike_gather``: finite weights and activity, and
+every product of a weight and an active source's activity exact in f32
+(always so for 0/1 spike vectors).
+
 The flags are conservative, so the ring equals the dense engines' ring on
 every flagged row, and an unflagged row, whose dense sum is a signed zero,
 keeps its value: the rasters of the event and the dense engines are
@@ -144,6 +156,7 @@ def event_post_exchange_plain(
     plan: EventPlan,
     cols: Sequence[torch.Tensor],
     weights: Sequence[torch.Tensor],
+    row_len: Optional[Sequence[torch.Tensor]] = None,  # ignored: see module
 ) -> torch.Tensor:
     """The kernel's contract: clear ``ring[slot]`` (unless ``slot`` is
     None), then per bucket in order add the flagged rows' gathers to
@@ -167,10 +180,16 @@ def event_post_exchange_cuda(
     plan: EventPlan,
     cols: Sequence[torch.Tensor],
     weights: Sequence[torch.Tensor],
+    row_len: Optional[Sequence[torch.Tensor]] = None,
+    *,
+    shared_bitmask: bool = True,
 ) -> torch.Tensor:
     """Launch the kernel (one cooperative launch); updates ``ring`` in place
     (``slot=None``: no clear) and returns the ``(nd, num_blocks)`` int32
-    flags."""
+    flags.  ``row_len``: per bucket ``(R,)`` int32 real slots a row, or
+    None.  ``shared_bitmask=False`` reads the bitmask from L2, the path a
+    vector too long for shared memory takes anyway (for tests and
+    timing)."""
     nd = len(cols)
     if not 1 <= nd <= MAX_BUCKETS or len(weights) != nd or len(write_slots) != nd:
         raise ValueError(
@@ -196,6 +215,13 @@ def event_post_exchange_cuda(
             )
     if R < n_p:
         raise ValueError(f"panels have R={R} rows for n_p={n_p} neurons")
+    if row_len is not None:
+        if len(row_len) != nd:
+            raise ValueError(f"{len(row_len)} row_len tensors for {nd} buckets")
+        for i, rl in enumerate(row_len):
+            _build.require(f"row_len[{i}]", rl, torch.int32, 1, dev)
+            if rl.shape[0] != R:
+                raise ValueError(f"row_len[{i}] {tuple(rl.shape)} for {R} rows")
     if tuple(plan.touch.shape) != (nd, plan.num_blocks, n) or \
             plan.num_blocks * plan.block_r < R:
         raise ValueError(
@@ -209,6 +235,7 @@ def event_post_exchange_cuda(
         return flags.zero_()
     ids = torch.empty(plan.cap, dtype=torch.int32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
+    bits = torch.empty(-(-n // 32), dtype=torch.int32, device=dev)
     ptrs = ctypes.c_void_p * nd
     ints = ctypes.c_int * nd
     stream, device = _build.launch_args(act)
@@ -219,8 +246,10 @@ def event_post_exchange_cuda(
         plan.num_blocks, plan.block_r, nd,
         ptrs(*[c.data_ptr() for c in cols]),
         ptrs(*[w.data_ptr() for w in weights]),
+        ptrs(*([None] * nd if row_len is None else [rl.data_ptr() for rl in row_len])),
         ints(*[c.shape[1] for c in cols]),
         ints(*[int(s) for s in write_slots]),
+        bits.data_ptr(), -1 if shared_bitmask else 0,
         stream, device,
     )
     _build.check(rc, "event_post_exchange")

@@ -36,13 +36,24 @@ def builder_keystream(seed, stream, rows, j0, n_words):
 
 # -- spike_gather ---------------------------------------------------------
 
-implementation("spike_gather", "ref")(ref.spike_gather_ref)
+@implementation("spike_gather", "ref")
+def _spike_gather_ref(activity, cols, weights, row_len=None):
+    # the slots past row_len are (col 0, weight 0): the whole row sums the same
+    return ref.spike_gather_ref(activity, cols, weights)
+
+
 implementation("spike_gather", "cuda")(spike_gather_cuda)
 
 
-def spike_gather(activity, cols, weights):
-    """``cur[r] = sum_k weights[r,k] * activity[cols[r,k]]`` (f32)."""
-    return lookup("spike_gather", backend_for(activity.device))(activity, cols, weights)
+def spike_gather(activity, cols, weights, row_len=None):
+    """``cur[r] = sum_k weights[r,k] * activity[cols[r,k]]`` (f32).
+
+    ``row_len``, the ``(R,)`` int32 count of real slots per row (the ELL
+    puts them first, ``(col 0, weight 0)`` after), lets the kernel skip the
+    padding; None takes every row as ``K`` long."""
+    return lookup("spike_gather", backend_for(activity.device))(
+        activity, cols, weights, row_len
+    )
 
 
 # -- lif_step -------------------------------------------------------------
@@ -125,12 +136,15 @@ implementation("event_post_exchange", "ref")(event_post_exchange_plain)
 implementation("event_post_exchange", "cuda")(event_post_exchange_cuda)
 
 
-def event_post_exchange(act, ring, slot, write_slots, plan, cols, weights):
+def event_post_exchange(act, ring, slot, write_slots, plan, cols, weights, row_len=None):
     """Event-driven ring update, in place: clear ``ring[slot]``, then add
     each bucket's gather over the row blocks ``plan``'s touch bitmaps flag
-    for the active ids of ``act``.  Returns the ``(nd, num_blocks)`` flags."""
+    for the active ids of ``act``.  ``row_len`` (per bucket ``(R,)`` int32
+    real slots a row, or None) lets the kernel skip the padding.  Returns
+    the ``(nd, num_blocks)`` flags."""
     return lookup("event_post_exchange", backend_for(act.device))(
-        act, ring, slot, tuple(write_slots), plan, tuple(cols), tuple(weights)
+        act, ring, slot, tuple(write_slots), plan, tuple(cols), tuple(weights),
+        None if row_len is None else tuple(row_len),
     )
 
 

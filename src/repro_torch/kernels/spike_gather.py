@@ -7,10 +7,26 @@ any other; ``ops.spike_gather`` takes the plain version
 (:func:`spike_gather_plain`, i.e. ``ref.spike_gather_ref``) only for CPU
 tensors.  Weights are f32 on this path; bf16 panels are not ported yet.
 
-Precondition of the kernel: every col id lies in ``[0, len(activity))``.
-The simulator checks it on the host when it builds the panels.
+The kernel reads only what carries information: a pack launch turns the
+activity into a bitmask (one bit per id, set iff ``act != 0``), and the
+gather reads each row's first ``row_len[r]`` cols, tests each source's bit
+(in shared memory) and loads a weight and an activity only for a set bit.
+``row_len`` is the ``(R,)`` int32 count of real slots per row, which the
+ELL builder puts at ``0..row_len-1`` with ``(col 0, weight 0)`` after them;
+``None`` takes every row as ``K`` long, which is as exact but reads the
+padding's cols.  The result equals the dense ``row_dot`` kernels' bit for
+bit (the argument is in ``csrc/common.cuh``).
+
+Preconditions of the kernel: every col id lies in ``[0, len(activity))``
+(the simulator checks it on the host when it builds the panels); weights
+and activity are finite, and every product of a weight and an active
+source's activity is exact in f32 (always so for 0/1 spike vectors): a
+skipped slot then adds nothing to the sum.  The plain version ignores
+``row_len``: the slots past it are zero.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -23,28 +39,42 @@ __all__ = ["COUNTER", "spike_gather_cuda", "spike_gather_plain"]
 
 
 def spike_gather_cuda(
-    activity: torch.Tensor, cols: torch.Tensor, weights: torch.Tensor
+    activity: torch.Tensor,
+    cols: torch.Tensor,
+    weights: torch.Tensor,
+    row_len: Optional[torch.Tensor] = None,
+    *,
+    shared_bitmask: bool = True,
 ) -> torch.Tensor:
-    """Launch the kernel: ``(R,)`` f32 currents."""
+    """Launch the kernel: ``(R,)`` f32 currents.  ``shared_bitmask=False``
+    reads the bitmask from device memory, the path a vector too long for
+    shared memory takes anyway (for tests and timing)."""
     _build.require("activity", activity, torch.float32, 1)
-    _build.require("cols", cols, torch.int32, 2, activity.device)
-    _build.require("weights", weights, torch.float32, 2, activity.device)
+    dev = activity.device
+    _build.require("cols", cols, torch.int32, 2, dev)
+    _build.require("weights", weights, torch.float32, 2, dev)
     if cols.shape != weights.shape:
         raise ValueError(
             f"cols {tuple(cols.shape)} and weights {tuple(weights.shape)} differ"
         )
     R, K = cols.shape
-    out = torch.empty(R, dtype=torch.float32, device=activity.device)
+    if row_len is not None:
+        _build.require("row_len", row_len, torch.int32, 1, dev)
+        if row_len.shape[0] != R:
+            raise ValueError(f"row_len {tuple(row_len.shape)} for {R} rows")
+    out = torch.empty(R, dtype=torch.float32, device=dev)
     if R == 0:
         return out
     if K == 0:
         return out.zero_()
+    n = activity.shape[0]
+    bits = torch.empty(-(-n // 32), dtype=torch.int32, device=dev)
     stream, device = _build.launch_args(activity)
     rc = _build.library().repro_spike_gather(
-        activity.data_ptr(), cols.data_ptr(), weights.data_ptr(),
-        out.data_ptr(), R, K, stream, device,
+        activity.data_ptr(), n, cols.data_ptr(), weights.data_ptr(),
+        None if row_len is None else row_len.data_ptr(), bits.data_ptr(),
+        out.data_ptr(), R, K, -1 if shared_bitmask else 0, stream, device,
     )
     _build.check(rc, "spike_gather")
     COUNTER.launches += 1
     return out
-

@@ -46,7 +46,7 @@ from .neurons import LIF_V
 from .reshard import stack_runtime
 from .simulator import (
     PartitionDeviceData, SimConfig, _models_present, checked_cols, make_core_step,
-    make_noise, plastic_masks,
+    make_noise, plastic_masks, row_lengths,
 )
 
 
@@ -322,6 +322,7 @@ class DistSimulator:
             delays=s.delays,
             cols=checked_cols([c[p] for c in s.cols], self.n_global, "delay-bucket", dev),
             weights0=up(s.weights),
+            row_len=row_lengths([v[p] for v in s.valid], dev),
             identity_rows=tuple(True for _ in s.delays),
             plastic=up(s.plastic) if s.any_plastic else None,
             **extra,

@@ -167,6 +167,10 @@ class PartitionDeviceData:
     delays: Tuple[int, ...]
     cols: List[torch.Tensor]  # per bucket (R, K) int32 (global ids)
     weights0: List[torch.Tensor]  # per bucket (R, K) f32
+    # per bucket (R,) int32 real slots a row: the ELL puts a row's synapses
+    # at 0..row_len-1 and (col 0, weight 0) after them, so the gathers
+    # (spike_gather, event_post_exchange) read no padding
+    row_len: List[torch.Tensor]
     identity_rows: Tuple[bool, ...]
     # per bucket (R, K) f32 0/1 mask of the syn_stdp slots; None when the
     # partition has no plastic synapse
@@ -207,6 +211,13 @@ def plastic_masks(part: DCSRPartition, ell: DelayELL, stdp_id: int) -> Optional[
     return masks
 
 
+def row_lengths(valid: Sequence[np.ndarray], device) -> List[torch.Tensor]:
+    """Per bucket the ``(R,)`` int32 count of valid slots of each row of a
+    ``(R, K)`` validity panel."""
+    return [torch.from_numpy(np.asarray(v).sum(axis=1, dtype=np.int32)).to(device)
+            for v in valid]
+
+
 def partition_device_data(
     part: DCSRPartition, ell: DelayELL, device: torch.device, stdp_id: int
 ) -> PartitionDeviceData:
@@ -218,6 +229,7 @@ def partition_device_data(
         delays=tuple(b.delay for b in ell.buckets),
         cols=checked_cols([b.cols for b in ell.buckets], ell.n_global, "delay-bucket", device),
         weights0=[torch.from_numpy(b.weights).to(device) for b in ell.buckets],
+        row_len=row_lengths([b.valid for b in ell.buckets], device),
         identity_rows=tuple(b.identity_rows for b in ell.buckets),
         plastic=None if plastic is None else [torch.from_numpy(m).to(device) for m in plastic],
     )
@@ -382,7 +394,7 @@ def make_core_step(
         elif choice.event:
             ops.event_post_exchange(
                 overlap_ctx["mask_remote"](pend["act"]), ring, None, pend["write_slots"],
-                event_plan, dev.cols, carry["weights"],
+                event_plan, dev.cols, carry["weights"], dev.row_len,
             )
         else:
             ops.fused_post_exchange_remote(
@@ -446,7 +458,7 @@ def make_core_step(
             v2, r2, spikes = ops.lif_step(v, refrac, i_tot, params=lif_params)
             ops.event_post_exchange(
                 spikes, ring, slot, [(t + d) % D for d in dev.delays],
-                event_plan, dev.cols, carry["weights"],
+                event_plan, dev.cols, carry["weights"], dev.row_len,
             )
         elif choice.plastic:  # fused_split_plastic: LIF + both trace decays
             v2, r2, spikes, carry["tr_plus"], carry["tr_minus"] = ops.fused_pre_exchange(
@@ -492,7 +504,8 @@ def make_core_step(
         elif choice.engine == "fused_split":
             ops.fused_post_exchange(act, ring, clear, onehot, dev.cols, weights, out=ring)
         elif choice.engine == "fused_split_event":
-            ops.event_post_exchange(act, ring, slot, write_slots, event_plan, dev.cols, weights)
+            ops.event_post_exchange(act, ring, slot, write_slots, event_plan, dev.cols, weights,
+                                    dev.row_len)
         elif choice.engine == "fused_split_plastic":
             _, new_w = ops.fused_post_exchange_plastic(
                 act, pre_trace, ring, clear, onehot, carry["tr_minus"], spikes, dev.cols,
@@ -505,7 +518,7 @@ def make_core_step(
                 post_t = torch.nn.functional.pad(carry["tr_minus"], (0, pad_r))
                 post_s = torch.nn.functional.pad(spikes, (0, pad_r))
             for i, (c, w, d) in enumerate(zip(dev.cols, weights, dev.delays)):
-                ring[(t + d) % D] += ops.spike_gather(act, c, w)[:n_p]
+                ring[(t + d) % D] += ops.spike_gather(act, c, w, dev.row_len[i])[:n_p]
                 if plastic:
                     # in place: run() cloned the weights, and the gather
                     # above read them first

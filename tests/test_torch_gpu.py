@@ -175,6 +175,14 @@ def test_event_kernel_matches_plain_and_dense(cuda, rng, n_p, R, ks, block_r,
     assert torch.equal(ops.event_post_exchange(act, again, slot, write, plan, cols,
                                                weights), flags)
     assert torch.equal(again, got)
+    # with the row lengths (rows < n_p are K long here): the same ring, equal
+    # to the row_dot kernels' (post_exchange's ring formulation)
+    with_len = ring.clone()
+    assert torch.equal(ops.event_post_exchange(act, with_len, slot, write, plan, cols,
+                                               weights, _row_lengths(valid, cuda)), flags)
+    assert torch.equal(with_len, got)
+    clear, onehot, _ = _slots(D, t, delays, cuda)
+    assert torch.equal(got, ops.fused_post_exchange(act, ring, clear, onehot, cols, weights))
 
 
 @pytest.mark.parametrize("fused,gather", [
@@ -485,6 +493,186 @@ def test_event_kernel_split_use(cuda, rng, slot):
     for c, w, ws in zip(cols, weights, write):
         dense[ws] += ops.spike_gather(act, c, w)[:n_p]
     assert torch.equal(got, dense)
+    # with the row lengths: the same ring, equal to the row_dot kernels'
+    with_len = ring.clone()
+    ops.event_post_exchange(act, with_len, slot, write, plan, cols, weights,
+                            _row_lengths(valid, cuda))
+    assert torch.equal(with_len, got)
+    clear, onehot, _ = _slots(D, t, delays, cuda)
+    if slot is None:
+        row_dot = ops.fused_post_exchange_remote(act, ring, onehot, cols, weights)
+    else:
+        row_dot = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights)
+    assert torch.equal(got, row_dot)
+
+
+# -- row lengths and the activity bitmask: the redesigned gathers -------------
+#
+# spike_gather and event_post_exchange read only a row's first row_len[r]
+# slots and only the weights of active sources.  They must equal the dense
+# row_dot kernels (post_exchange, through the reference's ring formulation)
+# bit for bit on every row length around the warp width and every kind of
+# activity vector.
+
+ROW_LENS = (0, 1, 31, 32, 33, 127, 128, 129)
+# more ids than the bitmask can stage in 227 KB of shared memory
+LONG_N = 232448 * 8 + 100_000
+
+
+def _row_lengths(valid, device):
+    return [torch.from_numpy(np.asarray(v).sum(axis=1).astype(np.int32)).to(device)
+            for v in valid]
+
+
+def _ell_case(rng, n, R, ks, n_rows, device):
+    """Panels as the ELL builder lays them out: row r holds row_len[r]
+    synapses first (normal weights, so negative ones among them) and
+    ``(col 0, weight 0)`` after; the first rows are ROW_LENS and K long,
+    the rest random; rows past n_rows are empty."""
+    cols, weights, valid = [], [], []
+    for K in ks:
+        rl = rng.integers(0, K + 1, R)
+        fixed = [min(x, K) for x in ROW_LENS] + [K]
+        rl[: len(fixed)] = fixed[: R]
+        rl[n_rows:] = 0
+        below = np.arange(K)[None, :] < rl[:, None]
+        cols.append(torch.from_numpy(
+            np.where(below, rng.integers(0, n, (R, K)), 0).astype(np.int32)).to(device))
+        weights.append(torch.from_numpy(
+            np.where(below, rng.normal(size=(R, K)), 0.0).astype(np.float32)).to(device))
+        valid.append(below)
+    return cols, weights, valid
+
+
+def _activity(kind, rng, n, device):
+    if kind == "zero":
+        a = np.zeros(n, np.float32)
+    elif kind == "one spike":
+        a = np.zeros(n, np.float32)
+        a[n // 3] = 1.0
+    elif kind == "all":
+        a = np.ones(n, np.float32)
+    elif kind == "5%":
+        a = (rng.random(n) < 0.05).astype(np.float32)
+    else:  # non-binary: 0.5 on 5% of the ids, -0.0 on a seventh
+        a = np.where(rng.random(n) < 0.05, 0.5, 0.0).astype(np.float32)
+        a[::7] = -0.0
+    return torch.from_numpy(a).to(device)
+
+
+ACT_KINDS = ("zero", "one spike", "all", "5%", "non-binary")
+
+
+@pytest.mark.parametrize("kind", ACT_KINDS)
+@pytest.mark.parametrize("n_p,n,R,ks", [
+    (100, 400, 104, (8, 40)),
+    (500, 2000, 504, (129, 300)),
+    (19293, 77172, 19296, (384, 1280)),  # microcircuit k=4 widths
+])
+def test_spike_gather_row_len_equals_row_dot_kernels(cuda, rng, kind, n_p, n, R, ks):
+    D, t = 16, 21
+    delays = [1 + (3 * i) % D for i in range(len(ks))]
+    cols, weights, valid = _ell_case(rng, n, R, ks, n_p, cuda)
+    row_len = _row_lengths(valid, cuda)
+    act = _activity(kind, rng, n, cuda)
+    ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    clear, onehot, _ = _slots(D, t, delays, cuda)
+    before = gather_mod.COUNTER.launches
+    curs = [ops.spike_gather(act, c, w, rl) for c, w, rl in zip(cols, weights, row_len)]
+    assert gather_mod.COUNTER.launches == before + len(cols)
+    for cur, c, w, rl in zip(curs, cols, weights, row_len):
+        assert torch.equal(cur, ops.spike_gather(act, c, w))
+        assert torch.equal(cur, gather_mod.spike_gather_cuda(act, c, w, rl,
+                                                             shared_bitmask=False))
+        # f32 sums in another order; with every id active a row sums up to
+        # 1,280 unit-normal terms, whose rounding reaches 1.2e-5 (measured on
+        # an H100): rtol=1e-5, atol=1e-4
+        torch.testing.assert_close(cur, ref.spike_gather_ref(act, c, w), rtol=1e-5, atol=1e-4)
+    exact = ref._ring_accumulate(ring, clear, onehot, [cur[:n_p] for cur in curs])
+    row_dot = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights)
+    assert torch.equal(row_dot.view(torch.int32), exact.view(torch.int32))  # signed zeros too
+
+
+@pytest.mark.parametrize("kind", ACT_KINDS)
+@pytest.mark.parametrize("slot", [5, None])
+def test_event_kernel_row_len_equals_row_dot_kernels(cuda, rng, kind, slot):
+    """The split use's shapes (an (n_global,) activity, a (D, n_p) ring),
+    with the clear (as at k=1) and without (the remote pass)."""
+    n_p, n, R, ks, cap = 5000, 20000, 5000, (129, 384), 1000
+    D, t = 16, 21
+    delays = (8, 15)
+    cols, weights, valid = _ell_case(rng, n, R, ks, n_p, cuda)
+    plan = event_mod.EventPlan.build([c.cpu().numpy() for c in cols], valid, n, cap, cuda)
+    act = _activity(kind, rng, n, cuda)
+    ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    clear, onehot, write = _slots(D, t, delays, cuda)
+    row_len = _row_lengths(valid, cuda)
+    got = ring.clone()
+    before = event_mod.COUNTER.launches
+    flags = ops.event_post_exchange(act, got, slot, write, plan, cols, weights, row_len)
+    assert event_mod.COUNTER.launches == before + 1
+    want, via_l2, no_len = ring.clone(), ring.clone(), ring.clone()
+    want_flags = event_mod.event_post_exchange_plain(act, want, slot, write, plan, cols,
+                                                     weights, row_len)
+    assert torch.equal(flags, want_flags)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    event_mod.event_post_exchange_cuda(act, via_l2, slot, write, plan, cols, weights, row_len,
+                                       shared_bitmask=False)
+    ops.event_post_exchange(act, no_len, slot, write, plan, cols, weights)
+    assert torch.equal(via_l2, got) and torch.equal(no_len, got)
+    if slot is None:
+        row_dot = ops.fused_post_exchange_remote(act, ring, onehot, cols, weights)
+    else:
+        row_dot = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights)
+    assert torch.equal(got, row_dot)
+    dense = ring.clone()
+    if slot is not None:
+        dense[slot] = 0.0
+    for c, w, rl, ws in zip(cols, weights, row_len, write):
+        dense[ws] += ops.spike_gather(act, c, w, rl)[:n_p]
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.parametrize("kind", ("one spike", "5%", "all"))
+def test_gathers_with_a_bitmask_too_long_for_shared_memory(cuda, rng, kind):
+    """LONG_N ids: the bitmask is read from device memory, in both kernels."""
+    n_p, R, ks, cap, D, t = 512, 512, (129, 300), 4096, 16, 3
+    delays = (2, 9)
+    cols, weights, valid = _ell_case(rng, LONG_N, R, ks, n_p, cuda)
+    row_len = _row_lengths(valid, cuda)
+    act = _activity(kind, rng, LONG_N, cuda)
+    ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    clear, onehot, write = _slots(D, t, delays, cuda)
+    curs = [ops.spike_gather(act, c, w, rl) for c, w, rl in zip(cols, weights, row_len)]
+    for cur, c, w in zip(curs, cols, weights):
+        assert torch.equal(cur, ops.spike_gather(act, c, w))
+        torch.testing.assert_close(cur, ref.spike_gather_ref(act, c, w), rtol=1e-5, atol=1e-5)
+    row_dot = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights)
+    exact = ref._ring_accumulate(ring, clear, onehot, [cur[:n_p] for cur in curs])
+    assert torch.equal(row_dot.view(torch.int32), exact.view(torch.int32))
+    plan = event_mod.EventPlan.build([c.cpu().numpy() for c in cols], valid, LONG_N, cap, cuda)
+    got = ring.clone()
+    ops.event_post_exchange(act, got, t % D, write, plan, cols, weights, row_len)
+    assert torch.equal(got, row_dot)
+
+
+def test_gathers_refuse_bad_row_lengths(cuda):
+    act = torch.zeros(32, device=cuda)
+    c = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    w = torch.zeros((8, 4), device=cuda)
+    good = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        gather_mod.spike_gather_cuda(act, c, w, good.long())
+    with pytest.raises(ValueError, match="row_len"):
+        gather_mod.spike_gather_cuda(act, c, w, good[:4])
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_mod.spike_gather_cuda(act, c, w, good.cpu())
+    plan = event_mod.EventPlan.build([c.cpu().numpy()], [np.zeros((8, 4), bool)], 32, 32, cuda)
+    ring = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(ValueError, match="row_len"):
+        event_mod.event_post_exchange_cuda(act, ring, 0, [1], plan, [c], [w], [good, good])
+    with pytest.raises(ValueError, match="row_len"):
+        event_mod.event_post_exchange_cuda(act, ring, 0, [1], plan, [c], [w], [good[:4]])
 
 
 def test_split_kernels_refuse_bad_operands(cuda):
