@@ -21,32 +21,41 @@ the spike rate stays under the event threshold, later chunks run
 printing its own lines:
 
   1. device: the card's name, count, name and power limit from nvidia-smi;
-  2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``,
+  2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc``,
      with nvcc's register, shared-memory and spill report;
   3. kernels vs plain at the main path's shapes (the session's own panels,
      inputs from ``--seed``): ``lif_step`` bit-exact, ``spike_gather``
      (with the panels' row lengths) within rtol=atol=1e-5, equal to itself
      over whole rows and with the bitmask in device memory, and, through
-     the reference's ring formulation, bit-equal to the ``row_dot`` kernel
-     ``post_exchange``; ``fused_step`` bit-exact against ``lif_step`` then
-     ``spike_gather`` and within 1e-5 of its plain version;
+     the reference's ring formulation, bit-equal to ``post_exchange``'s
+     forced ``row_dot`` variant; ``fused_step`` (row lengths, the session's
+     recorded ``reduce``) bit-exact against its forced ``row_dot`` variant,
+     its L2 bitmask and ``lif_step`` then ``spike_gather``, and within 1e-5
+     of its plain version;
   4. main path: 1000 steps; the launch counts, set to 0 just before the run
-     and read just after, must match the gather mode of every chunk;
-  5. the event kernel against its plain version and against the dense
-     kernels (``spike_gather`` and ``post_exchange``), on spike vectors of
-     the main path's raster;
+     and read just after, must match the gather mode of every chunk (and
+     one ``noise`` launch a step);
+  5. the event kernel against its plain version, its forced ``row_dot``
+     variant and the dense kernels, on spike vectors of the main path's
+     raster;
   6. the unfused path: 256 steps on the ``unfused`` engine, counts set to
      0 before and read after, whose raster must equal the main path's
      first 256 steps; then a small network on the card against the plain
-     torch versions on the CPU;
+     torch versions on the CPU, fed the seam's numpy noise and then the
+     port's own noise, whose vectors must be bit-identical on both; then
+     NaN weights on silent sources of a small net (k=1 and k=4): the
+     panels holding them record ``row_dot`` and ``spike_gather``, the
+     event kernel, ``fused_step`` and the three ``post_exchange`` passes
+     give NaN in exactly their plain versions' rows;
   7. timing with CUDA events at the main path's shapes: each kernel, its
      plain version, ``torch.sparse.mm`` over the same synapses for the
-     gathers, and the bound (bytes over 3.35 TB/s); the two gathers at a
-     5% vector and at a spike vector of the main path, each beside
-     ``torch.sparse.mm`` on the same vector, with the bytes they move and
-     the bytes their bound counts (the real slots' cols and the active
-     slots' weights), and with the bitmask read from device memory; and
-     the dense and the event engine's us/step from one state of the main
+     gathers, and the bound (the bytes and operations this run's inputs
+     need); the two gathers at a 5% vector and at a spike vector of the
+     main path, with the bitmask read from device memory too;
+     ``fused_step`` on the main path's next step beside its ``row_dot``
+     variant; the noise kernel bit-exact against its plain version over
+     2^20 ids at four steps (both erfinv branches), then timed; and the
+     dense and the event engine's us/step from one state of the main
      path.
 
 The k>1 microcircuit path: ``Session(d4, SimConfig(), engine="spmd",
@@ -54,18 +63,22 @@ devices=[card] * 4)``, four partitions on the one card, stepped in lockstep
 (index exchange, overlap ``local``, ``fused_split`` and then
 ``fused_split_event``):
   k1. the split kernels at that path's shapes on partition 0:
-      ``post_exchange`` (full, local and remote pass) and the event
-      kernel's split use (with and without the clear), each bit-exact
-      against ``spike_gather`` composed with the reference's ring
-      formulation and within rtol=atol=1e-5 of its plain version;
+      ``post_exchange`` (full, local and remote pass, with row lengths
+      and the recorded ``reduce``; the local pass also at a 5% vector,
+      since the main-path vector may leave partition 0's own slice silent)
+      bit-exact against its forced ``row_dot`` variant, and with the event kernel's split use (with
+      and without the clear) against ``spike_gather`` composed with the
+      reference's ring formulation, within rtol=atol=1e-5 of the plain
+      version;
   k2. 1000 steps with both monitors, counts set to 0 before and read after
       and matched to the chunks' gather modes; overflow 0; the raster equal
       to the k=1 main path's;
   k3. 200 steps each of ``overlap="off"``, ``"double_buffer"`` and
       ``fused=False`` (the k>1 ``unfused`` engine), each with its counts
       and a raster equal to k2's;
-  k4. timing of the split kernels (the bound, the plain version,
-      ``torch.sparse.mm`` over the partition's synapses; the event
+  k4. timing of the split kernels (each ``post_exchange`` pass, the local
+      one at both vectors of k1, beside its ``row_dot`` variant, its plain version, its real-work bound and
+      ``torch.sparse.mm`` over its panel on the same vector; the event
       kernel's remote pass at two vectors, as in 7) and the split
       engines' us/step.
 
@@ -136,6 +149,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import re
 import resource
@@ -151,10 +165,11 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import event_step as event_mod  # noqa: E402
 from repro_torch.kernels import fused_step as fused_mod  # noqa: E402
 from repro_torch.kernels import lif_step as lif_mod  # noqa: E402
+from repro_torch.kernels import noise as noise_mod  # noqa: E402
 from repro_torch.kernels import spike_gather as gather_mod  # noqa: E402
 from repro_torch.kernels import split_step as split_mod  # noqa: E402
 from repro_torch.kernels import stdp_update as stdp_mod  # noqa: E402
@@ -166,8 +181,9 @@ from repro_torch.core import block_partition, merge_to_single  # noqa: E402
 from repro_torch.snn import (  # noqa: E402
     RasterMonitor, RateMonitor, Session, SimConfig, balanced_ei, microcircuit, to_dcsr,
 )
-from repro_torch.snn.neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_V  # noqa: E402
-from repro_torch.snn.simulator import slot_tables  # noqa: E402
+from repro_torch.snn.neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V  # noqa: E402
+from repro_torch.kernels.dispatch import launch_row_dot, panel_reduce  # noqa: E402
+from repro_torch.snn.simulator import make_noise, slot_tables  # noqa: E402
 
 STEPS = 1000
 PARITY_STEPS = 256
@@ -205,7 +221,7 @@ BUILD_ARRAYS = ("global_ids", "row_ptr", "col_idx", "vtx_model", "edge_model", "
                 "edge_state", "coords")
 COUNTERS = (lif_mod.COUNTER, gather_mod.COUNTER, fused_mod.COUNTER, event_mod.COUNTER,
             stdp_mod.COUNTER, fused_mod.PLASTIC_COUNTER, split_mod.PRE_COUNTER,
-            split_mod.POST_COUNTER, split_mod.PLASTIC_COUNTER, ks_mod.COUNTER)
+            split_mod.POST_COUNTER, split_mod.PLASTIC_COUNTER, ks_mod.COUNTER, noise_mod.COUNTER)
 SOURCES = {
     "lif_step": ("src/repro_torch/kernels/csrc/lif_step.cu",
                  "src/repro/kernels/lif_step.py:38"),
@@ -231,6 +247,9 @@ SOURCES = {
                                   "src/repro/kernels/event_step.py:198"),
     "keystream": ("src/repro_torch/kernels/csrc/keystream.cu",
                   "src/repro/kernels/keystream.py:58"),
+    # not a TPU kernel: the reference draws its noise as jnp outside Pallas
+    "noise": ("src/repro_torch/kernels/csrc/noise.cu",
+              "src/repro/snn/simulator.py:411"),
 }
 
 
@@ -334,13 +353,13 @@ def phase_kernels(sim, params, rng):
     row_len = sim.dev.row_len
     errs["spike_gather"] = 0.0
     curs = []
-    for c, w, rl, d in zip(cols, weights, row_len, sim.dev.delays):
-        got = gather_mod.spike_gather_cuda(act, c, w, rl)
+    for c, w, rl, d, rb in zip(cols, weights, row_len, sim.dev.delays, sim.dev.reduce):
+        got = gather_mod.spike_gather_cuda(act, c, w, rl, reduce=(rb,))
         want = ref.spike_gather_ref(act, c, w)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        require(torch.equal(got, gather_mod.spike_gather_cuda(act, c, w)),
+        require(torch.equal(got, gather_mod.spike_gather_cuda(act, c, w, reduce=(rb,))),
                 "spike_gather with row_len differs from spike_gather over whole rows")
-        require(torch.equal(got, gather_mod.spike_gather_cuda(act, c, w, rl,
+        require(torch.equal(got, gather_mod.spike_gather_cuda(act, c, w, rl, reduce=(rb,),
                                                               shared_bitmask=False)),
                 "spike_gather differs with the bitmask read from device memory")
         curs.append(got[:n_p])
@@ -349,24 +368,37 @@ def phase_kernels(sim, params, rng):
         say("kernels", f"spike_gather d={d} panel {tuple(c.shape)}, row_len: equal to "
             f"whole rows and to the bitmask in device memory; max |kernel - plain| = "
             f"{err:.3e} (rtol=atol=1e-5)")
-    # against the row_dot kernels: post_exchange, through the reference's ring
-    # formulation, on the session's panels
+    # against the row_dot kernels: post_exchange's forced row_dot variant,
+    # through the reference's ring formulation, on the session's panels
     ring, slot, _ = event_case(sim)
     clear_tab, onehot_tab = slot_tables(sim.d_ring, sim.dev.delays, dev)
     clear, onehot = clear_tab[slot], onehot_tab[slot]
-    row_dot = split_mod.post_exchange_cuda(act, ring, clear, onehot, cols, weights)
+    row_dot = split_mod.post_exchange_cuda(act, ring, clear, onehot, cols, weights,
+                                           reduce="row_dot")
     exact = ref._ring_accumulate(ring, clear, onehot, curs)
     require(torch.equal(row_dot.view(torch.int32), exact.view(torch.int32)),
             "spike_gather with row_len differs from the row_dot kernel (post_exchange)")
     say("kernels", "spike_gather with row_len: ring bit-equal (signed zeros too) to the "
-        "row_dot kernel's (post_exchange, 5% active)")
+        "row_dot variant of post_exchange (5% active)")
 
-    v2, r2, s2, curs = fused_mod.fused_step_cuda(v, refrac, i_tot, cols, weights, params=params)
+    # fused_step with the panels' row lengths and the recorded reduction
+    require(sim.dev.reduce == ("active",) * len(cols), f"reduce {sim.dev.reduce}")
+    v2, r2, s2, curs = fused_mod.fused_step_cuda(v, refrac, i_tot, cols, weights, row_len,
+                                                 params=params, reduce=sim.dev.reduce)
     v1, r1, s1 = lif_mod.lif_step_cuda(v, refrac, i_tot, params=params)
     require(torch.equal(v2, v1) and torch.equal(r2, r1) and torch.equal(s2, s1),
             "fused_step LIF phase differs from the lif_step kernel")
-    for cur, c, w, rl in zip(curs, cols, weights, row_len):
-        require(torch.equal(cur, gather_mod.spike_gather_cuda(s1, c, w, rl)),
+    forced = fused_mod.fused_step_cuda(v, refrac, i_tot, cols, weights, params=params,
+                                       reduce="row_dot")
+    in_l2 = fused_mod.fused_step_cuda(v, refrac, i_tot, cols, weights, row_len, params=params,
+                                      reduce=sim.dev.reduce, shared_bitmask=False)
+    for cur, cf, cl, c, w, rl, rb in zip(curs, forced[3], in_l2[3], cols, weights, row_len,
+                                         sim.dev.reduce):
+        require(torch.equal(cur.view(torch.int32), cf.view(torch.int32)),
+                "fused_step differs from its forced row_dot variant")
+        require(torch.equal(cur.view(torch.int32), cl.view(torch.int32)),
+                "fused_step differs with the bitmask read from L2")
+        require(torch.equal(cur, gather_mod.spike_gather_cuda(s1, c, w, rl, reduce=(rb,))),
                 "fused_step gather phase differs from the spike_gather kernel")
     _, _, s_p, curs_p = ref.fused_step_ref(v, refrac, i_tot, cols, weights, params=params)
     require(torch.equal(s2, s_p), "fused_step spikes differ from the plain version")
@@ -374,8 +406,10 @@ def phase_kernels(sim, params, rng):
     for a, b in zip(curs, curs_p):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
         errs["fused_step"] = max(errs["fused_step"], float((a - b).abs().max()))
-    say("kernels", f"fused_step: bit-exact vs lif_step + spike_gather kernels, "
-        f"max |kernel - plain| = {errs['fused_step']:.3e} (rtol=atol=1e-5)")
+    say("kernels", f"fused_step (row_len, reduce {sim.dev.reduce}, {int(s2.sum())} spikes): "
+        "bit-exact vs its forced row_dot variant, vs the bitmask read from L2 and vs lif_step + "
+        f"spike_gather kernels; max |kernel - plain| = {errs['fused_step']:.3e} "
+        "(rtol=atol=1e-5)")
     return (v, refrac, i_tot, act), errs
 
 
@@ -416,7 +450,8 @@ def phase_main_path(ses, n, pops, tag="main", need_event=True):
     say(tag, f"chunks {res.chunks}, gather modes {modes}")
     require(dense + event == STEPS, f"gather modes {modes}")
     require(event > 0 or not need_event, "the main path never took the event gather")
-    require(launches == only(lif_step=event, fused_step=dense, event_post_exchange=event),
+    require(launches == only(lif_step=event, fused_step=dense, event_post_exchange=event,
+                             noise=STEPS),
             f"launches {launches} for {dense} dense and {event} event steps")
     counts = res.spike_count
     require(counts.shape == (STEPS,) and np.isfinite(rate.rates).all(), "bad spike counts")
@@ -461,6 +496,18 @@ def event_case(sim, t=STEPS):
     return ring, t % D, [(t + d) % D for d in sim.dev.delays]
 
 
+def next_step_inputs(ses):
+    """``(v, refrac, i_tot)`` of a k=1 session's next step from its state:
+    the delivered ring slot plus the port's noise plus the bias, as
+    ``make_core_step`` forms them."""
+    sim, st = ses.simulator, ses.state
+    t, vtx = st["t"], st["vtx_state"]
+    noise = ops.step_noise(sim.cfg.seed, t, sim.net.n, sim.noise_sigma, device=sim.device)
+    ids = torch.from_numpy(ses.permanent_ids).to(sim.device)
+    i_tot = (st["ring"][t % sim.d_ring] + noise.index_select(0, ids)) + vtx[:, LIF_BIAS]
+    return vtx[:, LIF_V].contiguous(), vtx[:, LIF_REF].contiguous(), i_tot
+
+
 def phase_event(sim, raster):
     """The event kernel against its plain version and the dense kernels, on
     spike vectors of the main path (and one whose ids overflow the buffer)."""
@@ -478,25 +525,31 @@ def phase_event(sim, raster):
         ring, slot, write = event_case(sim)
         got, want, dense = ring.clone(), ring.clone(), ring.clone()
         flags = event_mod.event_post_exchange_cuda(act, got, slot, write, plan, cols, weights,
-                                                   row_len)
+                                                   row_len, reduce=sim.dev.reduce)
         want_flags = event_mod.event_post_exchange_plain(act, want, slot, write, plan,
                                                          cols, weights)
         require(torch.equal(flags, want_flags), f"event flags differ from plain ({what})")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         dense[slot] = 0.0
-        for c, w, rl, ws in zip(cols, weights, row_len, write):
-            dense[ws] += gather_mod.spike_gather_cuda(act, c, w, rl)[:n_p]
+        for c, w, rl, ws, rb in zip(cols, weights, row_len, write, sim.dev.reduce):
+            dense[ws] += gather_mod.spike_gather_cuda(act, c, w, rl, reduce=(rb,))[:n_p]
         require(torch.equal(got, dense), f"event ring differs from the dense kernels' ({what})")
         row_dot = split_mod.post_exchange_cuda(act, ring, clear_tab[slot], onehot_tab[slot],
-                                               cols, weights)
+                                               cols, weights, reduce="row_dot")
         require(torch.equal(got, row_dot), f"event ring differs from the row_dot kernel's "
                 f"(post_exchange) ({what})")
+        forced = ring.clone()
+        event_mod.event_post_exchange_cuda(act, forced, slot, write, plan, cols, weights,
+                                           reduce="row_dot")
+        require(torch.equal(got, forced), f"event ring differs from its forced row_dot "
+                f"variant ({what})")
         err = max(err, float((got - want).abs().max()))
         frac = float(flags.float().mean())
         flagged.append(frac)
         say("event", f"{what}: {int(a.sum())} spikes, {frac:.4f} of {flags.numel()} "
             f"(bucket, block) pairs flagged (blocks of {plan.block_r} rows); flags equal "
-            "plain, ring bit-equal to spike_gather's and to post_exchange's (row_dot), "
+            "plain, ring bit-equal to spike_gather's, to its row_dot variant's and to "
+            "post_exchange's row_dot variant, "
             "max |kernel - plain| = "
             f"{float((got - want).abs().max()):.3e} (rtol=atol=1e-5)")
     return err, acts[f"main-path step {STEPS // 2}"]
@@ -508,7 +561,8 @@ def phase_parity(net, main_raster, nd):
     reset_counts()
     _, _, raster, secs = run_session(ses, PARITY_STEPS)
     launches = read_counts()
-    require(launches == only(lif_step=PARITY_STEPS, spike_gather=PARITY_STEPS * nd),
+    require(launches == only(lif_step=PARITY_STEPS, spike_gather=PARITY_STEPS * nd,
+                             noise=PARITY_STEPS),
             f"unfused path launches {launches}")
     require(np.array_equal(raster.raster, main_raster[:PARITY_STEPS]),
             "unfused raster differs from the main path's")
@@ -518,27 +572,40 @@ def phase_parity(net, main_raster, nd):
 
 
 def phase_small_net():
-    """A small net on the card against the plain torch versions on the CPU,
-    both fed the same numpy noise through the simulator's noise seam.  The
-    gather sums in another order on the card, so a membrane can sit an ulp
-    apart; up to 1% of the spikes may differ."""
+    """A small net on the card against the plain torch versions on the CPU:
+    first both fed the same numpy noise through the simulator's noise seam,
+    then each drawing the port's own noise, whose vectors must be
+    bit-identical on the two devices.  The gather sums in another order on
+    the card, so a membrane can sit an ulp apart; up to 1% of the spikes
+    may differ."""
     small = to_dcsr(microcircuit(scale=0.02, seed=1), k=1)
     noise = np.random.default_rng(3).normal(0.0, 1.0, (PARITY_STEPS, small.n)).astype(np.float32)
-    rasters = []
-    for device in ("cuda", "cpu"):
-        s = Session(small, SimConfig(fused=True), device=device,
-                    _noise_fn=lambda t: noise[t])
-        mon = RasterMonitor()
-        s.run(PARITY_STEPS, monitors=[mon])
-        rasters.append(mon.raster)
-    spikes = int(rasters[0].sum())
-    differ = np.flatnonzero((rasters[0] != rasters[1]).any(axis=1))
-    n_diff = int((rasters[0] != rasters[1]).sum())
-    say("parity", f"microcircuit(0.02), {PARITY_STEPS} steps, card vs CPU plain versions: "
-        f"{spikes} vs {int(rasters[1].sum())} spikes, {n_diff} raster entries differ"
-        + (f" (first at step {differ[0]})" if len(differ) else ""))
-    require(spikes > 0, "small net never spiked")
-    require(n_diff <= 0.01 * spikes, "card and CPU rasters disagree on the small net")
+    for label, noise_fn in (("the seam's numpy noise", lambda t: noise[t]),
+                            ("the port's own noise", None)):
+        rasters = []
+        for device in ("cuda", "cpu"):
+            s = Session(small, SimConfig(fused=True), device=device, _noise_fn=noise_fn)
+            mon = RasterMonitor()
+            s.run(PARITY_STEPS, monitors=[mon])
+            rasters.append(mon.raster)
+        spikes = int(rasters[0].sum())
+        differ = np.flatnonzero((rasters[0] != rasters[1]).any(axis=1))
+        n_diff = int((rasters[0] != rasters[1]).sum())
+        say("parity", f"microcircuit(0.02), {PARITY_STEPS} steps, {label}, card vs CPU plain "
+            f"versions: {spikes} vs {int(rasters[1].sum())} spikes, {n_diff} raster entries "
+            "differ" + (f" (first at step {differ[0]})" if len(differ) else ""))
+        require(spikes > 0, "small net never spiked")
+        require(n_diff <= 0.01 * spikes, f"card and CPU rasters disagree on the small net "
+                f"({label})")
+    cfg, sigma = SimConfig(), float(small.meta["noise_sigma"])
+    draws = [make_noise(seed=cfg.seed, noise_sigma=sigma, n_global=small.n, device=device)
+             for device in ("cuda", "cpu")]
+    for t in range(PARITY_STEPS):
+        a, b = (draw(t) for draw in draws)
+        require(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)),
+                f"the port's noise of step {t} differs between the card and the CPU")
+    say("parity", f"the port's own noise: the {PARITY_STEPS} steps' ({small.n},) vectors the "
+        "small net draws are bit-identical on the card and on the CPU (no seam)")
 
 
 def _csr(bucket, n, dev):
@@ -603,8 +670,11 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
                     library_ms=None))
 
     # spike_gather at two activity vectors: the 5% vector of phase 3 and a
-    # spike vector of the main path; the bytes it must move depend on both
-    row_len = sim.dev.row_len
+    # spike vector of the main path; the bytes it must move depend on both.
+    # Every timed launch takes the reduction the session recorded: the
+    # wrappers' default "auto" would check the weights (a reduction over the
+    # panel and a device sync) inside the timed loop
+    row_len, red = sim.dev.row_len, sim.dev.reduce
     R = cols[0].shape[0]
     panel_bytes = sum(c.numel() * 8 for c in cols)
     real_syn = sum(int(b.valid.sum()) for b in sim.ell.buckets)
@@ -615,16 +685,18 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
         a2 = a[:, None].contiguous()
         t = dict(ms=0.0, ms_no_row_len=0.0, ms_bitmask_l2=0.0, library_ms=0.0)
         real = active = moved = 0
-        for c, w, rl, csr in zip(cols, weights, row_len, csrs):
+        for b, (c, w, rl, csr) in enumerate(zip(cols, weights, row_len, csrs)):
+            rb = red[b:b + 1]
             torch.testing.assert_close(torch.sparse.mm(csr, a2)[:, 0],
-                                       gather_mod.spike_gather_cuda(a, c, w, rl),
+                                       gather_mod.spike_gather_cuda(a, c, w, rl, reduce=rb),
                                        rtol=1e-5, atol=1e-5)
-            t["ms"] += cuda_ms(lambda c=c, w=w, rl=rl: gather_mod.spike_gather_cuda(a, c, w, rl),
-                               20)
+            t["ms"] += cuda_ms(lambda c=c, w=w, rl=rl, rb=rb: gather_mod.spike_gather_cuda(
+                a, c, w, rl, reduce=rb), 20)
             t["ms_no_row_len"] += cuda_ms(
-                lambda c=c, w=w: gather_mod.spike_gather_cuda(a, c, w), 20)
-            t["ms_bitmask_l2"] += cuda_ms(lambda c=c, w=w, rl=rl: gather_mod.spike_gather_cuda(
-                a, c, w, rl, shared_bitmask=False), 20)
+                lambda c=c, w=w, rb=rb: gather_mod.spike_gather_cuda(a, c, w, reduce=rb), 20)
+            t["ms_bitmask_l2"] += cuda_ms(
+                lambda c=c, w=w, rl=rl, rb=rb: gather_mod.spike_gather_cuda(
+                    a, c, w, rl, reduce=rb, shared_bitmask=False), 20)
             t["library_ms"] += cuda_ms(lambda csr=csr: torch.sparse.mm(csr, a2), 20)
             r_, a_, m_ = gather_traffic(a, c, rl)
             real, active, moved = real + r_, active + a_, moved + m_
@@ -641,6 +713,39 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
             f"{moved / t['ms'] / 1e6:.0f} GB/s); bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
             f"{nb / 1e9:.4f} GB = 4 B x {real} real slots' cols + 4 B x {active} active "
             "slots' weights + activity, row_len and currents)")
+    # fused_step on the main path's next step (its end state, the ring slot
+    # it delivers, the port's noise and the bias): the gathers read the
+    # step's own spikes, so its bound counts what those spikes need
+    fv, fr, fi = next_step_inputs(ses)
+    fs = lif_mod.lif_step_cuda(fv, fr, fi, params=params)[2]
+    f_real = f_active = f_moved = 0
+    for c, rl in zip(cols, row_len):
+        r_, a_, m_ = gather_traffic(fs, c, rl)
+        f_real, f_active, f_moved = f_real + r_, f_active + a_, f_moved + m_
+    # the state read (v, refrac, i_tot) and written (v, refrac, spikes), the
+    # bitmask, and per bucket row_len read and R currents written
+    f_state = lif_bytes + 4 * (n_p // 32 + 1) + nd * 8 * R
+    f_bytes = 4 * (f_real + f_active) + f_state
+    b, by = bound_ms(f_bytes, 10 * n_p + 2 * f_active)
+    b_pad, _ = bound_ms(lif_bytes + panel_bytes + nd * R * 4,
+                        10 * n_p + sum(2 * c.numel() for c in cols))
+    tk = cuda_ms(lambda: fused_mod.fused_step_cuda(fv, fr, fi, cols, weights, row_len,
+                                                   params=params, reduce=sim.dev.reduce), 20)
+    tk_dot = cuda_ms(lambda: fused_mod.fused_step_cuda(fv, fr, fi, cols, weights, params=params,
+                                                       reduce="row_dot"), 20)
+    tp = cuda_ms(lambda: ref.fused_step_ref(fv, fr, fi, cols, weights, params=params), 5)
+    fs2 = fs[:, None].contiguous()
+    f_lib = sum(cuda_ms(lambda csr=csr: torch.sparse.mm(csr, fs2), 20) for csr in csrs)
+    say("timing", f"fused_step ({nd} buckets), the main path's step {ses.t} ({int(fs.sum())} "
+        f"spikes): kernel {tk:.4f} ms (moves about {(f_moved + f_state) / 1e9:.4f} GB: "
+        f"{(f_moved + f_state) / tk / 1e6:.0f} GB/s); its row_dot variant {tk_dot:.4f} ms; "
+        f"plain {tp:.3f} ms; torch.sparse.mm over both buckets on the same spikes {f_lib:.4f} "
+        f"ms; bound {b:.4f} ms ({by}: {f_bytes / 1e9:.4f} GB = 4 B x {f_real} real slots' cols "
+        f"+ 4 B x {f_active} active slots' weights + state, bitmask, row_len and currents); "
+        f"padded bound {b_pad:.4f} ms (every slot's col and weight)")
+    out.append(dict(name="fused_step", ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
+                    library_ms=f_lib, ms_row_dot=tk_dot, bound_ms_padded=b_pad,
+                    vector=f"the main path's step {ses.t}: {int(fs.sum())} spikes"))
     del csrs
     g_p = sum(cuda_ms(lambda c=c, w=w: ref.spike_gather_ref(act, c, w), 5)
               for c, w in zip(cols, weights))
@@ -659,18 +764,6 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
                     ms_main_path_bitmask_l2=gm["ms_bitmask_l2"],
                     vector="5% active; *_main_path: a spike vector of the main path"))
 
-    f_bytes = lif_bytes + panel_bytes + nd * cols[0].shape[0] * 4
-    f_flops = 10 * n_p + sum(2 * c.numel() for c in cols)
-    tk = cuda_ms(lambda: fused_mod.fused_step_cuda(v, refrac, i_tot, cols, weights,
-                                                   params=params), 20)
-    tp = cuda_ms(lambda: ref.fused_step_ref(v, refrac, i_tot, cols, weights, params=params), 5)
-    b, by = bound_ms(f_bytes, f_flops)
-    say("timing", f"fused_step ({nd} buckets): kernel {tk:.3f} ms "
-        f"({f_bytes / tk / 1e6:.0f} GB/s), plain {tp:.3f} ms, bound {b:.3f} ms "
-        f"({f_bytes / 1e9:.3f} GB)")
-    out.append(dict(name="fused_step", ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
-                    library_ms=None))
-
     # the event kernel on the same two vectors: what it must move depends on
     # the blocks the vector flags and on its active ids
     plan = sim.event_plan
@@ -678,16 +771,17 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
     for label, a in (("main-path step", eact), ("5% active", act)):
         ring, slot, write = event_case(sim)
         flags = event_mod.event_post_exchange_cuda(a, ring, slot, write, plan, cols, weights,
-                                                   row_len)
+                                                   row_len, reduce=red)
         real, active, moved, rows = event_traffic(a, plan, flags, cols, row_len, n_p)
         n_ids = int(a.sum())
         e_bytes = (4 * (real + active) + n_p * 4 * 2 + rows * 12
                    + n_ids * (8 + nd * plan.num_blocks) + flags.numel() * 4)
         t = dict(
             ms=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
-                a, ring, slot, write, plan, cols, weights, row_len), 20),
+                a, ring, slot, write, plan, cols, weights, row_len, reduce=red), 20),
             ms_bitmask_l2=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
-                a, ring, slot, write, plan, cols, weights, row_len, shared_bitmask=False), 20),
+                a, ring, slot, write, plan, cols, weights, row_len, reduce=red,
+                shared_bitmask=False), 20),
         )
         t["bound_ms"], t["bound_by"] = bound_ms(e_bytes, 2 * active)
         events[label] = t
@@ -734,6 +828,162 @@ def phase_engines(ses):
     say("timing", f"engines from the main path's state, {ENGINE_STEPS} steps each, no "
         "monitors (host clock): "
         + "; ".join(f"{e} {', '.join(us)} us/step" for e, us in per.items()))
+
+
+# -- the per-step noise and non-finite weights ----------------------------------
+
+# f32 operations of one id's noise in csrc/noise.cu: the uniform (4), the
+# square and log1p's add, sub, compare, div and mul (6), Cephes' log (28),
+# the branch select and w's shift (4), the Horner polynomial (17), sqrt(2)
+# and sigma (2)
+NOISE_F32_OPS = 61
+# the function needs one cipher an id (its bits) and one a launch (the step
+# key), each 20 rotates and 20 xors on the ALU pipe (INT_OPS_PER_CIPHER); the
+# kernel derives the key once a block, which the bound does not count
+
+
+def phase_noise(seed, card, n_main, launches):
+    """The noise kernel bit for bit against its plain version on the card,
+    over 2^20 ids at four steps, with both of erfinv's branches taken; then
+    its time at the main path's width beside its plain version and its
+    bound."""
+    n = 1 << 20
+    big = small = 0
+    edge = math.sqrt(1.0 - math.exp(-5.0))  # w = -log1p(-u^2) >= 5 iff |u| > edge
+    for t in (0, 1, 777, 2**31 + 3):
+        got = noise_mod.noise_cuda(seed, t, n, 1.0, device=card)
+        want = ref.step_noise_ref(seed, t, n, 1.0, device=card)
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"noise kernel differs from its plain version at step {t}")
+        u = ref.noise_uniform_ref(ref.noise_bits_ref(seed, t, n, card)).double().abs()
+        big, small = big + int((u > edge).sum()), small + int((u <= edge).sum())
+    require(big > 0 and small > 0, f"erfinv branches: {small} below 5, {big} at or above")
+    say("noise", f"noise kernel: {n} ids at 4 steps bit-identical to its plain version on the "
+        f"card; erfinv's branches taken {small} (w < 5) and {big} (w >= 5) times")
+    tk = cuda_ms(lambda: noise_mod.noise_cuda(seed, STEPS, n_main, 1.0, device=card), 200)
+    tp = cuda_ms(lambda: ref.step_noise_ref(seed, STEPS, n_main, 1.0, device=card), 10)
+    b_f32, _ = bound_ms(0, n_main * NOISE_F32_OPS)
+    int_ops = (n_main + 1) * INT_OPS_PER_CIPHER
+    b, by = bound_ms(4 * n_main, int_ops, INT32_ALU_OPS_PER_S)
+    if b_f32 > b:
+        b, by = b_f32, "operations"
+    say("timing", f"noise n={n_main}: kernel {tk * 1e3:.2f} us, plain {tp * 1e3:.1f} us, bound "
+        f"{b * 1e3:.3f} us ({by}: {n_main} + 1 ciphers x {INT_OPS_PER_CIPHER} ALU-pipe "
+        f"instructions over "
+        f"{INT32_ALU_OPS_PER_S / 1e12:.2f} T/s; {4 * n_main} B written; {NOISE_F32_OPS} f32 "
+        "operations an id); library: none (torch's generators are Philox, not Threefry)")
+    src, rep = SOURCES["noise"]
+    return dict(name="noise", route="cuda", source=src, replaces=rep, launches=launches,
+                max_abs_err=0.0, ms=tk, plain_ms=tp, bound_ms=b, bound_by=by, library_ms=None,
+                path="main", note="not a TPU kernel: the reference draws its noise as jnp")
+
+
+def _nan_rows(x):
+    """The rows (last axis) where ``x`` holds a NaN."""
+    return torch.isnan(x).reshape(-1, x.shape[-1]).any(0).nonzero().flatten().tolist()
+
+
+def phase_nan(card, seed):
+    """F3: two NaN weights on silent sources of a small net, one whose
+    source is in the target's partition and one whose source is not.  The
+    engines record ``row_dot`` for the panels that hold them; each of the
+    four kernels, called with that recorded choice on the session's panels,
+    takes its row_dot variant and gives NaN in exactly the rows where its
+    plain version does."""
+    net = microcircuit(scale=0.02, seed=seed + 2)
+    d4 = to_dcsr(net, assignment=block_partition(net.n, K_PARTS), uniform=True)
+    part = d4.parts[1]
+    n_p = part.n
+    src = part.col_idx
+    own = (src >= n_p) & (src < 2 * n_p)
+    row = np.searchsorted(part.row_ptr, np.arange(src.size), side="right") - 1
+    remote = int(np.flatnonzero(~own)[0])
+    local = int(np.flatnonzero(own & (row != row[remote]))[0])  # another row
+    nan_edges = [local, remote]
+    part.edge_state[nan_edges, 0] = np.nan
+    sources = [int(src[e]) for e in nan_edges]
+    rng = np.random.default_rng(seed)
+    act_np = (rng.random(d4.n) < 0.1).astype(np.float32)
+    act_np[sources] = 0.0  # silent sources
+    act = torch.from_numpy(act_np).to(card)
+
+    ses1 = Session(merge_to_single(d4), SimConfig(), device=card)
+    sim = ses1.simulator
+    dev = sim.dev
+    nan_buckets = [b for b, w in enumerate(dev.weights0) if bool(torch.isnan(w).any())]
+    require(nan_buckets and all(dev.reduce[b] == "row_dot" for b in nan_buckets)
+            and ses1.describe()["reduce"] == dev.reduce, f"recorded reduce {dev.reduce}")
+    require(launch_row_dot(dev.reduce, dev.weights0), "the k=1 launches keep row_dot_active")
+    cols, weights, row_len = dev.cols, dev.weights0, dev.row_len
+    found = {}
+    # spike_gather, bucket by bucket
+    rows = []
+    for b, (c, w, rl) in enumerate(zip(cols, weights, row_len)):
+        got = gather_mod.spike_gather_cuda(act, c, w, rl, reduce=dev.reduce[b:b + 1])
+        want = ref.spike_gather_ref(act, c, w)
+        require(_nan_rows(got) == _nan_rows(want), f"spike_gather NaN rows, bucket {b}")
+        rows += _nan_rows(got)
+    found["spike_gather"] = rows
+    # the event kernel
+    ring, slot, write = event_case(sim)
+    got, want = ring.clone(), ring.clone()
+    event_mod.event_post_exchange_cuda(act, got, slot, write, sim.event_plan, cols, weights,
+                                       row_len, reduce=dev.reduce)
+    event_mod.event_post_exchange_plain(act, want, slot, write, sim.event_plan, cols, weights)
+    require(torch.equal(torch.isnan(got), torch.isnan(want)), "event_post_exchange NaN slots")
+    found["event_post_exchange"] = _nan_rows(got)
+    # fused_step: the sources held refractory, so they do not spike
+    params = lif_params(ses1.net)
+    v = dev.vtx_state0[:, LIF_V].contiguous()
+    refrac = torch.from_numpy(rng.integers(0, 2, d4.n).astype(np.float32)).to(card)
+    refrac[sources] = 2.0
+    i_tot = dev.vtx_state0[:, LIF_BIAS] + torch.from_numpy(
+        rng.normal(0.0, 4.0, d4.n).astype(np.float32)).to(card)
+    got = fused_mod.fused_step_cuda(v, refrac, i_tot, cols, weights, row_len, params=params,
+                                    reduce=dev.reduce)
+    want = ref.fused_step_ref(v, refrac, i_tot, cols, weights, params=params)
+    require(torch.equal(got[2], want[2]), "fused_step spikes differ with a NaN weight")
+    rows = []
+    for a, b in zip(got[3], want[3]):
+        require(_nan_rows(a) == _nan_rows(b), "fused_step NaN rows")
+        rows += _nan_rows(a)
+    found["fused_step"] = rows
+    say("nan", f"microcircuit(0.02) merged, NaN weights on edges {nan_edges} (silent sources "
+        f"{sources}): describe()['reduce'] = {ses1.describe()['reduce']}")
+
+    # post_exchange: partition 1 of the k>1 session, whose local sub-panel
+    # holds one NaN weight and whose remote sub-panel the other
+    ses4 = Session(d4, SimConfig(), engine="spmd", devices=[card] * K_PARTS)
+    desc = ses4.describe()
+    dsim = ses4.simulator
+    p1 = dsim.devs[1]
+    require("row_dot" in p1.reduce_local and "row_dot" in p1.reduce_remote
+            and "row_dot" in p1.reduce and set(dsim.devs[0].reduce) == {"active"},
+            f"recorded reduce {desc}")
+    ring, clear, onehot, _, _ = split_case(dsim, STEPS, 13)
+    act_local = act[n_p:2 * n_p].contiguous()
+    rows = {}
+    for what, a, cl, c, w, rl, red in (
+        ("full", act, clear, p1.cols, p1.weights0, p1.row_len, p1.reduce),
+        ("local", act_local, clear, p1.cols_local, p1.weights_local, p1.row_len_local,
+         p1.reduce_local),
+        ("remote", act, None, p1.cols_remote, p1.weights_remote, p1.row_len_remote,
+         p1.reduce_remote),
+    ):
+        require(launch_row_dot(red, w), f"post_exchange {what} pass keeps row_dot_active")
+        got = split_mod.post_exchange_cuda(a, ring, cl, onehot, c, w, rl, reduce=red)
+        want = (ref.fused_post_exchange_remote_ref(a, ring, onehot, c, w) if cl is None
+                else ref.fused_post_exchange_ref(a, ring, cl, onehot, c, w))
+        require(torch.equal(torch.isnan(got), torch.isnan(want)), f"post_exchange {what} NaN")
+        rows[what] = _nan_rows(got)
+    found["post_exchange"] = rows
+    for name, got in found.items():
+        require(any(got.values()) if isinstance(got, dict) else bool(got),
+                f"{name}: no NaN row, the NaN weight was skipped")
+    say("nan", f"k={K_PARTS}, partition 1: reduce {p1.reduce}, local {p1.reduce_local}, remote "
+        f"{p1.reduce_remote} (partition 0, no NaN: {dsim.devs[0].reduce})")
+    say("nan", "each kernel took its row_dot variant from the recorded choice and gives NaN in "
+        f"exactly the plain version's rows: {found}")
 
 
 # -- the plastic path ----------------------------------------------------------
@@ -831,7 +1081,8 @@ def phase_plastic_path(ses, n):
     say("plastic", f"chunks {res.chunks}, gather modes {ses.last_gather_modes}")
     require(ses.engine_choice.engine == "fused_plastic", f"engine {ses.engine_choice}")
     require(ses.last_gather_modes == ("dense",) * chunks, "a plastic chunk left the dense gather")
-    require(launches == only(fused_plastic_step=STEPS), f"plastic path launches {launches}")
+    require(launches == only(fused_plastic_step=STEPS, noise=STEPS),
+            f"plastic path launches {launches}")
     counts = res.spike_count
     require(counts.shape == (STEPS,) and np.isfinite(rate.rates).all(), "bad spike counts")
     require(int(counts.sum()) > 0, "the plastic net never spiked")
@@ -860,7 +1111,7 @@ def phase_plastic_parity(net, main_raster):
     _, _, r_u, secs = run_session(unf, PARITY_STEPS)
     launches = read_counts()
     require(launches == only(lif_step=PARITY_STEPS, spike_gather=PARITY_STEPS * nd,
-                             stdp_update=PARITY_STEPS * nd),
+                             stdp_update=PARITY_STEPS * nd, noise=PARITY_STEPS),
             f"unfused plastic path launches {launches}")
     fus = Session(net, SimConfig())
     _, _, r_f, _ = run_session(fus, PARITY_STEPS)
@@ -988,14 +1239,22 @@ def split_launches(modes, chunks, overlap):
     two = overlap != "off"
     return only(lif_step=K_PARTS * (dense + event),
                 post_exchange=K_PARTS * (dense * (2 if two else 1) + event * two),
-                event_post_exchange=K_PARTS * event)
+                event_post_exchange=K_PARTS * event, noise=dense + event)
 
 
 def compose_ring(act, ring, clear, onehot, cols, weights, n_p):
     """The reference's ring formulation around the ``spike_gather`` kernel:
     what every post-exchange kernel must give bit for bit."""
-    curs = [gather_mod.spike_gather_cuda(act, c, w)[:n_p] for c, w in zip(cols, weights)]
+    curs = [gather_mod.spike_gather_cuda(act, c, w, reduce=panel_reduce([w]))[:n_p]
+            for c, w in zip(cols, weights)]
     return ref._ring_accumulate(ring, clear, onehot, curs)
+
+
+def local_five_pct(n_p, card):
+    """A (n_p,) vector with 5% of a partition's own ids active, for the
+    local pass."""
+    return (torch.rand(n_p, generator=torch.Generator(card).manual_seed(3), device=card)
+            < 0.05).float()
 
 
 def split_case(dsim, t, seed):
@@ -1020,20 +1279,40 @@ def phase_k4_kernels(dsim, act_np):
     act_local = act[:n_p].contiguous()
     act_remote = act.clone()
     act_remote[:n_p] = 0.0
+    # the main-path vector may hold no spike of partition 0's own slice: the
+    # local pass is also held at a 5% vector, whose active sources it loads
+    five_local = local_five_pct(n_p, card)
     ring, clear, onehot, slot, write = split_case(dsim, STEPS, 7)
+    require(dev.reduce == dev.reduce_local == dev.reduce_remote == ("active",) * len(dev.cols),
+            f"reduce {dev.reduce}, {dev.reduce_local}, {dev.reduce_remote}")
     cases = [
-        ("full pass (overlap off)", act, clear, dev.cols, dev.weights0, False),
-        ("local pass", act_local, clear, dev.cols_local, dev.weights_local, False),
-        ("remote pass", act, None, dev.cols_remote, dev.weights_remote, True),
+        ("full pass (overlap off)", act, clear, dev.cols, dev.weights0, dev.row_len, dev.reduce),
+        ("local pass", act_local, clear, dev.cols_local, dev.weights_local, dev.row_len_local,
+         dev.reduce_local),
+        ("local pass, 5% active", five_local, clear, dev.cols_local, dev.weights_local,
+         dev.row_len_local, dev.reduce_local),
+        ("remote pass", act, None, dev.cols_remote, dev.weights_remote, dev.row_len_remote,
+         dev.reduce_remote),
     ]
     err = 0.0
-    for what, a, cl, cols, weights, remote in cases:
-        if remote:
-            got = split_mod.post_exchange_cuda(a, ring, None, onehot, cols, weights)
+    for what, a, cl, cols, weights, row_len, reduce in cases:
+        n_active = sum(gather_traffic(a, c, rl)[1] for c, rl in zip(cols, row_len))
+        require(n_active > 0 or what == "local pass",
+                f"post_exchange {what}: no slot with an active source, the check is vacuous")
+        got = split_mod.post_exchange_cuda(a, ring, cl, onehot, cols, weights, row_len,
+                                           reduce=reduce)
+        if cl is None:
             want = ref.fused_post_exchange_remote_ref(a, ring, onehot, cols, weights)
         else:
-            got = split_mod.post_exchange_cuda(a, ring, cl, onehot, cols, weights)
             want = ref.fused_post_exchange_ref(a, ring, cl, onehot, cols, weights)
+        forced = split_mod.post_exchange_cuda(a, ring, cl, onehot, cols, weights,
+                                              reduce="row_dot")
+        require(torch.equal(got.view(torch.int32), forced.view(torch.int32)),
+                f"post_exchange {what} differs from its forced row_dot variant")
+        in_memory = split_mod.post_exchange_cuda(a, ring, cl, onehot, cols, weights, row_len,
+                                                 reduce=reduce, shared_bitmask=False)
+        require(torch.equal(got.view(torch.int32), in_memory.view(torch.int32)),
+                f"post_exchange {what} differs with the activity tested in device memory")
         exact = compose_ring(a, ring, cl, onehot, cols, weights, n_p)
         require(torch.equal(got.view(torch.int32), exact.view(torch.int32)),
                 f"post_exchange {what} differs from spike_gather + the ring formulation")
@@ -1041,19 +1320,24 @@ def phase_k4_kernels(dsim, act_np):
         e = float((got - want).abs().max())
         err = max(err, e)
         inplace = ring.clone()
-        split_mod.post_exchange_cuda(a, inplace, cl, onehot, cols, weights, out=inplace)
+        split_mod.post_exchange_cuda(a, inplace, cl, onehot, cols, weights, row_len,
+                                     reduce=reduce, out=inplace)
         require(torch.equal(inplace.view(torch.int32), got.view(torch.int32)),
                 f"post_exchange {what} differs when written in place")
-        say("k4", f"post_exchange {what}, panels {[tuple(c.shape) for c in cols]}: bit-exact "
-            f"vs spike_gather + ring formulation, in place too; max |kernel - plain| = "
-            f"{e:.3e} (rtol=atol=1e-5)")
+        say("k4", f"post_exchange {what}, panels {[tuple(c.shape) for c in cols]}, row_len, "
+            f"reduce {reduce}, {int(a.sum())} of {a.shape[0]} ids active, {n_active} slots "
+            "with an active source: bit-exact (signed zeros too) vs its forced row_dot variant, vs "
+            "the activity tested in device memory, vs spike_gather + ring formulation, and in "
+            f"place; max |kernel - plain| = {e:.3e} (rtol=atol=1e-5)")
     # the local pass then the remote pass give the full pass's ring to the
     # rounding of the split sum
     two = split_mod.post_exchange_cuda(act_local, ring, clear, onehot, dev.cols_local,
-                                       dev.weights_local)
+                                       dev.weights_local, dev.row_len_local,
+                                       reduce=dev.reduce_local)
     split_mod.post_exchange_cuda(act, two, None, onehot, dev.cols_remote, dev.weights_remote,
-                                 out=two)
-    full = split_mod.post_exchange_cuda(act, ring, clear, onehot, dev.cols, dev.weights0)
+                                 dev.row_len_remote, reduce=dev.reduce_remote, out=two)
+    full = split_mod.post_exchange_cuda(act, ring, clear, onehot, dev.cols, dev.weights0,
+                                        dev.row_len, reduce=dev.reduce)
     torch.testing.assert_close(two, full, rtol=1e-5, atol=1e-5)
     say("k4", "local + remote pass vs the full pass: max |difference| = "
         f"{float((two - full).abs().max()):.3e} (rtol=atol=1e-5; the split sums round "
@@ -1065,19 +1349,19 @@ def phase_k4_kernels(dsim, act_np):
                        ("serialized (clear)", act, slot)):
         got, want, dense = ring.clone(), ring.clone(), ring.clone()
         flags = event_mod.event_post_exchange_cuda(a, got, s, write, plan, dev.cols, dev.weights0,
-                                                   dev.row_len)
+                                                   dev.row_len, reduce=dev.reduce)
         want_flags = event_mod.event_post_exchange_plain(a, want, s, write, plan, dev.cols,
                                                          dev.weights0)
         require(torch.equal(flags, want_flags), f"split event flags differ from plain ({what})")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         if s is not None:
             dense[s] = 0.0
-        for c, w, rl, ws in zip(dev.cols, dev.weights0, dev.row_len, write):
-            dense[ws] += gather_mod.spike_gather_cuda(a, c, w, rl)[:n_p]
+        for c, w, rl, ws, rb in zip(dev.cols, dev.weights0, dev.row_len, write, dev.reduce):
+            dense[ws] += gather_mod.spike_gather_cuda(a, c, w, rl, reduce=(rb,))[:n_p]
         require(torch.equal(got, dense), f"split event ring differs from the dense kernels' "
                 f"({what})")
         row_dot = split_mod.post_exchange_cuda(a, ring, None if s is None else clear, onehot,
-                                               dev.cols, dev.weights0)
+                                               dev.cols, dev.weights0, reduce="row_dot")
         require(torch.equal(got, row_dot), f"split event ring differs from the row_dot kernel's "
                 f"(post_exchange) ({what})")
         e = float((got - want).abs().max())
@@ -1085,7 +1369,8 @@ def phase_k4_kernels(dsim, act_np):
         say("k4", f"event_post_exchange split use, {what}: act ({a.shape[0]},) with "
             f"{int(a.sum())} spikes, ring {tuple(ring.shape)}, {float(flags.float().mean()):.4f} "
             f"of {flags.numel()} (bucket, block) pairs flagged; flags equal plain, ring "
-            f"bit-equal to spike_gather's and to post_exchange's (row_dot), max |kernel - plain| "
+            f"bit-equal to spike_gather's and to post_exchange's row_dot variant, max "
+            f"|kernel - plain| "
             f"= {e:.3e} (rtol=atol=1e-5)")
     return {"post_exchange": err, "event_post_exchange_split": e_err}
 
@@ -1139,7 +1424,7 @@ def phase_k4_variants(base, card, default_raster, nd):
             want = split_launches(ses.last_gather_modes, res.chunks, choice.overlap)
         else:
             want = only(lif_step=K_PARTS * VARIANT_STEPS,
-                        spike_gather=K_PARTS * nd * VARIANT_STEPS)
+                        spike_gather=K_PARTS * nd * VARIANT_STEPS, noise=VARIANT_STEPS)
         require(launches == want, f"k>1 {label} launches {launches}, expected {want}")
         require(int(res.overflow.sum()) == 0, f"k>1 {label} overflow")
         require(np.array_equal(raster.raster, default_raster[:VARIANT_STEPS]),
@@ -1164,6 +1449,19 @@ def _csr_from(cols, weights, valid, n, dev):
         ).to(dev)
 
 
+def _csr_of(cols, weights, row_len, n):
+    """A device panel's real slots (each row's first ``row_len[r]``) as a
+    CSR matrix on the card, for ``torch.sparse.mm`` on the same work."""
+    R, K = cols.shape
+    live = torch.arange(K, device=cols.device)[None, :] < row_len.long()[:, None]
+    crow = torch.zeros(R + 1, dtype=torch.int64, device=cols.device)
+    crow[1:] = torch.cumsum(row_len.long(), 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow, cols[live].long(), weights[live], size=(R, n),
+                                       check_invariants=False)
+
+
 def post_bytes(cols, n_act, D, n_p):
     """What a post-exchange pass must move: every slot's col and weight, the
     activity, the ring read and written, the slot tables."""
@@ -1179,19 +1477,42 @@ def phase_k4_timing(dsim, act_np, errs, launches):
     ring, clear, onehot, slot, write = split_case(dsim, STEPS, 7)
     work = ring.clone()
 
-    def time_pass(a, cl, cols, weights):
+    def time_pass(a, cl, cols, weights, row_len, reduce):
+        """The pass on ``a``: its time, its row_dot variant's, its plain
+        version's, torch.sparse.mm over the same real slots on the same
+        vector, and the bytes and bound of the work it needs."""
         tk = cuda_ms(lambda: split_mod.post_exchange_cuda(a, work, cl, onehot, cols, weights,
-                                                          out=work), 20)
+                                                          row_len, reduce=reduce, out=work), 20)
+        t_dot = cuda_ms(lambda: split_mod.post_exchange_cuda(a, work, cl, onehot, cols, weights,
+                                                             reduce="row_dot", out=work), 20)
         if cl is None:
             tp = cuda_ms(lambda: ref.fused_post_exchange_remote_ref(a, ring, onehot, cols,
                                                                     weights), 5)
         else:
             tp = cuda_ms(lambda: ref.fused_post_exchange_ref(a, ring, cl, onehot, cols,
                                                              weights), 5)
-        nb = post_bytes(cols, a.shape[0], D, n_p)
-        b, _ = bound_ms(nb, 2 * sum(c.numel() for c in cols))
-        return tk, tp, b, nb
+        a2 = a[:, None].contiguous()
+        lib_p = 0.0
+        real = active = moved = 0
+        for c, w, rl in zip(cols, weights, row_len):
+            csr = _csr_of(c, w, rl, a.shape[0])
+            torch.testing.assert_close(torch.sparse.mm(csr, a2)[:n_p, 0],
+                                       gather_mod.spike_gather_cuda(a, c, w, rl)[:n_p],
+                                       rtol=1e-5, atol=1e-5)
+            lib_p += cuda_ms(lambda csr=csr: torch.sparse.mm(csr, a2), 20)
+            del csr
+            r_, a_, m_ = gather_traffic(a, c, rl)
+            real, active, moved = real + r_, active + a_, moved + m_
+        # the activity, the ring read and written, the slot tables, row_len
+        rest = a.shape[0] * 4 + 2 * D * n_p * 4 + (len(cols) + 1) * D * 4 + len(cols) * 4 * R
+        nb = 4 * (real + active) + rest
+        b, by = bound_ms(nb, 2 * active)
+        b_pad, _ = bound_ms(post_bytes(cols, a.shape[0], D, n_p), 2 * sum(c.numel() for c in cols))
+        return dict(ms=tk, ms_row_dot=t_dot, plain_ms=tp, library_ms=lib_p, bound_ms=b,
+                    bound_by=by, bound_ms_padded=b_pad, bytes=nb, moved=moved + rest,
+                    real=real, active=active, spikes=int(a.sum()), ids=a.shape[0])
 
+    R = dev.cols[0].shape[0]
     lib = 0.0
     for i in range(len(s.delays)):
         csr = _csr_from(s.cols[i][0], s.weights[i][0], s.valid[i][0], n, card)
@@ -1202,19 +1523,40 @@ def phase_k4_timing(dsim, act_np, errs, launches):
                                    rtol=1e-5, atol=1e-5)
         lib += cuda_ms(lambda csr=csr, a2=a2: torch.sparse.mm(csr, a2), 20)
         del csr
-    full = time_pass(act, clear, dev.cols, dev.weights0)
-    loc = time_pass(act_local, clear, dev.cols_local, dev.weights_local)
-    rem = time_pass(act, None, dev.cols_remote, dev.weights_remote)
-    for what, (tk, tp, b, nb) in (("full pass (overlap off)", full), ("local pass", loc),
-                                  ("remote pass", rem)):
-        say("timing", f"post_exchange {what}, partition 0: kernel {tk:.3f} ms "
-            f"({nb / tk / 1e6:.0f} GB/s), plain {tp:.3f} ms, bound {b:.3f} ms ({nb / 1e9:.3f} GB)")
+    passes = {
+        "full pass (overlap off)": time_pass(act, clear, dev.cols, dev.weights0, dev.row_len,
+                                             dev.reduce),
+        "local pass": time_pass(act_local, clear, dev.cols_local, dev.weights_local,
+                                dev.row_len_local, dev.reduce_local),
+        "local pass, 5% active": time_pass(local_five_pct(n_p, card), clear, dev.cols_local,
+                                           dev.weights_local, dev.row_len_local,
+                                           dev.reduce_local),
+        "remote pass": time_pass(act, None, dev.cols_remote, dev.weights_remote,
+                                 dev.row_len_remote, dev.reduce_remote),
+    }
+    for what, x in passes.items():
+        say("timing", f"post_exchange {what}, partition 0 ({x['spikes']} active of "
+            f"{x['ids']} ids): kernel {x['ms']:.4f} ms (moves about {x['moved'] / 1e9:.4f} GB: "
+            f"{x['moved'] / x['ms'] / 1e6:.0f} GB/s); its row_dot variant {x['ms_row_dot']:.4f} "
+            f"ms; plain {x['plain_ms']:.3f} ms; torch.sparse.mm on the same vector "
+            f"{x['library_ms']:.4f} ms; bound {x['bound_ms']:.4f} ms ({x['bound_by']}: "
+            f"{x['bytes'] / 1e9:.4f} GB = 4 B x {x['real']} real slots' cols + 4 B x "
+            f"{x['active']} active slots' weights + activity, ring, slot tables and row_len); "
+            f"padded bound {x['bound_ms_padded']:.4f} ms")
     say("timing", f"library: torch.sparse.mm over partition 0's real synapses, both buckets: "
         f"{lib:.3f} ms")
-    out = [dict(name="post_exchange", ms=loc[0] + rem[0], plain_ms=loc[1] + rem[1],
-                bound_ms=loc[2] + rem[2], bound_by="bytes", library_ms=lib,
-                ms_full_pass=full[0], bound_ms_full_pass=full[2], path="k4_main",
-                per="one partition's local + remote pass")]
+    full, loc, loc5, rem = (passes[k] for k in ("full pass (overlap off)", "local pass",
+                                                "local pass, 5% active", "remote pass"))
+    out = [dict(name="post_exchange", ms=loc["ms"] + rem["ms"],
+                plain_ms=loc["plain_ms"] + rem["plain_ms"],
+                bound_ms=loc["bound_ms"] + rem["bound_ms"], bound_by="bytes",
+                library_ms=loc["library_ms"] + rem["library_ms"], path="k4_main",
+                per="one partition's local + remote pass",
+                **{f"{key}_{tag}": x[key] for tag, x in (("local", loc), ("local_5pct", loc5),
+                                                          ("remote", rem), ("full_pass", full))
+                   for key in ("ms", "ms_row_dot", "plain_ms", "library_ms", "bound_ms",
+                               "bound_ms_padded")},
+                library_ms_partition=lib)]
 
     # the event kernel's remote pass (own slice of the activity zeroed) at a
     # spike vector of the main path and at a 5% vector, each beside
@@ -1231,17 +1573,19 @@ def phase_k4_timing(dsim, act_np, errs, launches):
         a2 = a[:, None].contiguous()
         lib_a = sum(cuda_ms(lambda csr=csr: torch.sparse.mm(csr, a2), 20) for csr in csrs)
         flags = event_mod.event_post_exchange_cuda(a, work, None, write, plan, dev.cols,
-                                                   dev.weights0, dev.row_len)
+                                                   dev.weights0, dev.row_len,
+                                                   reduce=dev.reduce)
         real, active, moved, rows = event_traffic(a, plan, flags, dev.cols, dev.row_len, n_p)
         n_ids = int(a.sum())
         e_bytes = (4 * (real + active) + n * 4 + rows * 12
                    + n_ids * (8 + nd * plan.num_blocks) + flags.numel() * 4)
         t = dict(
             ms=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
-                a, work, None, write, plan, dev.cols, dev.weights0, dev.row_len), 20),
+                a, work, None, write, plan, dev.cols, dev.weights0, dev.row_len,
+                reduce=dev.reduce), 20),
             ms_bitmask_l2=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
                 a, work, None, write, plan, dev.cols, dev.weights0, dev.row_len,
-                shared_bitmask=False), 20),
+                reduce=dev.reduce, shared_bitmask=False), 20),
             library_ms=lib_a,
         )
         t["bound_ms"], t["bound_by"] = bound_ms(e_bytes, 2 * active)
@@ -1317,10 +1661,10 @@ def require_plastic_equal(ses4, ses1, what):
 def plastic_k4_launches(overlap, fused, steps, nd):
     if not fused:
         return only(lif_step=K_PARTS * steps, spike_gather=K_PARTS * nd * steps,
-                    stdp_update=K_PARTS * nd * steps)
+                    stdp_update=K_PARTS * nd * steps, noise=steps)
     local = overlap != "off"
     return only(pre_exchange=K_PARTS * steps, post_exchange=K_PARTS * steps * local,
-                post_exchange_plastic=K_PARTS * steps)
+                post_exchange_plastic=K_PARTS * steps, noise=steps)
 
 
 def phase_k4_plastic_kernels(dsim, params, rng):
@@ -1632,7 +1976,8 @@ def phase_rules_brunel(seed, card):
     reset_counts()
     _, _, r1, s1 = run_session(ses1, PARITY_STEPS)
     l1 = read_counts()
-    require(l1 == only(fused_plastic_step=PARITY_STEPS), f"k=1 launches {l1}")
+    require(l1 == only(fused_plastic_step=PARITY_STEPS, noise=PARITY_STEPS),
+            f"k=1 launches {l1}")
     reset_counts()
     _, _, r4, s4 = run_session(ses4, PARITY_STEPS)
     l4 = read_counts()
@@ -1671,7 +2016,7 @@ def phase_rules_microcircuit(args, card):
         f"{ses.engine_choice}; host peak RSS "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f} GiB")
     pops = {p: spec.offsets()[p] for p in (q.name for q in spec.populations)}
-    phase_main_path(ses, ses.n, pops, tag="p3", need_event=False)
+    _, run_launches = phase_main_path(ses, ses.n, pops, tag="p3", need_event=False)
 
     part = ses.net.parts[0]
     bounds = np.concatenate([[0], np.cumsum(np.bincount(block_partition(spec.n, ROW_CHECK_K)))])
@@ -1692,7 +2037,7 @@ def phase_rules_microcircuit(args, card):
         "(numpy oracle build_partition) equal the card-built net's in row lengths, col_idx, "
         f"edge_model, edge_state, vtx_state, coords and global_ids "
         f"({time.perf_counter() - t0:.1f} s)")
-    return launches["keystream"]
+    return launches["keystream"], run_launches["fused_step"]
 
 
 def phase_keystream_timing(seed, card, launches, err):
@@ -1775,7 +2120,9 @@ def main(argv=None) -> int:
     # spike_gather runs only on the unfused path: its count is that run's
     launches["spike_gather"] = unfused["spike_gather"]
     phase_small_net()
+    phase_nan(card, args.seed)
     kernels = phase_timing(ses, params, inputs, event_act, errs, launches)
+    kernels.append(phase_noise(args.seed, card, net.n, launches["noise"]))
     phase_engines(ses)
     del ses, sim, net, inputs  # the k>1 path's memory is measured alone
     gc.collect()
@@ -1854,10 +2201,12 @@ def main(argv=None) -> int:
     phase_rules_brunel(args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
-    ks_launches = phase_rules_microcircuit(args, card)
+    ks_launches, rules_fused = phase_rules_microcircuit(args, card)
     gc.collect()
     torch.cuda.empty_cache()
     kernels.append(phase_keystream_timing(args.seed, card, ks_launches, ks_err))
+    next(k for k in kernels if k["name"] == "fused_step")["launches_rules_microcircuit"] = \
+        rules_fused
     say("done", f"every phase passed; whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

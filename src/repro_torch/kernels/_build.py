@@ -138,9 +138,9 @@ _U = ctypes.c_uint32
 _L = ctypes.c_int64
 _SIGNATURES = {
     "repro_lif_step": [_P] * 6 + [_I] + [_F] * 7 + [_P, _I],
-    "repro_spike_gather": [_P, _I] + [_P] * 5 + [_I] * 3 + [_P, _I],
+    "repro_spike_gather": [_P, _I] + [_P] * 5 + [_I] * 4 + [_P, _I],
     "repro_fused_step": (
-        [_P] * 6 + [_I, _I, _I] + [_P, _P, _P, _P] + [_F] * 7 + [_P, _I]
+        [_P] * 6 + [_I, _I, _I] + [_P] * 6 + [_I, _I] + [_F] * 7 + [_P, _I]
     ),
     "repro_fused_step_max_buckets": [],
     "repro_stdp_update": [_P] * 8 + [_I, _I] + [_F] * 4 + [_P, _I],
@@ -149,17 +149,18 @@ _SIGNATURES = {
     ),
     "repro_fused_plastic_step_max_buckets": [],
     "repro_event_step": (
-        [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P] * 6 + [_I, _P, _I]
+        [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P] * 6 + [_I, _I, _P, _I]
     ),
     "repro_event_step_max_buckets": [],
     "repro_pre_exchange": [_P] * 10 + [_I] + [_F] * 9 + [_P, _I],
-    "repro_post_exchange": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P, _I],
+    "repro_post_exchange": [_P, _I] + [_P] * 4 + [_I] * 3 + [_P] * 4 + [_I, _I, _P, _I],
     "repro_post_exchange_max_buckets": [],
     "repro_post_exchange_plastic": (
         [_P] * 9 + [_I] * 4 + [_P] * 5 + [_F] * 4 + [_P, _I]
     ),
     "repro_post_exchange_plastic_max_buckets": [],
     "repro_keystream": [_P, _P, _L, _I, _U, _U, _U, _P, _I],
+    "repro_noise": [_P, _L, _U, _U, _F, _P, _I],
 }
 
 
@@ -206,3 +207,16 @@ def require(
         raise ValueError(f"{name}: expected {ndim}-D, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_row_len(row_len, nd: int, R: int, device) -> None:
+    """Validate per-bucket row lengths: ``nd`` ``(R,)`` int32 tensors on
+    ``device``, or None."""
+    if row_len is None:
+        return
+    if len(row_len) != nd:
+        raise ValueError(f"{len(row_len)} row_len tensors for {nd} buckets")
+    for i, rl in enumerate(row_len):
+        require(f"row_len[{i}]", rl, torch.int32, 1, device)
+        if rl.shape[0] != R:
+            raise ValueError(f"row_len[{i}] {tuple(rl.shape)} for {R} rows")

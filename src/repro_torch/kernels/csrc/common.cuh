@@ -2,12 +2,16 @@
 //
 // lif_advance is the one definition of the LIF arithmetic on the card
 // (lif_step.cu and phase 1 of fused_step.cu).  row_dot is the ELL row
-// reduction of the dense kernels (fused_step.cu, post_exchange.cu and the
-// plastic kernels); row_dot_active is the same reduction that reads only
-// the real slots and only the weights of active sources (spike_gather.cu,
-// event_step.cu), and gives row_dot's result bit for bit (argument below).
-// Because every engine goes through these routines, the fused, unfused and
-// event engines give bit-identical rasters on the card.
+// reduction over every slot of a row (the plastic kernels, and the row_dot
+// variant of every gather); row_dot_active is the same reduction that reads
+// only the real slots and only the weights of active sources (spike_gather.cu,
+// event_step.cu, fused_step.cu, post_exchange.cu), and gives row_dot's result
+// bit for bit when the weights are finite (argument below).  A gather whose
+// weights are not all finite, or plastic, runs its row_dot variant: the same
+// launch with row_dot, chosen by a template flag, whose result is the
+// reference's (NaN * 0 is NaN).  Because every engine goes through these
+// routines, the fused, unfused and event engines give bit-identical rasters
+// on the card.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -101,21 +105,39 @@ __device__ __forceinline__ void pack_active_bits(const float* act, int n,
   if (lane == 0) bits[word] = m;
 }
 
-// Where row_dot_active reads the bitmask words from: a block's copy in
-// shared memory; device memory written by an earlier launch (read-only
-// path); or device memory written earlier in the same launch (L2 only,
-// never a stale L1 line).
+// Where row_dot_active tests a source's bit: a block's copy of the bitmask
+// in shared memory; the bitmask in device memory written by an earlier
+// launch (read-only path); the bitmask in device memory written earlier in
+// the same launch (L2 only, never a stale L1 line); or the activity vector
+// itself, where no bitmask is kept.
 struct SharedBits {
   const uint32_t* w;
-  __device__ __forceinline__ uint32_t word(int i) const { return w[i]; }
+  __device__ __forceinline__ bool test(int c) const { return (w[c >> 5] >> (c & 31)) & 1u; }
 };
 struct LdgBits {
   const uint32_t* w;
-  __device__ __forceinline__ uint32_t word(int i) const { return __ldg(w + i); }
+  __device__ __forceinline__ bool test(int c) const {
+    return (__ldg(w + (c >> 5)) >> (c & 31)) & 1u;
+  }
 };
 struct L2Bits {
   const uint32_t* w;
-  __device__ __forceinline__ uint32_t word(int i) const { return __ldcg(w + i); }
+  __device__ __forceinline__ bool test(int c) const {
+    return (__ldcg(w + (c >> 5)) >> (c & 31)) & 1u;
+  }
+};
+// No bitmask: the activity itself, tested as pack_active_bits does
+// (act != 0), through the read-only path (written by an earlier launch).
+struct ActBits {
+  const float* a;
+  __device__ __forceinline__ bool test(int c) const { return __ldg(a + c) != 0.0f; }
+};
+
+// An activity vector written earlier in the same launch (fused_step's
+// spikes): read from L2, never from a stale L1 line.
+struct L2Floats {
+  const float* p;
+  __device__ __forceinline__ float operator[](int i) const { return __ldcg(p + i); }
 };
 
 // row_dot over the first `len` slots of a row, reading a weight and an
@@ -139,15 +161,20 @@ struct L2Bits {
 // precondition below), so the sum is a nonzero multiple of the subnormal
 // step 2^-149.  So every skipped fma leaves acc's bits unchanged, each
 // lane's partial sum is row_dot's, and so is the tree.
-// Precondition: weights and activity are finite (inf * 0 is NaN, which
-// row_dot would add and this routine skips), and every product
+// Precondition: weights and activity are finite (inf * 0 and NaN * 0 are
+// NaN, which row_dot would add and this routine skips), and every product
 // w[k] * act[c] of an active slot is exact in f32.  Spike vectors (0/1)
 // satisfy the second always; other activity values unless a product
-// underflows.  The builders' weights and STDP-clipped weights are finite.
-template <class Bits>
+// underflows.  The first is the data's: the engines record per panel at
+// upload whether its weights are all finite (PartitionDeviceData.reduce),
+// and a panel that is not, or whose weights change (plastic), takes the
+// row_dot variant of the launch.
+// Act is a plain pointer, or L2Floats for an activity written earlier in
+// the same launch.
+template <class Bits, class Act>
 __device__ __forceinline__ float row_dot_active(const int* cols, const float* w,
-                                                const float* act, Bits bits,
-                                                int len, int lane) {
+                                                Act act, Bits bits, int len,
+                                                int lane) {
   constexpr int kChunks = 8;
   constexpr int kStep = 32 * kChunks;
   float acc = 0.0f;
@@ -172,7 +199,7 @@ __device__ __forceinline__ float row_dot_active(const int* cols, const float* w,
 #pragma unroll
     for (int u = 0; u < kChunks; ++u) {
       const int k = base + 32 * u + lane;
-      on[u] = k < len && ((bits.word(c[u] >> 5) >> (c[u] & 31)) & 1u);
+      on[u] = k < len && bits.test(c[u]);
     }
     float wv[kChunks];
     float av[kChunks];

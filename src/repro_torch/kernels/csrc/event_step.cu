@@ -47,6 +47,10 @@
 // ids) is read from L2 instead (ld.cg: it was written in this launch); no
 // case falls back to the plain version.  The occupancy query that sizes the
 // cooperative grid counts the dynamic shared memory.
+// The row_dot variant (dense != 0; the template flag kRowDot) is the same
+// launch with row_dot over every slot of each flagged row, and no bitmask:
+// it runs for panels whose weights are not all finite (the caller's choice
+// from the data), and is the bit-exact oracle of the active variant.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -84,7 +88,7 @@ struct EventArgs {
 };
 
 // at most 64 registers a thread, so that 4 blocks (32 warps) fit an SM
-template <bool kShared>
+template <bool kShared, bool kRowDot>
 __global__ void __launch_bounds__(kThreads, 4) event_step_kernel(const EventArgs a) {
   extern __shared__ uint32_t staged[];
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -99,7 +103,7 @@ __global__ void __launch_bounds__(kThreads, 4) event_step_kernel(const EventArgs
       const int pos = atomicAdd(a.count, 1);
       if (pos < a.cap) a.ids[pos] = j;
     }
-    pack_active_bits(a.act, a.n, a.bits, word, lane);
+    if (!kRowDot) pack_active_bits(a.act, a.n, a.bits, word, lane);
   }
   if (a.slot >= 0) {
     for (int r = tid; r < a.n_p; r += nthreads) ring_slot[r] = 0.0f;
@@ -109,7 +113,7 @@ __global__ void __launch_bounds__(kThreads, 4) event_step_kernel(const EventArgs
 
   // the counter, the ids and the bitmask were written by other blocks in
   // this launch: read them from L2 (ld.cg), never from a stale L1 line
-  if (kShared) {
+  if (kShared && !kRowDot) {
     for (int i = threadIdx.x; i < a.words; i += blockDim.x) staged[i] = __ldcg(a.bits + i);
     __syncthreads();
   }
@@ -136,11 +140,15 @@ __global__ void __launch_bounds__(kThreads, 4) event_step_kernel(const EventArgs
     float* ring_w = a.ring + static_cast<size_t>(a.wslot[b]) * a.n_p;
     for (int r = warp; r < a.n_p; r += nwarps) {
       if (!__ldcg(flags + r / a.block_r)) continue;  // warp-uniform
-      const int len = row_len == nullptr ? K : min(__ldg(row_len + r), K);
       const size_t off = static_cast<size_t>(r) * K;
-      const float s =
-          kShared ? row_dot_active(cols + off, w + off, a.act, SharedBits{staged}, len, lane)
-                  : row_dot_active(cols + off, w + off, a.act, L2Bits{a.bits}, len, lane);
+      float s;
+      if (kRowDot) {
+        s = row_dot(cols + off, w + off, a.act, K, lane);
+      } else {
+        const int len = row_len == nullptr ? K : min(__ldg(row_len + r), K);
+        s = kShared ? row_dot_active(cols + off, w + off, a.act, SharedBits{staged}, len, lane)
+                    : row_dot_active(cols + off, w + off, a.act, L2Bits{a.bits}, len, lane);
+      }
       if (lane == 0) ring_w[r] = __fadd_rn(ring_w[r], s);
     }
   }
@@ -153,6 +161,7 @@ extern "C" int repro_event_step_max_buckets() { return kMaxBuckets; }
 // bits: scratch of ceil(n / 32) words.  row_len: per bucket a pointer to
 // (R,) int32, or null for rows K long.  smem_cap: the most bytes of shared
 // memory the bitmask may take (< 0: the card's limit; 0: read it from L2).
+// dense != 0: the row_dot variant (bits, row_len and smem_cap unused).
 extern "C" int repro_event_step(const float* act, int n, const uint8_t* touch,
                                 int* ids, int* count, int cap, int* flags,
                                 float* ring, int n_p, int slot, int nb,
@@ -160,7 +169,7 @@ extern "C" int repro_event_step(const float* act, int n, const uint8_t* touch,
                                 const void* const* w,
                                 const void* const* row_len, const int* K,
                                 const int* wslot, uint32_t* bits, int smem_cap,
-                                void* stream, int device) {
+                                int dense, void* stream, int device) {
   if (nd < 1 || nd > kMaxBuckets || block_r < 1 || cap < 1)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -193,10 +202,14 @@ extern "C" int repro_event_step(const float* act, int n, const uint8_t* touch,
     a.wslot[b] = used ? wslot[b] : 0;
   }
   bool shared = false;
-  err = bits_in_shared(device, a.words, smem_cap, &shared);
-  if (err != cudaSuccess) return err;
-  const void* kernel = shared ? reinterpret_cast<const void*>(event_step_kernel<true>)
-                              : reinterpret_cast<const void*>(event_step_kernel<false>);
+  if (!dense) {
+    err = bits_in_shared(device, a.words, smem_cap, &shared);
+    if (err != cudaSuccess) return err;
+  }
+  const void* kernel =
+      dense    ? reinterpret_cast<const void*>(event_step_kernel<false, true>)
+      : shared ? reinterpret_cast<const void*>(event_step_kernel<true, false>)
+               : reinterpret_cast<const void*>(event_step_kernel<false, false>);
   const size_t smem = shared ? 4 * static_cast<size_t>(a.words) : 0;
   int grid = 0;
   err = resident_blocks(kernel, device, kThreads, smem, &grid);

@@ -29,54 +29,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxGridY = 65535;
-constexpr uint32_t kC240 = 0x1BD11BDAu;  // Threefry's key-schedule parity
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-template <int R0, int R1, int R2, int R3>
-__device__ __forceinline__ void four_rounds(uint32_t& x0, uint32_t& x1) {
-  x0 += x1;
-  x1 = rotl(x1, R0) ^ x0;
-  x0 += x1;
-  x1 = rotl(x1, R1) ^ x0;
-  x0 += x1;
-  x1 = rotl(x1, R2) ^ x0;
-  x0 += x1;
-  x1 = rotl(x1, R3) ^ x0;
-}
-
-// Threefry-2x32-20 with the key schedule ks = (k0, k1, k0 ^ k1 ^ C240):
-// after block i of four rounds, x0 += ks[(i+1) % 3], x1 += ks[(i+2) % 3] + i+1.
-__device__ __forceinline__ void threefry2x32_20(uint32_t k0, uint32_t k1,
-                                                uint32_t k2, uint32_t c0,
-                                                uint32_t c1, uint32_t& o0,
-                                                uint32_t& o1) {
-  uint32_t x0 = c0 + k0;
-  uint32_t x1 = c1 + k1;
-  four_rounds<13, 15, 26, 6>(x0, x1);
-  x0 += k1;
-  x1 += k2 + 1u;
-  four_rounds<17, 29, 16, 24>(x0, x1);
-  x0 += k2;
-  x1 += k0 + 2u;
-  four_rounds<13, 15, 26, 6>(x0, x1);
-  x0 += k0;
-  x1 += k1 + 3u;
-  four_rounds<17, 29, 16, 24>(x0, x1);
-  x0 += k1;
-  x1 += k2 + 4u;
-  four_rounds<13, 15, 26, 6>(x0, x1);
-  x0 += k2;
-  x1 += k0 + 5u;
-  o0 = x0;
-  o1 = x1;
-}
 
 __global__ void __launch_bounds__(kThreads)
     keystream_kernel(const int64_t* __restrict__ rows,
@@ -84,7 +42,7 @@ __global__ void __launch_bounds__(kThreads)
                      uint32_t k0, uint32_t k1, uint32_t j0, int64_t n_pairs) {
   const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (q >= n_pairs) return;
-  const uint32_t k2 = k0 ^ k1 ^ kC240;
+  const uint32_t k2 = threefry_parity(k0, k1);
   const uint32_t pair = (j0 >> 1) + static_cast<uint32_t>(q);
   // output columns of the pair's even and odd word: c_even is -1 when the
   // call starts at an odd j0, and c_even + 1 == n_words at an odd tail

@@ -25,6 +25,12 @@
 // precondition, finite weights and activity, are in common.cuh).  row_len
 // may be null: every row is then K long.  No atomics, so the result does
 // not depend on scheduling.
+// The row_dot variant (dense != 0; the template flag kRowDot) is the same
+// gather launch with row_dot over every slot of every row and no pack
+// launch: it runs for a panel whose weights are not all finite or change
+// (the caller's choice from the data), where a NaN weight of a silent
+// source must give the reference's NaN, and it is the bit-exact oracle of
+// the active variant on the card.
 #include "common.cuh"
 
 namespace {
@@ -40,13 +46,13 @@ __global__ void __launch_bounds__(kPackThreads)
   pack_active_bits(act, n, bits, word, threadIdx.x & 31);
 }
 
-template <bool kShared>
+template <bool kShared, bool kRowDot>
 __global__ void __launch_bounds__(kThreads, 1)
     spike_gather_kernel(const float* act, const int* cols, const float* w,
                         const int* row_len, const uint32_t* bits, int words,
                         float* __restrict__ out, int R, int K) {
   extern __shared__ uint32_t staged[];
-  if (kShared) {
+  if (kShared && !kRowDot) {
     for (int i = threadIdx.x; i < words; i += kThreads) staged[i] = __ldg(bits + i);
     __syncthreads();
   }
@@ -54,11 +60,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int nwarps = gridDim.x * kWarpsPerBlock;
   for (int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); row < R;
        row += nwarps) {
-    const int len = row_len == nullptr ? K : min(__ldg(row_len + row), K);
     const size_t off = static_cast<size_t>(row) * K;
-    const float s =
-        kShared ? row_dot_active(cols + off, w + off, act, SharedBits{staged}, len, lane)
-                : row_dot_active(cols + off, w + off, act, LdgBits{bits}, len, lane);
+    float s;
+    if (kRowDot) {
+      s = row_dot(cols + off, w + off, act, K, lane);
+    } else {
+      const int len = row_len == nullptr ? K : min(__ldg(row_len + row), K);
+      s = kShared ? row_dot_active(cols + off, w + off, act, SharedBits{staged}, len, lane)
+                  : row_dot_active(cols + off, w + off, act, LdgBits{bits}, len, lane);
+    }
     if (lane == 0) out[row] = s;
   }
 }
@@ -67,14 +77,27 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // bits: scratch of ceil(n / 32) words.  smem_cap: the most bytes of shared
 // memory the bitmask may take (< 0: the card's limit; 0: read it from
-// device memory).
+// device memory).  dense != 0: the row_dot variant (bits, row_len and
+// smem_cap unused).
 extern "C" int repro_spike_gather(const float* act, int n, const int* cols,
                                   const float* w, const int* row_len,
                                   uint32_t* bits, float* out, int R, int K,
-                                  int smem_cap, void* stream, int device) {
+                                  int smem_cap, int dense, void* stream,
+                                  int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int needed = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  int grid = 0;
+  if (dense) {
+    const void* kernel = reinterpret_cast<const void*>(spike_gather_kernel<false, true>);
+    err = resident_blocks(kernel, device, kThreads, 0, &grid);
+    if (err != cudaSuccess) return err;
+    if (needed < grid) grid = needed;
+    spike_gather_kernel<false, true><<<grid, kThreads, 0, s>>>(act, cols, w, row_len, bits, 0,
+                                                               out, R, K);
+    return cudaGetLastError();
+  }
   const int words = (n + 31) / 32;
   if (words > 0) {
     pack_kernel<<<(words * 32 + kPackThreads - 1) / kPackThreads, kPackThreads,
@@ -85,20 +108,19 @@ extern "C" int repro_spike_gather(const float* act, int n, const int* cols,
   bool shared = false;
   err = bits_in_shared(device, words, smem_cap, &shared);
   if (err != cudaSuccess) return err;
-  const void* kernel = shared ? reinterpret_cast<const void*>(spike_gather_kernel<true>)
-                              : reinterpret_cast<const void*>(spike_gather_kernel<false>);
+  const void* kernel =
+      shared ? reinterpret_cast<const void*>(spike_gather_kernel<true, false>)
+             : reinterpret_cast<const void*>(spike_gather_kernel<false, false>);
   const size_t smem = shared ? 4 * static_cast<size_t>(words) : 0;
-  int grid = 0;
   err = resident_blocks(kernel, device, kThreads, smem, &grid);
   if (err != cudaSuccess) return err;
-  const int needed = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (needed < grid) grid = needed;
   if (shared) {
-    spike_gather_kernel<true><<<grid, kThreads, smem, s>>>(act, cols, w, row_len, bits,
-                                                           words, out, R, K);
+    spike_gather_kernel<true, false><<<grid, kThreads, smem, s>>>(act, cols, w, row_len, bits,
+                                                                  words, out, R, K);
   } else {
-    spike_gather_kernel<false><<<grid, kThreads, 0, s>>>(act, cols, w, row_len, bits,
-                                                         words, out, R, K);
+    spike_gather_kernel<false, false><<<grid, kThreads, 0, s>>>(act, cols, w, row_len, bits,
+                                                                words, out, R, K);
   }
   return cudaGetLastError();
 }

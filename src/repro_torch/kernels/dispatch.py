@@ -110,6 +110,49 @@ def lookup(op: str, backend: str) -> Callable:
         ) from None
 
 
+# -- the gathers' reduction: row_dot_active or row_dot ----------------------
+
+# ``active``: the gather reads only the real slots (``row_len``) and only
+# the weights of active sources (common.cuh:row_dot_active), which equals
+# row_dot bit for bit when the weights are finite; ``row_dot``: every slot,
+# the reference's result on any weights (NaN * 0 is NaN).
+REDUCE_MODES = ("active", "row_dot")
+
+
+def panel_reduce(weights: Sequence[torch.Tensor], plastic: bool = False) -> Tuple[str, ...]:
+    """Per panel the reduction its gathers take, chosen once from the data
+    when the panels are uploaded: ``active`` where the weights are all
+    finite and never change, ``row_dot`` where a weight is not finite (so a
+    NaN weight of a silent source gives the reference's NaN) or the weights
+    are plastic (they change every step).  One ``isfinite().all()`` a
+    non-plastic panel."""
+    if plastic:
+        return ("row_dot",) * len(weights)
+    return tuple("active" if bool(torch.isfinite(w).all()) else "row_dot" for w in weights)
+
+
+def launch_row_dot(reduce, weights: Sequence[torch.Tensor]) -> bool:
+    """Whether a launch over ``weights`` takes its row_dot variant.
+    ``reduce`` is ``"row_dot"`` (every slot; the default of the wrappers
+    and the bit-exact oracle) or per panel one of ``REDUCE_MODES``, the
+    choice :func:`panel_reduce` recorded from the data; one ``row_dot``
+    panel takes the whole launch, whose buckets share it."""
+    if isinstance(reduce, str):
+        if reduce != "row_dot":
+            raise ValueError(
+                f"reduce={reduce!r}: expected 'row_dot' or per panel one of "
+                f"{REDUCE_MODES} (panel_reduce)"
+            )
+        return True
+    reduce = tuple(reduce)
+    if len(reduce) != len(weights) or any(r not in REDUCE_MODES for r in reduce):
+        raise ValueError(
+            f"reduce={reduce!r}: expected one of {REDUCE_MODES} for each of "
+            f"{len(weights)} panels"
+        )
+    return "row_dot" in reduce
+
+
 # -- step-engine selection ------------------------------------------------
 
 # the fused and event kernels' per-bucket argument tables

@@ -20,9 +20,16 @@ nor the weights of silent sources cross the memory bus.  ``row_len`` is
 per bucket the ``(R,)`` int32 count of real slots per row
 (``PartitionDeviceData.row_len``); ``None`` takes every row as ``K`` long.
 The plain version ignores it: the slots past it are ``(col 0, weight 0)``.
-Preconditions, as for ``spike_gather``: finite weights and activity, and
-every product of a weight and an active source's activity exact in f32
-(always so for 0/1 spike vectors).
+Preconditions, as for ``spike_gather``: finite activity, and every product
+of a weight and an active source's activity exact in f32 (always so for 0/1
+spike vectors).  Weights that are not all finite (recorded ``row_dot``
+by ``dispatch.panel_reduce``) take the kernel's row_dot variant: the same
+launch reducing every slot of a flagged row with ``row_dot``, whose NaN
+rows are the reference's; ``reduce="row_dot"``, the default, is the
+bit-exact oracle of the active variant on the card.  A row of an
+unflagged block keeps its value whatever its weights, as the
+reference's Pallas kernel keeps it (its oracle ``event_post_exchange_ref``
+multiplies the row's gather by the flag, so a NaN weight there gives NaN).
 
 The flags are conservative, so the ring equals the dense engines' ring on
 every flagged row, and an unflagged row, whose dense sum is a signed zero,
@@ -49,6 +56,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .dispatch import launch_row_dot
 from .ref import spike_gather_ref
 
 COUNTER = _build.LaunchCounter("event_post_exchange")
@@ -157,6 +165,8 @@ def event_post_exchange_plain(
     cols: Sequence[torch.Tensor],
     weights: Sequence[torch.Tensor],
     row_len: Optional[Sequence[torch.Tensor]] = None,  # ignored: see module
+    *,
+    reduce="row_dot",  # ignored: every slot is summed
 ) -> torch.Tensor:
     """The kernel's contract: clear ``ring[slot]`` (unless ``slot`` is
     None), then per bucket in order add the flagged rows' gathers to
@@ -182,14 +192,16 @@ def event_post_exchange_cuda(
     weights: Sequence[torch.Tensor],
     row_len: Optional[Sequence[torch.Tensor]] = None,
     *,
+    reduce="row_dot",
     shared_bitmask: bool = True,
 ) -> torch.Tensor:
     """Launch the kernel (one cooperative launch); updates ``ring`` in place
     (``slot=None``: no clear) and returns the ``(nd, num_blocks)`` int32
     flags.  ``row_len``: per bucket ``(R,)`` int32 real slots a row, or
-    None.  ``shared_bitmask=False`` reads the bitmask from L2, the path a
-    vector too long for shared memory takes anyway (for tests and
-    timing)."""
+    None.  ``reduce``: ``"row_dot"`` or per bucket the recorded
+    choice (``dispatch.launch_row_dot``).
+    ``shared_bitmask=False`` reads the bitmask from L2, the path a vector
+    too long for shared memory takes anyway (for tests and timing)."""
     nd = len(cols)
     if not 1 <= nd <= MAX_BUCKETS or len(weights) != nd or len(write_slots) != nd:
         raise ValueError(
@@ -215,13 +227,7 @@ def event_post_exchange_cuda(
             )
     if R < n_p:
         raise ValueError(f"panels have R={R} rows for n_p={n_p} neurons")
-    if row_len is not None:
-        if len(row_len) != nd:
-            raise ValueError(f"{len(row_len)} row_len tensors for {nd} buckets")
-        for i, rl in enumerate(row_len):
-            _build.require(f"row_len[{i}]", rl, torch.int32, 1, dev)
-            if rl.shape[0] != R:
-                raise ValueError(f"row_len[{i}] {tuple(rl.shape)} for {R} rows")
+    _build.check_row_len(row_len, nd, R, dev)
     if tuple(plan.touch.shape) != (nd, plan.num_blocks, n) or \
             plan.num_blocks * plan.block_r < R:
         raise ValueError(
@@ -233,9 +239,10 @@ def event_post_exchange_cuda(
     flags = torch.empty((nd, plan.num_blocks), dtype=torch.int32, device=dev)
     if n_p == 0:
         return flags.zero_()
+    dense = launch_row_dot(reduce, weights)
     ids = torch.empty(plan.cap, dtype=torch.int32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
-    bits = torch.empty(-(-n // 32), dtype=torch.int32, device=dev)
+    bits = torch.empty(0 if dense else -(-n // 32), dtype=torch.int32, device=dev)
     ptrs = ctypes.c_void_p * nd
     ints = ctypes.c_int * nd
     stream, device = _build.launch_args(act)
@@ -249,7 +256,7 @@ def event_post_exchange_cuda(
         ptrs(*([None] * nd if row_len is None else [rl.data_ptr() for rl in row_len])),
         ints(*[c.shape[1] for c in cols]),
         ints(*[int(s) for s in write_slots]),
-        bits.data_ptr(), -1 if shared_bitmask else 0,
+        bits.data_ptr(), -1 if shared_bitmask else 0, int(dense),
         stream, device,
     )
     _build.check(rc, "event_post_exchange")

@@ -15,15 +15,27 @@ tensors.
 Preconditions: all buckets share R >= n_p, and every col id is a local id
 (< n_p; the exchange is the identity at k=1).  The simulator checks the col
 range on the host when it builds the panels.
+
+``fused_step`` packs the step's spikes into a bitmask and gathers each row's
+first ``row_len[r]`` slots, loading a weight only where its source spiked
+(``csrc/common.cuh:row_dot_active``); it equals the ``row_dot`` reduction of
+every slot bit for bit when the weights are finite.  It runs where
+``reduce`` is the choice recorded from the weights
+(``dispatch.panel_reduce``: ``active`` only where they are all finite);
+otherwise the kernel's row_dot variant runs, whose NaN rows are the
+reference's.  ``reduce="row_dot"``, the default, is the bit-exact oracle
+on the card.  The plastic kernel reads every slot (its weights change
+every step).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
+from .dispatch import launch_row_dot
 from .ref import (
     fused_step_plastic_ref as fused_step_plastic_plain,
     fused_step_ref as fused_step_plain,
@@ -91,19 +103,30 @@ def fused_step_cuda(
     i_tot: torch.Tensor,
     cols: Sequence[torch.Tensor],
     weights: Sequence[torch.Tensor],
+    row_len: Optional[Sequence[torch.Tensor]] = None,
     *,
     params: Dict[str, float],
+    reduce="row_dot",
+    shared_bitmask: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, List[torch.Tensor]]:
     """Launch the kernel: ``(v', refrac', spikes, currents)`` with the
-    state vectors ``(n_p,)`` and ``currents[i]`` of shape ``(R,)``."""
+    state vectors ``(n_p,)`` and ``currents[i]`` of shape ``(R,)``.
+    ``row_len``: per bucket ``(R,)`` int32 real slots a row, or None (rows
+    K long).  ``reduce``: ``"row_dot"`` or per bucket the recorded
+    choice (``dispatch.launch_row_dot``).
+    ``shared_bitmask=False`` reads the bitmask from L2, the path of more
+    neurons than shared memory holds bits for (for tests and timing)."""
     n_p, R = _check_operands(
         "fused_step", v, dict(refrac=refrac, i_tot=i_tot), cols, dict(weights=weights)
     )
     nd = len(cols)
+    _build.check_row_len(row_len, nd, R, v.device)
     v_out, r_out, s_out = (torch.empty_like(v) for _ in range(3))
     currents = [torch.empty(R, dtype=torch.float32, device=v.device) for _ in cols]
     if n_p == 0:
         return v_out, r_out, s_out, [c.zero_() for c in currents]
+    dense = launch_row_dot(reduce, weights)
+    bits = torch.empty(0 if dense else -(-n_p // 32), dtype=torch.int32, device=v.device)
     ptrs = ctypes.c_void_p * nd
     decay, ref_steps = lif_constants(params["dt"], params["tau_m"], params["t_ref"])
     stream, device = _build.launch_args(v)
@@ -113,8 +136,10 @@ def fused_step_cuda(
         n_p, R, nd,
         ptrs(*[c.data_ptr() for c in cols]),
         ptrs(*[w.data_ptr() for w in weights]),
+        ptrs(*([None] * nd if row_len is None else [rl.data_ptr() for rl in row_len])),
         (ctypes.c_int * nd)(*[c.shape[1] for c in cols]),
         ptrs(*[c.data_ptr() for c in currents]),
+        bits.data_ptr(), -1 if shared_bitmask else 0, int(dense),
         params["v_rest"], params["v_reset"], params["v_thresh"],
         decay, 1.0 - decay, params["r_m"], ref_steps, stream, device,
     )

@@ -19,8 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..builder.crng import _C240, _ROT_A, _ROT_B
 from . import _build
+from .ref import threefry2x32_ref
 
 COUNTER = _build.LaunchCounter("keystream")
 
@@ -53,23 +53,6 @@ def as_uint32(words: torch.Tensor) -> np.ndarray:
     return words.cpu().numpy().view(np.uint32)
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) & _M32) | (x >> (32 - r))
-
-
-def _threefry2x32(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor):
-    ks = (k0, k1, k0 ^ k1 ^ _C240)
-    x0 = (c0 + ks[0]) & _M32
-    x1 = (c1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROT_A if i % 2 == 0 else _ROT_B:
-            x0 = (x0 + x1) & _M32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & _M32
-    return x0, x1
-
-
 def keystream_plain(seed, stream, rows: torch.Tensor, j0, n_words) -> torch.Tensor:
     """The plain torch version on ``rows``' device: ``(len(rows), n_words)``
     int32 bit patterns.  Like the kernel it runs the cipher once per pair of
@@ -82,8 +65,8 @@ def keystream_plain(seed, stream, rows: torch.Tensor, j0, n_words) -> torch.Tens
     p0 = j0 >> 1
     pairs = torch.arange(p0, ((j0 + n_words - 1) >> 1) + 1, dtype=torch.int64,
                          device=rows.device)
-    x0, x1 = _threefry2x32(int(seed), int(stream), rows.to(torch.int64)[:, None],
-                           pairs[None, :])
+    x0, x1 = threefry2x32_ref(int(seed), int(stream), rows.to(torch.int64)[:, None],
+                             pairs[None, :])
     words = torch.stack((x0, x1), dim=2).reshape(R, -1)  # words 2*p0, 2*p0+1, ...
     words = words[:, j0 - 2 * p0: j0 - 2 * p0 + n_words]
     # uint32 bit patterns as int32 (values >= 2^31 wrap to negative)

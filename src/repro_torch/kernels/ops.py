@@ -4,6 +4,9 @@
 Each op takes its backend from the device of its tensors
 (``dispatch.backend_for``) and calls the recorded implementation: the CUDA
 kernel wrapper for CUDA tensors, the plain torch version for CPU tensors.
+The gathers' ``reduce`` argument picks the kernel's reduction
+(``dispatch.launch_row_dot``); the plain versions sum every slot whatever
+it says.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from .fused_step import (
 )
 from .keystream import keystream_cuda, keystream_plain
 from .lif_step import lif_step_cuda
+from .noise import noise_cuda, noise_plain
 from .spike_gather import spike_gather_cuda
 from .split_step import post_exchange_cuda, post_exchange_plastic_cuda, pre_exchange_cuda
 from .stdp_update import stdp_update_cuda, stdp_update_plain
@@ -34,25 +38,43 @@ def builder_keystream(seed, stream, rows, j0, n_words):
     )
 
 
+# -- step_noise (the simulator's per-step noise) ---------------------------
+
+implementation("step_noise", "ref")(noise_plain)
+implementation("step_noise", "cuda")(noise_cuda)
+
+
+def step_noise(seed, t, n, sigma, *, device):
+    """The ``(n,)`` f32 noise of step ``t`` on ``device``: ``sigma`` times
+    the normal of each id ``0..n-1``, a pure function of ``(seed, t, id)``
+    with the reference's key and bits, the same on the card and on the
+    CPU."""
+    return lookup("step_noise", backend_for(device))(seed, t, n, sigma, device=device)
+
+
 # -- spike_gather ---------------------------------------------------------
 
 @implementation("spike_gather", "ref")
-def _spike_gather_ref(activity, cols, weights, row_len=None):
-    # the slots past row_len are (col 0, weight 0): the whole row sums the same
+def _spike_gather_ref(activity, cols, weights, row_len=None, *, reduce="row_dot"):
+    # the slots past row_len are (col 0, weight 0): the whole row sums the
+    # same; every slot is summed, whatever reduce says
     return ref.spike_gather_ref(activity, cols, weights)
 
 
 implementation("spike_gather", "cuda")(spike_gather_cuda)
 
 
-def spike_gather(activity, cols, weights, row_len=None):
+def spike_gather(activity, cols, weights, row_len=None, *, reduce="row_dot"):
     """``cur[r] = sum_k weights[r,k] * activity[cols[r,k]]`` (f32).
 
     ``row_len``, the ``(R,)`` int32 count of real slots per row (the ELL
     puts them first, ``(col 0, weight 0)`` after), lets the kernel skip the
-    padding; None takes every row as ``K`` long."""
+    padding; None takes every row as ``K`` long.  ``reduce`` picks the
+    kernel's reduction (``dispatch.launch_row_dot``): ``"row_dot"`` (the
+    default) sums every slot, and the engines pass the choice recorded at
+    upload (``PartitionDeviceData.reduce``, ``dispatch.panel_reduce``)."""
     return lookup("spike_gather", backend_for(activity.device))(
-        activity, cols, weights, row_len
+        activity, cols, weights, row_len, reduce=reduce
     )
 
 
@@ -73,17 +95,24 @@ def lif_step(v, refrac, i_syn, *, params):
 
 # -- fused_step (LIF advance + spike emission + gather, one launch) -------
 
-implementation("fused_step", "ref")(ref.fused_step_ref)
+@implementation("fused_step", "ref")
+def _fused_step_ref(v, refrac, i_tot, cols, weights, row_len=None, *, params,
+                    reduce="row_dot"):
+    return ref.fused_step_ref(v, refrac, i_tot, cols, weights, params=params)
+
+
 implementation("fused_step", "cuda")(fused_step_cuda)
 
 
-def fused_step(v, refrac, i_tot, cols, weights, *, params):
+def fused_step(v, refrac, i_tot, cols, weights, row_len=None, *, params, reduce="row_dot"):
     """Fused LIF step: ``(v', refrac', spikes, per-bucket currents)``.
 
     ``cols``/``weights`` are per-delay-bucket (R, K_d) panels with common
-    R; eligibility rules live in ``dispatch.select_step_engine``."""
+    R; eligibility rules live in ``dispatch.select_step_engine``.
+    ``row_len`` and ``reduce`` as for :func:`spike_gather`, per bucket."""
     return lookup("fused_step", backend_for(v.device))(
-        v, refrac, i_tot, tuple(cols), tuple(weights), params=params
+        v, refrac, i_tot, tuple(cols), tuple(weights), _tuple(row_len), params=params,
+        reduce=reduce,
     )
 
 
@@ -136,15 +165,17 @@ implementation("event_post_exchange", "ref")(event_post_exchange_plain)
 implementation("event_post_exchange", "cuda")(event_post_exchange_cuda)
 
 
-def event_post_exchange(act, ring, slot, write_slots, plan, cols, weights, row_len=None):
+def event_post_exchange(act, ring, slot, write_slots, plan, cols, weights, row_len=None, *,
+                        reduce="row_dot"):
     """Event-driven ring update, in place: clear ``ring[slot]``, then add
     each bucket's gather over the row blocks ``plan``'s touch bitmaps flag
     for the active ids of ``act``.  ``row_len`` (per bucket ``(R,)`` int32
-    real slots a row, or None) lets the kernel skip the padding.  Returns
-    the ``(nd, num_blocks)`` flags."""
+    real slots a row, or None) lets the kernel skip the padding; ``reduce``
+    as for :func:`spike_gather`, per bucket.  Returns the ``(nd,
+    num_blocks)`` flags."""
     return lookup("event_post_exchange", backend_for(act.device))(
         act, ring, slot, tuple(write_slots), plan, tuple(cols), tuple(weights),
-        None if row_len is None else tuple(row_len),
+        _tuple(row_len), reduce=reduce,
     )
 
 
@@ -159,6 +190,10 @@ def _into(out, ring):
         out.copy_(ring)
         return out
     return ring
+
+
+def _tuple(row_len):
+    return None if row_len is None else tuple(row_len)
 
 
 @implementation("fused_pre_exchange", "ref")
@@ -188,8 +223,8 @@ def fused_pre_exchange(v, refrac, i_tot, tr_plus=None, tr_minus=None, *, params,
 
 
 @implementation("fused_post_exchange", "ref")
-def _fused_post_exchange_ref(act, ring, clear_mask, write_onehot, cols, weights, *,
-                             out=None):
+def _fused_post_exchange_ref(act, ring, clear_mask, write_onehot, cols, weights,
+                             row_len=None, *, reduce="row_dot", out=None):
     return _into(out, ref.fused_post_exchange_ref(
         act, ring, clear_mask, write_onehot, cols, weights))
 
@@ -197,17 +232,20 @@ def _fused_post_exchange_ref(act, ring, clear_mask, write_onehot, cols, weights,
 implementation("fused_post_exchange", "cuda")(post_exchange_cuda)
 
 
-def fused_post_exchange(act, ring, clear_mask, write_onehot, cols, weights, *, out=None):
+def fused_post_exchange(act, ring, clear_mask, write_onehot, cols, weights, row_len=None, *,
+                        reduce="row_dot", out=None):
     """Post-exchange half of the split step: ``ring * clear_mask``, then per
-    bucket in order ``+ write_onehot[i] (x) gather_i(act)``."""
+    bucket in order ``+ write_onehot[i] (x) gather_i(act)``.  ``row_len``
+    and ``reduce`` as for :func:`spike_gather`, per bucket."""
     return lookup("fused_post_exchange", backend_for(ring.device))(
-        act, ring, clear_mask, write_onehot, tuple(cols), tuple(weights), out=out
+        act, ring, clear_mask, write_onehot, tuple(cols), tuple(weights), _tuple(row_len),
+        reduce=reduce, out=out,
     )
 
 
 @implementation("fused_post_exchange_local", "ref")
 def _fused_post_exchange_local_ref(act_local, ring, clear_mask, write_onehot, cols,
-                                   weights, *, out=None):
+                                   weights, row_len=None, *, reduce="row_dot", out=None):
     return _into(out, ref.fused_post_exchange_local_ref(
         act_local, ring, clear_mask, write_onehot, cols, weights))
 
@@ -216,31 +254,37 @@ implementation("fused_post_exchange_local", "cuda")(post_exchange_cuda)
 
 
 def fused_post_exchange_local(act_local, ring, clear_mask, write_onehot, cols, weights,
-                              *, out=None):
+                              row_len=None, *, reduce="row_dot", out=None):
     """Local pass of the overlapped split step: the ring rotate and the
     gathers of the local sub-panels (local ids) from the partition's own
     ``(n_p,)`` activity."""
     return lookup("fused_post_exchange_local", backend_for(ring.device))(
-        act_local, ring, clear_mask, write_onehot, tuple(cols), tuple(weights), out=out
+        act_local, ring, clear_mask, write_onehot, tuple(cols), tuple(weights),
+        _tuple(row_len), reduce=reduce, out=out,
     )
 
 
 @implementation("fused_post_exchange_remote", "ref")
-def _fused_post_exchange_remote_ref(act, ring, write_onehot, cols, weights, *, out=None):
+def _fused_post_exchange_remote_ref(act, ring, write_onehot, cols, weights, row_len=None, *,
+                                    reduce="row_dot", out=None):
     return _into(out, ref.fused_post_exchange_remote_ref(
         act, ring, write_onehot, cols, weights))
 
 
 @implementation("fused_post_exchange_remote", "cuda")
-def _fused_post_exchange_remote_cuda(act, ring, write_onehot, cols, weights, *, out=None):
-    return post_exchange_cuda(act, ring, None, write_onehot, cols, weights, out=out)
+def _fused_post_exchange_remote_cuda(act, ring, write_onehot, cols, weights, row_len=None, *,
+                                     reduce="row_dot", out=None):
+    return post_exchange_cuda(act, ring, None, write_onehot, cols, weights, row_len,
+                              reduce=reduce, out=out)
 
 
-def fused_post_exchange_remote(act, ring, write_onehot, cols, weights, *, out=None):
+def fused_post_exchange_remote(act, ring, write_onehot, cols, weights, row_len=None, *,
+                               reduce="row_dot", out=None):
     """Remote pass of the overlapped split step: the remote sub-panels'
     gathers added on top of the local pass's ring, with no clear."""
     return lookup("fused_post_exchange_remote", backend_for(ring.device))(
-        act, ring, write_onehot, tuple(cols), tuple(weights), out=out
+        act, ring, write_onehot, tuple(cols), tuple(weights), _tuple(row_len),
+        reduce=reduce, out=out,
     )
 
 

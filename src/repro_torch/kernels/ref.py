@@ -8,14 +8,19 @@ kernels against them on the card.  ``alif_step_ref`` and
 ``izhikevich_step_ref`` have no kernel, as in the reference, where they run
 as jnp outside any Pallas kernel; ``trace_decay_ref`` runs as torch ops on
 the unfused engine (the reference computes it as jnp there) and inside the
-fused plastic kernel on the fused one.
+fused plastic kernel on the fused one.  ``step_noise_ref`` is the plain
+version of ``csrc/noise.cu``, the simulator's per-step noise, which the
+reference draws as jnp outside Pallas.
 """
 from __future__ import annotations
 
 import functools
 from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from ..builder.crng import _C240, _ROT_A, _ROT_B
 
 Tensor = torch.Tensor
 
@@ -351,3 +356,162 @@ def fused_post_exchange_remote_plastic_ref(
         act_remote, act, pre_trace, ring, None, write_onehot, post_trace,
         post_spike, cols, weights, plastic, stdp,
     )
+
+
+# -- Threefry-2x32-20 and the per-step noise --------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _rotl(x: Tensor, r: int) -> Tensor:
+    return ((x << r) & _M32) | (x >> (32 - r))
+
+
+def threefry2x32_ref(k0: int, k1: int, c0: Tensor, c1: Tensor) -> Tuple[Tensor, Tensor]:
+    """Threefry-2x32-20 of the counters ``(c0, c1)`` under the key ``(k0,
+    k1)``, in int64 holding uint32 values: every add and left shift is
+    masked to 32 bits, so the right shifts are logical.  Equals
+    ``builder/crng.py:threefry2x32`` and ``csrc/threefry.cuh`` bit for bit."""
+    ks = (k0, k1, k0 ^ k1 ^ _C240)
+    x0 = (c0 + ks[0]) & _M32
+    x1 = (c1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT_A if i % 2 == 0 else _ROT_B:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & _M32
+    return x0, x1
+
+
+def step_key_ref(seed: int, t: int) -> Tuple[int, int]:
+    """The reference's key of step ``t``, ``fold_in(PRNGKey(seed), t)``:
+    ``PRNGKey(seed)`` is ``(0, seed mod 2^32)`` (jax without x64), and
+    ``fold_in`` applies the cipher to the counter pair ``(0, t mod 2^32)``."""
+    one = torch.ones((), dtype=torch.int64)
+    x0, x1 = threefry2x32_ref(0, int(seed) & _M32, 0 * one, (int(t) & _M32) * one)
+    return int(x0), int(x1)
+
+
+def noise_bits_ref(seed: int, t: int, n: int, device=None) -> Tensor:
+    """``jax.random.bits(fold_in(PRNGKey(seed), t), (n,), uint32)`` as int64:
+    ``x0 ^ x1`` of the cipher under the step key at the counter pair ``(i >>
+    32, i & 0xffffffff)`` of each id ``i`` (jax's partitionable threefry)."""
+    k0, k1 = step_key_ref(seed, t)
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    x0, x1 = threefry2x32_ref(k0, k1, i >> 32, i & _M32)
+    return x0 ^ x1
+
+
+def _f32(x) -> Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+# nextafter(-1, 0): the lower end of jax.random.normal's uniform
+_U_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def noise_uniform_ref(bits: Tensor) -> Tensor:
+    """``jax.random.uniform`` over ``[nextafter(-1, 0), 1)`` from raw bits:
+    the top 23 bits as the mantissa of a float in [1, 2), minus 1, times 2,
+    plus the lower end, then the max with it."""
+    lo = _f32(_U_LO).to(bits.device)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    u = (f - 1.0) * 2.0 + lo
+    return torch.maximum(u, lo)
+
+
+# Cephes' logf polynomial, and ln2 split as 0.693359375 + LOG_C1
+_LOG_P = (7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1, -1.2420140846E-1,
+          1.4249322787E-1, -1.6668057665E-1, 2.0000714765E-1, -2.4999993993E-1,
+          3.3333331174E-1)
+_LOG_C1 = -2.12194440e-4
+_LOG_C2 = 0.693359375
+_SQRT_HALF = 0.707106781186547524
+# Giles' single-precision erfinv (XLA's coefficients): w < 5, w >= 5
+_ERFINV_A = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+             0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_B = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+             0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def log_ref(y: Tensor) -> Tensor:
+    """Cephes' logf for normal ``y > 0``: ``y = m * 2^e`` from the float's
+    bits, ``m`` in ``[sqrt(1/2), sqrt(2))``, a fixed polynomial in ``m - 1``,
+    then ``e * ln2`` in two parts.  f32, one correctly rounded op at a time;
+    ``csrc/noise.cu:cephes_log`` runs the same operations."""
+    yb = y.view(torch.int32)
+    e = (yb >> 23) - 126
+    m = ((yb & 0x807FFFFF) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    small = m < _SQRT_HALF
+    e = torch.where(small, e - 1, e).to(torch.float32)
+    x = torch.where(small, (m + m) - 1.0, m - 1.0)
+    z = x * x
+    p = torch.full_like(x, _LOG_P[0])
+    for c in _LOG_P[1:]:
+        p = p * x + c
+    r = (x * z) * p
+    r = r + e * _LOG_C1
+    r = r + z * -0.5
+    return (x + r) + e * _LOG_C2
+
+
+def log1p_ref(v: Tensor) -> Tensor:
+    """``log1p(v)`` for ``v`` in ``(-1, 0]``: ``v`` where ``1 + v`` rounds
+    to 1, else ``log(1 + v) * (v / ((1 + v) - 1))`` (the difference is
+    exact), which keeps what the rounding of ``1 + v`` loses."""
+    y = v + 1.0
+    d = y - 1.0
+    zero = d == 0
+    scaled = log_ref(y) * (v / torch.where(zero, torch.ones_like(d), d))
+    return torch.where(zero, v, scaled)
+
+
+def sqrt_rn_ref(x: Tensor) -> Tensor:
+    """The correctly rounded f32 square root of ``x >= 0``, as IEEE defines
+    it (``__fsqrt_rn`` on the card).  ``torch.sqrt`` need not be: on some
+    CPUs its vector code is within 0.5001 ulp, and then differs from the
+    card.  So the root, taken in f64 and rounded (within one ulp), is moved
+    to its neighbour where ``x`` lies beyond the midpoint between them:
+    the midpoints have 25 bits, so their squares, and the comparison, are
+    exact in f64 (and never tie with a 24-bit ``x``)."""
+    s = torch.sqrt(x.double()).float()
+    up = torch.nextafter(s, torch.full_like(s, float("inf")))
+    down = torch.nextafter(s, torch.zeros_like(s))
+    x64, s64 = x.double(), s.double()
+    hi = (s64 + up.double()) * 0.5
+    lo = (s64 + down.double()) * 0.5
+    return torch.where(x64 > hi * hi, up, torch.where(x64 < lo * lo, down, s))
+
+
+def erfinv_ref(x: Tensor) -> Tensor:
+    """Giles' single-precision erfinv as XLA expands it, for ``|x| < 1``:
+    ``w = -log1p(-x*x)``; below 5 a polynomial in ``w - 2.5``, else in
+    ``sqrt(w) - 3`` (coefficients selected per element, Horner with a
+    separate multiply and add); times ``x``.  The square root is
+    :func:`sqrt_rn_ref`, correctly rounded on every device."""
+    t = x * x
+    w = -log1p_ref(-t)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, sqrt_rn_ref(w) - 3.0)
+    p = torch.where(lt, _f32(_ERFINV_A[0]), _f32(_ERFINV_B[0]))
+    for a, b in zip(_ERFINV_A[1:], _ERFINV_B[1:]):
+        p = torch.where(lt, _f32(a), _f32(b)) + p * w
+    return p * x
+
+
+def noise_normal_ref(bits: Tensor) -> Tensor:
+    """``jax.random.normal``'s transform of raw bits: ``sqrt(2) *
+    erfinv(uniform)``, with the port's own log1p (the normals differ from
+    XLA's by up to 4.8e-7, ``tests/test_torch_noise.py``)."""
+    return _SQRT2 * erfinv_ref(noise_uniform_ref(bits))
+
+
+def step_noise_ref(seed: int, t: int, n: int, sigma: float, *, device=None) -> Tensor:
+    """The ``(n,)`` f32 noise of step ``t``: ``sigma * normal`` of each id's
+    raw bits, a pure function of ``(seed, t, id)`` -- the reference's
+    ``sigma * jax.random.normal(fold_in(PRNGKey(seed), t), (n,))`` up to the
+    normal transform's rounding.  ``sigma`` is rounded to f32 first, as the
+    kernel and the reference take it."""
+    return noise_normal_ref(noise_bits_ref(seed, t, n, device)) * _f32(sigma).to(device)

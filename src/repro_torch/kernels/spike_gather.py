@@ -18,11 +18,17 @@ padding's cols.  The result equals the dense ``row_dot`` kernels' bit for
 bit (the argument is in ``csrc/common.cuh``).
 
 Preconditions of the kernel: every col id lies in ``[0, len(activity))``
-(the simulator checks it on the host when it builds the panels); weights
-and activity are finite, and every product of a weight and an active
-source's activity is exact in f32 (always so for 0/1 spike vectors): a
-skipped slot then adds nothing to the sum.  The plain version ignores
-``row_len``: the slots past it are zero.
+(the simulator checks it on the host when it builds the panels); the
+activity is finite, and every product of a weight and an active source's
+activity is exact in f32 (always so for 0/1 spike vectors): a skipped slot
+then adds nothing to the sum.  The active variant runs where ``reduce``
+is the choice recorded from the weights (``dispatch.panel_reduce``:
+``active`` only where they are all finite); otherwise the kernel's row_dot
+variant runs, the same launch reducing every slot with ``row_dot``, whose
+NaN rows are the reference's.  ``reduce="row_dot"``, the default, is the
+bit-exact oracle of the active variant on the card.  The plain version
+ignores ``row_len`` and ``reduce``: the slots past ``row_len`` are zero,
+and it sums every slot.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .dispatch import launch_row_dot
 from .ref import spike_gather_ref as spike_gather_plain
 
 COUNTER = _build.LaunchCounter("spike_gather")
@@ -44,9 +51,12 @@ def spike_gather_cuda(
     weights: torch.Tensor,
     row_len: Optional[torch.Tensor] = None,
     *,
+    reduce="row_dot",
     shared_bitmask: bool = True,
 ) -> torch.Tensor:
-    """Launch the kernel: ``(R,)`` f32 currents.  ``shared_bitmask=False``
+    """Launch the kernel: ``(R,)`` f32 currents.  ``reduce``: ``"row_dot"``
+    or a one-panel sequence (the engines pass the choice recorded at
+    upload; ``dispatch.launch_row_dot``).  ``shared_bitmask=False``
     reads the bitmask from device memory, the path a vector too long for
     shared memory takes anyway (for tests and timing)."""
     _build.require("activity", activity, torch.float32, 1)
@@ -67,13 +77,14 @@ def spike_gather_cuda(
         return out
     if K == 0:
         return out.zero_()
+    dense = launch_row_dot(reduce, [weights])
     n = activity.shape[0]
-    bits = torch.empty(-(-n // 32), dtype=torch.int32, device=dev)
+    bits = torch.empty(0 if dense else -(-n // 32), dtype=torch.int32, device=dev)
     stream, device = _build.launch_args(activity)
     rc = _build.library().repro_spike_gather(
         activity.data_ptr(), n, cols.data_ptr(), weights.data_ptr(),
         None if row_len is None else row_len.data_ptr(), bits.data_ptr(),
-        out.data_ptr(), R, K, -1 if shared_bitmask else 0, stream, device,
+        out.data_ptr(), R, K, -1 if shared_bitmask else 0, int(dense), stream, device,
     )
     _build.check(rc, "spike_gather")
     COUNTER.launches += 1

@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import _build
+from .dispatch import launch_row_dot
 from .ref import lif_constants, trace_decay_constant
 
 PRE_COUNTER = _build.LaunchCounter("pre_exchange")
@@ -154,30 +155,41 @@ def post_exchange_cuda(
     write_onehot: torch.Tensor,
     cols: Sequence[torch.Tensor],
     weights: Sequence[torch.Tensor],
+    row_len: Optional[Sequence[torch.Tensor]] = None,
     *,
+    reduce="row_dot",
+    shared_bitmask: bool = True,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the post-exchange kernel: ``ring * clear_mask`` (no rotate
     when ``clear_mask`` is None), then per bucket in order ``+
     write_onehot[i] (x) gather_i``.  Returns the new ring, written into
-    ``out`` when given (``out`` may be ``ring``)."""
-    D, n_p, _ = _check_post(
+    ``out`` when given (``out`` may be ``ring``).  ``row_len``: per bucket
+    ``(R,)`` int32 real slots a row, or None (rows K long).  ``reduce``:
+    ``"row_dot"`` or per bucket the recorded choice
+    (``dispatch.launch_row_dot``).  ``shared_bitmask=False`` tests the
+    activity in device memory, the path of an activity too long for its
+    bitmask to fit shared memory (for tests and timing)."""
+    D, n_p, R = _check_post(
         "post_exchange", dict(act=act), ring, clear_mask, write_onehot, cols,
         dict(weights=weights), out,
     )
+    nd = len(cols)
+    _build.check_row_len(row_len, nd, R, ring.device)
     out = torch.empty_like(ring) if out is None else out
     if n_p == 0:
         return out
-    nd = len(cols)
+    dense = launch_row_dot(reduce, weights)
     ptrs = ctypes.c_void_p * nd
     stream, device = _build.launch_args(ring)
     rc = _build.library().repro_post_exchange(
-        act.data_ptr(), ring.data_ptr(), out.data_ptr(), _ptr(clear_mask),
+        act.data_ptr(), act.shape[0], ring.data_ptr(), out.data_ptr(), _ptr(clear_mask),
         write_onehot.data_ptr(), n_p, D, nd,
         ptrs(*[c.data_ptr() for c in cols]),
         ptrs(*[w.data_ptr() for w in weights]),
+        ptrs(*([None] * nd if row_len is None else [rl.data_ptr() for rl in row_len])),
         (ctypes.c_int * nd)(*[c.shape[1] for c in cols]),
-        stream, device,
+        -1 if shared_bitmask else 0, int(dense), stream, device,
     )
     _build.check(rc, "post_exchange")
     POST_COUNTER.launches += 1

@@ -39,14 +39,14 @@ import torch
 from ..core.dcsr import DCSRNetwork
 from ..core.ell import build_delay_ell
 from ..kernels.dispatch import (
-    StepEngineChoice, backend_for, resolve_device, select_step_engine,
+    StepEngineChoice, backend_for, panel_reduce, resolve_device, select_step_engine,
 )
 from ..kernels.event_step import EventPlan, event_id_cap
 from .neurons import LIF_V
 from .reshard import stack_runtime
 from .simulator import (
     PartitionDeviceData, SimConfig, _models_present, checked_cols, make_core_step,
-    make_noise, plastic_masks, row_lengths,
+    make_noise, plastic_masks, row_lengths, state_reduce,
 )
 
 
@@ -132,6 +132,15 @@ def stack_partitions(net: DCSRNetwork, cfg: SimConfig) -> StackedNet:
     )
 
 
+def _ownership_masks(s: StackedNet):
+    """Per delay the ``(is_local, is_remote)`` bool ``(k, R, K)`` masks of
+    the valid slots whose source the partition owns, and of the others."""
+    own_lo = (np.arange(s.k) * s.n_p)[:, None, None]
+    for c, v in zip(s.cols, s.valid):
+        is_local = v & (c >= own_lo) & (c < own_lo + s.n_p)
+        yield is_local, v & ~is_local
+
+
 def split_overlap_panels(
     s: StackedNet, align_k: int
 ) -> Tuple[List[np.ndarray], List[np.ndarray], List[np.ndarray], List[np.ndarray]]:
@@ -148,14 +157,12 @@ def split_overlap_panels(
     def align(x):
         return max(-(-x // align_k) * align_k, align_k)
 
-    k, n_p = s.k, s.n_p
-    own_lo = (np.arange(k) * n_p)[:, None, None]
+    own_lo = (np.arange(s.k) * s.n_p)[:, None, None]
     cols_l, w_l, cols_r, w_r = [], [], [], []
-    for c, w, v in zip(s.cols, s.weights, s.valid):
-        is_local = v & (c >= own_lo) & (c < own_lo + n_p)
+    for c, w, (is_local, is_remote) in zip(s.cols, s.weights, _ownership_masks(s)):
         for mask, out_c, out_w, localize in (
             (is_local, cols_l, w_l, True),
-            (v & ~is_local, cols_r, w_r, False),
+            (is_remote, cols_r, w_r, False),
         ):
             cnt = mask.sum(axis=2)  # (k, R)
             k_out = align(int(cnt.max()) if cnt.size else 0)
@@ -171,6 +178,18 @@ def split_overlap_panels(
             out_c.append(np.where(ms, cs, 0).astype(np.int32))
             out_w.append(np.where(ms, ws, 0.0).astype(np.float32))
     return cols_l, w_l, cols_r, w_r
+
+
+def overlap_row_lengths(s: StackedNet) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """``(row_len_local, row_len_remote)``: per delay the ``(k, R)`` int32
+    count of each row's slots in the local and in the remote sub-panel of
+    :func:`split_overlap_panels`, which puts a row's entries first: its
+    row length."""
+    local, remote = [], []
+    for is_local, is_remote in _ownership_masks(s):
+        local.append(is_local.sum(axis=2, dtype=np.int32))
+        remote.append(is_remote.sum(axis=2, dtype=np.int32))
+    return local, remote
 
 
 def compact_spike_ids(spikes: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -276,7 +295,8 @@ class DistSimulator:
         if _share is not None and (_share.devs[0].cols_local is not None or not need_sub):
             self.devs = _share.devs
         else:
-            opan = split_overlap_panels(s, cfg.align_k) if need_sub else None
+            opan = (split_overlap_panels(s, cfg.align_k) + overlap_row_lengths(s)
+                    if need_sub else None)
             self.devs = [self._device_data(p, opan) for p in range(k)]
         self._noise_ids = [
             torch.from_numpy(part.global_ids).to(dev)
@@ -308,21 +328,28 @@ class DistSimulator:
 
         extra = {}
         if opan is not None:
-            cl, wl, cr, wr = opan
+            cl, wl, cr, wr, ll, lr = opan
+            weights_local, weights_remote = up(wl), up(wr)
             extra = dict(
                 cols_local=checked_cols([a[p] for a in cl], s.n_p, "local", dev),
-                weights_local=up(wl),
+                weights_local=weights_local,
+                row_len_local=up(ll),
+                reduce_local=panel_reduce(weights_local),
                 cols_remote=checked_cols([a[p] for a in cr], self.n_global, "remote", dev),
-                weights_remote=up(wr),
+                weights_remote=weights_remote,
+                row_len_remote=up(lr),
+                reduce_remote=panel_reduce(weights_remote),
             )
+        weights0 = up(s.weights)
         return PartitionDeviceData(
             n_p=s.n_p,
             vtx_model=torch.from_numpy(s.vtx_model[p]).to(dev),
             vtx_state0=torch.from_numpy(s.vtx_state0[p]).to(dev),
             delays=s.delays,
             cols=checked_cols([c[p] for c in s.cols], self.n_global, "delay-bucket", dev),
-            weights0=up(s.weights),
+            weights0=weights0,
             row_len=row_lengths([v[p] for v in s.valid], dev),
+            reduce=panel_reduce(weights0, s.any_plastic),
             identity_rows=tuple(True for _ in s.delays),
             plastic=up(s.plastic) if s.any_plastic else None,
             **extra,
@@ -456,12 +483,13 @@ class DistSimulator:
         s = self.stacked
         plastic = s.any_plastic
         carries = []
-        for c in state:
+        for c, dev in zip(state, self.devs):
             carry = dict(c)
             for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
                 carry[key] = c[key].clone()
             if plastic:
                 carry["weights"] = tuple(w.clone() for w in c["weights"])
+            carry["_reduce"] = state_reduce(dev, carry["weights"])
             carry["t"] = int(c["t"])
             carries.append(carry)
         home = self.devices[0]
@@ -499,6 +527,7 @@ class DistSimulator:
                 )
         for f, c in zip(fns, carries):
             f.pending_flush(c)
+            del c["_reduce"]
         return carries, outs
 
     # -- dCSR sync (simulation state -> serializable network) -------------

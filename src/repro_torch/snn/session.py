@@ -159,7 +159,8 @@ class Session:
             self.net = merge_to_single(net) if net.k > 1 else net
             self._sim = Simulator(self.net, self.cfg, device=self.device, _noise_fn=_noise_fn)
         self._state = None
-        # gather mode each chunk of the last run() actually executed with
+        # chunk lengths and gather mode of each chunk the last run() executed
+        self.last_run_chunks: Tuple[int, ...] = ()
         self.last_gather_modes: Tuple[str, ...] = ()
 
     # -- engine selection --------------------------------------------------
@@ -263,11 +264,19 @@ class Session:
             backend=sim.backend,
             device=str(self.device),
         )
+        # the gathers' reduction per bucket, chosen from the weights at upload
+        # ("active": real slots and active sources' weights only; "row_dot":
+        # every slot, where a weight is not finite or the net is plastic)
         if self.engine_kind == "spmd":
             d["exchange"] = sim.exchange
             d["devices"] = [str(x) for x in sim.devices]
+            d["reduce"] = [dev.reduce for dev in sim.devs]
+            if sim.devs[0].cols_local is not None:
+                d["reduce_local"] = [dev.reduce_local for dev in sim.devs]
+                d["reduce_remote"] = [dev.reduce_remote for dev in sim.devs]
         else:
             d["ell_fill"] = sim.ell.fill_factor
+            d["reduce"] = sim.dev.reduce
         return d
 
     # -- simulate ----------------------------------------------------------
@@ -334,6 +343,7 @@ class Session:
                 )
         for mon in monitors:
             mon.finalize()
+        self.last_run_chunks = tuple(chunks)
         self.last_gather_modes = tuple(gather_modes)
         overflow = np.concatenate(overflows)
         dropped = int(overflow.sum())

@@ -54,12 +54,16 @@ running spike rate stays under ``EVENT_ACTIVITY_THRESHOLD``, as the
 reference does.  The engines give identical rasters, so the switch never
 changes a trajectory.
 
-Noise is a pure function of (seed, t, permanent neuron id): a generator on
-the run's device, seeded from (seed, t), draws the ``(n_global,)`` normals
-once a step, and each row takes the value of its permanent id.  The
-reference draws with ``jax.random``, which torch cannot reproduce, so
-cross-package tests inject the reference's noise through the ``_noise_fn``
-seam of :class:`Simulator` and ``DistSimulator``.
+Noise is a pure function of (seed, t, permanent neuron id): the
+``(n_global,)`` normals of a step come from counters alone
+(``ops.step_noise``: Threefry under the reference's key
+``fold_in(PRNGKey(seed), t)``, the reference's bits and uniforms, and the
+normal transform in correctly rounded f32 operations), once a step, and each
+row takes the value of its permanent id.  The noise is the same on the card
+and on the CPU; it differs from ``jax.random.normal``'s by up to 4.8e-7 (the
+normal transform's log1p), so cross-package raster tests inject the
+reference's noise through the ``_noise_fn`` seam of :class:`Simulator` and
+``DistSimulator``.
 """
 from __future__ import annotations
 
@@ -73,7 +77,7 @@ from ..core.dcsr import DCSRNetwork, DCSRPartition
 from ..core.ell import DelayELL, build_delay_ell
 from ..kernels import ops, ref
 from ..kernels.dispatch import (
-    StepEngineChoice, backend_for, resolve_device, select_step_engine,
+    StepEngineChoice, backend_for, panel_reduce, resolve_device, select_step_engine,
 )
 from ..kernels.event_step import EventPlan, event_id_cap
 from .neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V, make_neuron_step
@@ -159,7 +163,14 @@ class PartitionDeviceData:
     weights and no other engine reads them.  The overlap sub-panels
     (``split_overlap_panels``) exist only for the non-plastic split engines
     with an overlap mode: local panels hold LOCAL ids (``< n_p``), remote
-    panels global ids of other partitions."""
+    panels global ids of other partitions.
+
+    Every panel set carries its row lengths and its ``reduce``, per bucket
+    the reduction its gathers take (``dispatch.panel_reduce``), chosen once
+    from the data at upload: ``"active"`` (only real slots and active
+    sources' weights) where the weights are all finite and never change,
+    ``"row_dot"`` (every slot, the reference's NaN) where one is not finite
+    or the partition is plastic.  ``Session.describe()`` shows it."""
 
     n_p: int
     vtx_model: torch.Tensor
@@ -169,16 +180,22 @@ class PartitionDeviceData:
     weights0: List[torch.Tensor]  # per bucket (R, K) f32
     # per bucket (R,) int32 real slots a row: the ELL puts a row's synapses
     # at 0..row_len-1 and (col 0, weight 0) after them, so the gathers
-    # (spike_gather, event_post_exchange) read no padding
+    # (spike_gather, event_post_exchange, fused_step, post_exchange) read
+    # no padding
     row_len: List[torch.Tensor]
+    reduce: Tuple[str, ...]  # per bucket "active" or "row_dot"
     identity_rows: Tuple[bool, ...]
     # per bucket (R, K) f32 0/1 mask of the syn_stdp slots; None when the
     # partition has no plastic synapse
     plastic: Optional[List[torch.Tensor]] = None
     cols_local: Optional[List[torch.Tensor]] = None  # per bucket (R, K_l)
     weights_local: Optional[List[torch.Tensor]] = None
+    row_len_local: Optional[List[torch.Tensor]] = None  # per bucket (R,) int32
+    reduce_local: Optional[Tuple[str, ...]] = None
     cols_remote: Optional[List[torch.Tensor]] = None  # per bucket (R, K_r)
     weights_remote: Optional[List[torch.Tensor]] = None
+    row_len_remote: Optional[List[torch.Tensor]] = None
+    reduce_remote: Optional[Tuple[str, ...]] = None
 
     @property
     def any_plastic(self) -> bool:
@@ -222,17 +239,32 @@ def partition_device_data(
     part: DCSRPartition, ell: DelayELL, device: torch.device, stdp_id: int
 ) -> PartitionDeviceData:
     plastic = plastic_masks(part, ell, stdp_id)
+    weights0 = [torch.from_numpy(b.weights).to(device) for b in ell.buckets]
     return PartitionDeviceData(
         n_p=part.n,
         vtx_model=torch.from_numpy(part.vtx_model).to(device),
         vtx_state0=torch.from_numpy(part.vtx_state).to(device),
         delays=tuple(b.delay for b in ell.buckets),
         cols=checked_cols([b.cols for b in ell.buckets], ell.n_global, "delay-bucket", device),
-        weights0=[torch.from_numpy(b.weights).to(device) for b in ell.buckets],
+        weights0=weights0,
         row_len=row_lengths([b.valid for b in ell.buckets], device),
+        reduce=panel_reduce(weights0, plastic is not None),
         identity_rows=tuple(b.identity_rows for b in ell.buckets),
         plastic=None if plastic is None else [torch.from_numpy(m).to(device) for m in plastic],
     )
+
+
+def state_reduce(dev: PartitionDeviceData, weights: Sequence[torch.Tensor]) -> Tuple[str, ...]:
+    """Per bucket the reduction of the gathers over a state's ``weights``:
+    the upload's ``dev.reduce`` where they are the uploaded panels (every
+    state ``init_state`` makes; a non-plastic net never changes them) or the
+    net is plastic (``row_dot`` whatever they hold); otherwise chosen now
+    from these weights, one ``isfinite().all()`` a panel, since a state made
+    elsewhere (a carried reference state, say) may hold weights that are
+    not finite.  A run computes it once, as the carry's ``_reduce``."""
+    if dev.any_plastic or all(w is w0 for w, w0 in zip(weights, dev.weights0)):
+        return dev.reduce
+    return panel_reduce(weights)
 
 
 def _models_present(net: DCSRNetwork) -> Tuple[str, ...]:
@@ -243,43 +275,23 @@ def _models_present(net: DCSRNetwork) -> Tuple[str, ...]:
     return tuple(names)
 
 
-_MASK64 = (1 << 64) - 1
-
-
-def _mix64(x: int) -> int:
-    """splitmix64's finalizer: every output bit depends on every input bit."""
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
-
-
-def _step_seed(seed: int, t: int) -> int:
-    """The noise generator's seed for step ``t``: a pure function of
-    (seed, t), mixed so that its low 32 bits (all that the CPU generator
-    keeps) depend on both."""
-    return _mix64(_mix64(seed & _MASK64) ^ (t & _MASK64))
-
-
 def make_noise(
     *, seed: int, noise_sigma: float, n_global: int, device,
     noise_fn: Optional[Callable[[int], object]] = None,
 ) -> Callable[[int], Optional[torch.Tensor]]:
     """``noise(t)``: the ``(n_global,)`` f32 noise of step ``t`` on
-    ``device`` (already scaled by sigma), or None on a noise-free net.
-    ``noise_fn(t)``, when given, supplies it in place of the port's own
-    generator (the cross-package seam)."""
-    gen = torch.Generator(device=device) if noise_sigma > 0 else None
+    ``device`` (already scaled by sigma), or None on a noise-free net.  The
+    port's own noise is ``ops.step_noise``: counter-based, with the
+    reference's key and bits, the same on the card and on the CPU, and no
+    generator state.  ``noise_fn(t)``, when given, supplies it instead (the
+    cross-package seam)."""
 
     def noise(t: int) -> Optional[torch.Tensor]:
         if noise_fn is not None:
             return torch.tensor(np.asarray(noise_fn(t)), dtype=torch.float32, device=device)
-        if gen is None:
+        if noise_sigma <= 0:
             return None
-        gen.manual_seed(_step_seed(seed, t))
-        return noise_sigma * torch.randn(
-            n_global, generator=gen, dtype=torch.float32, device=device
-        )
+        return ops.step_noise(seed, t, n_global, noise_sigma, device=device)
 
     return noise
 
@@ -322,7 +334,7 @@ def make_core_step(
     registry's ``syn_stdp`` params, needed on plastic partitions (those
     whose ``dev.plastic`` is set).  ``noise_ids`` are the permanent neuron
     ids of the local rows.  ``noise_fn(t)``, when given, supplies the
-    ``(n_global,)`` noise of step ``t`` in place of the port's generator.
+    ``(n_global,)`` noise of step ``t`` in place of the port's own noise.
 
     ``step`` runs the k = 1 step, whose exchange is the identity.  A driver
     of k partitions (``snn/dist_sim.py``) calls the halves itself:
@@ -330,7 +342,9 @@ def make_core_step(
     tr_plus)``; ``noise_g`` is the step's ``(n_global,)`` noise, drawn once
     for all partitions), then its exchange over all partitions, then
     ``step.post(carry, spikes, act, pre_trace)`` with the exchanged
-    activity and pre-trace.
+    activity and pre-trace.  The carry holds ``_reduce``, the reduction of
+    the gathers over its weights (:func:`state_reduce`), which the driver
+    sets once a run.
 
     ``overlap_ctx`` (needed when ``engine_choice.overlap`` is not
     ``"off"``) holds the partition-geometry closures of the overlap
@@ -394,12 +408,12 @@ def make_core_step(
         elif choice.event:
             ops.event_post_exchange(
                 overlap_ctx["mask_remote"](pend["act"]), ring, None, pend["write_slots"],
-                event_plan, dev.cols, carry["weights"], dev.row_len,
+                event_plan, dev.cols, carry["weights"], dev.row_len, reduce=carry["_reduce"],
             )
         else:
             ops.fused_post_exchange_remote(
                 pend["act"], ring, pend["onehot"], dev.cols_remote, dev.weights_remote,
-                out=ring,
+                dev.row_len_remote, reduce=dev.reduce_remote, out=ring,
             )
 
     def pre(carry: Dict, noise_g: Optional[torch.Tensor]):
@@ -433,7 +447,8 @@ def make_core_step(
             # one cooperative launch: LIF advance + spike emission + every
             # bucket's gather from the fresh spike vector
             v2, r2, spikes, currents = ops.fused_step(
-                v, refrac, i_tot, dev.cols, carry["weights"], params=lif_params,
+                v, refrac, i_tot, dev.cols, carry["weights"], dev.row_len,
+                params=lif_params, reduce=carry["_reduce"],
             )
             for cur, d in zip(currents, dev.delays):
                 ring[(t + d) % D] += cur[:n_p]
@@ -458,7 +473,7 @@ def make_core_step(
             v2, r2, spikes = ops.lif_step(v, refrac, i_tot, params=lif_params)
             ops.event_post_exchange(
                 spikes, ring, slot, [(t + d) % D for d in dev.delays],
-                event_plan, dev.cols, carry["weights"], dev.row_len,
+                event_plan, dev.cols, carry["weights"], dev.row_len, reduce=carry["_reduce"],
             )
         elif choice.plastic:  # fused_split_plastic: LIF + both trace decays
             v2, r2, spikes, carry["tr_plus"], carry["tr_minus"] = ops.fused_pre_exchange(
@@ -488,12 +503,12 @@ def make_core_step(
                 # embedded in a zeroed global vector
                 ops.fused_post_exchange_local(
                     overlap_ctx["embed"](overlap_ctx["local"](spikes)), ring, clear,
-                    onehot, dev.cols, weights, out=ring,
+                    onehot, dev.cols, weights, dev.row_len, reduce=carry["_reduce"], out=ring,
                 )
             else:
                 ops.fused_post_exchange_local(
                     overlap_ctx["local"](spikes), ring, clear, onehot, dev.cols_local,
-                    dev.weights_local, out=ring,
+                    dev.weights_local, dev.row_len_local, reduce=dev.reduce_local, out=ring,
                 )
             pend = dict(act=act, onehot=onehot, write_slots=write_slots)
             if choice.plastic:
@@ -502,10 +517,11 @@ def make_core_step(
             if choice.overlap == "local":
                 apply_pending(carry)
         elif choice.engine == "fused_split":
-            ops.fused_post_exchange(act, ring, clear, onehot, dev.cols, weights, out=ring)
+            ops.fused_post_exchange(act, ring, clear, onehot, dev.cols, weights, dev.row_len,
+                                    reduce=carry["_reduce"], out=ring)
         elif choice.engine == "fused_split_event":
             ops.event_post_exchange(act, ring, slot, write_slots, event_plan, dev.cols, weights,
-                                    dev.row_len)
+                                    dev.row_len, reduce=carry["_reduce"])
         elif choice.engine == "fused_split_plastic":
             _, new_w = ops.fused_post_exchange_plastic(
                 act, pre_trace, ring, clear, onehot, carry["tr_minus"], spikes, dev.cols,
@@ -518,7 +534,8 @@ def make_core_step(
                 post_t = torch.nn.functional.pad(carry["tr_minus"], (0, pad_r))
                 post_s = torch.nn.functional.pad(spikes, (0, pad_r))
             for i, (c, w, d) in enumerate(zip(dev.cols, weights, dev.delays)):
-                ring[(t + d) % D] += ops.spike_gather(act, c, w, dev.row_len[i])[:n_p]
+                ring[(t + d) % D] += ops.spike_gather(act, c, w, dev.row_len[i],
+                                                      reduce=carry["_reduce"][i:i + 1])[:n_p]
                 if plastic:
                     # in place: run() cloned the weights, and the gather
                     # above read them first
@@ -695,6 +712,7 @@ class Simulator:
             carry[key] = state[key].clone()
         if self.dev.any_plastic:  # the weights change only on plastic nets
             carry["weights"] = tuple(w.clone() for w in state["weights"])
+        carry["_reduce"] = state_reduce(self.dev, carry["weights"])
         carry["t"] = int(state["t"])
         on = dict(device=self.device)
         outs = dict(
@@ -714,6 +732,7 @@ class Simulator:
                 outs["raster"][j] = spikes
             if "v_mean" in outs:
                 outs["v_mean"][j] = carry["vtx_state"][:, LIF_V].mean()
+        del carry["_reduce"]
         return carry, outs
 
     # -- dCSR sync (simulation state -> serializable network) -------------

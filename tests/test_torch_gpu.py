@@ -22,6 +22,7 @@ from repro_torch.kernels import lif_step as lif_mod
 from repro_torch.kernels import spike_gather as gather_mod
 from repro_torch.kernels import split_step as split_mod
 from repro_torch.kernels import stdp_update as stdp_mod
+from repro_torch.kernels.dispatch import panel_reduce
 
 pytestmark = pytest.mark.gpu
 
@@ -87,12 +88,12 @@ def test_spike_gather_kernel_matches_plain(cuda, rng, n_act, R, K):
         (rng.random(n_act) < 0.3).astype(np.float32)
     ).to(cuda)
     (c,), (w,) = _panels(rng, n_act, R, (K,), R, cuda)
-    got = ops.spike_gather(act, c, w)
+    got = ops.spike_gather(act, c, w, reduce=panel_reduce([w]))
     want = ref.spike_gather_ref(act, c, w)
     # f32 sums in another order: rtol=atol=1e-5
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     # deterministic: the same launch gives the same bits
-    assert torch.equal(got, ops.spike_gather(act, c, w))
+    assert torch.equal(got, ops.spike_gather(act, c, w, reduce=panel_reduce([w])))
 
 
 @pytest.mark.parametrize("n_p,R,ks", [
@@ -106,13 +107,18 @@ def test_fused_step_kernel_bit_exact_vs_unfused(cuda, rng, n_p, R, ks):
     v, r, i = _lif_inputs(rng, n_p, cuda)
     cols, weights = _panels(rng, n_p, R, ks, n_p, cuda)
     before = fused_mod.COUNTER.launches
-    v2, r2, s2, curs = ops.fused_step(v, r, i, cols, weights, params=LIF_PARAMS)
+    v2, r2, s2, curs = ops.fused_step(v, r, i, cols, weights, params=LIF_PARAMS,
+                                      reduce=panel_reduce(weights))
     assert fused_mod.COUNTER.launches == before + 1
     v1, r1, s1 = ops.lif_step(v, r, i, params=LIF_PARAMS)
     for a, b in zip((v2, r2, s2), (v1, r1, s1)):
         assert torch.equal(a, b)
     for cur, c, w in zip(curs, cols, weights):
-        assert torch.equal(cur, ops.spike_gather(s1, c, w))
+        assert torch.equal(cur, ops.spike_gather(s1, c, w, reduce=panel_reduce([w])))
+    # and to its row_dot variant, which reads every slot
+    forced = ops.fused_step(v, r, i, cols, weights, params=LIF_PARAMS, reduce="row_dot")
+    for a, b in zip(curs, forced[3]):
+        assert torch.equal(a, b)
     _, _, s_p, curs_p = ref.fused_step_ref(v, r, i, cols, weights, params=LIF_PARAMS)
     assert torch.equal(s2, s_p)
     for a, b in zip(curs, curs_p):
@@ -156,7 +162,8 @@ def test_event_kernel_matches_plain_and_dense(cuda, rng, n_p, R, ks, block_r,
     slot, write = t % D, [(t + d) % D for d in delays]
     got = ring.clone()
     before = event_mod.COUNTER.launches
-    flags = ops.event_post_exchange(act, got, slot, write, plan, cols, weights)
+    flags = ops.event_post_exchange(act, got, slot, write, plan, cols, weights,
+                                    reduce=panel_reduce(weights))
     assert event_mod.COUNTER.launches == before + 1
     want = ring.clone()
     want_flags = event_mod.event_post_exchange_plain(act, want, slot, write, plan,
@@ -168,21 +175,23 @@ def test_event_kernel_matches_plain_and_dense(cuda, rng, n_p, R, ks, block_r,
     dense = ring.clone()
     dense[slot] = 0.0
     for c, w, ws in zip(cols, weights, write):
-        dense[ws] += ops.spike_gather(act, c, w)[:n_p]
+        dense[ws] += ops.spike_gather(act, c, w, reduce=panel_reduce([w]))[:n_p]
     assert torch.equal(got, dense)
     # deterministic although the ids are compacted with atomics
     again = ring.clone()
     assert torch.equal(ops.event_post_exchange(act, again, slot, write, plan, cols,
-                                               weights), flags)
+                                               weights, reduce=panel_reduce(weights)), flags)
     assert torch.equal(again, got)
     # with the row lengths (rows < n_p are K long here): the same ring, equal
     # to the row_dot kernels' (post_exchange's ring formulation)
     with_len = ring.clone()
     assert torch.equal(ops.event_post_exchange(act, with_len, slot, write, plan, cols,
-                                               weights, _row_lengths(valid, cuda)), flags)
+                                               weights, _row_lengths(valid, cuda),
+                                               reduce=panel_reduce(weights)), flags)
     assert torch.equal(with_len, got)
     clear, onehot, _ = _slots(D, t, delays, cuda)
-    assert torch.equal(got, ops.fused_post_exchange(act, ring, clear, onehot, cols, weights))
+    assert torch.equal(got, ops.fused_post_exchange(act, ring, clear, onehot, cols, weights,
+                                                    reduce="row_dot"))
 
 
 @pytest.mark.parametrize("fused,gather", [
@@ -281,7 +290,7 @@ def test_fused_plastic_kernel_vs_unfused_kernels_and_plain(cuda, rng, n_p, R, ks
     post_t = torch.nn.functional.pad(tm1, (0, pad))
     post_s = torch.nn.functional.pad(s1, (0, pad))
     for cur, nw, c, w, pm in zip(curs, new_w, cols, weights, plastic):
-        assert torch.equal(cur, ops.spike_gather(s1, c, w))
+        assert torch.equal(cur, ops.spike_gather(s1, c, w, reduce=panel_reduce([w])))
         assert torch.equal(nw, ops.stdp_update(w, pm, c, tp1, s1, post_t, post_s,
                                                params=STDP))
         frozen = pm == 0
@@ -384,7 +393,8 @@ def _slots(D, t, delays, device):
 
 def _ring_by_kernels(act, ring, clear, onehot, cols, weights, n_p):
     """The reference's ring formulation around the spike_gather kernel."""
-    curs = [ops.spike_gather(act, c, w)[:n_p] for c, w in zip(cols, weights)]
+    curs = [ops.spike_gather(act, c, w, reduce=panel_reduce([w]))[:n_p]
+            for c, w in zip(cols, weights)]
     return ref._ring_accumulate(ring, clear, onehot, curs)
 
 
@@ -404,22 +414,29 @@ def test_post_exchange_kernel_bit_exact_vs_gather_kernel(cuda, rng, n_p, n, R, k
     clear, onehot, _ = _slots(D, t, delays, cuda)
     before = split_mod.POST_COUNTER.launches
     if clear_it:
-        got = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights)
+        got = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights,
+                                      reduce=panel_reduce(weights))
         want = ref.fused_post_exchange_ref(act, ring, clear, onehot, cols, weights)
     else:
-        got = ops.fused_post_exchange_remote(act, ring, onehot, cols, weights)
+        got = ops.fused_post_exchange_remote(act, ring, onehot, cols, weights,
+                                             reduce=panel_reduce(weights))
         want = ref.fused_post_exchange_remote_ref(act, ring, onehot, cols, weights)
     assert split_mod.POST_COUNTER.launches == before + 1
     exact = _ring_by_kernels(act, ring, clear if clear_it else None, onehot, cols, weights, n_p)
     assert torch.equal(got, exact)
     assert torch.equal(got.view(torch.int32), exact.view(torch.int32))  # signed zeros too
+    forced = split_mod.post_exchange_cuda(act, ring, clear if clear_it else None, onehot, cols,
+                                          weights, reduce="row_dot")
+    assert torch.equal(got.view(torch.int32), forced.view(torch.int32))
     # f32 sums in another order: rtol=atol=1e-5
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     inplace = ring.clone()
     if clear_it:
-        ops.fused_post_exchange(act, inplace, clear, onehot, cols, weights, out=inplace)
+        ops.fused_post_exchange(act, inplace, clear, onehot, cols, weights, out=inplace,
+                                reduce=panel_reduce(weights))
     else:
-        ops.fused_post_exchange_remote(act, inplace, onehot, cols, weights, out=inplace)
+        ops.fused_post_exchange_remote(act, inplace, onehot, cols, weights, out=inplace,
+                                       reduce=panel_reduce(weights))
     assert torch.equal(inplace.view(torch.int32), got.view(torch.int32))
 
 
@@ -483,7 +500,8 @@ def test_event_kernel_split_use(cuda, rng, slot):
     ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
     write = [(t + d) % D for d in delays]
     got, want = ring.clone(), ring.clone()
-    flags = ops.event_post_exchange(act, got, slot, write, plan, cols, weights)
+    flags = ops.event_post_exchange(act, got, slot, write, plan, cols, weights,
+                                    reduce=panel_reduce(weights))
     want_flags = event_mod.event_post_exchange_plain(act, want, slot, write, plan, cols, weights)
     assert torch.equal(flags, want_flags) and 0 < int(flags.sum()) < flags.numel()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -491,18 +509,20 @@ def test_event_kernel_split_use(cuda, rng, slot):
     if slot is not None:
         dense[slot] = 0.0
     for c, w, ws in zip(cols, weights, write):
-        dense[ws] += ops.spike_gather(act, c, w)[:n_p]
+        dense[ws] += ops.spike_gather(act, c, w, reduce=panel_reduce([w]))[:n_p]
     assert torch.equal(got, dense)
     # with the row lengths: the same ring, equal to the row_dot kernels'
     with_len = ring.clone()
     ops.event_post_exchange(act, with_len, slot, write, plan, cols, weights,
-                            _row_lengths(valid, cuda))
+                            _row_lengths(valid, cuda), reduce=panel_reduce(weights))
     assert torch.equal(with_len, got)
     clear, onehot, _ = _slots(D, t, delays, cuda)
     if slot is None:
-        row_dot = ops.fused_post_exchange_remote(act, ring, onehot, cols, weights)
+        row_dot = ops.fused_post_exchange_remote(act, ring, onehot, cols, weights,
+                                                 reduce="row_dot")
     else:
-        row_dot = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights)
+        row_dot = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights,
+                                          reduce="row_dot")
     assert torch.equal(got, row_dot)
 
 
@@ -578,18 +598,20 @@ def test_spike_gather_row_len_equals_row_dot_kernels(cuda, rng, kind, n_p, n, R,
     ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
     clear, onehot, _ = _slots(D, t, delays, cuda)
     before = gather_mod.COUNTER.launches
-    curs = [ops.spike_gather(act, c, w, rl) for c, w, rl in zip(cols, weights, row_len)]
+    curs = [ops.spike_gather(act, c, w, rl, reduce=panel_reduce([w]))
+            for c, w, rl in zip(cols, weights, row_len)]
     assert gather_mod.COUNTER.launches == before + len(cols)
     for cur, c, w, rl in zip(curs, cols, weights, row_len):
-        assert torch.equal(cur, ops.spike_gather(act, c, w))
+        assert torch.equal(cur, ops.spike_gather(act, c, w, reduce=panel_reduce([w])))
         assert torch.equal(cur, gather_mod.spike_gather_cuda(act, c, w, rl,
+                                                             reduce=panel_reduce([w]),
                                                              shared_bitmask=False))
         # f32 sums in another order; with every id active a row sums up to
         # 1,280 unit-normal terms, whose rounding reaches 1.2e-5 (measured on
         # an H100): rtol=1e-5, atol=1e-4
         torch.testing.assert_close(cur, ref.spike_gather_ref(act, c, w), rtol=1e-5, atol=1e-4)
     exact = ref._ring_accumulate(ring, clear, onehot, [cur[:n_p] for cur in curs])
-    row_dot = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights)
+    row_dot = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights, reduce="row_dot")
     assert torch.equal(row_dot.view(torch.int32), exact.view(torch.int32))  # signed zeros too
 
 
@@ -609,7 +631,8 @@ def test_event_kernel_row_len_equals_row_dot_kernels(cuda, rng, kind, slot):
     row_len = _row_lengths(valid, cuda)
     got = ring.clone()
     before = event_mod.COUNTER.launches
-    flags = ops.event_post_exchange(act, got, slot, write, plan, cols, weights, row_len)
+    flags = ops.event_post_exchange(act, got, slot, write, plan, cols, weights, row_len,
+                                    reduce=panel_reduce(weights))
     assert event_mod.COUNTER.launches == before + 1
     want, via_l2, no_len = ring.clone(), ring.clone(), ring.clone()
     want_flags = event_mod.event_post_exchange_plain(act, want, slot, write, plan, cols,
@@ -617,19 +640,22 @@ def test_event_kernel_row_len_equals_row_dot_kernels(cuda, rng, kind, slot):
     assert torch.equal(flags, want_flags)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     event_mod.event_post_exchange_cuda(act, via_l2, slot, write, plan, cols, weights, row_len,
-                                       shared_bitmask=False)
-    ops.event_post_exchange(act, no_len, slot, write, plan, cols, weights)
+                                       shared_bitmask=False, reduce=panel_reduce(weights))
+    ops.event_post_exchange(act, no_len, slot, write, plan, cols, weights,
+                            reduce=panel_reduce(weights))
     assert torch.equal(via_l2, got) and torch.equal(no_len, got)
     if slot is None:
-        row_dot = ops.fused_post_exchange_remote(act, ring, onehot, cols, weights)
+        row_dot = ops.fused_post_exchange_remote(act, ring, onehot, cols, weights,
+                                                 reduce="row_dot")
     else:
-        row_dot = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights)
+        row_dot = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights,
+                                          reduce="row_dot")
     assert torch.equal(got, row_dot)
     dense = ring.clone()
     if slot is not None:
         dense[slot] = 0.0
     for c, w, rl, ws in zip(cols, weights, row_len, write):
-        dense[ws] += ops.spike_gather(act, c, w, rl)[:n_p]
+        dense[ws] += ops.spike_gather(act, c, w, rl, reduce=panel_reduce([w]))[:n_p]
     assert torch.equal(got, dense)
 
 
@@ -643,16 +669,23 @@ def test_gathers_with_a_bitmask_too_long_for_shared_memory(cuda, rng, kind):
     act = _activity(kind, rng, LONG_N, cuda)
     ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
     clear, onehot, write = _slots(D, t, delays, cuda)
-    curs = [ops.spike_gather(act, c, w, rl) for c, w, rl in zip(cols, weights, row_len)]
+    curs = [ops.spike_gather(act, c, w, rl, reduce=panel_reduce([w]))
+            for c, w, rl in zip(cols, weights, row_len)]
     for cur, c, w in zip(curs, cols, weights):
-        assert torch.equal(cur, ops.spike_gather(act, c, w))
+        assert torch.equal(cur, ops.spike_gather(act, c, w, reduce=panel_reduce([w])))
         torch.testing.assert_close(cur, ref.spike_gather_ref(act, c, w), rtol=1e-5, atol=1e-5)
-    row_dot = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights)
+    row_dot = ops.fused_post_exchange(act, ring, clear, onehot, cols, weights, reduce="row_dot")
     exact = ref._ring_accumulate(ring, clear, onehot, [cur[:n_p] for cur in curs])
     assert torch.equal(row_dot.view(torch.int32), exact.view(torch.int32))
+    # post_exchange's active variant with the activity tested in device
+    # memory (no bitmask), as it runs for so many ids
+    active = split_mod.post_exchange_cuda(act, ring, clear, onehot, cols, weights, row_len,
+                                          reduce=panel_reduce(weights))
+    assert torch.equal(active.view(torch.int32), row_dot.view(torch.int32))
     plan = event_mod.EventPlan.build([c.cpu().numpy() for c in cols], valid, LONG_N, cap, cuda)
     got = ring.clone()
-    ops.event_post_exchange(act, got, t % D, write, plan, cols, weights, row_len)
+    ops.event_post_exchange(act, got, t % D, write, plan, cols, weights, row_len,
+                            reduce=panel_reduce(weights))
     assert torch.equal(got, row_dot)
 
 
@@ -808,3 +841,171 @@ def test_rule_built_net_on_card_equals_numpy_build(cuda):
             for key in ("row_ptr", "col_idx", "edge_model", "edge_state", "vtx_state", "coords",
                         "global_ids"):
                 np.testing.assert_array_equal(getattr(a, key), getattr(b, key), err_msg=key)
+
+
+# -- the per-step noise ---------------------------------------------------------
+
+@pytest.mark.parametrize("seed,n", [(42, 1), (42, 77172), (7, 1_048_576), (2**32 + 3, 5000)])
+def test_noise_kernel_bit_exact_vs_plain(cuda, seed, n):
+    """The kernel draws the plain version's noise bit for bit (the same
+    correctly rounded operations), over both of erfinv's branches."""
+    from repro_torch.kernels import noise as noise_mod
+
+    tail = 0
+    for t in (0, 1, 999, 2**31 + 7):
+        before = noise_mod.COUNTER.launches
+        got = ops.step_noise(seed, t, n, 0.8, device=cuda)
+        assert noise_mod.COUNTER.launches == before + 1
+        want = ref.step_noise_ref(seed, t, n, 0.8, device=cuda)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(got.cpu().view(torch.int32),
+                           ref.step_noise_ref(seed, t, n, 0.8).view(torch.int32))
+        tail += int((got.abs() > 0.8 * 2.72).sum())
+    if n >= 77172:
+        assert tail > 0  # the w >= 5 branch of erfinv was taken
+
+
+def test_noise_kernel_refuses_bad_operands(cuda):
+    from repro_torch.kernels import noise as noise_mod
+
+    with pytest.raises(ValueError, match="CUDA"):
+        noise_mod.noise_cuda(1, 0, 10, 1.0, device="cpu")
+    with pytest.raises(ValueError, match=">= 0"):
+        noise_mod.noise_cuda(1, -1, 10, 1.0, device=cuda)
+    assert noise_mod.noise_cuda(1, 0, 0, 1.0, device=cuda).shape == (0,)
+
+
+# -- fused_step and post_exchange: active == the forced row_dot variant ---------
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("n_p,R,ks", [
+    (100, 104, (8, 40)),
+    (500, 504, (129, 300)),
+    (19293, 19296, (512, 1408)),  # microcircuit(0.25) panel widths
+])
+def test_fused_step_active_equals_forced_row_dot(cuda, rng, shared, n_p, R, ks):
+    v, r, i = _lif_inputs(rng, n_p, cuda)
+    cols, weights, valid = _ell_case(rng, n_p, R, ks, n_p, cuda)
+    row_len = _row_lengths(valid, cuda)
+    got = fused_mod.fused_step_cuda(v, r, i, cols, weights, row_len, params=LIF_PARAMS,
+                                    reduce=panel_reduce(weights), shared_bitmask=shared)
+    forced = fused_mod.fused_step_cuda(v, r, i, cols, weights, params=LIF_PARAMS,
+                                       reduce="row_dot")
+    assert 0 < int(got[2].sum()) < n_p
+    for a, b in zip(got[:3], forced[:3]):
+        assert torch.equal(a, b)
+    for a, b, c, w, rl in zip(got[3], forced[3], cols, weights, row_len):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a, ops.spike_gather(got[2], c, w, rl, reduce=panel_reduce([w])))
+    _, _, _, curs_p = ref.fused_step_ref(v, r, i, cols, weights, params=LIF_PARAMS)
+    for a, b in zip(got[3], curs_p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ACT_KINDS)
+@pytest.mark.parametrize("what", ["full", "local", "remote"])
+def test_post_exchange_passes_active_equal_forced_row_dot(cuda, rng, kind, what):
+    """The three passes at the k=4 microcircuit's partition shapes: the full
+    pass and the local pass (local ids, the own (n_p,) activity) with the
+    clear, the remote pass without; with the bitmask in shared memory and
+    with the activity tested in device memory."""
+    n_p, n, R, D, t = 19293, 77172, 19296, 16, 21
+    ks = (384, 1280) if what != "remote" else (512, 3840)
+    delays = (8, 15)
+    n_act = n_p if what == "local" else n
+    cols, weights, valid = _ell_case(rng, n_act, R, ks, n_p, cuda)
+    row_len = _row_lengths(valid, cuda)
+    act = _activity(kind, rng, n_act, cuda)
+    ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    clear, onehot, _ = _slots(D, t, delays, cuda)
+    cl = None if what == "remote" else clear
+    before = split_mod.POST_COUNTER.launches
+    recorded = panel_reduce(weights)
+    assert recorded == ("active", "active")
+    got = split_mod.post_exchange_cuda(act, ring, cl, onehot, cols, weights, row_len,
+                                       reduce=recorded)
+    assert split_mod.POST_COUNTER.launches == before + 1
+    forced = split_mod.post_exchange_cuda(act, ring, cl, onehot, cols, weights,
+                                          reduce="row_dot")
+    in_memory = split_mod.post_exchange_cuda(act, ring, cl, onehot, cols, weights, row_len,
+                                             reduce=recorded, shared_bitmask=False)
+    assert torch.equal(got.view(torch.int32), forced.view(torch.int32))
+    assert torch.equal(in_memory.view(torch.int32), forced.view(torch.int32))
+    inplace = ring.clone()
+    split_mod.post_exchange_cuda(act, inplace, cl, onehot, cols, weights, row_len,
+                                 reduce=recorded, out=inplace)
+    assert torch.equal(inplace.view(torch.int32), got.view(torch.int32))
+    want = (ref.fused_post_exchange_remote_ref(act, ring, onehot, cols, weights)
+            if cl is None else ref.fused_post_exchange_ref(act, ring, cl, onehot, cols, weights))
+    # f32 sums in another order; with every id active a row sums up to
+    # 3,840 unit-normal terms: rtol=1e-5, atol=1e-4 (as the gathers above)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+# -- a NaN weight: every gather takes its row_dot variant ----------------------
+
+def _nan_panels(rng, act, cols, weights, valid, rows):
+    """One real slot of each row in ``rows`` whose source is silent in
+    ``act`` set to NaN; returns the new weight panel."""
+    w = weights.clone()
+    a = act.cpu().numpy()
+    c = cols.cpu().numpy()
+    for r in rows:
+        silent = [j for j in np.flatnonzero(valid[r]) if a[c[r, j]] == 0]
+        w[r, silent[rng.integers(len(silent))]] = float("nan")
+    return w
+
+
+def test_nan_weight_switches_every_gather_to_row_dot(cuda, rng):
+    """A NaN weight on a silent source: the choice recorded from the weights
+    (``panel_reduce``) is ``row_dot`` for its panel, which runs the row_dot
+    variant of spike_gather, the event kernel, fused_step and post_exchange;
+    they give NaN in exactly the plain version's rows.  The active variant,
+    forced, would skip the slot."""
+    n_p, R, ks, D, t = 5000, 5000, (129, 384), 16, 21
+    delays = (8, 15)
+    v, r, i = _lif_inputs(rng, n_p, cuda)
+    spikes = ref.lif_step_ref(v, r, i, **LIF_PARAMS)[2]
+    cols, weights, valid = _ell_case(rng, n_p, R, ks, n_p, cuda)
+    # rows 3 and 8 are 32 and K long (ROW_LENS), the third a long row later
+    nan_rows = [3, 8, next(rr for rr in range(3000, n_p) if valid[1][rr].sum() > 100)]
+    weights[1] = _nan_panels(rng, spikes, cols[1], weights[1], valid[1], nan_rows)
+    row_len = _row_lengths(valid, cuda)
+    recorded = panel_reduce(weights)
+    assert recorded == ("active", "row_dot")
+
+    def rows_of(x):
+        return torch.isnan(x).reshape(-1, x.shape[-1]).any(0).nonzero().flatten().tolist()
+
+    # spike_gather, from the spike vector
+    got = ops.spike_gather(spikes, cols[1], weights[1], row_len[1], reduce=recorded[1:])
+    assert rows_of(got) == rows_of(ref.spike_gather_ref(spikes, cols[1], weights[1])) == nan_rows
+    active = ops.spike_gather(spikes, cols[1], weights[1], row_len[1], reduce=("active",))
+    assert not torch.isnan(active).any()
+    # fused_step
+    got = ops.fused_step(v, r, i, cols, weights, row_len, params=LIF_PARAMS, reduce=recorded)
+    want = ref.fused_step_ref(v, r, i, cols, weights, params=LIF_PARAMS)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[2], spikes)
+    assert rows_of(got[3][1]) == rows_of(want[3][1]) == nan_rows
+    assert not torch.isnan(got[3][0]).any()
+    # post_exchange, with the clear and without
+    ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    clear, onehot, write = _slots(D, t, delays, cuda)
+    for cl in (clear, None):
+        got = split_mod.post_exchange_cuda(spikes, ring, cl, onehot, cols, weights, row_len,
+                                           reduce=recorded)
+        want = (ref.fused_post_exchange_remote_ref(spikes, ring, onehot, cols, weights)
+                if cl is None else
+                ref.fused_post_exchange_ref(spikes, ring, cl, onehot, cols, weights))
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert rows_of(got) == nan_rows
+    # the event kernel: every NaN row's block is flagged by some spike
+    plan = event_mod.EventPlan.build([c.cpu().numpy() for c in cols], valid, n_p, 1000, cuda,
+                                     block_r=128)
+    got, want = ring.clone(), ring.clone()
+    flags = ops.event_post_exchange(spikes, got, t % D, write, plan, cols, weights, row_len,
+                                    reduce=recorded)
+    event_mod.event_post_exchange_plain(spikes, want, t % D, write, plan, cols, weights)
+    assert all(int(flags[1, rr // 128]) for rr in nan_rows)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert rows_of(got) == nan_rows

@@ -1,10 +1,14 @@
 """The port's k=1 ``Simulator`` with the reference's own noise injected, and
-teacher-forced from a mid-run reference carry, on the CPU; and the port's
-own noise and engines held against each other.
+teacher-forced from a mid-run reference carry, on the CPU; the port's own
+noise and engines held against each other; and the port's own noise held
+against ``jax.random``.
 
-torch cannot reproduce ``jax.random.normal``, so the reference's per-step
-noise ``sigma * normal(fold_in(PRNGKey(seed), t), (n,))`` is computed with
-JAX and handed to the port through ``Simulator``'s ``_noise_fn`` seam.
+The port's noise has the reference's key ``fold_in(PRNGKey(seed), t)`` and
+equals its bits and uniforms bit for bit, but its normals differ from
+``jax.random.normal``'s in the last bits (the normal transform's log1p), so
+the raster tests compute the reference's per-step noise
+``sigma * normal(fold_in(PRNGKey(seed), t), (n,))`` with JAX and hand it to
+the port through ``Simulator``'s ``_noise_fn`` seam.
 """
 import jax
 import jax.numpy as jnp
@@ -16,6 +20,7 @@ from repro.snn import SimConfig as JSimConfig
 from repro.snn import network as jnet
 from repro.snn.simulator import Simulator as JSimulator
 from repro_torch import convert
+from repro_torch.kernels import ref
 from repro_torch.snn import SimConfig, Simulator
 from repro_torch.snn import network as tnet
 
@@ -121,3 +126,64 @@ def test_chunked_runs_are_bit_identical(nets):
     assert torch.equal(out_a["raster"], torch.cat(rasters))
     for k in ("vtx_state", "ring", "hist"):
         assert torch.equal(st_a[k], st[k])
+
+
+# -- the port's own noise against jax.random ------------------------------
+
+KEYS = [(42, 0), (42, 1), (7, 12345), (0, 2**31 + 5)]
+
+
+def _jax_key(seed, t):
+    return jax.random.fold_in(jax.random.PRNGKey(seed), t)
+
+
+@pytest.mark.parametrize("seed,t", KEYS)
+def test_port_noise_bits_and_uniforms_equal_jax(seed, t):
+    n = 70_000
+    key = _jax_key(seed, t)
+    bits = ref.noise_bits_ref(seed, t, n)
+    want = np.asarray(jax.random.bits(key, (n,), jnp.uint32)).astype(np.int64)
+    np.testing.assert_array_equal(bits.numpy(), want)
+    u = ref.noise_uniform_ref(bits)
+    ju = np.asarray(jax.random.uniform(key, (n,), jnp.float32, minval=ref._U_LO, maxval=1.0))
+    np.testing.assert_array_equal(u.numpy().view(np.int32), ju.view(np.int32))
+
+
+# The normals: the port's log1p (Cephes' logf with Kahan's correction) and
+# XLA's own log1p and contracted multiply-adds round differently.  Measured
+# over these 4 x 262,144 = 1,048,576 draws with jax 0.9.0 on the CPU: at most
+# 4.8e-7 apart (one ulp at |z| in [2, 4)), 4.9% of the values not bit-equal.
+NORMAL_ATOL = 1e-6
+
+
+def test_port_noise_normals_within_tolerance_of_jax():
+    n = 262_144
+    worst, branches = 0.0, np.zeros(2, np.int64)
+    for seed, t in KEYS:
+        bits = ref.noise_bits_ref(seed, t, n)
+        z = ref.noise_normal_ref(bits).numpy()
+        want = np.asarray(jax.random.normal(_jax_key(seed, t), (n,), jnp.float32))
+        worst = max(worst, float(np.abs(z - want).max()))
+        # erfinv's two branches: w = -log1p(-u^2) below 5 and at or above it
+        u = ref.noise_uniform_ref(bits).double().numpy()
+        tail = -np.log1p(-u * u) >= 5.0
+        branches += (int((~tail).sum()), int(tail.sum()))
+    assert worst <= NORMAL_ATOL, worst
+    assert branches.min() > 1000, branches
+
+
+def test_port_noise_is_the_step_noise_op_and_scales_by_sigma():
+    from repro_torch.kernels import ops
+    from repro_torch.snn.simulator import make_noise
+
+    n, sigma = 1000, 0.8
+    draw = make_noise(seed=SEED, noise_sigma=sigma, n_global=n, device="cpu")
+    for t in (0, 5, 2**32 + 5):  # the step enters mod 2^32
+        got = draw(t)
+        assert got.dtype == torch.float32 and got.shape == (n,)
+        assert torch.equal(got, ops.step_noise(SEED, t, n, sigma, device="cpu"))
+        assert torch.equal(got, ref.step_noise_ref(SEED, t, n, sigma))
+        want = sigma * np.asarray(jax.random.normal(_jax_key(SEED, t % 2**32), (n,),
+                                                     jnp.float32))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=sigma * NORMAL_ATOL)
+    assert make_noise(seed=SEED, noise_sigma=0.0, n_global=n, device="cpu")(3) is None

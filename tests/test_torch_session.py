@@ -133,3 +133,20 @@ def test_unported_session_surfaces_raise(tmp_path):
     assert plastic.simulator.dev.any_plastic
     assert plastic.run(5).t_final == 5
     assert ses.t == 0
+
+
+@pytest.mark.parametrize("runs", [
+    ((150, 25),),  # the reference's own chunked run (tests/test_session.py:64)
+    ((70, 20), (35, None)),  # an uneven last chunk, then the default chunk
+])
+def test_last_run_chunks_match_reference(runs):
+    """``last_run_chunks`` is () before a run and, after each run, the
+    chunk lengths it executed, as the reference's ``Session`` records them."""
+    jses = JSession(_noise_free(jnet), JSimConfig(align_k=32))
+    ses = Session(_noise_free(tnet), SimConfig(align_k=32), device="cpu")
+    assert ses.last_run_chunks == jses.last_run_chunks == ()
+    for steps, chunk in runs:
+        j_res = jses.run(steps, chunk_size=chunk)
+        res = ses.run(steps, chunk_size=chunk)
+        assert ses.last_run_chunks == jses.last_run_chunks == res.chunks == j_res.chunks
+        assert len(ses.last_gather_modes) == len(ses.last_run_chunks)
