@@ -34,7 +34,8 @@ printing its own lines:
      of its plain version;
   4. main path: 1000 steps; the launch counts, set to 0 just before the run
      and read just after, must match the gather mode of every chunk (and
-     one ``noise`` launch a step);
+     one ``noise_add`` launch a step: the step's noise drawn at the
+     partition's ids and added to the ring slot and the bias);
   5. the event kernel against its plain version, its forced ``row_dot``
      variant and the dense kernels, on spike vectors of the main path's
      raster;
@@ -53,10 +54,17 @@ printing its own lines:
      need); the two gathers at a 5% vector and at a spike vector of the
      main path, with the bitmask read from device memory too;
      ``fused_step`` on the main path's next step beside its ``row_dot``
-     variant; the noise kernel bit-exact against its plain version over
-     2^20 ids at four steps (both erfinv branches), then timed; and the
-     dense and the event engine's us/step from one state of the main
-     path.
+     variant; ``noise_add`` bit-exact against its plain version over 2^20
+     shuffled ids (past 2^32, repeated) at four steps (t up to 2^31 + 3),
+     with and without a strided bias, both erfinv branches taken, the full
+     vector (``ops.step_noise``) likewise, and on the main path's own ids,
+     ring slots and bias column; then 100 steps of each engine from the
+     main path's end state with ``noise_add`` and through the old chain
+     (the seam fed the full vector: full draw, ``index_select``, add,
+     bias add), bit-identical, the device kernels of one step of each
+     counted by ``torch.profiler``, and its time beside that chain's ops
+     and a slot clone; and the dense and the event engine's us/step from
+     one state of the main path.
 
 The k>1 microcircuit path: ``Session(d4, SimConfig(), engine="spmd",
 devices=[card] * 4)``, four partitions on the one card, stepped in lockstep
@@ -80,7 +88,8 @@ devices=[card] * 4)``, four partitions on the one card, stepped in lockstep
       one at both vectors of k1, beside its ``row_dot`` variant, its plain version, its real-work bound and
       ``torch.sparse.mm`` over its panel on the same vector; the event
       kernel's remote pass at two vectors, as in 7) and the split
-      engines' us/step.
+      engines' us/step; the host time of the noise stage a step,
+      ``noise_add`` per partition against the chain it replaced.
 
 The plastic path is ``balanced_ei(n=12500, stdp=True)`` (Brunel's model A
 counts: 10,000 E and 2,500 I neurons, epsilon 0.1, 15.6 M synapses of which
@@ -120,7 +129,9 @@ kernel on the card, the float assembly in numpy on the host) -> ``Session``:
  p1. the keystream kernel bit-exact against its plain version on the card
      and against numpy ``crng.word_matrix``: 8,192 x 11,136 words (a bound
      on the build's calls), the build's largest call (8,192 x 8,348), odd
-     j0 with odd n_words, gathered ids with repeats up to 2^31-1, and a
+     j0 with odd n_words, gathered ids with repeats up to 2^31-1, the work
+     items' edges (one and two words a row from an odd j0, 7 words from an
+     odd j0, counters up to 2^32-1 at the last words below 2^32), and a
      zero-row and a zero-word call, which launch nothing;
  p2. ``balanced_ei_rules(n=12500, stdp=True)`` built as 4 uniform blocks on
      the card and by the numpy oracle: every partition array, dist, meta
@@ -135,10 +146,10 @@ kernel on the card, the float assembly in numpy on the host) -> ``Session``:
      three partitions of a k=64 block partition, built by the numpy oracle,
      equal to the card-built net's;
  p4. the keystream kernel's time with CUDA events at 8,192 x 11,136 words,
-     its plain version's, and its bound (the larger of the bytes over the
-     HBM rate and the cipher's ALU-pipe instructions over the ALU pipe's
-     rate); the built kernel's row loop read from its SASS (``cuobjdump``)
-     and counted by pipe.
+     its plain version's, and its bound: the larger of the bytes over the
+     HBM rate and the cipher's 67 integer operations over both integer
+     pipes; beside it, as a diagnostic, the built kernel's item loop (G
+     ciphers) counted by pipe from its SASS (``cuobjdump``).
 
 It ends with a JSON line of kernel figures, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -147,6 +158,7 @@ without a card it exits 1 before printing any result.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import math
@@ -183,7 +195,7 @@ from repro_torch.snn import (  # noqa: E402
 )
 from repro_torch.snn.neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V  # noqa: E402
 from repro_torch.kernels.dispatch import launch_row_dot, panel_reduce  # noqa: E402
-from repro_torch.snn.simulator import make_noise, slot_tables  # noqa: E402
+from repro_torch.snn.simulator import slot_tables, state_reduce  # noqa: E402
 
 STEPS = 1000
 PARITY_STEPS = 256
@@ -193,22 +205,35 @@ K_PARTS = 4  # partitions of the k>1 paths, all on the one card
 PLASTIC_N = 12500  # Brunel (2000) model A: 10,000 E and 2,500 I neurons
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM, non-tensor f32, published
-# H100 SXM ALU pipe (integer add, logic, shift): 132 SMs x 64 lanes x 1.98
-# GHz boost clock (the clock behind the published 67 TFLOP/s f32: 132 x 128
-# lanes x 2 x 1.98 GHz).  The FMA pipe beside it runs integer adds too, as
-# IMAD, at the same rate, and an SM issues 128 lanes' instructions a clock.
+# H100 SXM integer pipes: 132 SMs x 64 lanes x 1.98 GHz boost clock (the
+# clock behind the published 67 TFLOP/s f32: 132 x 128 lanes x 2 x 1.98 GHz)
+# for the ALU pipe (integer add, logic, shift) and for the FMA pipe's integer
+# side (IMAD); an SM dispatches 128 lanes' instructions a clock in all.
 INT32_ALU_OPS_PER_S = 132 * 64 * 1.98e9
-# Threefry-2x32-20 takes 20 funnel-shift rotates (SHF) and 20 xors (LOP3) a
-# cipher, which only the ALU pipe executes, and 27 adds (the key injections
-# fold into three-input IADD3), which may issue as IMAD on the FMA pipe at
-# the same time.  So the ALU pipe's 40 bound it: 67 instructions over the
-# issue rate take less (keystream_sass reads what the compiler emitted).
-INT_OPS_PER_CIPHER = 20 + 20
+INT32_FMA_OPS_PER_S = 132 * 64 * 1.98e9
+DISPATCH_PER_S = 132 * 128 * 1.98e9
+# Threefry-2x32-20 is 20 rotates, 20 xors and 27 adds a cipher: its bound
+# (cipher_ms) is these 67 integer operations over both integer pipes at
+# once, the least any split between the pipes could take.
+CIPHER_INT_OPS = 20 + 20 + 27
+# How the built keystream kernel issues them, read from its SASS
+# (keystream_sass, a diagnostic of the kernel, not its bound): a rotate is a
+# funnel shift (SHF.L.W, ALU pipe) or, in csrc/threefry.cuh's multiply form,
+# an IMAD.WIDE.U32 (FMA pipe) whose OR folds into the xor's LOP3 (ALU pipe);
+# an add is IADD3 (ALU pipe), IMAD.IADD or VIADD (FMA pipe).  An IMAD.WIDE
+# is counted as two dispatch slots of its pipe (it writes a register pair),
+# and VIADD, sm_90's add of an immediate or uniform operand, on the FMA pipe
+# (undocumented; ptxas uses it for the adds it moves off the ALU pipe).
+SASS_ADDS = {"IADD3": "alu", "IMAD.IADD": "fma", "VIADD": "fma"}
+# LOP3 truth tables of a two-input xor and of the folded (a | b) ^ c, in any
+# operand order
+LUT_XOR = {"0x3c", "0x5a", "0x66"}
+LUT_OR_XOR = {"0x1e", "0x36", "0x56"}
 # SASS opcodes by the sm_90 pipe that executes them (Nsight Compute's pipe
 # names); any other counts as "other"
 SASS_PIPES = {"IADD3": "alu", "LOP3": "alu", "SHF": "alu", "PRMT": "alu", "ISETP": "alu",
-              "LEA": "alu", "SEL": "alu", "IMAD": "fma", "LDG": "lsu", "STG": "lsu",
-              "BRA": "control", "BSSY": "control", "BSYNC": "control"}
+              "LEA": "alu", "SEL": "alu", "IMAD": "fma", "VIADD": "fma", "LDG": "lsu",
+              "STG": "lsu", "BRA": "control", "BSSY": "control", "BSYNC": "control"}
 # keystream shapes of microcircuit_rules(scale=1.0): a bound on its calls, a
 # full chunk of 8,192 rows x 4 Irwin-Hall words for each of the largest
 # rule's 2,784 candidate sources (L23E->L23I, whose 5,834 target rows never
@@ -247,9 +272,10 @@ SOURCES = {
                                   "src/repro/kernels/event_step.py:198"),
     "keystream": ("src/repro_torch/kernels/csrc/keystream.cu",
                   "src/repro/kernels/keystream.py:58"),
-    # not a TPU kernel: the reference draws its noise as jnp outside Pallas
-    "noise": ("src/repro_torch/kernels/csrc/noise.cu",
-              "src/repro/snn/simulator.py:411"),
+    # not a TPU kernel: the reference draws its noise as jnp outside Pallas,
+    # takes a partition's ids of it and adds it to the delivered slot
+    "noise_add": ("src/repro_torch/kernels/csrc/noise.cu",
+                  "src/repro/snn/simulator.py:411-438"),
 }
 
 
@@ -451,7 +477,7 @@ def phase_main_path(ses, n, pops, tag="main", need_event=True):
     require(dense + event == STEPS, f"gather modes {modes}")
     require(event > 0 or not need_event, "the main path never took the event gather")
     require(launches == only(lif_step=event, fused_step=dense, event_post_exchange=event,
-                             noise=STEPS),
+                             noise_add=STEPS),
             f"launches {launches} for {dense} dense and {event} event steps")
     counts = res.spike_count
     require(counts.shape == (STEPS,) and np.isfinite(rate.rates).all(), "bad spike counts")
@@ -562,7 +588,7 @@ def phase_parity(net, main_raster, nd):
     _, _, raster, secs = run_session(ses, PARITY_STEPS)
     launches = read_counts()
     require(launches == only(lif_step=PARITY_STEPS, spike_gather=PARITY_STEPS * nd,
-                             noise=PARITY_STEPS),
+                             noise_add=PARITY_STEPS),
             f"unfused path launches {launches}")
     require(np.array_equal(raster.raster, main_raster[:PARITY_STEPS]),
             "unfused raster differs from the main path's")
@@ -598,10 +624,9 @@ def phase_small_net():
         require(n_diff <= 0.01 * spikes, f"card and CPU rasters disagree on the small net "
                 f"({label})")
     cfg, sigma = SimConfig(), float(small.meta["noise_sigma"])
-    draws = [make_noise(seed=cfg.seed, noise_sigma=sigma, n_global=small.n, device=device)
-             for device in ("cuda", "cpu")]
     for t in range(PARITY_STEPS):
-        a, b = (draw(t) for draw in draws)
+        a, b = (ops.step_noise(cfg.seed, t, small.n, sigma, device=device)
+                for device in ("cuda", "cpu"))
         require(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)),
                 f"the port's noise of step {t} differs between the card and the CPU")
     say("parity", f"the port's own noise: the {PARITY_STEPS} steps' ({small.n},) vectors the "
@@ -837,45 +862,228 @@ def phase_engines(ses):
 # the branch select and w's shift (4), the Horner polynomial (17), sqrt(2)
 # and sigma (2)
 NOISE_F32_OPS = 61
-# the function needs one cipher an id (its bits) and one a launch (the step
-# key), each 20 rotates and 20 xors on the ALU pipe (INT_OPS_PER_CIPHER); the
-# kernel derives the key once a block, which the bound does not count
 
 
-def phase_noise(seed, card, n_main, launches):
-    """The noise kernel bit for bit against its plain version on the card,
-    over 2^20 ids at four steps, with both of erfinv's branches taken; then
-    its time at the main path's width beside its plain version and its
-    bound."""
+def noise_bound(n, bytes_per_id, f32_per_id):
+    """(ms, what bounds it, times) of a noise launch over ``n`` ids: the
+    function needs one cipher an id (its bits) and one a launch (the step
+    key, which the kernel derives once a block: not counted again), each
+    its 67 integer operations (``cipher_ms``), and ``f32_per_id`` float
+    operations an id, against ``bytes_per_id`` moved an id."""
+    times = dict(bytes=n * bytes_per_id / HBM_BYTES_PER_S * 1e3,
+                 f32=n * f32_per_id / F32_FLOPS_PER_S * 1e3, int32=cipher_ms(n + 1))
+    return (*bound_of(times), times)
+
+
+def noise_add_case(n, card, seed):
+    """``step_noise_add``'s inputs at ``n`` ids: a ring slot, the ids (a
+    permutation, every fifth moved past 2^32, every eleventh a repeat of the
+    first) and a vtx_state-like matrix whose column 3 is the strided bias."""
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(n).astype(np.int64)
+    ids[::5] += 2**32 + 17
+    ids[1::11] = ids[0]
+    x = rng.normal(0.0, 1.0, n).astype(np.float32)
+    vtx = rng.normal(0.0, 1.0, (n, 4)).astype(np.float32)
+    return (torch.from_numpy(x).to(card), torch.from_numpy(ids).to(card),
+            torch.from_numpy(vtx).to(card))
+
+
+def count_device_kernels(fn):
+    """The device kernels ``fn()`` launches, by name, from ``torch.profiler``
+    (CUPTI); fails if the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = Counter(e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    require(sum(names.values()) > 0, "torch.profiler saw no device kernel")
+    return names
+
+
+def old_chain_step(sim, gather):
+    """The simulator's step of ``gather`` with the noise through the seam,
+    fed the port's own full vector (the noise kernel over the ids
+    ``0..n-1``, one launch a step): the chain the engines ran before
+    ``step_noise_add`` (full draw, ``index_select``, add, bias add), on the
+    same panels."""
+    from repro_torch.snn.simulator import make_core_step
+
+    neg0 = torch.full((sim.net.n,), -0.0, device=sim.device)
+    all_ids = torch.arange(sim.net.n, device=sim.device)
+    choice = sim._choice(gather)
+    return make_core_step(
+        registry=sim.net.registry, models_present=sim._models, dt=sim.dt,
+        noise_sigma=sim.noise_sigma, seed=sim.cfg.seed, d_ring=sim.d_ring, dev=sim.dev,
+        noise_ids=sim._noise_ids, engine_choice=choice,
+        stdp_params=sim.stdp_params, event_plan=sim.event_plan if choice.event else None,
+        noise_fn=lambda t: noise_mod.noise_add_cuda(neg0, all_ids, sim.cfg.seed, t,
+                                                    sim.noise_sigma),
+    )
+
+
+def step_kernels(sim, step, state):
+    """The device kernels of one call of the step function ``step`` from
+    ``state`` (on a copy), by name."""
+    carry = {k: v.clone() if torch.is_tensor(v) else v for k, v in state.items()}
+    carry["_reduce"] = state_reduce(sim.dev, carry["weights"])
+    return count_device_kernels(lambda: step(carry))
+
+
+def run_with_step(sim, step, state, steps):
+    """``sim.run`` with its step function replaced by ``step``."""
+    own = sim._step
+    sim._step = step
+    try:
+        return sim.run(state, steps, record_raster=True)
+    finally:
+        sim._step = own
+
+
+def phase_noise_add(ses, seed, card, launches):
+    """``step_noise_add`` bit for bit against its plain version on the card:
+    2^20 shuffled ids with ids past 2^32 and repeats, four steps, with and
+    without a strided bias, over both of erfinv's branches; the full vector
+    (``ops.step_noise``, the same kernel at the ids ``0..n-1``) likewise;
+    and the main path's own inputs (its ids, a ring slot and the bias column
+    of its ``vtx_state``).  Then the main path's steps from its end state
+    with the port's own noise (one launch) and through the old chain,
+    bit-identical in raster and state; the device kernels of one noisy step
+    of each, from torch.profiler; and the kernel's time beside the old
+    chain's ops."""
     n = 1 << 20
+    x, ids, vtx = noise_add_case(n, card, seed)
     big = small = 0
     edge = math.sqrt(1.0 - math.exp(-5.0))  # w = -log1p(-u^2) >= 5 iff |u| > edge
-    for t in (0, 1, 777, 2**31 + 3):
-        got = noise_mod.noise_cuda(seed, t, n, 1.0, device=card)
+    for t in (0, 1, 999, 2**31 + 3):
+        for bias in (None, vtx[:, 3]):
+            before = noise_mod.COUNTER.launches
+            got = noise_mod.noise_add_cuda(x, ids, seed, t, 0.8, bias)
+            require(noise_mod.COUNTER.launches == before + 1, "noise_add launch count")
+            want = ref.step_noise_add_ref(x, ids, seed, t, 0.8, bias)
+            require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                    f"noise_add kernel differs from its plain version at step {t} "
+                    f"({'with' if bias is not None else 'without'} bias)")
+        got = ops.step_noise(seed, t, n, 1.0, device=card)
         want = ref.step_noise_ref(seed, t, n, 1.0, device=card)
         require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-                f"noise kernel differs from its plain version at step {t}")
+                f"ops.step_noise differs from its plain version at step {t}")
         u = ref.noise_uniform_ref(ref.noise_bits_ref(seed, t, n, card)).double().abs()
         big, small = big + int((u > edge).sum()), small + int((u <= edge).sum())
     require(big > 0 and small > 0, f"erfinv branches: {small} below 5, {big} at or above")
-    say("noise", f"noise kernel: {n} ids at 4 steps bit-identical to its plain version on the "
-        f"card; erfinv's branches taken {small} (w < 5) and {big} (w >= 5) times")
-    tk = cuda_ms(lambda: noise_mod.noise_cuda(seed, STEPS, n_main, 1.0, device=card), 200)
-    tp = cuda_ms(lambda: ref.step_noise_ref(seed, STEPS, n_main, 1.0, device=card), 10)
-    b_f32, _ = bound_ms(0, n_main * NOISE_F32_OPS)
-    int_ops = (n_main + 1) * INT_OPS_PER_CIPHER
-    b, by = bound_ms(4 * n_main, int_ops, INT32_ALU_OPS_PER_S)
-    if b_f32 > b:
-        b, by = b_f32, "operations"
-    say("timing", f"noise n={n_main}: kernel {tk * 1e3:.2f} us, plain {tp * 1e3:.1f} us, bound "
-        f"{b * 1e3:.3f} us ({by}: {n_main} + 1 ciphers x {INT_OPS_PER_CIPHER} ALU-pipe "
-        f"instructions over "
-        f"{INT32_ALU_OPS_PER_S / 1e12:.2f} T/s; {4 * n_main} B written; {NOISE_F32_OPS} f32 "
-        "operations an id); library: none (torch's generators are Philox, not Threefry)")
-    src, rep = SOURCES["noise"]
-    return dict(name="noise", route="cuda", source=src, replaces=rep, launches=launches,
+    say("noise", f"noise_add kernel: {n} shuffled ids (past 2^32, repeated) at 4 steps, with "
+        "and without a strided bias, and the full vector (ops.step_noise) over the ids 0..n-1, "
+        f"bit-identical to their plain versions on the card; erfinv's branches taken {small} "
+        f"(w < 5) and {big} (w >= 5) times")
+
+    sim = ses.simulator
+    n_main = sim.dev.n_p
+    ring = ses.state["ring"]
+    bias = ses.state["vtx_state"][:, LIF_BIAS]
+    ids_m = sim._noise_ids
+    sigma = sim.noise_sigma
+    for t in (0, 1, STEPS, 2**31 + 3):
+        for b_m in (None, bias):
+            got = noise_mod.noise_add_cuda(ring[t % sim.d_ring], ids_m, seed, t, sigma, b_m)
+            want = ref.step_noise_add_ref(ring[t % sim.d_ring], ids_m, seed, t, sigma, b_m)
+            require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                    f"noise_add differs from its plain version on the main path's inputs at "
+                    f"step {t} ({'with' if b_m is not None else 'without'} bias)")
+    say("noise", f"noise_add on the main path's inputs ({n_main} ids, its ring's slots, the bias "
+        f"column of its vtx_state at stride {bias.stride(0)}) at 4 steps, with and without the "
+        "bias: bit-identical to its plain version")
+
+    mode0 = sim.gather
+    for gather in ("dense", "event"):
+        sim.set_gather(gather)
+        old = old_chain_step(sim, gather)
+        st_new, out_new = sim.run(ses.state, ENGINE_STEPS, record_raster=True)
+        st_old, out_old = run_with_step(sim, old, ses.state, ENGINE_STEPS)
+        require(torch.equal(out_new["raster"], out_old["raster"])
+                and all(torch.equal(st_new[k], st_old[k]) for k in ("vtx_state", "ring", "hist")),
+                f"{sim.engine_choice.engine}: the own-noise steps differ from the old chain's")
+        k_new = step_kernels(sim, sim._step, ses.state)
+        k_old = step_kernels(sim, old, ses.state)
+        say("noise", f"{sim.engine_choice.engine}: {ENGINE_STEPS} steps from the main path's end "
+            f"state ({int(out_new['raster'].sum())} spikes) with noise_add and through the old "
+            "chain: raster, vtx_state, ring and hist bit-identical; device kernels of one step "
+            f"(torch.profiler): {sum(k_new.values())} with noise_add, {sum(k_old.values())} "
+            f"through the old chain; {dict(k_new)} against {dict(k_old)}")
+    sim.set_gather(mode0)
+
+    # the old chain's full draw: the kernel over the ids 0..n-1 (ops.step_noise)
+    neg0 = torch.full((n_main,), -0.0, device=card)
+    all_ids = torch.arange(n_main, device=card)
+    full = ops.step_noise(seed, STEPS, n_main, sigma, device=card)
+    slot = ring[3].clone()
+    tk = cuda_ms(lambda: noise_mod.noise_add_cuda(ring[3], ids_m, seed, STEPS, sigma, bias), 200)
+    tp = cuda_ms(lambda: ref.step_noise_add_ref(ring[3], ids_m, seed, STEPS, sigma, bias), 10)
+    chain = dict(
+        clone=cuda_ms(lambda: ring[3].clone(), 200),
+        noise=cuda_ms(lambda: noise_mod.noise_add_cuda(neg0, all_ids, seed, STEPS, sigma), 200),
+        index_select=cuda_ms(lambda: full.index_select(0, ids_m), 200),
+        add=cuda_ms(lambda: slot + full, 200),
+        bias_add=cuda_ms(lambda: slot + bias, 200),
+    )
+    b, by, times = noise_bound(n_main, 20, NOISE_F32_OPS + 2)
+    say("timing", f"noise_add n={n_main} with the bias: kernel {tk * 1e3:.2f} us, plain "
+        f"{tp * 1e3:.1f} us, bound {b * 1e3:.3f} us ({by}; "
+        + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in times.items())
+        + f" us: 20 B an id, x, id, bias read and the sum written; {n_main} + 1 ciphers, "
+        f"{NOISE_F32_OPS + 2} f32 operations an id); the old chain's ops "
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in chain.items())
+        + f" us, {sum(chain.values()) * 1e3:.2f} us in all; library: none (torch's generators "
+        "are Philox, not Threefry)")
+    src, rep = SOURCES["noise_add"]
+    return dict(name="noise_add", route="cuda", source=src, replaces=rep, launches=launches,
                 max_abs_err=0.0, ms=tk, plain_ms=tp, bound_ms=b, bound_by=by, library_ms=None,
-                path="main", note="not a TPU kernel: the reference draws its noise as jnp")
+                old_chain_ms=chain, path="main",
+                note="not a TPU kernel: the reference draws its noise as jnp, takes the "
+                "partition's ids and adds")
+
+
+def phase_k4_noise_host(ses):
+    """The host time of the k>1 path's noise stage a step, for its
+    ``K_PARTS`` partitions: ``step_noise_add`` per partition (what ``pre``
+    runs), against the chain it replaced (one ``(n_global,)`` draw a step on
+    the first partition's card, then per partition the slot's clone,
+    ``index_select``, add and bias add).  Host clock around ``STEPS`` steps
+    of each with no sync inside, alternated old, new, old, new; the time to
+    the sync after them beside it."""
+    dsim = ses.simulator
+    seed, sigma, D = dsim.cfg.seed, dsim.noise_sigma, dsim.d_ring
+    parts = [(c["ring"], c["vtx_state"], ids) for c, ids in zip(ses.state, dsim._noise_ids)]
+    dev0 = parts[0][0].device
+    neg0 = torch.full((dsim.n_global,), -0.0, device=dev0)
+    all_ids = torch.arange(dsim.n_global, device=dev0)
+
+    def new(t):
+        for ring, vtx, ids in parts:
+            ops.step_noise_add(ring[t % D], ids, seed, t, sigma, vtx[:, LIF_BIAS])
+
+    def old(t):
+        g = noise_mod.noise_add_cuda(neg0, all_ids, seed, t, sigma)
+        for ring, vtx, ids in parts:
+            i_syn = ring[t % D].clone()
+            i_syn = i_syn + g.to(ring.device).index_select(0, ids)
+            i_syn + vtx[:, LIF_BIAS]
+
+    per = {}
+    for label, fn in (("old chain", old), ("noise_add", new)) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(STEPS):
+            fn(t)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        synced = time.perf_counter() - t0
+        per.setdefault(label, []).append(f"{host / STEPS * 1e6:.1f} ({synced / STEPS * 1e6:.1f})")
+    say("timing", f"k>1 noise stage, {K_PARTS} partitions of {parts[0][2].numel()} ids, "
+        f"{STEPS} steps each (host clock, us/step; to the sync after them in brackets): "
+        + "; ".join(f"{k} {', '.join(v)}" for k, v in per.items()))
 
 
 def _nan_rows(x):
@@ -1081,7 +1289,7 @@ def phase_plastic_path(ses, n):
     say("plastic", f"chunks {res.chunks}, gather modes {ses.last_gather_modes}")
     require(ses.engine_choice.engine == "fused_plastic", f"engine {ses.engine_choice}")
     require(ses.last_gather_modes == ("dense",) * chunks, "a plastic chunk left the dense gather")
-    require(launches == only(fused_plastic_step=STEPS, noise=STEPS),
+    require(launches == only(fused_plastic_step=STEPS, noise_add=STEPS),
             f"plastic path launches {launches}")
     counts = res.spike_count
     require(counts.shape == (STEPS,) and np.isfinite(rate.rates).all(), "bad spike counts")
@@ -1111,7 +1319,7 @@ def phase_plastic_parity(net, main_raster):
     _, _, r_u, secs = run_session(unf, PARITY_STEPS)
     launches = read_counts()
     require(launches == only(lif_step=PARITY_STEPS, spike_gather=PARITY_STEPS * nd,
-                             stdp_update=PARITY_STEPS * nd, noise=PARITY_STEPS),
+                             stdp_update=PARITY_STEPS * nd, noise_add=PARITY_STEPS),
             f"unfused plastic path launches {launches}")
     fus = Session(net, SimConfig())
     _, _, r_f, _ = run_session(fus, PARITY_STEPS)
@@ -1239,7 +1447,7 @@ def split_launches(modes, chunks, overlap):
     two = overlap != "off"
     return only(lif_step=K_PARTS * (dense + event),
                 post_exchange=K_PARTS * (dense * (2 if two else 1) + event * two),
-                event_post_exchange=K_PARTS * event, noise=dense + event)
+                event_post_exchange=K_PARTS * event, noise_add=K_PARTS * (dense + event))
 
 
 def compose_ring(act, ring, clear, onehot, cols, weights, n_p):
@@ -1424,7 +1632,8 @@ def phase_k4_variants(base, card, default_raster, nd):
             want = split_launches(ses.last_gather_modes, res.chunks, choice.overlap)
         else:
             want = only(lif_step=K_PARTS * VARIANT_STEPS,
-                        spike_gather=K_PARTS * nd * VARIANT_STEPS, noise=VARIANT_STEPS)
+                        spike_gather=K_PARTS * nd * VARIANT_STEPS,
+                        noise_add=K_PARTS * VARIANT_STEPS)
         require(launches == want, f"k>1 {label} launches {launches}, expected {want}")
         require(int(res.overflow.sum()) == 0, f"k>1 {label} overflow")
         require(np.array_equal(raster.raster, default_raster[:VARIANT_STEPS]),
@@ -1661,10 +1870,10 @@ def require_plastic_equal(ses4, ses1, what):
 def plastic_k4_launches(overlap, fused, steps, nd):
     if not fused:
         return only(lif_step=K_PARTS * steps, spike_gather=K_PARTS * nd * steps,
-                    stdp_update=K_PARTS * nd * steps, noise=steps)
+                    stdp_update=K_PARTS * nd * steps, noise_add=K_PARTS * steps)
     local = overlap != "off"
     return only(pre_exchange=K_PARTS * steps, post_exchange=K_PARTS * steps * local,
-                post_exchange_plastic=K_PARTS * steps, noise=steps)
+                post_exchange_plastic=K_PARTS * steps, noise_add=K_PARTS * steps)
 
 
 def phase_k4_plastic_kernels(dsim, params, rng):
@@ -1843,21 +2052,20 @@ def phase_k4_plastic_timing(dsim, params, inputs, errs, launches):
 
 # -- procedural construction ---------------------------------------------------
 
-def keystream_bound(n_rows, j0, n_words):
-    """(ms, what bounds it, bytes, ciphers) of one keystream call: the
-    counters read once and the words written once, against one cipher per
-    counter pair the call touches."""
-    pairs = ((j0 + n_words - 1) >> 1) - (j0 >> 1) + 1 if n_words else 0
-    n_bytes = n_rows * 8 + n_rows * n_words * 4
-    ms, by = bound_ms(n_bytes, n_rows * pairs * INT_OPS_PER_CIPHER, INT32_ALU_OPS_PER_S)
-    return ms, by, n_bytes, n_rows * pairs
-
-
+@functools.lru_cache(maxsize=None)
 def keystream_sass():
-    """The built keystream kernel's row loop (one cipher, its counter load
-    and its stores), read from the library's SASS with ``cuobjdump``:
-    (instructions by pipe, rotates, xors).  Fails unless the loop holds the
-    one cipher's 20 rotates and 20 xors that ``INT_OPS_PER_CIPHER`` counts."""
+    """The built keystream kernel's item loop, read from the library's SASS
+    with ``cuobjdump``: G ciphers (``kPairs`` of ``csrc/keystream.cu``), the
+    item's row load and stores.  Fails unless the loop holds exactly G
+    ciphers' 20 rotates (either form) and 20 xors, with each multiply-form
+    rotate's OR folded into a xor.  Returns a dict: ``g``; ``body`` and
+    ``pipes``, the loop's instructions in all and by pipe; the rotates
+    (``shf``, ``wide``), ``xors``, ``folded`` and ``adds`` by opcode; and
+    ``per_cipher``, a cipher's instructions by pipe (its rotates and xors and
+    the loop's adds, over G; an IMAD.WIDE counts twice on the FMA pipe) and
+    to dispatch."""
+    src = (Path(__file__).resolve().parent / SOURCES["keystream"][0]).read_text()
+    g = int(re.search(r"constexpr int kPairs = (\d+);", src).group(1))
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(_build.build().path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -1875,12 +2083,63 @@ def keystream_sass():
     require(len(loops) == 1, f"keystream SASS: {len(loops)} backward branches")
     lo, hi = loops[0]
     body = [(op, args) for at, op, args in code if lo <= at <= hi]
+
     pipes = Counter(SASS_PIPES.get(op.split(".")[0], "other") for op, _ in body)
-    rotates = sum(op.startswith("SHF.L.W") for op, _ in body)
-    xors = sum(op.startswith("LOP3") and ", 0x3c," in args for op, args in body)
-    require(rotates == 20 and xors == 20,
-            f"keystream SASS loop: {rotates} rotates and {xors} xors, not one cipher's 20 and 20")
-    return dict(pipes), rotates, xors
+    shf = sum(op.startswith("SHF.L.W") for op, _ in body)
+    # a multiply-form rotate: the product of a register and a multiplier
+    # from the kernel's arguments (uniform register or constant bank), plus 0
+    wide = sum(op.startswith("IMAD.WIDE.U32") and args.rstrip().endswith("RZ")
+               and re.search(r"UR\d+|c\[0x0\]", args) is not None for op, args in body)
+    xors = folded = 0
+    for op, args in body:
+        if op.startswith("LOP3"):
+            table = re.findall(r"0x[0-9a-f]+", args)[-1]
+            xors += table in LUT_XOR | LUT_OR_XOR
+            folded += table in LUT_OR_XOR
+    adds = Counter(op for op, _ in body if op in SASS_ADDS)
+    require(shf + wide == 20 * g and xors == 20 * g and folded == wide,
+            f"keystream SASS loop: {shf} + {wide} rotates, {xors} xors ({folded} folded), "
+            f"not {g} ciphers' {20 * g} and {20 * g} with every product folded")
+    add_on = Counter()
+    for op, n in adds.items():
+        add_on[SASS_ADDS[op]] += n
+    per_cipher = dict(alu=(shf + xors + add_on["alu"]) / g, fma=(2 * wide + add_on["fma"]) / g,
+                      dispatch=(shf + wide + xors + sum(adds.values())) / g)
+    return dict(g=g, body=len(body), pipes=dict(pipes), shf=shf, wide=wide, xors=xors,
+                folded=folded, adds=dict(adds), per_cipher=per_cipher)
+
+
+def cipher_ms(ciphers):
+    """The least time of ``ciphers`` Threefry ciphers' operations: each
+    cipher's 67 over both integer pipes at once."""
+    return ciphers * CIPHER_INT_OPS / DISPATCH_PER_S * 1e3
+
+
+def sass_ms(ciphers):
+    """A diagnostic of the built keystream kernel: the ALU pipe's, the FMA
+    pipe's and the dispatch time of ``ciphers`` ciphers at its loop's
+    per-cipher counts (``keystream_sass``)."""
+    c = keystream_sass()["per_cipher"]
+    return dict(alu=ciphers * c["alu"] / INT32_ALU_OPS_PER_S * 1e3,
+                fma=ciphers * c["fma"] / INT32_FMA_OPS_PER_S * 1e3,
+                dispatch=ciphers * c["dispatch"] / DISPATCH_PER_S * 1e3)
+
+
+def bound_of(times):
+    """(ms, "bytes" or "operations") of the largest of ``times``."""
+    what = max(times, key=times.get)
+    return times[what], "bytes" if what == "bytes" else "operations"
+
+
+def keystream_bound(n_rows, j0, n_words):
+    """(ms, what bounds it, bytes, ciphers, times) of one keystream call: the
+    larger of the counters read once and the words written once over the
+    HBM rate, and the ciphers' integer operations (``cipher_ms``), one
+    cipher per counter pair the call touches."""
+    pairs = ((j0 + n_words - 1) >> 1) - (j0 >> 1) + 1 if n_words else 0
+    n_bytes = n_rows * 8 + n_rows * n_words * 4
+    times = dict(bytes=n_bytes / HBM_BYTES_PER_S * 1e3, int32=cipher_ms(n_rows * pairs))
+    return (*bound_of(times), n_bytes, n_rows * pairs, times)
 
 
 def keystream_cases(seed):
@@ -1897,6 +2156,16 @@ def keystream_cases(seed):
         ("odd j0 and odd n_words", crng.rule_stream(3, crng.SRC_OFF),
          rng.integers(0, 77169, 5000, dtype=np.int64), 3, 1001),
         ("gathered ids with repeats up to 2^31-1", crng.STREAM_COORD, gathered, 0, 4),
+        # the work items' edges: rows not a multiple of a block's items,
+        # pairs not a multiple of G, odd j0 with an odd tail, one and two
+        # words a row, counters up to 2^32-1, words up to 2^32
+        ("one word a row, odd j0", crng.STREAM_V, gathered[:4097], 1, 1),
+        ("two words a row, odd j0", crng.STREAM_V, gathered[:4097], 5, 2),
+        ("7 words a row (4 pairs from odd j0)", crng.rule_stream(2, crng.SRC_OFF),
+         gathered[:997], 5, 7),
+        ("counters up to 2^32-1, last words", crng.rule_stream(1, crng.SRC_OFF),
+         np.array([2**32 - 1, 0, 2**32 - 2, 2**32 - 1, 12345] * 13, np.int64),
+         2**32 - 37, 37),
         ("zero rows", crng.STREAM_V, np.zeros(0, np.int64), 0, 7),
         ("zero words", crng.STREAM_V, np.arange(10, dtype=np.int64), 5, 0),
     ]
@@ -1976,7 +2245,7 @@ def phase_rules_brunel(seed, card):
     reset_counts()
     _, _, r1, s1 = run_session(ses1, PARITY_STEPS)
     l1 = read_counts()
-    require(l1 == only(fused_plastic_step=PARITY_STEPS, noise=PARITY_STEPS),
+    require(l1 == only(fused_plastic_step=PARITY_STEPS, noise_add=PARITY_STEPS),
             f"k=1 launches {l1}")
     reset_counts()
     _, _, r4, s4 = run_session(ses4, PARITY_STEPS)
@@ -2054,23 +2323,29 @@ def phase_keystream_timing(seed, card, launches, err):
     rows_t = torch.from_numpy(rows).to(card)
     tk = cuda_ms(lambda: ks_mod._launch(seed, stream, rows_t, j0, n_words), 20)
     tp = cuda_ms(lambda: ks_mod.keystream_plain(seed, stream, rows_t, j0, n_words), 3)
-    b, by, n_bytes, ciphers = keystream_bound(rows.size, j0, n_words)
-    pipes, rotates, xors = keystream_sass()
-    say("p4", f"keystream SASS (cuobjdump), the row loop: {sum(pipes.values())} instructions, "
-        f"by pipe {pipes}: {rotates} rotates (SHF.L.W) and {xors} xors (LOP3) on the ALU "
-        f"pipe, the rest loop and store work; its {pipes.get('alu', 0)} ALU-pipe "
-        f"instructions over {INT32_ALU_OPS_PER_S / 1e12:.2f} T/s would take "
-        f"{ciphers * pipes.get('alu', 0) / INT32_ALU_OPS_PER_S * 1e3:.4f} ms at this shape")
+    sass = keystream_sass()
+    c = sass["per_cipher"]
+    say("p4", f"keystream SASS (cuobjdump), the item loop of G = {sass['g']} ciphers: "
+        f"{sass['body']} instructions, by pipe {sass['pipes']}; {sass['shf']} rotates as SHF.L.W "
+        f"and {sass['wide']} as IMAD.WIDE.U32 ({sass['folded']} ORs folded into the "
+        f"{sass['xors']} xors' LOP3), adds {sass['adds']}: a cipher is {c['alu']:.2f} ALU-pipe "
+        f"and {c['fma']:.2f} FMA-pipe dispatch slots (IMAD.WIDE twice), {c['dispatch']:.2f} "
+        "instructions")
     t_d2h = cuda_ms(lambda: ks_mod._launch(seed, stream, rows_t, j0, n_words).cpu(), 3)
+    b, by, n_bytes, ciphers, times = keystream_bound(rows.size, j0, n_words)
+    issue = sass_ms(ciphers)
     say("p4", f"keystream {rows.size} x {n_words}: kernel {tk:.4f} ms "
         f"({ciphers / tk / 1e6:.1f} G ciphers/s, {n_bytes / tk / 1e6:.0f} GB/s), plain {tp:.3f} ms, "
-        f"bound {b:.4f} ms ({by}: {ciphers} ciphers x {INT_OPS_PER_CIPHER} ALU-pipe "
-        f"instructions over {INT32_ALU_OPS_PER_S / 1e12:.2f} T/s; bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms for "
-        f"{n_bytes / 1e9:.3f} GB); with the copy to the host {t_d2h:.3f} ms; library: none "
-        "(torch's generators are Philox; no PyTorch call computes Threefry words)")
+        f"bound {b:.4f} ms ({by}; bytes {times['bytes']:.4f} ms for {n_bytes / 1e9:.3f} GB, "
+        f"{ciphers} ciphers' {CIPHER_INT_OPS} integer operations each {times['int32']:.4f} ms at "
+        f"{DISPATCH_PER_S / 1e12:.2f} T lanes/s over both pipes); the built loop's issue time "
+        f"(SASS counts, diagnostic): ALU pipe {issue['alu']:.4f}, FMA pipe {issue['fma']:.4f}, "
+        f"dispatch {issue['dispatch']:.4f} ms; with the copy to the host {t_d2h:.3f} ms; "
+        "library: none (torch's generators are Philox; no PyTorch call computes Threefry words)")
     src, rep = SOURCES["keystream"]
     return dict(name="keystream", route="cuda", source=src, replaces=rep, launches=launches,
                 max_abs_err=err, ms=tk, plain_ms=tp, bound_ms=b, bound_by=by, library_ms=None,
+                bound_parts_ms=times, sass_issue_ms=issue,
                 path="procedural build of microcircuit_rules")
 
 
@@ -2122,7 +2397,7 @@ def main(argv=None) -> int:
     phase_small_net()
     phase_nan(card, args.seed)
     kernels = phase_timing(ses, params, inputs, event_act, errs, launches)
-    kernels.append(phase_noise(args.seed, card, net.n, launches["noise"]))
+    kernels.append(phase_noise_add(ses, args.seed, card, launches["noise_add"]))
     phase_engines(ses)
     del ses, sim, net, inputs  # the k>1 path's memory is measured alone
     gc.collect()
@@ -2147,6 +2422,7 @@ def main(argv=None) -> int:
     phase_k4_variants(ses4, card, k4_raster, len(dsim.devs[0].cols))
     kernels += phase_k4_timing(dsim, k4_act, k4_errs, k4_launches)
     phase_k4_engines(ses4)
+    phase_k4_noise_host(ses4)
     del ses4, dsim, d4  # the plastic paths' memory is measured alone
     gc.collect()
     torch.cuda.empty_cache()

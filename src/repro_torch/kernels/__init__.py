@@ -5,7 +5,7 @@ beside its plain torch version, behind the ``ops`` entry points.
     ``event_post_exchange``, ``stdp_update``, ``fused_step_plastic``, and the
     split step's ``fused_pre_exchange`` and ``fused_post_exchange*``, the
     procedural construction's ``builder_keystream``, and the simulator's
-    per-step ``step_noise``
+    per-step ``step_noise`` and ``step_noise_add``
   - :mod:`.dispatch`     -- backend by device, step-engine selection
   - :mod:`.ref`          -- the plain torch versions (correctness contract)
   - :mod:`.lif_step`, :mod:`.spike_gather`, :mod:`.fused_step`,

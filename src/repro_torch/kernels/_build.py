@@ -160,7 +160,7 @@ _SIGNATURES = {
     ),
     "repro_post_exchange_plastic_max_buckets": [],
     "repro_keystream": [_P, _P, _L, _I, _U, _U, _U, _P, _I],
-    "repro_noise": [_P, _L, _U, _U, _F, _P, _I],
+    "repro_noise_add": [_P, _P, _P, _L, _P, _L, _U, _U, _F, _P, _I],
 }
 
 

@@ -18,7 +18,7 @@ from .fused_step import (
 )
 from .keystream import keystream_cuda, keystream_plain
 from .lif_step import lif_step_cuda
-from .noise import noise_cuda, noise_plain
+from .noise import noise_add_cuda, noise_add_plain, noise_cuda, noise_plain
 from .spike_gather import spike_gather_cuda
 from .split_step import post_exchange_cuda, post_exchange_plastic_cuda, pre_exchange_cuda
 from .stdp_update import stdp_update_cuda, stdp_update_plain
@@ -50,6 +50,21 @@ def step_noise(seed, t, n, sigma, *, device):
     with the reference's key and bits, the same on the card and on the
     CPU."""
     return lookup("step_noise", backend_for(device))(seed, t, n, sigma, device=device)
+
+
+implementation("step_noise_add", "ref")(noise_add_plain)
+implementation("step_noise_add", "cuda")(noise_add_cuda)
+
+
+def step_noise_add(x, ids, seed, t, sigma, bias=None):
+    """``out[r] = (x[r] + sigma * normal(seed, t, ids[r])) [+ bias[r]]``, a
+    new f32 tensor on ``x``'s device: the noise of step ``t`` drawn at a
+    partition's own permanent ``ids`` (int64) and added to ``x``, its
+    delivered ring slot, then to ``bias`` (the strided ``LIF_BIAS`` column
+    of ``vtx_state``, for the fused engines), each add one f32 rounding in
+    the reference's order.  Bit for bit ``x + step_noise(seed, t, n,
+    sigma)[ids]`` (then ``+ bias``), in one launch on the card."""
+    return lookup("step_noise_add", backend_for(x.device))(x, ids, seed, t, sigma, bias)
 
 
 # -- spike_gather ---------------------------------------------------------

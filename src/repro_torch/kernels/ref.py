@@ -8,14 +8,15 @@ kernels against them on the card.  ``alif_step_ref`` and
 ``izhikevich_step_ref`` have no kernel, as in the reference, where they run
 as jnp outside any Pallas kernel; ``trace_decay_ref`` runs as torch ops on
 the unfused engine (the reference computes it as jnp there) and inside the
-fused plastic kernel on the fused one.  ``step_noise_ref`` is the plain
-version of ``csrc/noise.cu``, the simulator's per-step noise, which the
-reference draws as jnp outside Pallas.
+fused plastic kernel on the fused one.  ``step_noise_ref`` and
+``step_noise_add_ref`` are the plain versions of ``csrc/noise.cu``, the
+simulator's per-step noise, which the reference draws as jnp outside
+Pallas.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -397,9 +398,16 @@ def noise_bits_ref(seed: int, t: int, n: int, device=None) -> Tensor:
     """``jax.random.bits(fold_in(PRNGKey(seed), t), (n,), uint32)`` as int64:
     ``x0 ^ x1`` of the cipher under the step key at the counter pair ``(i >>
     32, i & 0xffffffff)`` of each id ``i`` (jax's partitionable threefry)."""
+    return noise_bits_at_ref(seed, t, torch.arange(n, dtype=torch.int64, device=device))
+
+
+def noise_bits_at_ref(seed: int, t: int, ids: Tensor) -> Tensor:
+    """The raw bits of step ``t`` at the given int64 ids (read as uint64):
+    ``noise_bits_ref(seed, t, n)[ids]`` for ids below ``n``, without drawing
+    the others."""
     k0, k1 = step_key_ref(seed, t)
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    x0, x1 = threefry2x32_ref(k0, k1, i >> 32, i & _M32)
+    ids = ids.to(torch.int64)
+    x0, x1 = threefry2x32_ref(k0, k1, (ids >> 32) & _M32, ids & _M32)
     return x0 ^ x1
 
 
@@ -515,3 +523,15 @@ def step_noise_ref(seed: int, t: int, n: int, sigma: float, *, device=None) -> T
     normal transform's rounding.  ``sigma`` is rounded to f32 first, as the
     kernel and the reference take it."""
     return noise_normal_ref(noise_bits_ref(seed, t, n, device)) * _f32(sigma).to(device)
+
+
+def step_noise_add_ref(x: Tensor, ids: Tensor, seed: int, t: int, sigma: float,
+                       bias: Optional[Tensor] = None) -> Tensor:
+    """``(x + sigma * normal(seed, t, ids)) [+ bias]``, each add one f32
+    rounding, left to right: the reference's ``i_syn + noise + bias``
+    (``repro/snn/simulator.py:409-438``) with the noise drawn at a
+    partition's own ids, equal bit for bit to ``x + step_noise_ref(seed, t,
+    n, sigma)[ids]`` (then ``+ bias``)."""
+    z = noise_normal_ref(noise_bits_at_ref(seed, t, ids)) * _f32(sigma).to(x.device)
+    out = x + z
+    return out if bias is None else out + bias

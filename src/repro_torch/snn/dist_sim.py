@@ -19,9 +19,13 @@ devices.  The exchange is a concatenation:
     the ids are scattered as 1.0 into the activity, and the spikes dropped
     past the cap are counted per partition and step (``outs['overflow']``).
 
-Every partition receives the same activity on its own device.  The noise of
-a step is drawn once, ``(n_global,)``, and each partition takes its rows by
-permanent id, so a trajectory is the k = 1 run's of ``merge_to_single(net)``.
+Every partition receives the same activity on its own device.  Each
+partition draws the noise of a step at its own rows' permanent ids, on its
+own device, in the launch that adds it to its ring slot
+(``ops.step_noise_add``); a row's value is the one its id has in the step's
+``(n_global,)`` vector, so a trajectory is the k = 1 run's of
+``merge_to_single(net)``.  The ``_noise_fn`` seam draws that vector once a
+step and each partition takes its rows from it.
 
 Requires uniform partitions (``to_dcsr(..., uniform=True)``): with equal
 blocks, partition-contiguous global ids are ``p * n_p + local id`` and the
@@ -302,10 +306,9 @@ class DistSimulator:
             torch.from_numpy(part.global_ids).to(dev)
             for part, dev in zip(net.parts, self.devices)
         ]
-        self._noise = make_noise(
-            seed=cfg.seed, noise_sigma=self.noise_sigma, n_global=self.n_global,
-            device=self.devices[0], noise_fn=_noise_fn,
-        )
+        # the seam's noise, drawn once a step for all partitions; without it
+        # each partition's step draws its own ids on its own device
+        self._seam_noise = None if _noise_fn is None else make_noise(_noise_fn, self.devices[0])
         self._noise_fn = _noise_fn
         self._steps: Dict[str, List[Callable]] = {}
         self._event_plans: Optional[List[EventPlan]] = (
@@ -406,7 +409,6 @@ class DistSimulator:
                     noise_sigma=self.noise_sigma,
                     seed=self.cfg.seed,
                     d_ring=self.d_ring,
-                    n_global=self.n_global,
                     dev=dev,
                     noise_ids=self._noise_ids[p],
                     engine_choice=choice,
@@ -506,7 +508,7 @@ class DistSimulator:
         choice = fns[0].engine_choice
         has_post = choice.split or not choice.fused
         for j in range(steps):
-            noise_g = self._noise(carries[0]["t"])
+            noise_g = None if self._seam_noise is None else self._seam_noise(carries[0]["t"])
             halves = [f.pre(c, noise_g) for f, c in zip(fns, carries)]
             spikes = [h[0] for h in halves]
             if has_post:

@@ -54,16 +54,18 @@ running spike rate stays under ``EVENT_ACTIVITY_THRESHOLD``, as the
 reference does.  The engines give identical rasters, so the switch never
 changes a trajectory.
 
-Noise is a pure function of (seed, t, permanent neuron id): the
-``(n_global,)`` normals of a step come from counters alone
-(``ops.step_noise``: Threefry under the reference's key
+Noise is a pure function of (seed, t, permanent neuron id): the normals
+come from counters alone (Threefry under the reference's key
 ``fold_in(PRNGKey(seed), t)``, the reference's bits and uniforms, and the
-normal transform in correctly rounded f32 operations), once a step, and each
-row takes the value of its permanent id.  The noise is the same on the card
-and on the CPU; it differs from ``jax.random.normal``'s by up to 4.8e-7 (the
-normal transform's log1p), so cross-package raster tests inject the
-reference's noise through the ``_noise_fn`` seam of :class:`Simulator` and
-``DistSimulator``.
+normal transform in correctly rounded f32 operations), so each partition
+draws exactly its own rows' ids, and adds them to its delivered ring slot
+(and the bias) in the same launch (``ops.step_noise_add``); a row gets the
+value its permanent id has in the step's ``(n_global,)`` vector
+(``ops.step_noise``).  The noise is the same on the card and on the CPU; it
+differs from ``jax.random.normal``'s by up to 4.8e-7 (the normal
+transform's log1p), so cross-package raster tests inject the reference's
+noise through the ``_noise_fn`` seam of :class:`Simulator` and
+``DistSimulator``, which adds a full vector through ``index_select``.
 """
 from __future__ import annotations
 
@@ -275,23 +277,20 @@ def _models_present(net: DCSRNetwork) -> Tuple[str, ...]:
     return tuple(names)
 
 
-def make_noise(
-    *, seed: int, noise_sigma: float, n_global: int, device,
-    noise_fn: Optional[Callable[[int], object]] = None,
-) -> Callable[[int], Optional[torch.Tensor]]:
-    """``noise(t)``: the ``(n_global,)`` f32 noise of step ``t`` on
-    ``device`` (already scaled by sigma), or None on a noise-free net.  The
-    port's own noise is ``ops.step_noise``: counter-based, with the
-    reference's key and bits, the same on the card and on the CPU, and no
-    generator state.  ``noise_fn(t)``, when given, supplies it instead (the
-    cross-package seam)."""
+def make_noise(noise_fn: Callable[[int], object], device) -> Callable[[int], torch.Tensor]:
+    """The noise seam: ``noise(t)`` is ``noise_fn(t)``, the ``(n_global,)``
+    f32 noise of step ``t`` (already scaled by sigma), a numpy-convertible
+    vector or a torch tensor, on ``device``.  Cross-package tests inject the
+    reference's noise through it.  The port's own noise needs no seam: each
+    step draws it at the partition's ids (``ops.step_noise_add``,
+    :func:`make_core_step`), equal to ``ops.step_noise``'s full vector
+    there."""
 
-    def noise(t: int) -> Optional[torch.Tensor]:
-        if noise_fn is not None:
-            return torch.tensor(np.asarray(noise_fn(t)), dtype=torch.float32, device=device)
-        if noise_sigma <= 0:
-            return None
-        return ops.step_noise(seed, t, n_global, noise_sigma, device=device)
+    def noise(t: int) -> torch.Tensor:
+        v = noise_fn(t)
+        if isinstance(v, torch.Tensor):
+            return v.to(device=device, dtype=torch.float32)
+        return torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
 
     return noise
 
@@ -317,7 +316,6 @@ def make_core_step(
     noise_sigma: float,
     seed: int,
     d_ring: int,
-    n_global: int,
     dev: PartitionDeviceData,
     noise_ids: torch.Tensor,
     engine_choice: StepEngineChoice,
@@ -336,11 +334,20 @@ def make_core_step(
     ids of the local rows.  ``noise_fn(t)``, when given, supplies the
     ``(n_global,)`` noise of step ``t`` in place of the port's own noise.
 
+    The noise: with the port's own (no ``noise_fn``, ``noise_sigma > 0``)
+    each step draws the partition's ids and adds them to the delivered ring
+    slot in one launch (``ops.step_noise_add``), and the fused engines take
+    the bias in the same launch.  With ``noise_fn`` a step adds the seam's
+    ``(n_global,)`` vector through ``index_select``.  Both add ``i_syn +
+    noise + bias`` left to right, as the reference does, so the port's own
+    noise gives the same bits either way.
+
     ``step`` runs the k = 1 step, whose exchange is the identity.  A driver
     of k partitions (``snn/dist_sim.py``) calls the halves itself:
     ``step.pre(carry, noise_g)`` up to the exchange (returns ``(spikes,
-    tr_plus)``; ``noise_g`` is the step's ``(n_global,)`` noise, drawn once
-    for all partitions), then its exchange over all partitions, then
+    tr_plus)``; ``noise_g`` is the seam's ``(n_global,)`` noise of the step,
+    drawn once for all partitions, or None, when the step draws its own or
+    the net is noise-free), then its exchange over all partitions, then
     ``step.post(carry, spikes, act, pre_trace)`` with the exchanged
     activity and pre-trace.  The carry holds ``_reduce``, the reduction of
     the gathers over its weights (:func:`state_reduce`), which the driver
@@ -382,10 +389,8 @@ def make_core_step(
         lif_params = {"dt": dt, **{k: lif_p[k] for k in LIF_PARAM_KEYS}}
     else:
         neuron_step = make_neuron_step(registry, models_present, dt)
-    draw_noise = make_noise(
-        seed=seed, noise_sigma=noise_sigma, n_global=n_global, device=device,
-        noise_fn=noise_fn,
-    )
+    own_noise = noise_fn is None and noise_sigma > 0
+    seam_noise = None if noise_fn is None else make_noise(noise_fn, device)
     clear_tab, onehot_tab = slot_tables(D, dev.delays, device) if choice.split else (None, None)
 
     def apply_pending(carry: Dict) -> None:
@@ -425,15 +430,22 @@ def make_core_step(
         t = carry["t"]
         slot = t % D
         ring = carry["ring"]
-        i_syn = ring[slot].clone()
+        vtx = carry["vtx_state"]
+        # the step's input current, a new tensor: i_syn + noise (+ bias on
+        # the fused engines, whose neuron step is inside their kernel)
+        bias = vtx[:, LIF_BIAS] if choice.fused else None
+        if own_noise:
+            i_in = ops.step_noise_add(ring[slot], noise_ids, seed, t, noise_sigma, bias)
+        else:
+            i_in = ring[slot].clone() if noise_g is None else (
+                ring[slot] + noise_g.to(device).index_select(0, noise_ids))
+            if bias is not None:
+                i_in += bias
         if not (choice.split or choice.event):
             # the split and event kernels rotate the ring themselves
             ring[slot] = 0.0
-        if noise_g is not None:
-            i_syn = i_syn + noise_g.to(device).index_select(0, noise_ids)
-        vtx = carry["vtx_state"]
         if not choice.fused:
-            new_vtx, spikes = neuron_step(dev.vtx_model, vtx, i_syn)
+            new_vtx, spikes = neuron_step(dev.vtx_model, vtx, i_in)
             vtx.copy_(new_vtx)
             if plastic:
                 # the trace decays as torch ops, as the reference runs them
@@ -441,13 +453,12 @@ def make_core_step(
                 carry["tr_plus"] = ref.trace_decay_ref(carry["tr_plus"], spikes, dt=dt, tau=taus[0])
                 carry["tr_minus"] = ref.trace_decay_ref(carry["tr_minus"], spikes, dt=dt, tau=taus[1])
             return spikes, carry["tr_plus"]
-        i_tot = i_syn + vtx[:, LIF_BIAS]
         v, refrac = vtx[:, LIF_V].contiguous(), vtx[:, LIF_REF].contiguous()
         if choice.engine == "fused":
             # one cooperative launch: LIF advance + spike emission + every
             # bucket's gather from the fresh spike vector
             v2, r2, spikes, currents = ops.fused_step(
-                v, refrac, i_tot, dev.cols, carry["weights"], dev.row_len,
+                v, refrac, i_in, dev.cols, carry["weights"], dev.row_len,
                 params=lif_params, reduce=carry["_reduce"],
             )
             for cur, d in zip(currents, dev.delays):
@@ -459,7 +470,7 @@ def make_core_step(
             # spike vector, the pre-trace tr_plus')
             (v2, r2, spikes, carry["tr_plus"], carry["tr_minus"], currents,
              new_weights) = ops.fused_step_plastic(
-                v, refrac, i_tot, carry["tr_plus"], carry["tr_minus"], dev.cols,
+                v, refrac, i_in, carry["tr_plus"], carry["tr_minus"], dev.cols,
                 carry["weights"], dev.plastic, params=lif_params, taus=taus,
                 stdp=stdp_params,
             )
@@ -470,18 +481,18 @@ def make_core_step(
             # LIF advance, then one launch that compresses the spikes to
             # ids, flags the touched row blocks and adds only their gathers
             # to the ring (the delivered slot cleared first)
-            v2, r2, spikes = ops.lif_step(v, refrac, i_tot, params=lif_params)
+            v2, r2, spikes = ops.lif_step(v, refrac, i_in, params=lif_params)
             ops.event_post_exchange(
                 spikes, ring, slot, [(t + d) % D for d in dev.delays],
                 event_plan, dev.cols, carry["weights"], dev.row_len, reduce=carry["_reduce"],
             )
         elif choice.plastic:  # fused_split_plastic: LIF + both trace decays
             v2, r2, spikes, carry["tr_plus"], carry["tr_minus"] = ops.fused_pre_exchange(
-                v, refrac, i_tot, carry["tr_plus"], carry["tr_minus"],
+                v, refrac, i_in, carry["tr_plus"], carry["tr_minus"],
                 params=lif_params, taus=taus,
             )
         else:  # fused_split, fused_split_event: the trace-free pre-exchange
-            v2, r2, spikes = ops.fused_pre_exchange(v, refrac, i_tot, params=lif_params)
+            v2, r2, spikes = ops.fused_pre_exchange(v, refrac, i_in, params=lif_params)
         vtx[:, LIF_V] = v2
         vtx[:, LIF_REF] = r2
         return spikes, carry["tr_plus"]
@@ -545,7 +556,7 @@ def make_core_step(
         carry["t"] = t + 1
 
     def step(carry: Dict) -> torch.Tensor:
-        spikes, tr_plus = pre(carry, draw_noise(carry["t"]))
+        spikes, tr_plus = pre(carry, None if seam_noise is None else seam_noise(carry["t"]))
         post(carry, spikes, spikes, tr_plus)  # the identity exchange
         return spikes
 
@@ -659,7 +670,6 @@ class Simulator:
                 noise_sigma=self.noise_sigma,
                 seed=self.cfg.seed,
                 d_ring=self.d_ring,
-                n_global=self.net.n,
                 dev=self.dev,
                 noise_ids=self._noise_ids,
                 engine_choice=choice,

@@ -803,6 +803,32 @@ def test_keystream_kernel_bit_exact(cuda, rng, kind, j0, n_words):
                                   crng.word_matrix(seed, stream, rows, j0, n_words))
 
 
+# the kernel's work items: a persistent grid over (row, group of 4 counter
+# pairs), 16-byte stores away from a row's first and last words
+@pytest.mark.parametrize("n_rows,j0,n_words", [
+    (1, 0, 1), (1, 1, 1), (255, 0, 2), (257, 1, 2), (1000, 3, 1), (4097, 5, 2),
+    (333, 0, 7), (333, 1, 8), (333, 3, 9), (77, 5, 15), (77, 0, 16), (77, 2, 17),
+    (129, 7, 4097), (3, 1, 11137), (65, 2**32 - 37, 37), (65, 2**32 - 8, 8),
+])
+def test_keystream_kernel_edges_bit_exact(cuda, rng, n_rows, j0, n_words):
+    """Rows not a multiple of a block's items, pairs not a multiple of G,
+    odd j0 with odd tails, one and two words a row, counters 2^31-1 and up to
+    2^32-1, words up to 2^32: torch.equal to the plain version and numpy."""
+    from repro_torch.builder import crng
+
+    rows = rng.integers(0, 2**32, n_rows, dtype=np.int64)
+    rows[::3] = 2**31 - 1
+    rows[1::5] = 2**32 - 1
+    t = torch.from_numpy(rows).to(cuda)
+    seed, stream = 11, crng.rule_stream(3, crng.SRC_OFF)
+    before = ks_mod.COUNTER.launches
+    got = ks_mod.keystream_cuda(seed, stream, t, j0, n_words)
+    assert ks_mod.COUNTER.launches == before + 1
+    assert torch.equal(got, ks_mod.keystream_plain(seed, stream, t, j0, n_words))
+    np.testing.assert_array_equal(ks_mod.as_uint32(got),
+                                  crng.word_matrix(seed, stream, rows, j0, n_words))
+
+
 @pytest.mark.parametrize("n_rows,n_words", [(0, 5), (3, 0), (0, 0)])
 def test_keystream_empty_calls_launch_nothing(cuda, n_rows, n_words):
     before = ks_mod.COUNTER.launches
@@ -863,6 +889,58 @@ def test_noise_kernel_bit_exact_vs_plain(cuda, seed, n):
         tail += int((got.abs() > 0.8 * 2.72).sum())
     if n >= 77172:
         assert tail > 0  # the w >= 5 branch of erfinv was taken
+
+
+def _noise_add_case(rng, n, device):
+    ids = rng.permutation(n).astype(np.int64)
+    ids[::5] += 2**32 + 17  # ids past 2^32
+    ids[1::11] = ids[0]  # repeats
+    x = rng.normal(size=n).astype(np.float32)
+    vtx = rng.normal(size=(n, 4)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, ids, vtx)]
+
+
+@pytest.mark.parametrize("n", [1, 77172, 1_048_576])
+def test_noise_add_kernel_bit_exact_vs_plain(cuda, rng, n):
+    """One launch draws the noise at the given ids and adds it to x (and a
+    strided bias): the plain version's bits, and the full vector's value at
+    each id."""
+    from repro_torch.kernels import noise as noise_mod
+
+    x, ids, vtx = _noise_add_case(rng, n, cuda)
+    for t in (0, 1, 999, 2**31 + 3):
+        for bias in (None, vtx[:, 3]):
+            before = noise_mod.COUNTER.launches
+            got = ops.step_noise_add(x, ids, 42, t, 0.8, bias)
+            assert noise_mod.COUNTER.launches == before + 1
+            want = ref.step_noise_add_ref(x, ids, 42, t, 0.8, bias)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    small = ids % 2**20
+    full = ops.step_noise(42, 5, 2**20, 0.8, device=cuda)
+    got = ops.step_noise_add(x, small, 42, 5, 0.8, vtx[:, 3])
+    want = (x + full.index_select(0, small)) + vtx[:, 3]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_noise_add_kernel_refuses_bad_operands(cuda):
+    from repro_torch.kernels import noise as noise_mod
+
+    x = torch.zeros(8, device=cuda)
+    ids = torch.arange(8, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        noise_mod.noise_add_cuda(x.cpu(), ids.cpu(), 1, 0, 1.0)
+    with pytest.raises(TypeError):
+        noise_mod.noise_add_cuda(x, ids.int(), 1, 0, 1.0)
+    with pytest.raises(ValueError, match="ids"):
+        noise_mod.noise_add_cuda(x, ids[:7].contiguous(), 1, 0, 1.0)
+    with pytest.raises(ValueError, match="bias"):
+        noise_mod.noise_add_cuda(x, ids, 1, 0, 1.0, torch.zeros(7, device=cuda))
+    with pytest.raises(ValueError, match=">= 0"):
+        noise_mod.noise_add_cuda(x, ids, 1, -1, 1.0)
+    before = noise_mod.COUNTER.launches
+    empty = torch.zeros(0, device=cuda)
+    assert noise_mod.noise_add_cuda(empty, ids[:0], 1, 0, 1.0).shape == (0,)
+    assert noise_mod.COUNTER.launches == before
 
 
 def test_noise_kernel_refuses_bad_operands(cuda):

@@ -173,17 +173,137 @@ def test_port_noise_normals_within_tolerance_of_jax():
 
 
 def test_port_noise_is_the_step_noise_op_and_scales_by_sigma():
+    """``ops.step_noise`` is sigma times jax's normal of the step key, and
+    the seam (``make_noise``) hands a given vector, numpy or torch, to the
+    engines as an f32 tensor on their device."""
     from repro_torch.kernels import ops
     from repro_torch.snn.simulator import make_noise
 
     n, sigma = 1000, 0.8
-    draw = make_noise(seed=SEED, noise_sigma=sigma, n_global=n, device="cpu")
+    seam = make_noise(lambda t: ops.step_noise(SEED, t, n, sigma, device="cpu"), "cpu")
     for t in (0, 5, 2**32 + 5):  # the step enters mod 2^32
-        got = draw(t)
+        got = ops.step_noise(SEED, t, n, sigma, device="cpu")
         assert got.dtype == torch.float32 and got.shape == (n,)
-        assert torch.equal(got, ops.step_noise(SEED, t, n, sigma, device="cpu"))
         assert torch.equal(got, ref.step_noise_ref(SEED, t, n, sigma))
+        assert torch.equal(seam(t), got)
         want = sigma * np.asarray(jax.random.normal(_jax_key(SEED, t % 2**32), (n,),
                                                      jnp.float32))
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=sigma * NORMAL_ATOL)
-    assert make_noise(seed=SEED, noise_sigma=0.0, n_global=n, device="cpu")(3) is None
+        from_numpy = make_noise(lambda t: want.astype(np.float64), "cpu")(t)
+        assert from_numpy.dtype == torch.float32
+        assert torch.equal(from_numpy, torch.from_numpy(want.astype(np.float32)))
+
+
+def test_noise_free_net_draws_no_noise(nets, monkeypatch):
+    """``noise_sigma <= 0``: no step reaches ``step_noise_add``."""
+    import copy
+
+    from repro_torch.kernels import ops
+
+    _, td = nets
+    quiet = copy.copy(td)
+    quiet.meta = dict(td.meta, noise_sigma=0.0)
+    calls = []
+    monkeypatch.setattr(ops, "step_noise_add", lambda *a, **k: calls.append(a))
+    for fused in (False, True):
+        sim = Simulator(quiet, SimConfig(align_k=32, fused=fused), device="cpu")
+        sim.run(sim.init_state(), 5)
+    assert calls == []
+
+
+# -- step_noise_add: a partition's ids drawn and added in one pass -----------
+
+def _noise_add_inputs(seed, n=5000):
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(n).astype(np.int64)
+    x = rng.uniform(-1.0, 1.0, n).astype(np.float32)
+    vtx = rng.normal(0.0, 1.0, (n, 4)).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(ids), torch.from_numpy(vtx)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_step_noise_add_is_the_full_vector_at_the_ids(with_bias):
+    """At a permuted id set the plain version is ``step_noise_ref(...)[ids] +
+    x (+ bias)`` bit for bit, the bias a strided column."""
+    from repro_torch.kernels import ops
+
+    x, ids, vtx = _noise_add_inputs(1)
+    bias = vtx[:, 2] if with_bias else None
+    for seed, t in KEYS:
+        got = ops.step_noise_add(x, ids, seed, t, 0.8, bias)
+        want = x + ref.step_noise_ref(seed, t, len(ids), 0.8)[ids]
+        if with_bias:
+            want = want + bias
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("seed,t", KEYS)
+def test_step_noise_add_within_tolerance_of_jax(seed, t):
+    """Against the reference's own draw, taken at the ids and added: the
+    normals' difference (NORMAL_ATOL, scaled by sigma) plus the roundings of
+    the product and the sum, which stay under 1e-6 for |x + noise| < 8."""
+    from repro_torch.kernels import ops
+
+    x, ids, _ = _noise_add_inputs(2, n=50_000)
+    sigma = 0.8
+    got = ops.step_noise_add(x, ids, seed, t, sigma).numpy()
+    z = np.asarray(jax.random.normal(_jax_key(seed, t), (len(ids),), jnp.float32))
+    want = z[ids.numpy()] * np.float32(sigma) + x.numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def _session_raster(d, steps, **kw):
+    from repro_torch.snn import RasterMonitor, Session
+
+    ses = Session(d, SimConfig(align_k=32, **kw.pop("cfg", {})), **kw)
+    mon = RasterMonitor()
+    ses.run(steps, monitors=[mon])
+    return mon.raster
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_own_noise_k1_and_k4_sessions_identical(fused):
+    """With the port's own noise each partition draws its own ids: the k=4
+    Session (four partitions on the CPU) equals the k=1 Session of the merged
+    net, raster for raster."""
+    from repro_torch.core import block_partition, merge_to_single
+
+    net = tnet.microcircuit(scale=0.01)
+    d4 = tnet.to_dcsr(net, assignment=block_partition(net.n, 4), uniform=True)
+    r4 = _session_raster(d4, 60, cfg=dict(fused=fused), engine="spmd", devices=["cpu"] * 4)
+    r1 = _session_raster(merge_to_single(d4), 60, cfg=dict(fused=fused), device="cpu")
+    assert r1.sum() > 0
+    np.testing.assert_array_equal(r4, r1)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_noise_seam_keeps_the_full_vector_path(nets, fused, monkeypatch):
+    """The ``_noise_fn`` seam adds a full vector through ``index_select`` and
+    never reaches ``step_noise_add``; fed the port's own full vector it gives
+    the own-noise run's raster and state bit for bit, while the own-noise
+    run draws once a step through ``step_noise_add``."""
+    from repro_torch.kernels import ops
+
+    _, td = nets
+    sigma, n, steps = float(td.meta["noise_sigma"]), td.n, 40
+    calls = []
+    real = ops.step_noise_add
+
+    def spy(*args, **kw):
+        calls.append(args[3])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ops, "step_noise_add", spy)
+    cfg = SimConfig(align_k=32, record_raster=True, fused=fused)
+    seam = Simulator(td, cfg, device="cpu",
+                     _noise_fn=lambda t: ops.step_noise(SEED, t, n, sigma, device="cpu"))
+    st_s, out_s = seam.run(seam.init_state(), steps)
+    assert calls == []
+    own = Simulator(td, cfg, device="cpu")
+    st_o, out_o = own.run(own.init_state(), steps)
+    assert calls == list(range(steps))
+    assert out_o["spike_count"].sum() > 0
+    assert torch.equal(out_s["raster"], out_o["raster"])
+    for key in ("vtx_state", "ring", "hist"):
+        assert torch.equal(st_s[key], st_o[key]), key
