@@ -17,8 +17,9 @@ about 0.3 B synapses, delay buckets d=8 and d=15, noise sigma 1.0):
 ``run`` with ``RateMonitor`` and ``RasterMonitor``.  With the default
 ``gather="auto"`` the first chunk runs the ``fused`` engine and, while
 the spike rate stays under the event threshold, later chunks run
-``fused_event`` (``lif_step`` plus the event gather).  Phases, each
-printing its own lines:
+``fused_event`` (the step front, ``step_front``: the noise, the bias, LIF
+in place in ``vtx_state`` and the history row in one launch, plus the
+event gather).  Phases, each printing its own lines:
 
   1. device: the card's name, count, name and power limit from nvidia-smi;
   2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc``,
@@ -33,9 +34,9 @@ printing its own lines:
      its L2 bitmask and ``lif_step`` then ``spike_gather``, and within 1e-5
      of its plain version;
   4. main path: 1000 steps; the launch counts, set to 0 just before the run
-     and read just after, must match the gather mode of every chunk (and
-     one ``noise_add`` launch a step: the step's noise drawn at the
-     partition's ids and added to the ring slot and the bias);
+     and read just after, must match the gather mode of every chunk (a
+     ``fused`` step launches ``noise_add`` and ``fused_step``, a
+     ``fused_event`` step ``step_front`` and the event kernel);
   5. the event kernel against its plain version, its forced ``row_dot``
      variant and the dense kernels, on spike vectors of the main path's
      raster;
@@ -59,12 +60,20 @@ printing its own lines:
      with and without a strided bias, both erfinv branches taken, the full
      vector (``ops.step_noise``) likewise, and on the main path's own ids,
      ring slots and bias column; then 100 steps of each engine from the
-     main path's end state with ``noise_add`` and through the old chain
-     (the seam fed the full vector: full draw, ``index_select``, add,
-     bias add), bit-identical, the device kernels of one step of each
-     counted by ``torch.profiler``, and its time beside that chain's ops
-     and a slot clone; and the dense and the event engine's us/step from
-     one state of the main path.
+     main path's end state with the port's own noise and through the old
+     noise chain (the seam fed the full vector: full draw,
+     ``index_select``, add, bias add), bit-identical, and ``noise_add``'s
+     time beside that chain's ops;
+  [front] the step front's kernel bit-identical to its plain version and
+     to the chain it replaced (``noise_add``, the two column copies,
+     ``lif_step``, the two column writes, the uint8 history write) on the
+     main path's own ids, ring slot, ``vtx_state`` and history row, with
+     and without the draw and the bias; its time, bound and the chain's
+     device time; 100 ``fused_event`` steps from the main path's end
+     state through the front and through the old chain
+     (``make_core_step(front=False)``), bit-identical in raster,
+     ``vtx_state``, ring and hist; then the dense and the event engine's
+     us/step from one state of the main path.
 
 The k>1 microcircuit path: ``Session(d4, SimConfig(), engine="spmd",
 devices=[card] * 4)``, four partitions on the one card, stepped in lockstep
@@ -88,8 +97,15 @@ devices=[card] * 4)``, four partitions on the one card, stepped in lockstep
       one at both vectors of k1, beside its ``row_dot`` variant, its plain version, its real-work bound and
       ``torch.sparse.mm`` over its panel on the same vector; the event
       kernel's remote pass at two vectors, as in 7) and the split
-      engines' us/step; the host time of the noise stage a step,
-      ``noise_add`` per partition against the chain it replaced.
+      engines' us/step; the host time of the step front a step, the noise
+      alone (``noise_add`` per partition against the chain it replaced)
+      and the whole front (``step_front`` against its old chain);
+  [front] 100 steps of ``fused_split`` and ``fused_split_event`` from the
+      k>1 path's end state through the front and through the old chain,
+      bit-identical; then, after every timed microcircuit run, the device
+      kernels of one step of each k=1 and k>1 engine from
+      ``torch.profiler``: through the front (or the own noise on
+      ``fused``), the old chain and the old noise chain.
 
 The plastic path is ``balanced_ei(n=12500, stdp=True)`` (Brunel's model A
 counts: 10,000 E and 2,500 I neurons, epsilon 0.1, 15.6 M synapses of which
@@ -114,15 +130,20 @@ engine:
 
 The k>1 plastic path: the k=4 net on the one card with ``SimConfig()``
 (dense exchange of spikes and pre-traces, overlap ``local``,
-``fused_split_plastic``: ``pre_exchange``, the local ``post_exchange``
-pass, the remote ``post_exchange_plastic`` pass):
+``fused_split_plastic``: the step front with both trace decays, the local
+``post_exchange`` pass, the remote ``post_exchange_plastic`` pass):
  12. ``pre_exchange`` and both variants of ``post_exchange_plastic`` on
      partition 0 against their plain versions and the unfused kernels;
  13. 1000 steps, counts checked; raster, hist, traces and weights
      bit-identical to the k=1 plastic path's;
  14. 256 steps each of ``overlap="off"``, ``"double_buffer"``,
      ``exchange="index"`` and ``fused=False``, each bit-identical in hist,
-     traces and weights to a fresh k=1 ``fused_plastic`` run; timing.
+     traces and weights to a fresh k=1 ``fused_plastic`` run; timing;
+ [front] the step front with traces on partition 0's state against its
+     plain version and the old chain (``noise_add``, ``pre_exchange``);
+     100 ``fused_split_plastic`` steps through the front and the old
+     chain, bit-identical in raster, state, traces and weights; the
+     front's time with traces; the device kernels of one step of each.
 
 Procedural construction, ``RuleSpec`` -> ``build_network`` (the keystream
 kernel on the card, the float assembly in numpy on the host) -> ``Session``:
@@ -184,6 +205,7 @@ from repro_torch.kernels import lif_step as lif_mod  # noqa: E402
 from repro_torch.kernels import noise as noise_mod  # noqa: E402
 from repro_torch.kernels import spike_gather as gather_mod  # noqa: E402
 from repro_torch.kernels import split_step as split_mod  # noqa: E402
+from repro_torch.kernels import step_front as front_mod  # noqa: E402
 from repro_torch.kernels import stdp_update as stdp_mod  # noqa: E402
 from repro_torch.kernels import keystream as ks_mod  # noqa: E402
 from repro_torch.builder import (  # noqa: E402
@@ -195,7 +217,7 @@ from repro_torch.snn import (  # noqa: E402
 )
 from repro_torch.snn.neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V  # noqa: E402
 from repro_torch.kernels.dispatch import launch_row_dot, panel_reduce  # noqa: E402
-from repro_torch.snn.simulator import slot_tables, state_reduce  # noqa: E402
+from repro_torch.snn.simulator import FRONT_ENGINES, slot_tables, state_reduce  # noqa: E402
 
 STEPS = 1000
 PARITY_STEPS = 256
@@ -246,7 +268,8 @@ BUILD_ARRAYS = ("global_ids", "row_ptr", "col_idx", "vtx_model", "edge_model", "
                 "edge_state", "coords")
 COUNTERS = (lif_mod.COUNTER, gather_mod.COUNTER, fused_mod.COUNTER, event_mod.COUNTER,
             stdp_mod.COUNTER, fused_mod.PLASTIC_COUNTER, split_mod.PRE_COUNTER,
-            split_mod.POST_COUNTER, split_mod.PLASTIC_COUNTER, ks_mod.COUNTER, noise_mod.COUNTER)
+            split_mod.POST_COUNTER, split_mod.PLASTIC_COUNTER, ks_mod.COUNTER, noise_mod.COUNTER,
+            front_mod.COUNTER)
 SOURCES = {
     "lif_step": ("src/repro_torch/kernels/csrc/lif_step.cu",
                  "src/repro/kernels/lif_step.py:38"),
@@ -276,6 +299,13 @@ SOURCES = {
     # takes a partition's ids of it and adds it to the delivered slot
     "noise_add": ("src/repro_torch/kernels/csrc/noise.cu",
                   "src/repro/snn/simulator.py:411-438"),
+    # the step front replaces lif_step_pallas (no traces) and the trace
+    # variant of fused_pre_exchange_pallas, with the noise, bias and history
+    # jnp around them
+    "step_front": ("src/repro_torch/kernels/csrc/step_front.cu",
+                   "src/repro/kernels/lif_step.py:38"),
+    "step_front_traces": ("src/repro_torch/kernels/csrc/step_front.cu",
+                          "src/repro/kernels/fused_step.py:450"),
 }
 
 
@@ -476,8 +506,8 @@ def phase_main_path(ses, n, pops, tag="main", need_event=True):
     say(tag, f"chunks {res.chunks}, gather modes {modes}")
     require(dense + event == STEPS, f"gather modes {modes}")
     require(event > 0 or not need_event, "the main path never took the event gather")
-    require(launches == only(lif_step=event, fused_step=dense, event_post_exchange=event,
-                             noise_add=STEPS),
+    require(launches == only(step_front=event, fused_step=dense, event_post_exchange=event,
+                             noise_add=dense),
             f"launches {launches} for {dense} dense and {event} event steps")
     counts = res.spike_count
     require(counts.shape == (STEPS,) and np.isfinite(rate.rates).all(), "bad spike counts")
@@ -832,7 +862,7 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
         src, rep = SOURCES[k["name"]]
         k.update(route="cuda", source=src, replaces=rep, launches=launches[k["name"]],
                  max_abs_err=errs[k["name"]],
-                 path="unfused" if k["name"] == "spike_gather" else "main")
+                 path="unfused" if k["name"] in ("spike_gather", "lif_step") else "main")
     return out
 
 
@@ -889,17 +919,28 @@ def noise_add_case(n, card, seed):
             torch.from_numpy(vtx).to(card))
 
 
-def count_device_kernels(fn):
+def count_device_kernels(fn, warm):
     """The device kernels ``fn()`` launches, by name, from ``torch.profiler``
-    (CUPTI); fails if the trace holds none."""
-    from torch.profiler import ProfilerActivity, profile
+    (CUPTI); fails if the trace holds none.  ``warm()``, the same work on
+    other operands, runs first in the profiler's warm-up step, whose events
+    are dropped: without it, a trace of one k>1 Brunel step missed launches
+    (2 of its 4 step fronts)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    events = []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = Counter(e.name for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # one cycle: nothing to accumulate
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: events.extend(p.events())) as prof:
+            warm()
+            torch.cuda.synchronize()
+            prof.step()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    names = Counter(e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
     require(sum(names.values()) > 0, "torch.profiler saw no device kernel")
     return names
 
@@ -907,9 +948,9 @@ def count_device_kernels(fn):
 def old_chain_step(sim, gather):
     """The simulator's step of ``gather`` with the noise through the seam,
     fed the port's own full vector (the noise kernel over the ids
-    ``0..n-1``, one launch a step): the chain the engines ran before
-    ``step_noise_add`` (full draw, ``index_select``, add, bias add), on the
-    same panels."""
+    ``0..n-1``, one launch a step), without the step front: the chain the
+    engines ran before ``step_noise_add`` (full draw, ``index_select``, add,
+    bias add, the column copies, ``lif_step``), on the same panels."""
     from repro_torch.snn.simulator import make_core_step
 
     neg0 = torch.full((sim.net.n,), -0.0, device=sim.device)
@@ -922,19 +963,43 @@ def old_chain_step(sim, gather):
         stdp_params=sim.stdp_params, event_plan=sim.event_plan if choice.event else None,
         noise_fn=lambda t: noise_mod.noise_add_cuda(neg0, all_ids, sim.cfg.seed, t,
                                                     sim.noise_sigma),
+        front=False,
     )
 
 
 def step_kernels(sim, step, state):
-    """The device kernels of one call of the step function ``step`` from
-    ``state`` (on a copy), by name."""
-    carry = {k: v.clone() if torch.is_tensor(v) else v for k, v in state.items()}
-    carry["_reduce"] = state_reduce(sim.dev, carry["weights"])
-    return count_device_kernels(lambda: step(carry))
+    """The device kernels of one step of the step function ``step`` (k=1)
+    or of the partitions' step functions (a list, k>1) from ``state`` (on a
+    copy), by name: at k>1 each partition's ``pre``, the exchange and each
+    partition's ``post``, as ``DistSimulator.run`` steps them.  The same
+    step on another copy warms the profiler up."""
+    k1 = not isinstance(step, list)
+    fns = [step] if k1 else step
+
+    def copies():
+        carries = []
+        for c, dev in zip([state] if k1 else state, [sim.dev] if k1 else sim.devs):
+            carry = {k: v.clone() if torch.is_tensor(v) else v for k, v in c.items()}
+            carry["_reduce"] = state_reduce(dev, carry["weights"])
+            carries.append(carry)
+        return carries
+
+    def one_step(carries):
+        if k1:
+            fns[0](carries[0])
+            return
+        halves = [f.pre(c, None) for f, c in zip(fns, carries)]
+        delivered, _ = sim._exchange([h[0] for h in halves], [h[1] for h in halves])
+        for f, c, h, (act, pre) in zip(fns, carries, halves, delivered):
+            f.post(c, h[0], act, pre)
+
+    warm, carries = copies(), copies()
+    return count_device_kernels(lambda: one_step(carries), lambda: one_step(warm))
 
 
 def run_with_step(sim, step, state, steps):
-    """``sim.run`` with its step function replaced by ``step``."""
+    """``sim.run`` with its step function (a list of them at k>1) replaced
+    by ``step``."""
     own = sim._step
     sim._step = step
     try:
@@ -951,9 +1016,9 @@ def phase_noise_add(ses, seed, card, launches):
     and the main path's own inputs (its ids, a ring slot and the bias column
     of its ``vtx_state``).  Then the main path's steps from its end state
     with the port's own noise (one launch) and through the old chain,
-    bit-identical in raster and state; the device kernels of one noisy step
-    of each, from torch.profiler; and the kernel's time beside the old
-    chain's ops."""
+    bit-identical in raster and state (``phase_step_kernels`` counts their
+    device kernels after the timed paths); and the kernel's time beside the
+    old chain's ops."""
     n = 1 << 20
     x, ids, vtx = noise_add_case(n, card, seed)
     big = small = 0
@@ -1005,13 +1070,10 @@ def phase_noise_add(ses, seed, card, launches):
         require(torch.equal(out_new["raster"], out_old["raster"])
                 and all(torch.equal(st_new[k], st_old[k]) for k in ("vtx_state", "ring", "hist")),
                 f"{sim.engine_choice.engine}: the own-noise steps differ from the old chain's")
-        k_new = step_kernels(sim, sim._step, ses.state)
-        k_old = step_kernels(sim, old, ses.state)
         say("noise", f"{sim.engine_choice.engine}: {ENGINE_STEPS} steps from the main path's end "
-            f"state ({int(out_new['raster'].sum())} spikes) with noise_add and through the old "
-            "chain: raster, vtx_state, ring and hist bit-identical; device kernels of one step "
-            f"(torch.profiler): {sum(k_new.values())} with noise_add, {sum(k_old.values())} "
-            f"through the old chain; {dict(k_new)} against {dict(k_old)}")
+            f"state ({int(out_new['raster'].sum())} spikes) with the port's own noise "
+            f"({'noise_add' if gather == 'dense' else 'the step front'}) and through the old "
+            "noise chain: raster, vtx_state, ring and hist bit-identical")
     sim.set_gather(mode0)
 
     # the old chain's full draw: the kernel over the ids 0..n-1 (ops.step_noise)
@@ -1045,34 +1107,50 @@ def phase_noise_add(ses, seed, card, launches):
                 "partition's ids and adds")
 
 
-def phase_k4_noise_host(ses):
-    """The host time of the k>1 path's noise stage a step, for its
-    ``K_PARTS`` partitions: ``step_noise_add`` per partition (what ``pre``
-    runs), against the chain it replaced (one ``(n_global,)`` draw a step on
-    the first partition's card, then per partition the slot's clone,
-    ``index_select``, add and bias add).  Host clock around ``STEPS`` steps
-    of each with no sync inside, alternated old, new, old, new; the time to
-    the sync after them beside it."""
+def phase_k4_front_host(ses, params):
+    """The host time of the k>1 path's step front a step, for its
+    ``K_PARTS`` partitions, four stages alternated twice in one process:
+    the noise alone, ``step_noise_add`` per partition against the chain it
+    replaced (one ``(n_global,)`` draw a step on the first partition's card,
+    then per partition the slot's clone, ``index_select``, add and bias
+    add); and the whole front, ``step_front`` per partition against the
+    chain it replaced (``step_noise_add``, the two column copies,
+    ``lif_step``, the two column writes, the uint8 history write).  Host
+    clock around ``STEPS`` steps of each with no sync inside; the time to
+    the sync after them beside it.  The front stages advance copies of the
+    partitions' vtx_state and hist."""
     dsim = ses.simulator
     seed, sigma, D = dsim.cfg.seed, dsim.noise_sigma, dsim.d_ring
-    parts = [(c["ring"], c["vtx_state"], ids) for c, ids in zip(ses.state, dsim._noise_ids)]
+    parts = [(c["ring"], c["vtx_state"].clone(), c["hist"].clone(), ids)
+             for c, ids in zip(ses.state, dsim._noise_ids)]
     dev0 = parts[0][0].device
     neg0 = torch.full((dsim.n_global,), -0.0, device=dev0)
     all_ids = torch.arange(dsim.n_global, device=dev0)
 
-    def new(t):
-        for ring, vtx, ids in parts:
+    def noise_add(t):
+        for ring, vtx, _, ids in parts:
             ops.step_noise_add(ring[t % D], ids, seed, t, sigma, vtx[:, LIF_BIAS])
 
-    def old(t):
+    def noise_chain(t):
         g = noise_mod.noise_add_cuda(neg0, all_ids, seed, t, sigma)
-        for ring, vtx, ids in parts:
+        for ring, vtx, _, ids in parts:
             i_syn = ring[t % D].clone()
             i_syn = i_syn + g.to(ring.device).index_select(0, ids)
             i_syn + vtx[:, LIF_BIAS]
 
+    def front(t):
+        for ring, vtx, hist, ids in parts:
+            ops.step_front(vtx, ring[t % D], ids, seed=seed, t=t, sigma=sigma, draw=True,
+                           bias=True, hist_row=hist[t % D], params=params)
+
+    def chain(t):
+        for ring, vtx, hist, ids in parts:
+            front_chain(vtx, ring[t % D], ids, hist[t % D], seed, t, sigma, params)
+
     per = {}
-    for label, fn in (("old chain", old), ("noise_add", new)) * 2:
+    stages = (("noise chain", noise_chain), ("noise_add", noise_add),
+              ("front chain", chain), ("step_front", front))
+    for label, fn in stages * 2:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(STEPS):
@@ -1081,9 +1159,205 @@ def phase_k4_noise_host(ses):
         torch.cuda.synchronize()
         synced = time.perf_counter() - t0
         per.setdefault(label, []).append(f"{host / STEPS * 1e6:.1f} ({synced / STEPS * 1e6:.1f})")
-    say("timing", f"k>1 noise stage, {K_PARTS} partitions of {parts[0][2].numel()} ids, "
+    say("timing", f"k>1 step front, {K_PARTS} partitions of {parts[0][3].numel()} rows, "
         f"{STEPS} steps each (host clock, us/step; to the sync after them in brackets): "
         + "; ".join(f"{k} {', '.join(v)}" for k, v in per.items()))
+
+
+# -- the step front ----------------------------------------------------------------
+
+# f32 operations of a row's step front besides the noise's: the noise and
+# bias adds (2) and lif_advance's (10); the trace variant adds two decays (4)
+FRONT_F32_OPS = NOISE_F32_OPS + 2 + 10
+# bytes a row: the slot (4), the id (8), v, refrac and bias read (12), v and
+# refrac written (8), the spike (4), the history byte (1); the traces read
+# and written add 16
+FRONT_BYTES, FRONT_TRACE_BYTES = 37, 16
+
+
+def same_bits(a, b):
+    """Bit for bit equal (signed zeros and NaN payloads too)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def front_chain(vtx, slot, ids, hist_row, seed, t, sigma, params, traces=None, taus=None):
+    """The chain the step front replaced, on the card, in place on ``vtx``
+    and ``hist_row``: ``noise_add`` with the bias, the two column copies,
+    ``lif_step`` or ``pre_exchange``, the two column writes, the uint8
+    history write.  Returns ``(spikes[, tr_plus', tr_minus'])``."""
+    i_in = ops.step_noise_add(slot, ids, seed, t, sigma, vtx[:, LIF_BIAS])
+    v, refrac = vtx[:, LIF_V].contiguous(), vtx[:, LIF_REF].contiguous()
+    v2, r2, *out = ops.fused_pre_exchange(v, refrac, i_in, *(traces or ()), params=params,
+                                          taus=taus)
+    vtx[:, LIF_V] = v2
+    vtx[:, LIF_REF] = r2
+    hist_row.copy_(out[0].to(torch.uint8))
+    return tuple(out)
+
+
+def check_front(what, vtx, slot, ids, hist_row, seed, t, sigma, params, traces=None,
+                taus=None):
+    """The front's kernel on copies of these operands against its plain
+    version, with and without the draw and the bias, and against the chain
+    it replaced: spikes, traces, vtx_state and the history row bit for
+    bit."""
+    tr = dict(tr_plus=traces[0], tr_minus=traces[1], taus=taus) if traces else {}
+    for draw, bias in ((True, True), (False, True), (True, False), (False, False)):
+        kw = dict(seed=seed, t=t, sigma=sigma, draw=draw, bias=bias, params=params, **tr)
+        vk, hk, vp, hp = vtx.clone(), hist_row.clone(), vtx.clone(), hist_row.clone()
+        got = front_mod.step_front_cuda(vk, slot, ids, hist_row=hk, **kw)
+        want = ref.step_front_ref(vp, slot, ids, hist_row=hp, **kw)
+        require(len(got) == len(want) and all(same_bits(a, b) for a, b in zip(got, want))
+                and same_bits(vk, vp) and same_bits(hk, hp),
+                f"{what}: step_front (draw={draw}, bias={bias}) differs from its plain version")
+        if draw and bias:
+            vo, ho = vtx.clone(), hist_row.clone()
+            chain = front_chain(vo, slot, ids, ho, seed, t, sigma, params, traces, taus)
+            require(all(same_bits(a, b) for a, b in zip(got, chain)) and same_bits(vk, vo)
+                    and same_bits(hk, ho), f"{what}: step_front differs from the old chain")
+            spikes = int(got[0].sum())
+    say("front", f"{what}: step_front on {vtx.shape[0]} rows (vtx_state {tuple(vtx.shape)}, "
+        f"{'with' if traces else 'without'} traces) at step {t}, with and without the draw and "
+        f"the bias: spikes, {'traces, ' if traces else ''}vtx_state and the history row "
+        "bit-identical to its plain version, and to the old chain (noise_add, column copies, "
+        f"{'pre_exchange' if traces else 'lif_step'}, column writes, uint8 history) "
+        f"({spikes} spikes)")
+
+
+def front_case(ses, part=None):
+    """A path's next step front inputs from its end state: ``(vtx_state,
+    ring slot, ids, history row, t)`` of the k=1 carry or of partition
+    ``part``, clones."""
+    sim = ses.simulator
+    carry = ses.state if part is None else ses.state[part]
+    ids = sim._noise_ids if part is None else sim._noise_ids[part]
+    t = carry["t"]
+    slot = t % sim.d_ring
+    return (carry["vtx_state"].clone(), carry["ring"][slot].clone(), ids,
+            carry["hist"][slot].clone(), t)
+
+
+def front_engine_ab(tag, sim, gather, state):
+    """``ENGINE_STEPS`` steps of ``gather``'s engine from ``state`` through
+    the front and through the old chain (``front=False``): raster,
+    vtx_state, ring, hist, traces and weights bit-identical.  Returns the
+    old chain's step functions and its launch counts."""
+    k1 = isinstance(state, dict)
+    mode0 = sim.gather
+    sim.set_gather(gather)
+    engine = sim.engine_choice.engine
+    old = sim._make_step(gather, front=False) if k1 else sim._make_steps(gather, front=False)
+    reset_counts()
+    st_new, out_new = sim.run(state, ENGINE_STEPS, record_raster=True)
+    new_launches = read_counts()
+    reset_counts()
+    st_old, out_old = run_with_step(sim, old, state, ENGINE_STEPS)
+    old_launches = read_counts()
+    sim.set_gather(mode0)
+    require(same_bits(out_new["raster"], out_old["raster"]),
+            f"{engine}: the front's raster differs from the old chain's")
+    for a, b in zip(*(([x] if k1 else x) for x in (st_new, st_old))):
+        for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
+            require(same_bits(a[key], b[key]), f"{engine}: {key} differs from the old chain's")
+        require(all(same_bits(x, y) for x, y in zip(a["weights"], b["weights"])),
+                f"{engine}: weights differ from the old chain's")
+    k = 1 if k1 else len(state)
+    require(new_launches["step_front"] == k * ENGINE_STEPS and all(
+        new_launches[n] == 0 for n in ("noise_add", "lif_step", "pre_exchange")),
+        f"{engine}: the front's run launched {new_launches}")
+    say(tag, f"{engine}: {ENGINE_STEPS} steps from the path's end state "
+        f"({int(out_new['raster'].sum())} spikes) through the step front and through the old "
+        "chain: raster, vtx_state, ring, hist, traces and weights bit-identical; launches "
+        f"{ {n: c for n, c in new_launches.items() if c} } against "
+        f"{ {n: c for n, c in old_launches.items() if c} }")
+    return old, old_launches
+
+
+def traced_step(sim, fns, state, marker):
+    """``step_kernels`` of one step, traced again (at most three times)
+    until the trace holds ``marker``'s kernel once a partition, as the
+    launch counters show every step launches it: ``torch.profiler`` has
+    dropped launches from a trace on the card.  Returns the kernels by
+    name and the number of traces taken."""
+    k = len(fns) if isinstance(fns, list) else 1
+    for attempt in range(1, 4):
+        names = step_kernels(sim, fns, state)
+        if sum(c for n, c in names.items() if marker in n) == k:
+            return names, attempt
+    raise AssertionError(f"three traces of one step short of {k} {marker} kernels: "
+                         f"{dict(names)}")
+
+
+def phase_step_kernels(tag, sim, state, olds):
+    """The device kernels of one step of each engine (torch.profiler),
+    through the front and through the old chain; ``olds`` maps each gather
+    to ``(label, old step functions)`` pairs.  Run after the timed paths of
+    the net, so that no timed run follows a profiler session."""
+    mode0 = sim.gather
+    for gather, chains in olds.items():
+        sim.set_gather(gather)
+        engine = sim.engine_choice.engine
+        front = engine in FRONT_ENGINES
+        new, tries = traced_step(sim, sim._step, state, "step_front" if front else "noise_add")
+        line = [f"{sum(new.values())} through {'the step front' if front else 'noise_add'}"]
+        for label, old in chains:
+            k_old, t_old = traced_step(sim, old, state, "noise_add")
+            line.append(f"{sum(k_old.values())} through {label}")
+            tries += t_old
+        stale = [n for n in new if any(w in n for w in ("noise_add", "lif_step", "pre_exchange"))]
+        require(not (front and stale), f"{engine}: one step's device kernels {dict(new)}")
+        say(tag, f"{engine}: device kernels of one step (torch.profiler, {tries} traces for "
+            f"{len(chains) + 1}): " + ", ".join(line) + f"; {dict(new)}")
+    sim.set_gather(mode0)
+
+
+def front_timing(what, vtx, slot, ids, hist_row, seed, t, sigma, params, launches, path,
+                 traces=None, taus=None):
+    """The front's kernel time (CUDA events) on copies of a path's inputs,
+    its plain version's, its bound, and the device time of the chain it
+    replaced, as one sequence and op by op."""
+    n = vtx.shape[0]
+    tr = dict(tr_plus=traces[0], tr_minus=traces[1], taus=taus) if traces else {}
+    kw = dict(seed=seed, t=t, sigma=sigma, draw=True, bias=True, params=params, **tr)
+    vk, hk = vtx.clone(), hist_row.clone()
+    tk = cuda_ms(lambda: front_mod.step_front_cuda(vk, slot, ids, hist_row=hk, **kw), 200)
+    tp = cuda_ms(lambda: ref.step_front_ref(vk, slot, ids, hist_row=hk, **kw), 10)
+    chain = cuda_ms(lambda: front_chain(vk, slot, ids, hk, seed, t, sigma, params, traces,
+                                        taus), 200)
+    i_in = noise_mod.noise_add_cuda(slot, ids, seed, t, sigma, vk[:, LIF_BIAS])
+    v, refrac = vk[:, LIF_V].contiguous(), vk[:, LIF_REF].contiguous()
+    if traces is None:
+        lif = lif_mod.lif_step_cuda(v, refrac, i_in, params=params)
+        advance = ("lif_step", lambda: lif_mod.lif_step_cuda(v, refrac, i_in, params=params))
+    else:
+        lif = split_mod.pre_exchange_cuda(v, refrac, i_in, *traces, params=params, taus=taus)
+        advance = ("pre_exchange", lambda: split_mod.pre_exchange_cuda(
+            v, refrac, i_in, *traces, params=params, taus=taus))
+    ops_ms = {
+        "noise_add": cuda_ms(lambda: noise_mod.noise_add_cuda(slot, ids, seed, t, sigma,
+                                                              vk[:, LIF_BIAS]), 200),
+        "two column copies": cuda_ms(lambda: (vk[:, LIF_V].contiguous(),
+                                              vk[:, LIF_REF].contiguous()), 200),
+        advance[0]: cuda_ms(advance[1], 200),
+        "two column writes": cuda_ms(lambda: (vk[:, LIF_V].copy_(lif[0]),
+                                              vk[:, LIF_REF].copy_(lif[1])), 200),
+        "uint8 history write": cuda_ms(lambda: hk.copy_(lif[2].to(torch.uint8)), 200),
+    }
+    per_row = FRONT_BYTES + (FRONT_TRACE_BYTES if traces else 0)
+    b, by, times = noise_bound(n, per_row, FRONT_F32_OPS + (4 if traces else 0))
+    say("timing", f"step_front {what}, n={n}{' with traces' if traces else ''}: kernel "
+        f"{tk * 1e3:.2f} us, plain {tp * 1e3:.1f} us, bound {b * 1e3:.3f} us ({by}; "
+        + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in times.items())
+        + f" us: {per_row} B a row, {n} + 1 ciphers); the chain it replaced "
+        f"{chain * 1e3:.2f} us as one sequence, op by op "
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in ops_ms.items())
+        + f" us, {sum(ops_ms.values()) * 1e3:.2f} us in all; library: none")
+    name = "step_front" if traces is None else "step_front_traces"
+    src, rep = SOURCES[name]
+    return dict(name=name, route="cuda", source=src, replaces=rep, launches=launches,
+                max_abs_err=0.0, ms=tk, plain_ms=tp, bound_ms=b, bound_by=by, library_ms=None,
+                old_chain_ms=chain, old_chain_ops_ms=ops_ms, path=path)
 
 
 def _nan_rows(x):
@@ -1438,16 +1712,16 @@ def spmd_session(d, card, share=None, **cfg):
 
 def split_launches(modes, chunks, overlap):
     """Expected counts of a k>1 microcircuit run on the split engines: per
-    partition and step one ``lif_step`` (the trace-free pre-exchange), then
-    on dense chunks the post-exchange pass (two with an overlap mode: local
-    and remote) and on event chunks the local pass (with an overlap mode)
-    and the event kernel."""
+    partition and step one ``step_front`` (noise, bias, LIF, history row),
+    then on dense chunks the post-exchange pass (two with an overlap mode:
+    local and remote) and on event chunks the local pass (with an overlap
+    mode) and the event kernel."""
     dense = sum(c for c, m in zip(chunks, modes) if m == "dense")
     event = sum(c for c, m in zip(chunks, modes) if m == "event")
     two = overlap != "off"
-    return only(lif_step=K_PARTS * (dense + event),
+    return only(step_front=K_PARTS * (dense + event),
                 post_exchange=K_PARTS * (dense * (2 if two else 1) + event * two),
-                event_post_exchange=K_PARTS * event, noise_add=K_PARTS * (dense + event))
+                event_post_exchange=K_PARTS * event)
 
 
 def compose_ring(act, ring, clear, onehot, cols, weights, n_p):
@@ -1583,11 +1857,13 @@ def phase_k4_kernels(dsim, act_np):
     return {"post_exchange": err, "event_post_exchange_split": e_err}
 
 
-def phase_k4_main(ses, k1_raster):
+def phase_k4_main(ses, k1_raster, base):
     """The k>1 microcircuit, 1000 steps of ``SimConfig()``: index exchange,
-    overlap ``local``, ``fused_split`` then ``fused_split_event``."""
+    overlap ``local``, ``fused_split`` then ``fused_split_event``.  Its
+    device memory is counted above ``base``, the bytes held before its
+    session was built (the k=1 session's)."""
     reset_counts()
-    held = torch.cuda.memory_allocated()
+    held = torch.cuda.memory_allocated() - base
     torch.cuda.reset_peak_memory_stats()
     res, rate, raster, secs = run_session(ses, STEPS)
     launches = read_counts()
@@ -1606,13 +1882,14 @@ def phase_k4_main(ses, k1_raster):
     require(n_diff == 0, f"k>1 raster differs from the k=1 run of the merged net in {n_diff} "
             "entries")
     counts = res.spike_count
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     say("k4", f"{STEPS} steps, {K_PARTS} partitions on one card: {secs:.3f} s, "
         f"{secs / STEPS * 1e6:.1f} us/step (host clock, monitors included); raster identical "
         f"to the k=1 run of the merged net ({int(counts.sum())} spikes); overflow 0")
     say("k4", f"launches {launches}; peak device memory {peak / 2**30:.2f} GiB "
-        f"(torch.cuda.max_memory_allocated), {held / 2**30:.2f} GiB of it held before the run "
-        "(panels, sub-panels, touch bitmaps, initial state)")
+        f"(torch.cuda.max_memory_allocated, above the {base / 2**30:.2f} GiB the k=1 session "
+        f"holds), {held / 2**30:.2f} GiB of it held before the run (panels, sub-panels, touch "
+        "bitmaps, initial state)")
     return raster.raster, launches, secs / STEPS * 1e6
 
 
@@ -1872,8 +2149,8 @@ def plastic_k4_launches(overlap, fused, steps, nd):
         return only(lif_step=K_PARTS * steps, spike_gather=K_PARTS * nd * steps,
                     stdp_update=K_PARTS * nd * steps, noise_add=K_PARTS * steps)
     local = overlap != "off"
-    return only(pre_exchange=K_PARTS * steps, post_exchange=K_PARTS * steps * local,
-                post_exchange_plastic=K_PARTS * steps, noise_add=K_PARTS * steps)
+    return only(step_front=K_PARTS * steps, post_exchange=K_PARTS * steps * local,
+                post_exchange_plastic=K_PARTS * steps)
 
 
 def phase_k4_plastic_kernels(dsim, params, rng):
@@ -2019,7 +2296,9 @@ def phase_k4_plastic_timing(dsim, params, inputs, errs, launches):
     say("timing", f"pre_exchange n_p={n_p}: kernel {tk * 1e3:.2f} us, plain {tp * 1e3:.2f} us, "
         f"bound {b * 1e3:.3f} us ({40 * n_p} B)")
     out.append(dict(name="pre_exchange", ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
-                    library_ms=None, path="k4_plastic"))
+                    library_ms=None, path="k4_plastic",
+                    launches_of="the old chain's run in front_engine_ab: no engine launches "
+                    "pre_exchange, the step front took its place"))
     # 16 bytes a slot (col, weight, mask read, weight written), the three
     # global vectors, the post terms, the ring read and written
     nb = slots * 16 + 3 * n * 4 + 2 * n_p * 4 + 2 * D * n_p * 4 + (nd + 1) * D * 4
@@ -2392,17 +2671,29 @@ def main(argv=None) -> int:
     main_raster, launches = phase_main_path(ses, net.n, pd14_populations(args.scale))
     errs["event_post_exchange"], event_act = phase_event(sim, main_raster)
     unfused = phase_parity(net, main_raster, len(sim.dev.cols))
-    # spike_gather runs only on the unfused path: its count is that run's
+    # spike_gather and lif_step run only on the unfused path (the step front
+    # took lif_step's place on fused_event): their counts are that run's
     launches["spike_gather"] = unfused["spike_gather"]
+    launches["lif_step"] = unfused["lif_step"]
     phase_small_net()
     phase_nan(card, args.seed)
     kernels = phase_timing(ses, params, inputs, event_act, errs, launches)
     kernels.append(phase_noise_add(ses, args.seed, card, launches["noise_add"]))
+    front_in = front_case(ses)
+    check_front("main path", *front_in[:4], args.seed, front_in[4], sim.noise_sigma, params)
+    kernels.append(front_timing("main path", *front_in[:4], args.seed, front_in[4],
+                                sim.noise_sigma, params, launches["step_front"], "main"))
+    k1_olds = {"dense": [("the old noise chain", old_chain_step(sim, "dense"))],
+               "event": [("the old chain", front_engine_ab("front", sim, "event", ses.state)[0]),
+                         ("the old noise chain", old_chain_step(sim, "event"))]}
     phase_engines(ses)
-    del ses, sim, net, inputs  # the k>1 path's memory is measured alone
+    del inputs, front_in
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the k=1 session stays for the profiler phases, which run after the
+    # timed k>1 paths; the k>1 path's memory is counted above what it holds
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     ses4 = spmd_session(d4, card)
     dsim = ses4.simulator
@@ -2418,12 +2709,17 @@ def main(argv=None) -> int:
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f} GiB")
     k4_act = main_raster[STEPS // 2]
     k4_errs = phase_k4_kernels(dsim, k4_act)
-    k4_raster, k4_launches, _ = phase_k4_main(ses4, main_raster)
+    k4_raster, k4_launches, _ = phase_k4_main(ses4, main_raster, base)
     phase_k4_variants(ses4, card, k4_raster, len(dsim.devs[0].cols))
     kernels += phase_k4_timing(dsim, k4_act, k4_errs, k4_launches)
     phase_k4_engines(ses4)
-    phase_k4_noise_host(ses4)
-    del ses4, dsim, d4  # the plastic paths' memory is measured alone
+    phase_k4_front_host(ses4, params)
+    k4_olds = {g: [("the old chain", front_engine_ab("front", dsim, g, ses4.state)[0])]
+               for g in ("dense", "event")}
+    # torch.profiler only now, after every timed k=1 and k>1 microcircuit run
+    phase_step_kernels("front", sim, ses.state, k1_olds)
+    phase_step_kernels("front", dsim, ses4.state, k4_olds)
+    del ses, sim, net, ses4, dsim, d4, k1_olds, k4_olds  # the plastic paths' memory alone
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2463,10 +2759,22 @@ def main(argv=None) -> int:
                                                     np.random.default_rng(args.seed))
     k4p_launches = phase_k4_plastic_path(pses4, pses, p_raster)
     k4p_var = phase_k4_plastic_variants(pses4, card, fus, p_raster, len(pdsim.devs[0].cols))
+    taus = stdp_taus(pdsim)
+    vtx0, slot0, ids0, hist0, t0_p = front_case(pses4, 0)
+    traces0 = (pses4.state[0]["tr_plus"], pses4.state[0]["tr_minus"])
+    check_front("k>1 Brunel partition 0", vtx0, slot0, ids0, hist0, args.seed, t0_p,
+                pdsim.noise_sigma, pparams, traces0, taus)
+    p_old, p_old_launches = front_engine_ab("front", pdsim, "dense", pses4.state)
+    # no engine runs pre_exchange since the step front took its place: its
+    # count is the old chain's run's (front_engine_ab)
     kernels += phase_k4_plastic_timing(pdsim, pparams, k4p_inputs, k4p_errs, dict(
-        pre_exchange=k4p_launches["pre_exchange"],
+        pre_exchange=p_old_launches["pre_exchange"],
         post_exchange_remote_plastic=k4p_launches["post_exchange_plastic"],
         post_exchange_plastic=k4p_var["overlap off"]["post_exchange_plastic"]))
+    kernels.append(front_timing("k>1 Brunel partition 0", vtx0, slot0, ids0, hist0, args.seed,
+                                t0_p, pdsim.noise_sigma, pparams, k4p_launches["step_front"],
+                                "k4_plastic", traces0, taus))
+    phase_step_kernels("front", pdsim, pses4.state, {"dense": [("the old chain", p_old)]})
     del pses4, pdsim, pses, psim, pnet, pd4, unf, fus, k4p_inputs, p_inputs
     gc.collect()
     torch.cuda.empty_cache()

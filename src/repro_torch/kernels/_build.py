@@ -161,6 +161,9 @@ _SIGNATURES = {
     "repro_post_exchange_plastic_max_buckets": [],
     "repro_keystream": [_P, _P, _L, _I, _U, _U, _U, _P, _I],
     "repro_noise_add": [_P, _P, _P, _L, _P, _L, _U, _U, _F, _P, _I],
+    "repro_step_front": (
+        [_P, _I] + [_P] * 8 + [_I] + [_F] * 7 + [_U, _U] + [_F] * 3 + [_I, _I, _P, _I]
+    ),
 }
 
 

@@ -15,14 +15,16 @@ reference, which sends everything off the TPU to ``ref``.
   * ``fused`` -- one cooperative launch per step (identity exchange, k=1);
   * ``fused_plastic`` -- the same launch with both trace decays and the
     STDP update of every panel;
-  * ``fused_event`` -- ``lif_step`` plus one cooperative event-gather launch;
+  * ``fused_event`` -- the step front (``step_front``: noise, bias, LIF in
+    place in ``vtx_state``, the history row) plus one cooperative
+    event-gather launch;
   * ``fused_split`` -- the fusion split at the exchange (k>1):
-    ``lif_step``, the exchange, then one ``post_exchange`` launch (ring
+    the step front, the exchange, then one ``post_exchange`` launch (ring
     rotate and every bucket's gather);
-  * ``fused_split_plastic`` -- ``pre_exchange`` (LIF and both trace
-    decays), the exchange of spikes and pre-traces, then one
+  * ``fused_split_plastic`` -- the step front with both trace
+    decays, the exchange of spikes and pre-traces, then one
     ``post_exchange_plastic`` launch (ring, gathers and STDP);
-  * ``fused_split_event`` -- ``lif_step``, the exchange, then the event
+  * ``fused_split_event`` -- the step front, the exchange, then the event
     gather over the exchanged activity;
   * ``unfused`` -- ``lif_step`` plus one ``spike_gather`` launch per delay
     bucket, and on plastic nets the trace decays as torch ops and one

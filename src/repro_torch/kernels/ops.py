@@ -21,6 +21,7 @@ from .lif_step import lif_step_cuda
 from .noise import noise_add_cuda, noise_add_plain, noise_cuda, noise_plain
 from .spike_gather import spike_gather_cuda
 from .split_step import post_exchange_cuda, post_exchange_plastic_cuda, pre_exchange_cuda
+from .step_front import step_front_cuda, step_front_plain
 from .stdp_update import stdp_update_cuda, stdp_update_plain
 
 # -- builder_keystream (procedural construction word matrix) --------------
@@ -65,6 +66,31 @@ def step_noise_add(x, ids, seed, t, sigma, bias=None):
     the reference's order.  Bit for bit ``x + step_noise(seed, t, n,
     sigma)[ids]`` (then ``+ bias``), in one launch on the card."""
     return lookup("step_noise_add", backend_for(x.device))(x, ids, seed, t, sigma, bias)
+
+
+# -- step_front (noise, bias, LIF in place, history row: one launch) --------
+
+implementation("step_front", "ref")(step_front_plain)
+implementation("step_front", "cuda")(step_front_cuda)
+
+
+def step_front(vtx, slot, ids, *, seed, t, sigma, draw, bias, hist_row, tr_plus=None,
+               tr_minus=None, params, taus=None):
+    """The step front of the split and event engines, everything before the
+    exchange: ``i_tot = slot [+ sigma * normal(seed, t, ids)] [+
+    vtx[:, LIF_BIAS]]``, each add one f32 rounding left to right (the
+    reference's ``i_syn + noise + bias``), then the LIF advance on
+    ``vtx[:, LIF_V]`` and ``vtx[:, LIF_REF]``, written back into ``vtx`` in
+    place, the spikes written to ``hist_row`` (``hist[t % D]``, uint8) when
+    it is given, and with ``tr_plus``/``tr_minus`` both trace decays.
+    ``slot`` is read, not written.  Returns ``(spikes,)`` or ``(spikes,
+    tr_plus', tr_minus')``, new tensors; one launch on the card, bit for bit
+    ``step_noise_add`` (or the adds), ``fused_pre_exchange``, the column
+    writes and the history write."""
+    return lookup("step_front", backend_for(vtx.device))(
+        vtx, slot, ids, seed=seed, t=t, sigma=sigma, draw=draw, bias=bias, hist_row=hist_row,
+        tr_plus=tr_plus, tr_minus=tr_minus, params=params, taus=taus,
+    )
 
 
 # -- spike_gather ---------------------------------------------------------

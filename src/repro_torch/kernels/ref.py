@@ -11,7 +11,9 @@ the unfused engine (the reference computes it as jnp there) and inside the
 fused plastic kernel on the fused one.  ``step_noise_ref`` and
 ``step_noise_add_ref`` are the plain versions of ``csrc/noise.cu``, the
 simulator's per-step noise, which the reference draws as jnp outside
-Pallas.
+Pallas; ``step_front_ref`` is the plain version of ``csrc/step_front.cu``,
+the noise, the bias, the LIF advance and the history row of a step in one
+pass.
 """
 from __future__ import annotations
 
@@ -535,3 +537,45 @@ def step_noise_add_ref(x: Tensor, ids: Tensor, seed: int, t: int, sigma: float,
     z = noise_normal_ref(noise_bits_at_ref(seed, t, ids)) * _f32(sigma).to(x.device)
     out = x + z
     return out if bias is None else out + bias
+
+
+# vtx_state's LIF columns, as snn/neurons.py lays them out (LIF_V, LIF_REF,
+# LIF_BIAS; that module imports this one, so the indices are repeated here)
+LIF_COLUMNS = (0, 1, 2)
+
+
+def step_front_ref(
+    vtx: Tensor,  # (n, ld) LIF vtx_state; v and refrac written in place
+    slot: Tensor,  # (n,) the delivered ring slot
+    ids: Optional[Tensor],  # (n,) int64 permanent ids (read with draw)
+    *,
+    seed: int,
+    t: int,
+    sigma: float,
+    draw: bool,
+    bias: bool,
+    hist_row: Optional[Tensor],  # (n,) uint8, written in place, or None
+    tr_plus: Optional[Tensor] = None,
+    tr_minus: Optional[Tensor] = None,
+    params: Dict[str, float],
+    taus: Optional[Tuple[float, float]] = None,
+) -> Tuple[Tensor, ...]:
+    """The step front: ``i_tot = slot [+ sigma * normal(seed, t, ids)] [+
+    bias]`` (each add one f32 rounding, left to right, as
+    :func:`step_noise_add_ref`), then :func:`fused_pre_exchange_ref` on
+    ``vtx``'s ``v`` and ``refrac`` columns, which it writes back into
+    ``vtx``; the spikes go to ``hist_row`` as uint8.  Returns ``(spikes,)``
+    or, with traces, ``(spikes, tr_plus', tr_minus')`` (new tensors)."""
+    c_v, c_ref, c_bias = LIF_COLUMNS
+    b = vtx[:, c_bias] if bias else None
+    if draw:
+        i_tot = step_noise_add_ref(slot, ids, seed, t, sigma, b)
+    else:
+        i_tot = slot if b is None else slot + b
+    v2, r2, *rest = fused_pre_exchange_ref(vtx[:, c_v], vtx[:, c_ref], i_tot, tr_plus,
+                                           tr_minus, params=params, taus=taus)
+    vtx[:, c_v] = v2
+    vtx[:, c_ref] = r2
+    if hist_row is not None:
+        hist_row.copy_(rest[0].to(torch.uint8))
+    return tuple(rest)

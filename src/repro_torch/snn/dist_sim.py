@@ -21,8 +21,9 @@ devices.  The exchange is a concatenation:
 
 Every partition receives the same activity on its own device.  Each
 partition draws the noise of a step at its own rows' permanent ids, on its
-own device, in the launch that adds it to its ring slot
-(``ops.step_noise_add``); a row's value is the one its id has in the step's
+own device, in the launch that adds it to its ring slot (the step front,
+``ops.step_front``, on the split engines; ``ops.step_noise_add`` on
+``unfused``); a row's value is the one its id has in the step's
 ``(n_global,)`` vector, so a trajectory is the k = 1 run's of
 ``merge_to_single(net)``.  The ``_noise_fn`` seam draws that vector once a
 step and each partition takes its rows from it.
@@ -397,28 +398,34 @@ class DistSimulator:
 
         return dict(local=local, embed=embed, mask_remote=mask_remote)
 
+    def _make_steps(self, gather: str, *, front: bool = True) -> List[Callable]:
+        """The k partitions' step functions of ``gather``; ``front=False``
+        takes the chain the step front replaced (``make_core_step``)."""
+        choice = select_step_engine(gather=gather, **self._sel)
+        return [
+            make_core_step(
+                registry=self.net.registry,
+                models_present=self._models,
+                dt=self.dt,
+                noise_sigma=self.noise_sigma,
+                seed=self.cfg.seed,
+                d_ring=self.d_ring,
+                dev=dev,
+                noise_ids=self._noise_ids[p],
+                engine_choice=choice,
+                stdp_params=self.stdp_params,
+                event_plan=self.event_plans[p] if choice.event else None,
+                noise_fn=self._noise_fn,
+                overlap_ctx=self._overlap_ctx(p) if choice.overlap != "off" else None,
+                front=front,
+            )
+            for p, dev in enumerate(self.devs)
+        ]
+
     def set_gather(self, gather: str) -> None:
         """Run the next steps with the ``"dense"`` or ``"event"`` gather."""
         if gather not in self._steps:
-            choice = select_step_engine(gather=gather, **self._sel)
-            self._steps[gather] = [
-                make_core_step(
-                    registry=self.net.registry,
-                    models_present=self._models,
-                    dt=self.dt,
-                    noise_sigma=self.noise_sigma,
-                    seed=self.cfg.seed,
-                    d_ring=self.d_ring,
-                    dev=dev,
-                    noise_ids=self._noise_ids[p],
-                    engine_choice=choice,
-                    stdp_params=self.stdp_params,
-                    event_plan=self.event_plans[p] if choice.event else None,
-                    noise_fn=self._noise_fn,
-                    overlap_ctx=self._overlap_ctx(p) if choice.overlap != "off" else None,
-                )
-                for p, dev in enumerate(self.devs)
-            ]
+            self._steps[gather] = self._make_steps(gather)
         self.gather = gather
         self._step = self._steps[gather]
 

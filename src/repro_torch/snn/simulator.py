@@ -18,10 +18,12 @@ reference's documented order:
 
 The k = 1 engines: ``fused`` does 2 and the gathers of 4 in one cooperative
 kernel launch, and ``fused_plastic`` also the trace decays and the STDP
-updates; ``fused_event`` launches ``lif_step`` and then one cooperative
-kernel that clears the slot of 1 and gathers only the row blocks the step's
-spikes touch.  The split engines (k > 1) run ``fused_pre_exchange`` (2),
-the exchange, then one post-exchange launch that rotates the ring with the
+updates; ``fused_event`` launches the step front (``ops.step_front``: the
+noise, the bias, LIF in place in ``vtx_state`` and the history row of 5, in
+one launch) and then one cooperative kernel that clears the slot of 1 and
+gathers only the row blocks the step's spikes touch.  The split engines
+(k > 1) run the step front (2, with the trace decays on plastic nets), the
+exchange, then one post-exchange launch that rotates the ring with the
 reference's mask multiply and adds every bucket through a one-hot
 (``fused_split``, ``fused_split_plastic`` with STDP, ``fused_split_event``
 over the flagged row blocks).  ``unfused`` launches ``lif_step`` and then
@@ -59,7 +61,8 @@ come from counters alone (Threefry under the reference's key
 ``fold_in(PRNGKey(seed), t)``, the reference's bits and uniforms, and the
 normal transform in correctly rounded f32 operations), so each partition
 draws exactly its own rows' ids, and adds them to its delivered ring slot
-(and the bias) in the same launch (``ops.step_noise_add``); a row gets the
+(and the bias) in the same launch (``ops.step_front`` or
+``ops.step_noise_add``); a row gets the
 value its permanent id has in the step's ``(n_global,)`` vector
 (``ops.step_noise``).  The noise is the same on the card and on the CPU; it
 differs from ``jax.random.normal``'s by up to 4.8e-7 (the normal
@@ -295,6 +298,11 @@ def make_noise(noise_fn: Callable[[int], object], device) -> Callable[[int], tor
     return noise
 
 
+# the engines whose step begins with the step front (ops.step_front): every
+# fused engine whose LIF advance runs in a launch of its own
+FRONT_ENGINES = ("fused_event", "fused_split", "fused_split_event", "fused_split_plastic")
+
+
 def slot_tables(d_ring: int, delays: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The split engines' slot arithmetic as device tables, indexed by
     ``t % D`` on the host (a view, no transfer): ``clear[t % D]`` is the
@@ -323,6 +331,7 @@ def make_core_step(
     event_plan: Optional[EventPlan] = None,
     noise_fn: Optional[Callable[[int], object]] = None,
     overlap_ctx: Optional[Dict[str, Callable]] = None,
+    front: bool = True,
 ) -> Callable:
     """The per-partition step: ``step(carry)`` advances ``carry`` in place
     by one step and returns the step's spike vector.
@@ -336,11 +345,18 @@ def make_core_step(
 
     The noise: with the port's own (no ``noise_fn``, ``noise_sigma > 0``)
     each step draws the partition's ids and adds them to the delivered ring
-    slot in one launch (``ops.step_noise_add``), and the fused engines take
-    the bias in the same launch.  With ``noise_fn`` a step adds the seam's
-    ``(n_global,)`` vector through ``index_select``.  Both add ``i_syn +
-    noise + bias`` left to right, as the reference does, so the port's own
-    noise gives the same bits either way.
+    slot in one launch, which on the fused engines also adds the bias: the
+    step front (``ops.step_front``) on ``FRONT_ENGINES``, which advances the
+    neurons and writes the history row in the same launch, and
+    ``ops.step_noise_add`` on ``fused`` and ``fused_plastic``.  With
+    ``noise_fn`` a step adds the seam's ``(n_global,)`` vector through
+    ``index_select`` first.  Both add ``i_syn + noise + bias`` left to
+    right, as the reference does, so the port's own noise gives the same
+    bits either way.  ``front=False`` runs ``FRONT_ENGINES`` through the
+    chain the front replaced (``ops.step_noise_add``, the two column
+    copies, ``lif_step`` or ``fused_pre_exchange``, the two column writes
+    and ``post``'s history write), bit for bit the same step: the tests and
+    ``chip_smoke.py`` hold the front against it.
 
     ``step`` runs the k = 1 step, whose exchange is the identity.  A driver
     of k partitions (``snn/dist_sim.py``) calls the halves itself:
@@ -390,6 +406,7 @@ def make_core_step(
     else:
         neuron_step = make_neuron_step(registry, models_present, dt)
     own_noise = noise_fn is None and noise_sigma > 0
+    use_front = front and choice.engine in FRONT_ENGINES
     seam_noise = None if noise_fn is None else make_noise(noise_fn, device)
     clear_tab, onehot_tab = slot_tables(D, dev.delays, device) if choice.split else (None, None)
 
@@ -421,18 +438,17 @@ def make_core_step(
                 dev.row_len_remote, reduce=dev.reduce_remote, out=ring,
             )
 
-    def pre(carry: Dict, noise_g: Optional[torch.Tensor]):
-        """Deliver, add the noise, advance the neurons (and the traces);
-        returns ``(spikes, tr_plus)`` for the exchange.  The k = 1
-        single-launch engines also propagate here."""
-        if choice.overlap == "double_buffer":
-            apply_pending(carry)
+    def chain(carry: Dict, noise_g: Optional[torch.Tensor]) -> torch.Tensor:
+        """``pre``'s work without the step front (every engine but
+        ``FRONT_ENGINES``, and those with ``front=False``): the step's
+        input current as a new tensor, then the neuron step; returns the
+        spikes.  The k = 1 single-launch engines also propagate here."""
         t = carry["t"]
         slot = t % D
         ring = carry["ring"]
         vtx = carry["vtx_state"]
-        # the step's input current, a new tensor: i_syn + noise (+ bias on
-        # the fused engines, whose neuron step is inside their kernel)
+        # i_syn + noise (+ bias on the fused engines, whose neuron step is
+        # inside their kernel)
         bias = vtx[:, LIF_BIAS] if choice.fused else None
         if own_noise:
             i_in = ops.step_noise_add(ring[slot], noise_ids, seed, t, noise_sigma, bias)
@@ -452,7 +468,7 @@ def make_core_step(
                 # as jnp outside any kernel
                 carry["tr_plus"] = ref.trace_decay_ref(carry["tr_plus"], spikes, dt=dt, tau=taus[0])
                 carry["tr_minus"] = ref.trace_decay_ref(carry["tr_minus"], spikes, dt=dt, tau=taus[1])
-            return spikes, carry["tr_plus"]
+            return spikes
         v, refrac = vtx[:, LIF_V].contiguous(), vtx[:, LIF_REF].contiguous()
         if choice.engine == "fused":
             # one cooperative launch: LIF advance + spike emission + every
@@ -477,24 +493,52 @@ def make_core_step(
             carry["weights"] = tuple(new_weights)
             for cur, d in zip(currents, dev.delays):
                 ring[(t + d) % D] += cur[:n_p]
-        elif choice.engine == "fused_event":
-            # LIF advance, then one launch that compresses the spikes to
-            # ids, flags the touched row blocks and adds only their gathers
-            # to the ring (the delivered slot cleared first)
-            v2, r2, spikes = ops.lif_step(v, refrac, i_in, params=lif_params)
-            ops.event_post_exchange(
-                spikes, ring, slot, [(t + d) % D for d in dev.delays],
-                event_plan, dev.cols, carry["weights"], dev.row_len, reduce=carry["_reduce"],
-            )
         elif choice.plastic:  # fused_split_plastic: LIF + both trace decays
             v2, r2, spikes, carry["tr_plus"], carry["tr_minus"] = ops.fused_pre_exchange(
                 v, refrac, i_in, carry["tr_plus"], carry["tr_minus"],
                 params=lif_params, taus=taus,
             )
-        else:  # fused_split, fused_split_event: the trace-free pre-exchange
+        else:  # fused_event, fused_split, fused_split_event: LIF alone (lif_step)
             v2, r2, spikes = ops.fused_pre_exchange(v, refrac, i_in, params=lif_params)
         vtx[:, LIF_V] = v2
         vtx[:, LIF_REF] = r2
+        return spikes
+
+    def pre(carry: Dict, noise_g: Optional[torch.Tensor]):
+        """Deliver, add the noise, advance the neurons (and the traces);
+        returns ``(spikes, tr_plus)`` for the exchange.  The k = 1
+        engines also propagate here."""
+        if choice.overlap == "double_buffer":
+            apply_pending(carry)
+        t = carry["t"]
+        slot = t % D
+        ring = carry["ring"]
+        if use_front:
+            # one launch: the noise and the bias added to the delivered slot
+            # (read in place: the split and event kernels rotate the ring
+            # later in the step), LIF in place in vtx_state, the history row
+            # (and both trace decays, as new tensors: post's pending record
+            # keeps tr_minus)
+            x = ring[slot] if noise_g is None else (
+                ring[slot] + noise_g.to(device).index_select(0, noise_ids))
+            spikes, *traces = ops.step_front(
+                carry["vtx_state"], x, noise_ids, seed=seed, t=t, sigma=noise_sigma,
+                draw=own_noise, bias=True, hist_row=carry["hist"][slot],
+                tr_plus=carry["tr_plus"] if plastic else None,
+                tr_minus=carry["tr_minus"] if plastic else None, params=lif_params, taus=taus,
+            )
+            if plastic:
+                carry["tr_plus"], carry["tr_minus"] = traces
+        else:
+            spikes = chain(carry, noise_g)
+        if choice.engine == "fused_event":
+            # one launch that compresses the spikes to ids, flags the touched
+            # row blocks and adds only their gathers to the ring (the
+            # delivered slot cleared first)
+            ops.event_post_exchange(
+                spikes, ring, slot, [(t + d) % D for d in dev.delays],
+                event_plan, dev.cols, carry["weights"], dev.row_len, reduce=carry["_reduce"],
+            )
         return spikes, carry["tr_plus"]
 
     def post(carry: Dict, spikes: torch.Tensor, act: torch.Tensor, pre_trace: torch.Tensor) -> None:
@@ -552,7 +596,8 @@ def make_core_step(
                     # above read them first
                     ops.stdp_update(w, dev.plastic[i], c, pre_trace, act, post_t,
                                     post_s, params=stdp_params, out=w)
-        carry["hist"][slot] = spikes.to(torch.uint8)
+        if not use_front:  # the front wrote it
+            carry["hist"][slot] = spikes.to(torch.uint8)
         carry["t"] = t + 1
 
     def step(carry: Dict) -> torch.Tensor:
@@ -659,24 +704,31 @@ class Simulator:
             )
         return self._event_plan
 
+    def _make_step(self, gather: str, *, front: bool = True) -> Callable:
+        """The step function of ``gather`` on this simulator's panels;
+        ``front=False`` takes the chain the step front replaced
+        (:func:`make_core_step`)."""
+        choice = self._choice(gather)
+        return make_core_step(
+            registry=self.net.registry,
+            models_present=self._models,
+            dt=self.dt,
+            noise_sigma=self.noise_sigma,
+            seed=self.cfg.seed,
+            d_ring=self.d_ring,
+            dev=self.dev,
+            noise_ids=self._noise_ids,
+            engine_choice=choice,
+            stdp_params=self.stdp_params,
+            event_plan=self.event_plan if choice.event else None,
+            noise_fn=self._noise_fn,
+            front=front,
+        )
+
     def set_gather(self, gather: str) -> None:
         """Run the next steps with the ``"dense"`` or ``"event"`` gather."""
         if gather not in self._steps:
-            choice = self._choice(gather)
-            self._steps[gather] = make_core_step(
-                registry=self.net.registry,
-                models_present=self._models,
-                dt=self.dt,
-                noise_sigma=self.noise_sigma,
-                seed=self.cfg.seed,
-                d_ring=self.d_ring,
-                dev=self.dev,
-                noise_ids=self._noise_ids,
-                engine_choice=choice,
-                stdp_params=self.stdp_params,
-                event_plan=self.event_plan if choice.event else None,
-                noise_fn=self._noise_fn,
-            )
+            self._steps[gather] = self._make_step(gather)
         self.gather = gather
         self._step = self._steps[gather]
 

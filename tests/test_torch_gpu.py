@@ -21,6 +21,7 @@ from repro_torch.kernels import keystream as ks_mod
 from repro_torch.kernels import lif_step as lif_mod
 from repro_torch.kernels import spike_gather as gather_mod
 from repro_torch.kernels import split_step as split_mod
+from repro_torch.kernels import step_front as front_mod
 from repro_torch.kernels import stdp_update as stdp_mod
 from repro_torch.kernels.dispatch import panel_reduce
 
@@ -1087,3 +1088,144 @@ def test_nan_weight_switches_every_gather_to_row_dot(cuda, rng):
     assert all(int(flags[1, rr // 128]) for rr in nan_rows)
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert rows_of(got) == nan_rows
+
+
+# -- the step front: noise, bias, LIF in place, history row in one launch ---------
+
+def _front_case(rng, n, ld, device):
+    """vtx_state (v, refrac, bias, and columns the front must leave alone),
+    a ring slot with signed zeros and a NaN, ids past 2^32 and repeated,
+    both traces with signed zeros, a history row."""
+    vtx = rng.normal(size=(n, ld)).astype(np.float32)
+    vtx[:, 0] = -66.0 + 20.0 * rng.random(n)
+    vtx[:, 1] = rng.integers(0, 3, n)
+    vtx[:, 2] = rng.normal(0.0, 5.0, n)
+    slot = rng.normal(0.0, 10.0, n).astype(np.float32)
+    slot[::7], slot[3::7] = -0.0, 0.0
+    slot[min(5, n - 1)] = np.nan
+    ids = rng.permutation(n).astype(np.int64)
+    ids[::5] += 2**32 + 17
+    ids[1::11] = ids[0]
+    tp, tm = rng.random(n).astype(np.float32), rng.random(n).astype(np.float32)
+    tp[::4], tm[1::4] = -0.0, -0.0
+    hist = rng.integers(0, 2, n).astype(np.uint8)
+    return [torch.from_numpy(a).to(device) for a in (vtx, slot, ids, tp, tm, hist)]
+
+
+@pytest.mark.parametrize("traces", [False, True])
+@pytest.mark.parametrize("draw,bias", [(True, True), (False, True), (True, False),
+                                       (False, False)])
+@pytest.mark.parametrize("n,ld", [(1, 3), (1000, 4), (19293, 4), (77172, 4)])
+def test_step_front_kernel_bit_exact(cuda, rng, n, ld, draw, bias, traces):
+    """The kernel against its plain version on the card: spikes, traces,
+    vtx_state (every column) and the history row bit for bit, signed zeros
+    and NaN too; one launch."""
+    vtx, slot, ids, tp, tm, hist = _front_case(rng, n, ld, cuda)
+    for t in (0, 999, 2**31 + 3):
+        kw = dict(seed=42, t=t, sigma=0.8, draw=draw, bias=bias,
+                  tr_plus=tp if traces else None, tr_minus=tm if traces else None,
+                  params=LIF_PARAMS, taus=TAUS if traces else None)
+        vtx_k, hist_k, vtx_p, hist_p = vtx.clone(), hist.clone(), vtx.clone(), hist.clone()
+        before = front_mod.COUNTER.launches
+        got = ops.step_front(vtx_k, slot, ids, hist_row=hist_k, **kw)
+        assert front_mod.COUNTER.launches == before + 1
+        want = ref.step_front_ref(vtx_p, slot, ids, hist_row=hist_p, **kw)
+        assert len(got) == len(want) == (3 if traces else 1)
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(vtx_k.view(torch.int32), vtx_p.view(torch.int32))
+        assert torch.equal(hist_k, hist_p)
+    assert 0 < int(got[0].sum()) < n or n == 1
+
+
+def test_step_front_kernel_is_the_old_chain(cuda, rng):
+    """The front's kernel against the kernels of the chain it replaced, on
+    the card: noise_add, lif_step or pre_exchange, the column writes."""
+    n = 19293
+    vtx, slot, ids, tp, tm, hist = _front_case(rng, n, 4, cuda)
+    for traces in (False, True):
+        vtx_k, hist_k, vtx_o = vtx.clone(), hist.clone(), vtx.clone()
+        got = ops.step_front(vtx_k, slot, ids, seed=42, t=5, sigma=0.8, draw=True, bias=True,
+                             hist_row=hist_k, tr_plus=tp if traces else None,
+                             tr_minus=tm if traces else None, params=LIF_PARAMS,
+                             taus=TAUS if traces else None)
+        i_in = ops.step_noise_add(slot, ids, 42, 5, 0.8, vtx_o[:, 2])
+        v, r = vtx_o[:, 0].contiguous(), vtx_o[:, 1].contiguous()
+        want = (split_mod.pre_exchange_cuda(v, r, i_in, tp, tm, params=LIF_PARAMS, taus=TAUS)
+                if traces else lif_mod.lif_step_cuda(v, r, i_in, params=LIF_PARAMS))
+        vtx_o[:, 0], vtx_o[:, 1] = want[0], want[1]
+        for a, b in zip(got, want[2:]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(vtx_k.view(torch.int32), vtx_o.view(torch.int32))
+        assert torch.equal(hist_k, want[2].to(torch.uint8))
+
+
+def test_step_front_kernel_refuses_bad_operands(cuda):
+    vtx = torch.zeros((8, 4), device=cuda)
+    slot, ids = torch.zeros(8, device=cuda), torch.arange(8, device=cuda)
+    hist = torch.zeros(8, dtype=torch.uint8, device=cuda)
+    kw = dict(seed=1, t=0, sigma=1.0, draw=True, bias=True, params=LIF_PARAMS)
+    with pytest.raises(ValueError, match="CUDA"):
+        front_mod.step_front_cuda(vtx.cpu(), slot.cpu(), ids.cpu(), hist_row=None, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        front_mod.step_front_cuda(vtx.t().contiguous().t(), slot, ids, hist_row=None, **kw)
+    with pytest.raises(ValueError, match="bias column"):
+        front_mod.step_front_cuda(vtx[:, :2].contiguous(), slot, ids, hist_row=None, **kw)
+    with pytest.raises(TypeError):
+        front_mod.step_front_cuda(vtx, slot, ids.int(), hist_row=None, **kw)
+    with pytest.raises(TypeError):
+        front_mod.step_front_cuda(vtx, slot, ids, hist_row=hist.float(), **kw)
+    with pytest.raises(ValueError, match="rows"):
+        front_mod.step_front_cuda(vtx, slot[:7].contiguous(), ids, hist_row=None, **kw)
+    with pytest.raises(ValueError, match="ids"):
+        front_mod.step_front_cuda(vtx, slot, None, hist_row=None, **kw)
+    with pytest.raises(ValueError, match=">= 0"):
+        front_mod.step_front_cuda(vtx, slot, ids, hist_row=None, **dict(kw, t=-1))
+    with pytest.raises(ValueError, match="together"):
+        front_mod.step_front_cuda(vtx, slot, ids, hist_row=hist, tr_plus=slot, **kw)
+    before = front_mod.COUNTER.launches
+    empty = front_mod.step_front_cuda(vtx[:0], slot[:0], ids[:0], hist_row=hist[:0], **kw)
+    assert empty[0].shape == (0,) and front_mod.COUNTER.launches == before
+
+
+@pytest.mark.parametrize("engine", ["fused_event", "fused_split", "fused_split_event",
+                                    "fused_split_plastic"])
+def test_front_engines_on_card_equal_the_old_chain(cuda, engine):
+    """200 steps of each engine that takes the front, through the front and
+    through the chain it replaced (``make_core_step(front=False)``): raster,
+    vtx_state, ring, hist, traces and weights bit-identical; the front runs
+    one launch a partition and step, and none of noise_add, lif_step and
+    pre_exchange."""
+    from repro_torch.core import block_partition
+    from repro_torch.kernels import noise as noise_mod
+    from repro_torch.snn import Session, SimConfig, Simulator, balanced_ei, microcircuit, to_dcsr
+
+    plastic = engine.endswith("plastic")
+    gather = "event" if engine.endswith("event") else "dense"
+    net = balanced_ei(n=2000, stdp=True, seed=0) if plastic else microcircuit(scale=0.05, seed=0)
+    k = 1 if engine == "fused_event" else 4
+    d = to_dcsr(net, assignment=block_partition(net.n, k), uniform=True)
+    cfg = SimConfig(fused=True, gather=gather)
+    if k == 1:
+        sim = Simulator(d, cfg, device=cuda)
+        old = sim._make_step(gather, front=False)
+    else:
+        sim = Session(d, cfg, engine="spmd", devices=[cuda] * k).simulator
+        old = sim._make_steps(gather, front=False)
+    assert sim.engine_choice.engine == engine
+    state = sim.init_state()
+    counters = (front_mod.COUNTER, noise_mod.COUNTER, lif_mod.COUNTER, split_mod.PRE_COUNTER)
+    before = [c.launches for c in counters]
+    st_new, out_new = sim.run(state, 200, record_raster=True)
+    assert [c.launches - b for c, b in zip(counters, before)] == [200 * k, 0, 0, 0]
+    front = sim._step
+    sim._step = old
+    st_old, out_old = sim.run(state, 200, record_raster=True)
+    sim._step = front
+    assert int(out_new["raster"].sum()) > 0
+    assert torch.equal(out_new["raster"], out_old["raster"])
+    for a, b in zip(*([s] if k == 1 else s for s in (st_new, st_old))):
+        for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
+            assert torch.equal(a[key].view(torch.uint8), b[key].view(torch.uint8)), key
+        for wa, wb in zip(a["weights"], b["weights"]):
+            assert torch.equal(wa, wb)
