@@ -172,6 +172,32 @@ kernel on the card, the float assembly in numpy on the host) -> ``Session``:
      pipes; beside it, as a diagnostic, the built kernel's item loop (G
      ciphers) counted by pipe from its SASS (``cuobjdump``).
 
+Snapshots (``Session.save`` / ``Session.restore`` / ``Session(path)`` /
+``run(checkpoint_every=...)`` in the on-disk format 1.0 of
+``docs/FORMAT.md``), each after every timed run of the session it saves,
+written with fsync on under ``_snap/`` beside this script (the free space
+checked first; removed at the end):
+ s1. after the k=1 microcircuit's profiler phase: ``save`` at its current
+     t, ``Session.restore(path)`` onto the card, then 200 steps of the live
+     and of the restored session: rasters, spike counts, ``vtx_state``,
+     ``ring``, ``hist`` and traces bit-equal;
+ s2. after the k=4 Brunel path's profiler phase: ``save``,
+     ``Session.restore`` at k=4 (``[card] * 4``), k=2 (``[card] * 2``) and
+     k=1, 256 steps each against the live session's own 256: rasters, the
+     synced weights, traces and hist bit-equal by permanent id (``ring``
+     and ``vtx_state`` too at k=4; at k=2 and 1 their largest differences,
+     the rounding of the split engines' local-then-remote sums, are
+     printed); then ``run(512, checkpoint_every=128, max_to_keep=2)`` on
+     the live session against the k=4 restore's run without checkpoints,
+     two step directories left, and ``Session(root)`` resuming from the
+     newest with every carry array bit-equal; then ``docs/FORMAT.md``'s
+     NumPy-only reader in a subprocess on the snapshot the card wrote.
+  ``[snap]`` lines give the bytes on disk, the save stall (``state_to_dcsr``
+  and the host copies) and the write to ``wait()`` in seconds and GB/s,
+  ``load_latest_valid`` and the restored Session's build in seconds, the
+  checkpoint stalls, the host's peak RSS and nvidia-smi's name and power
+  limit.
+
 It ends with a JSON line of kernel figures, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a card it exits 1 before printing any result.
@@ -186,6 +212,7 @@ import math
 import os
 import re
 import resource
+import shutil
 import subprocess
 import sys
 import time
@@ -212,6 +239,7 @@ from repro_torch.builder import (  # noqa: E402
     balanced_ei_rules, build_network, build_partition, crng, microcircuit_rules,
 )
 from repro_torch.core import block_partition, merge_to_single  # noqa: E402
+from repro_torch.io import fsync_enabled, load_binary, snapshot_steps  # noqa: E402
 from repro_torch.snn import (  # noqa: E402
     RasterMonitor, RateMonitor, Session, SimConfig, balanced_ei, microcircuit, to_dcsr,
 )
@@ -921,7 +949,7 @@ def noise_add_case(n, card, seed):
 
 def count_device_kernels(fn, warm):
     """The device kernels ``fn()`` launches, by name, from ``torch.profiler``
-    (CUPTI); fails if the trace holds none.  ``warm()``, the same work on
+    (CUPTI); empty when the trace dropped them all.  ``warm()``, the same work on
     other operands, runs first in the profiler's warm-up step, whose events
     are dropped: without it, a trace of one k>1 Brunel step missed launches
     (2 of its 4 step fronts)."""
@@ -940,9 +968,7 @@ def count_device_kernels(fn, warm):
             fn()
             torch.cuda.synchronize()
             prof.step()
-    names = Counter(e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
-    require(sum(names.values()) > 0, "torch.profiler saw no device kernel")
-    return names
+    return Counter(e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def old_chain_step(sim, gather):
@@ -1278,14 +1304,16 @@ def traced_step(sim, fns, state, marker):
     """``step_kernels`` of one step, traced again (at most three times)
     until the trace holds ``marker``'s kernel once a partition, as the
     launch counters show every step launches it: ``torch.profiler`` has
-    dropped launches from a trace on the card.  Returns the kernels by
-    name and the number of traces taken."""
+    dropped launches from a trace on the card, some of them or (once, in
+    the k>1 Brunel net's trace) all.  Returns the kernels by name and the
+    number of traces taken."""
     k = len(fns) if isinstance(fns, list) else 1
     for attempt in range(1, 4):
         names = step_kernels(sim, fns, state)
         if sum(c for n, c in names.items() if marker in n) == k:
             return names, attempt
-    raise AssertionError(f"three traces of one step short of {k} {marker} kernels: "
+    raise AssertionError(f"three traces of one step short of {k} {marker} kernels "
+                         f"(torch.profiler saw {sum(names.values())} device kernels): "
                          f"{dict(names)}")
 
 
@@ -2329,6 +2357,221 @@ def phase_k4_plastic_timing(dsim, params, inputs, errs, launches):
     return out
 
 
+# -- snapshots: save -> restore -> continue on the card --------------------------
+
+SNAP_ROOT = Path(__file__).resolve().parent / "_snap"  # removed at the end
+CKPT_STEPS, CKPT_EVERY, CKPT_KEEP = 512, 128, 2
+
+
+def host_rss_gib():
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def snapshot_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def require_disk(need):
+    """Fails, naming the bytes needed, unless the snapshots' file system has
+    ``need`` bytes free."""
+    SNAP_ROOT.mkdir(exist_ok=True)
+    free = shutil.disk_usage(SNAP_ROOT).free
+    require(free >= need, f"the snapshots need {need} bytes free under {SNAP_ROOT}; "
+            f"{free} are free")
+
+
+def timed_save(ses, path):
+    """``save`` without waiting, then ``wait()``: (the run loop's stall, the
+    background write's seconds, bytes on disk)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ses.save(str(path), wait=False)
+    stall = time.perf_counter() - t0
+    ses.wait()
+    write = time.perf_counter() - t0 - stall
+    return stall, write, snapshot_bytes(path)
+
+
+def save_line(what, ses, stall, write, n_bytes, smi):
+    return (f"{what} at t={ses.t}: {n_bytes} bytes on disk; save stall {stall:.3f} s "
+            f"(state_to_dcsr and host copies), write {write:.3f} s to wait() "
+            f"({n_bytes / write / 1e9:.3f} GB/s, fsync {'on' if fsync_enabled() else 'off'}); "
+            f"host peak RSS {host_rss_gib():.1f} GiB; {smi}")
+
+
+def restore_line(ses):
+    rs = ses.restore_seconds
+    return (f"load_latest_valid {rs['load']:.3f} s, reshard {rs['reshard']:.3f} s, "
+            f"Session build (ELL, upload) {rs['build']:.3f} s; engine {ses.engine_choice.engine}"
+            f", k={ses.k}; host peak RSS {host_rss_gib():.1f} GiB")
+
+
+def require_same_bits(a, b, what):
+    require(a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)),
+            f"{what} differs")
+
+
+def phase_snapshot_microcircuit(ses, smi):
+    """[snap] The main path's session at its current t: ``save`` (fsync on),
+    ``Session.restore`` onto the card, then the live session and the
+    restored one 200 steps each; rasters, spike counts, ``vtx_state``,
+    ``ring``, ``hist`` and the traces bit-equal."""
+    part = ses.net.parts[0]
+    arrays = {key: getattr(part, key).nbytes for key in BUILD_ARRAYS}
+    need = sum(arrays.values()) + sum(ses.state[key].numel() * ses.state[key].element_size()
+                                      for key in ("ring", "hist", "tr_plus", "tr_minus"))
+    require_disk(need + need // 20)
+    path = SNAP_ROOT / "microcircuit"
+    t_save = ses.t
+    stall, write, n_bytes = timed_save(ses, path)
+    say("snap", save_line(f"microcircuit k=1 (n={ses.n}, m={ses.m})", ses, stall, write,
+                          n_bytes, smi))
+    say("snap", "arrays (GB): " + ", ".join(f"{key} {b / 1e9:.3f}" for key, b in arrays.items()))
+    restored = Session.restore(str(path))
+    torch.cuda.synchronize()
+    say("snap", "Session.restore(path) onto the card: " + restore_line(restored))
+    require(restored.t == t_save and restored.device == ses.device, "restored t or device")
+    require(restored.describe()["reduce"] == ses.describe()["reduce"], "restored reduce differs")
+    for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
+        require_same_bits(restored.state[key], ses.state[key], f"restored {key}")
+    live_res, _, live, live_s = run_session(ses, VARIANT_STEPS)
+    res, _, got, secs = run_session(restored, VARIANT_STEPS)
+    require(int(live.raster.sum()) > 0, "the live microcircuit never spiked")
+    require(np.array_equal(got.raster, live.raster), "restored raster differs from the live one")
+    require(np.array_equal(res.spike_count, live_res.spike_count), "spike counts differ")
+    for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
+        require_same_bits(restored.state[key], ses.state[key],
+                          f"after {VARIANT_STEPS} steps, {key}")
+    say("snap", f"live and restored microcircuit, {VARIANT_STEPS} steps each (gather modes "
+        f"{ses.last_gather_modes} and {restored.last_gather_modes}): {int(live.raster.sum())} "
+        f"spikes, raster, spike counts, vtx_state, ring, hist and traces bit-equal; "
+        f"{live_s / VARIANT_STEPS * 1e6:.1f} and {secs / VARIANT_STEPS * 1e6:.1f} us/step")
+    del restored
+    ses.close()  # the background writer's thread ends here
+    shutil.rmtree(path)
+
+
+def snapshot_arrays(path):
+    """A snapshot's arrays, partitions concatenated: under block partitions
+    of one labelling every row and slot keeps its place, so equal arrays
+    are equal by permanent id (``global_ids`` is among them)."""
+    net, sim_state, t = load_binary(str(path))
+    out = {key: np.concatenate([getattr(p, key) for p in net.parts])
+           for key in ("global_ids", "col_idx", "edge_state", "vtx_state")}
+    for key in ("ring", "hist", "tr_plus", "tr_minus"):
+        out[key] = np.concatenate([sim_state[p][key] for p in range(net.k)], axis=-1)
+    return t, out
+
+
+def extract_format_example():
+    """``docs/FORMAT.md``'s NumPy-only reader, taken as
+    ``tests/test_format_doc.py`` takes it."""
+    text = (Path(__file__).resolve().parent / "docs" / "FORMAT.md").read_text()
+    blocks = [b for b in re.findall(r"```python\n(.*?)```", text, flags=re.DOTALL)
+              if "sys.argv[1]" in b]
+    require(len(blocks) == 1 and "repro" not in blocks[0], "FORMAT.md's example script")
+    return blocks[0]
+
+
+def phase_snapshot_brunel(ses4, card, smi):
+    """[snap] The k=4 Brunel session on one card: ``save``, then
+    ``Session.restore`` at k=4, 2 and 1, 256 steps each against the live
+    session's own 256 (rasters, synced weights, traces and hist bit-equal;
+    ``vtx_state`` and ``ring`` bit-equal at k=4, and at k=2 and 1 equal to
+    the rounding of the split engines' local-then-remote sums, whose
+    largest differences are printed, as in phase 13); then ``run(512, checkpoint_every=128,
+    max_to_keep=2)`` against a run without checkpoints, retention, and
+    ``Session(root)``; then FORMAT.md's NumPy reader on the snapshot."""
+    need = 4 * sum(getattr(p, key).nbytes for p in ses4.net.parts for key in BUILD_ARRAYS)
+    require_disk(need)
+    path = SNAP_ROOT / "brunel"
+    t_save = ses4.t
+    stall, write, n_bytes = timed_save(ses4, path)
+    say("snap", save_line(f"Brunel k={K_PARTS} spmd (n={ses4.n}, m={ses4.m})", ses4, stall,
+                          write, n_bytes, smi))
+    _, _, live, _ = run_session(ses4, PARITY_STEPS)
+    ses4.save(str(SNAP_ROOT / "brunel_live"))
+    t_end, want = snapshot_arrays(SNAP_ROOT / "brunel_live")
+    require(int(live.raster.sum()) > 0, "the live Brunel net never spiked")
+    restored4 = None
+    for k in (K_PARTS, 2, 1):
+        place = dict(engine="spmd", devices=[card] * k) if k > 1 else dict(device=card)
+        ses = Session.restore(str(path), k=k, **place)
+        torch.cuda.synchronize()
+        require(ses.t == t_save and ses.k == k, f"restored at k={k}: t={ses.t}, k={ses.k}")
+        _, _, got, secs = run_session(ses, PARITY_STEPS)
+        require(np.array_equal(got.raster, live.raster),
+                f"k={k} raster differs from the live one")
+        ses.save(str(SNAP_ROOT / f"brunel_k{k}"))
+        t_k, arrs = snapshot_arrays(SNAP_ROOT / f"brunel_k{k}")
+        require(t_k == t_end, f"k={k}: t {t_k} != {t_end}")
+        # the ring and v hold sums of a row's local then remote sources:
+        # bit-equal at the live run's k, equal to that rounding at another
+        summed = () if k == K_PARTS else ("ring", "vtx_state")
+        for key in want:
+            if key not in summed:
+                require(arrs[key].dtype == want[key].dtype and np.array_equal(
+                    arrs[key].view(np.uint8), want[key].view(np.uint8)), f"k={k}: {key} differs")
+        require(np.array_equal(arrs["vtx_state"][:, 1:], want["vtx_state"][:, 1:]),
+                f"k={k}: refractory or bias columns differ")
+        dv = float(np.abs(arrs["vtx_state"] - want["vtx_state"]).max())
+        dr = float(np.abs(arrs["ring"] - want["ring"]).max())
+        say("snap", f"Session.restore(path, k={k}): {restore_line(ses)}; {PARITY_STEPS} steps "
+            f"{secs / PARITY_STEPS * 1e6:.1f} us/step; raster ({int(got.raster.sum())} spikes), "
+            f"synced weights, traces, hist{', ring, vtx_state' if k == K_PARTS else ''} "
+            f"bit-equal to the live k={K_PARTS} run by permanent id; max |v difference| "
+            f"{dv:.3e}, max |ring difference| {dr:.3e}")
+        if k == K_PARTS:
+            restored4 = ses
+        del ses
+    del want
+
+    root = SNAP_ROOT / "ckpt"
+    t0 = ses4.t
+    ckpt_mon = RasterMonitor()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    ses4.run(CKPT_STEPS, monitors=[ckpt_mon], checkpoint_every=CKPT_EVERY,
+             checkpoint_dir=str(root), max_to_keep=CKPT_KEEP)
+    run_s = time.perf_counter() - t_run
+    ses4.wait()
+    plain = RasterMonitor()
+    restored4.run(CKPT_STEPS, monitors=[plain])
+    require(np.array_equal(ckpt_mon.raster, plain.raster),
+            "the checkpointed run's raster differs from a run without checkpoints")
+    steps = snapshot_steps(str(root))
+    want_steps = [t0 + CKPT_STEPS - CKPT_EVERY * i for i in range(CKPT_KEEP)][::-1]
+    require(steps == want_steps and len(list(root.iterdir())) == CKPT_KEEP,
+            f"step dirs {sorted(p.name for p in root.iterdir())}, want {want_steps}")
+    resumed = Session(str(root), engine="spmd", devices=[card] * K_PARTS)
+    require(resumed.t == ses4.t, f"Session(root) resumed at {resumed.t}, not {ses4.t}")
+    for p, (a, b) in enumerate(zip(resumed.state, ses4.state)):
+        for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
+            require_same_bits(a[key], b[key], f"Session(root) partition {p} {key}")
+        for wa, wb in zip(a["weights"], b["weights"]):
+            require_same_bits(wa, wb, f"Session(root) partition {p} weights")
+    stalls = ses4.last_ckpt_stalls
+    say("snap", f"run({CKPT_STEPS}, checkpoint_every={CKPT_EVERY}, max_to_keep={CKPT_KEEP}) on "
+        f"the live k={K_PARTS} session: {run_s / CKPT_STEPS * 1e6:.1f} us/step with the "
+        f"checkpoints; last_ckpt_stalls {[round(x, 4) for x in stalls]} s; raster equal to a run "
+        f"without checkpoints ({int(plain.raster.sum())} spikes); step dirs {steps}; "
+        f"Session(root) resumed at t={resumed.t} (load_latest_valid "
+        f"{resumed.restore_seconds['load']:.3f} s), every carry array bit-equal; {smi}")
+    del resumed, restored4
+    ses4.close()
+
+    script = SNAP_ROOT / "read_shard.py"
+    script.write_text(extract_format_example())
+    env = {key: v for key, v in os.environ.items() if key != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(script), str(path)], capture_output=True,
+                         text=True, env=env, cwd=str(SNAP_ROOT), timeout=300)
+    require(out.returncode == 0 and f"OK: partition 0 of {K_PARTS}" in out.stdout,
+            f"FORMAT.md's reader on the card's snapshot: {out.stdout} {out.stderr}")
+    say("snap", "docs/FORMAT.md's NumPy-only reader (no package on the path) on the snapshot "
+        "the card wrote: " + out.stdout.strip().splitlines()[-1])
+
+
 # -- procedural construction ---------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
@@ -2719,7 +2962,12 @@ def main(argv=None) -> int:
     # torch.profiler only now, after every timed k=1 and k>1 microcircuit run
     phase_step_kernels("front", sim, ses.state, k1_olds)
     phase_step_kernels("front", dsim, ses4.state, k4_olds)
-    del ses, sim, net, ses4, dsim, d4, k1_olds, k4_olds  # the plastic paths' memory alone
+    del ses4, dsim, d4, k1_olds, k4_olds
+    gc.collect()
+    torch.cuda.empty_cache()
+    # save -> restore -> continue, after every timed run of the main path
+    phase_snapshot_microcircuit(ses, smi)
+    del ses, sim, net  # the plastic paths' memory alone
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2775,6 +3023,7 @@ def main(argv=None) -> int:
                                 t0_p, pdsim.noise_sigma, pparams, k4p_launches["step_front"],
                                 "k4_plastic", traces0, taus))
     phase_step_kernels("front", pdsim, pses4.state, {"dense": [("the old chain", p_old)]})
+    phase_snapshot_brunel(pses4, card, smi)
     del pses4, pdsim, pses, psim, pnet, pd4, unf, fus, k4p_inputs, p_inputs
     gc.collect()
     torch.cuda.empty_cache()
@@ -2799,4 +3048,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        shutil.rmtree(SNAP_ROOT, ignore_errors=True)

@@ -9,8 +9,7 @@ keystream runs on the card (``ops.builder_keystream``); the float assembly
 stays in numpy on the host.
 
 The reference's streaming snapshot reader (``repro.builder.ingest``) is not
-ported: it reads the on-disk dCSR format, which comes with the port's
-snapshot slice.
+ported yet; the port reads snapshots whole (``repro_torch.io``).
 """
 
 from .rules import (  # noqa: F401

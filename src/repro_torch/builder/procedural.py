@@ -483,8 +483,8 @@ def build_network(
     net.validate()
     # carry the generating spec (JSON form) so snapshots of this network
     # can regenerate a corrupt shard's topology bit-identically at restore
-    # (the reference's io.dcsr_binary embeds it in the manifest and its
-    # snn.supervisor consumes it; both wait for the port's snapshot slice)
+    # (io.dcsr_binary embeds it in the manifest, as the reference's does;
+    # the reference's snn.supervisor consumes it, not ported yet)
     from .rules import spec_to_dict
 
     net.rule_spec = {"spec": spec_to_dict(spec), "uniform": bool(uniform),

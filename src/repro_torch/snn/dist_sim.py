@@ -48,10 +48,10 @@ from ..kernels.dispatch import (
 )
 from ..kernels.event_step import EventPlan, event_id_cap
 from .neurons import LIF_V
-from .reshard import stack_runtime
+from .reshard import RUNTIME_KEYS, stack_runtime
 from .simulator import (
-    PartitionDeviceData, SimConfig, _models_present, checked_cols, make_core_step,
-    make_noise, plastic_masks, row_lengths, state_reduce,
+    PartitionDeviceData, SimConfig, _models_present, checked_cols, load_runtime_arrays,
+    make_core_step, make_noise, plastic_masks, row_lengths, state_reduce,
 )
 
 
@@ -561,5 +561,22 @@ class DistSimulator:
             ell.scatter_weights_back(part)
 
     def runtime_state(self, state: List[Dict]) -> Dict[int, Dict[str, np.ndarray]]:
-        """In-flight runtime arrays (ring/hist/traces) keyed per partition."""
+        """In-flight runtime arrays (ring/hist/traces) keyed per partition.
+        On the CPU they are views of the carries: a snapshot copies them."""
         return stack_runtime(state, self.stacked.k)
+
+    def load_runtime(
+        self, state: List[Dict], sim_state: Dict[int, Dict[str, np.ndarray]]
+    ) -> List[Dict]:
+        """``state`` with a snapshot's runtime arrays of the same k, each
+        partition's on that partition's device; a key that some partition
+        lacks is left as it was."""
+        if not sim_state:
+            return state
+        parts = [sim_state.get(p, {}) for p in range(self.stacked.k)]
+        keys = set(RUNTIME_KEYS).intersection(*(set(p) for p in parts))
+        return [
+            load_runtime_arrays(carry, {key: part[key] for key in RUNTIME_KEYS if key in keys},
+                                f"DistSimulator.load_runtime, partition {p}")
+            for p, (carry, part) in enumerate(zip(state, parts))
+        ]

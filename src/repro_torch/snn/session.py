@@ -44,16 +44,44 @@ rows are emitted directly, with the keystream on the session's device
 (``devices[0]`` for spmd) unless ``build_path="ref"`` asks for the numpy
 oracle; ``k`` applies only to a ``RuleSpec``, as in the reference.
 
+Snapshots (``session.save`` / ``Session.restore`` / ``Session(path)``),
+as in the reference (``session.py:24-72``) and in its on-disk format 1.0
+(``docs/FORMAT.md``), so either package restores the other's:
+
+  * ``save`` captures the state between steps: it syncs the carry back
+    into the dCSR partitions (vertex state, and weights through the ELL's
+    edge index), copies them and the in-flight runtime (``ring``,
+    ``hist``, ``tr_plus``, ``tr_minus``) to host buffers, and hands the
+    copy to a background writer (``io.AsyncWriter``) that writes
+    ``part<p>.npz`` shards from a thread pool and the manifest last,
+    through an atomic directory swap.  ``wait=True`` (the default) returns
+    once it is durable; the writer never touches a tensor.
+  * ``Session.restore(path, k=..., assignment=...)`` is elastic: a
+    snapshot taken at one k continues bit for bit at another, since the
+    noise is a function of ``(seed, t, permanent id)`` on every device.
+    ``path`` may be a root of ``step_XXXXXXXX`` snapshots, walked
+    newest-first past corrupt ones.  The panels are uploaded from the
+    restored net, so each gather's reduction is chosen from the restored
+    weights; with ``gather="auto"`` the restored session starts dense.
+  * ``run(checkpoint_every=..., checkpoint_dir=...)`` aligns its chunks to
+    the checkpoint boundaries and saves without waiting; ``wait()``,
+    ``close()`` or leaving a ``with`` block makes the writes durable, and a
+    background write error is raised at the next boundary or there.
+
 Not in this slice, each raising ``NotImplementedError`` that names the
-ROADMAP queue item porting it: snapshot paths as input and the
-save/restore pair, ``run(checkpoint_every=...)`` and ``run_supervised``.
+ROADMAP queue item porting it: ``run_supervised`` and streaming restore
+(``Session.restore(..., streaming=True)``).
 """
 from __future__ import annotations
 
 import collections.abc
 import dataclasses
 import os
+import shutil
+import threading
+import time
 import warnings
+import weakref
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -62,8 +90,14 @@ import torch
 from ..builder.procedural import DEFAULT_CHUNK_ROWS, build_network
 from ..builder.rules import RuleSpec
 from ..core.dcsr import DCSRNetwork, merge_to_single
+from ..core.partition import block_partition
+from ..io.async_writer import AsyncWriter
+from ..io.dcsr_binary import (
+    load_latest_valid, snapshot_network, snapshot_steps, write_snapshot,
+)
 from ..kernels.dispatch import EVENT_ACTIVITY_THRESHOLD, resolve_device
 from .dist_sim import DistSimulator
+from .reshard import reshard_sim_state
 from .simulator import SimConfig, Simulator, _not_ported as _unported
 
 _DEFAULT_CHUNK = 128
@@ -102,7 +136,11 @@ class RunResult(collections.abc.Mapping):
 
 
 class Session:
-    """One object for build -> simulate; see the module docstring."""
+    """One object for build -> simulate -> checkpoint -> restart; see the
+    module docstring."""
+
+    # advanced by the AsyncWriter worker, read on the run loop's thread
+    _guarded_by_ = {"_last_good_ckpt_step": "_ckpt_mark_lock"}
 
     def __init__(
         self,
@@ -118,6 +156,7 @@ class Session:
         _noise_fn=None,
         _share: Optional["Session"] = None,
     ):
+        sim_state, t_now, load_s = None, 0, None
         if isinstance(net_or_path, RuleSpec):
             # procedural one-call build: each partition's dCSR rows are
             # emitted directly (chunked, counter-based seeding), with the
@@ -134,7 +173,9 @@ class Session:
                 "use Session.restore(path, k=...) for snapshots"
             )
         elif isinstance(net_or_path, (str, os.PathLike)):
-            raise _unported("Session(snapshot path)", "snapshots in the reference format")
+            t_load = time.perf_counter()
+            net, sim_state, t_now = load_latest_valid(os.fspath(net_or_path))
+            load_s = time.perf_counter() - t_load
         elif isinstance(net_or_path, DCSRNetwork):
             net = net_or_path
         else:
@@ -159,9 +200,27 @@ class Session:
             self.net = merge_to_single(net) if net.k > 1 else net
             self._sim = Simulator(self.net, self.cfg, device=self.device, _noise_fn=_noise_fn)
         self._state = None
+        # a restored snapshot's step and runtime, applied when the carry is made
+        self._t0 = int(t_now)
+        self._pending_runtime = sim_state if sim_state else None
         # chunk lengths and gather mode of each chunk the last run() executed
         self.last_run_chunks: Tuple[int, ...] = ()
         self.last_gather_modes: Tuple[str, ...] = ()
+        # run-loop stall (seconds) of each checkpoint of the last
+        # run(checkpoint_every=...)
+        self.last_ckpt_stalls: Tuple[float, ...] = ()
+        # step of the newest snapshot whose background write landed: the
+        # rollback point named when a later write fails
+        self._last_good_ckpt_step: Optional[int] = None
+        self._ckpt_mark_lock = threading.Lock()
+        self._writer: Optional[AsyncWriter] = None
+        # host seconds of a restore: reading the snapshot (``load``), the
+        # elastic reshard and the engine build (``build``); None otherwise
+        self.restore_seconds: Optional[Dict[str, float]] = None
+        if load_s is not None:
+            self.restore_seconds = dict(
+                load=load_s, reshard=0.0, build=time.perf_counter() - t_load - load_s
+            )
 
     # -- engine selection --------------------------------------------------
     @staticmethod
@@ -199,7 +258,11 @@ class Session:
 
     def _ensure_state(self) -> None:
         if self._state is None:
-            self._state = self._sim.init_state()
+            st = self._sim.init_state(self._t0)
+            if self._pending_runtime is not None:
+                st = self._sim.load_runtime(st, self._pending_runtime)
+                self._pending_runtime = None
+            self._state = st
 
     # -- introspection -----------------------------------------------------
     @property
@@ -227,13 +290,14 @@ class Session:
     def t(self) -> int:
         """Next step index (steps completed since t=0)."""
         if self._state is None:
-            return 0
+            return self._t0
         return int((self._state[0] if self.engine_kind == "spmd" else self._state)["t"])
 
     @property
     def state(self):
-        """The device-side carry, made on first access: a dict at k = 1, the
-        list of per-partition carries on the spmd engine."""
+        """The device-side carry, made on first access (with a restored
+        snapshot's runtime): a dict at k = 1, the list of per-partition
+        carries on the spmd engine."""
         self._ensure_state()
         return self._state
 
@@ -287,18 +351,28 @@ class Session:
         *,
         chunk_size: Optional[int] = None,
         checkpoint_every: Optional[int] = None,
+        checkpoint_dir: Optional[str] = None,
+        max_to_keep: Optional[int] = None,
+        checkpoint_sync: bool = False,
     ) -> RunResult:
         """Advance ``steps`` steps in chunks of ``chunk_size`` (default
         128); the trajectory is identical for any chunk size.  ``monitors``
         are streaming accumulators (see :mod:`.monitors`); the recordings
-        they need are turned on from their ``requires`` sets."""
+        they need are turned on from their ``requires`` sets.
+
+        ``checkpoint_every`` saves a snapshot to
+        ``checkpoint_dir/step_XXXXXXXX`` every that many steps (chunks end
+        on the boundaries) without waiting for the write, unless
+        ``checkpoint_sync``; ``max_to_keep`` removes older step snapshots
+        from the writer's queue, after the writes before it.  The stall of
+        each checkpoint is in ``last_ckpt_stalls``."""
         if steps <= 0:
             raise ValueError(f"steps must be positive, got {steps}")
         if checkpoint_every is not None:
-            raise _unported(
-                "Session.run(checkpoint_every=...)",
-                "snapshots in the reference format",
-            )
+            if checkpoint_every <= 0:
+                raise ValueError("checkpoint_every must be positive")
+            if checkpoint_dir is None:
+                raise ValueError("checkpoint_every requires checkpoint_dir")
         monitors = tuple(monitors)
         need = set()
         for mon in monitors:
@@ -312,10 +386,13 @@ class Session:
         t_run0 = self.t
         for mon in monitors:
             mon.begin(self)
-        counts, overflows, chunks, gather_modes = [], [], [], []
+        counts, overflows, chunks, gather_modes, stalls = [], [], [], [], []
         done = 0
+        next_ckpt = checkpoint_every
         while done < steps:
             c = min(chunk_size, steps - done)
+            if next_ckpt is not None:
+                c = min(c, next_ckpt - done)
             self._state, dev_outs = self._sim.run(
                 self._state, c, record_raster=record_raster, record_v=record_v
             )
@@ -341,10 +418,17 @@ class Session:
                 self._sim.set_gather(
                     "event" if rate_ema < EVENT_ACTIVITY_THRESHOLD else "dense"
                 )
+            if next_ckpt is not None and done == next_ckpt:
+                stalls.append(self._checkpoint(
+                    checkpoint_dir, t_run0 + done, max_to_keep, checkpoint_sync
+                ))
+                next_ckpt += checkpoint_every
         for mon in monitors:
             mon.finalize()
         self.last_run_chunks = tuple(chunks)
         self.last_gather_modes = tuple(gather_modes)
+        if checkpoint_every is not None:
+            self.last_ckpt_stalls = tuple(stalls)
         overflow = np.concatenate(overflows)
         dropped = int(overflow.sum())
         if dropped:
@@ -364,9 +448,145 @@ class Session:
             overflow=overflow,
         )
 
+    def _checkpoint(self, root: str, step: int, max_to_keep: Optional[int],
+                    sync: bool) -> float:
+        """One checkpoint of ``run``: save ``root/step_XXXXXXXX`` (and queue
+        the retention behind it); returns the run loop's stall in seconds."""
+        t_ck = time.perf_counter()
+        try:
+            self.save(os.path.join(root, f"step_{step:08d}"), wait=sync)
+        except OSError as e:
+            with self._ckpt_mark_lock:
+                last = self._last_good_ckpt_step
+            raise OSError(
+                f"checkpoint at step {step} failed (writer retries exhausted); "
+                "last successful checkpoint: "
+                + (f"step {last}" if last is not None else "none from this session")
+                + " — that is your rollback point"
+            ) from e
+        if max_to_keep:
+            # retention rides the writes' FIFO queue, so it never runs ahead
+            # of an older step still in flight
+            if sync:
+                self._gc_checkpoints(root, max_to_keep)
+            else:
+                self._writer_obj().submit(self._gc_checkpoints, root, max_to_keep)
+        return time.perf_counter() - t_ck
+
+    # -- checkpoint / restart ----------------------------------------------
+    def _writer_obj(self) -> AsyncWriter:
+        if self._writer is None:
+            # a bounded queue is backpressure: when the disk falls behind,
+            # save() blocks instead of piling up host copies of the state
+            self._writer = AsyncWriter(name="dcsr-ckpt-writer", max_pending=4)
+            # a Session dropped without close() stops its worker (queued
+            # jobs still flush first)
+            weakref.finalize(self, self._writer.close, drain=False)
+        return self._writer
+
+    def save(self, path: str, *, wait: bool = True) -> str:
+        """Snapshot the session to ``path``: sync the carry back into the
+        dCSR partitions, copy them and the runtime to host buffers, and
+        write them atomically on the background writer.
+
+        At return the content is captured (a later step, ``save`` or GC
+        cannot change it) and any earlier background error has been
+        raised; with ``wait=True`` (the default) this snapshot and every
+        one queued before it are durable on disk."""
+        self._ensure_state()
+        if self._writer is not None:
+            self._writer.check()  # surface earlier background failures
+        self._sim.state_to_dcsr(self._state)
+        step = self.t
+        snap = snapshot_network(self.net, self._sim.runtime_state(self._state), step)
+        w = self._writer_obj()
+        w.submit(self._write_and_mark, snap, path, step, context=dict(step=step, path=path))
+        if wait:
+            w.wait()
+        return path
+
+    def _write_and_mark(self, snap, path: str, step: int) -> None:
+        """Background write body: only a write that fully landed advances
+        ``_last_good_ckpt_step``."""
+        write_snapshot(snap, path, atomic=True)
+        with self._ckpt_mark_lock:
+            self._last_good_ckpt_step = step
+
+    def wait(self) -> None:
+        """Block until every queued snapshot (and retention) has landed,
+        raising any background write error."""
+        if self._writer is not None:
+            self._writer.wait()
+
+    def close(self) -> None:
+        """Drain the checkpoint queue and stop the background writer
+        (raising any pending background error); a later ``save`` starts a
+        new writer."""
+        if self._writer is not None:
+            w, self._writer = self._writer, None
+            w.close()
+
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc_type is None:
+            self.close()
+        else:
+            try:  # do not mask the exception in flight with a drain error
+                self.close()
+            except Exception as drain_err:
+                warnings.warn(
+                    "background checkpoint write failed while unwinding "
+                    f"another exception: {drain_err!r}",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+        return False
+
+    @classmethod
+    def restore(
+        cls,
+        path: str,
+        *,
+        k: Optional[int] = None,
+        cfg: Optional[SimConfig] = None,
+        assignment: Optional[np.ndarray] = None,
+        engine: str = "auto",
+        device=None,
+        devices: Optional[Sequence] = None,
+        streaming: bool = False,
+        _noise_fn=None,
+    ) -> "Session":
+        """A session from ``save``'s output, or from the newest valid step
+        of a ``checkpoint_every`` root.  A ``k`` or ``assignment`` unlike
+        the snapshot's repartitions the net and its runtime
+        (:func:`.reshard.reshard_sim_state`, ``block_partition`` for
+        ``k``) before the engine is built; the continued trajectory is the
+        uninterrupted run's.  ``engine``, ``device`` and ``devices`` are as
+        in ``Session(net)``."""
+        if streaming:
+            raise _unported("Session.restore(streaming=True)", "streaming ingest")
+        t0 = time.perf_counter()
+        net, sim_state, t_now = load_latest_valid(os.fspath(path))
+        t1 = time.perf_counter()
+        if assignment is not None or (k is not None and k != net.k):
+            asn = (np.asarray(assignment, np.int64) if assignment is not None
+                   else block_partition(net.n, k))
+            net, sim_state = reshard_sim_state(net, sim_state, asn)
+        t2 = time.perf_counter()
+        ses = cls(net, cfg, engine=engine, device=device, devices=devices, _noise_fn=_noise_fn)
+        ses._t0 = int(t_now)
+        ses._pending_runtime = sim_state if sim_state else None
+        ses.restore_seconds = dict(load=t1 - t0, reshard=t2 - t1, build=time.perf_counter() - t2)
+        return ses
+
+    @staticmethod
+    def _gc_checkpoints(root: str, keep: int) -> None:
+        for step in snapshot_steps(root)[:-keep]:
+            d = os.path.join(root, f"step_{step:08d}")
+            shutil.rmtree(d, ignore_errors=True)
+            shutil.rmtree(d + ".old", ignore_errors=True)
+
     # -- not ported yet (ROADMAP queue) ------------------------------------
-    save = _raises("Session.save", "snapshots in the reference format")
-    restore = classmethod(
-        _raises("Session.restore", "snapshots in the reference format")
-    )
     run_supervised = _raises("Session.run_supervised", "fault tolerance")

@@ -86,7 +86,7 @@ from ..kernels.dispatch import (
 )
 from ..kernels.event_step import EventPlan, event_id_cap
 from .neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V, make_neuron_step
-from .reshard import RUNTIME_KEYS
+from .reshard import RUNTIME_KEYS, concat_runtime
 
 
 def _not_ported(what: str, queue_item: str) -> NotImplementedError:
@@ -270,6 +270,23 @@ def state_reduce(dev: PartitionDeviceData, weights: Sequence[torch.Tensor]) -> T
     if dev.any_plastic or all(w is w0 for w, w0 in zip(weights, dev.weights0)):
         return dev.reduce
     return panel_reduce(weights)
+
+
+def load_runtime_arrays(carry: Dict, arrays: Dict[str, np.ndarray], where: str) -> Dict:
+    """``carry`` with each restored runtime array (``RUNTIME_KEYS``) copied
+    into a tensor on the carry's device, with its dtype (float32 ring and
+    traces, uint8 ``hist``); an array whose shape differs from the carry's
+    (another ring depth or partition size) raises ``ValueError``."""
+    out = dict(carry)
+    for key, arr in arrays.items():
+        like = carry[key]
+        if tuple(arr.shape) != tuple(like.shape):
+            raise ValueError(
+                f"{where}: the snapshot's {key} has shape {tuple(arr.shape)}, this "
+                f"engine's carry {tuple(like.shape)} (ring depth and rows must match)"
+            )
+        out[key] = torch.tensor(np.asarray(arr), dtype=like.dtype, device=like.device)
+    return out
 
 
 def _models_present(net: DCSRNetwork) -> Tuple[str, ...]:
@@ -807,5 +824,12 @@ class Simulator:
         self.ell.scatter_weights_back(part)
 
     def runtime_state(self, state: Dict) -> Dict[int, Dict[str, np.ndarray]]:
-        """In-flight runtime arrays (ring/hist/traces) keyed per partition."""
+        """In-flight runtime arrays (ring/hist/traces) keyed per partition.
+        On the CPU they are views of the carry: a snapshot copies them."""
         return {0: {k: state[k].cpu().numpy() for k in RUNTIME_KEYS if k in state}}
+
+    def load_runtime(self, state: Dict, sim_state: Dict[int, Dict[str, np.ndarray]]) -> Dict:
+        """``state`` with a snapshot's runtime arrays; a k > 1 snapshot's
+        partitions are concatenated (partition order is the merged
+        labelling)."""
+        return load_runtime_arrays(state, concat_runtime(sim_state), "Simulator.load_runtime")
