@@ -198,6 +198,21 @@ checked first; removed at the end):
   checkpoint stalls, the host's peak RSS and nvidia-smi's name and power
   limit.
 
+The compiled chunk (``[graph]`` lines; on the card every run replays one
+CUDA graph per step engine, chunk length and recordings): after each path
+(main, k4, plastic, k4p, p2 at k=1 and k=4, p3, and the checkpointed Brunel
+run) the session is rewound to the path's start state and run the path's
+steps graphed and uncaptured (the ``_graphs=False`` seam) in turns, each
+raster equal to the path's and the end states bit-equal, with the us/step
+of both; each captured key's warm-up, capture and instantiation seconds and
+its graph's nodes by kind (``cuGraphGetNodes`` on ``raw_cuda_graph()``),
+kernels a step; one uncaptured chunk under
+``torch.cuda.set_sync_debug_mode("error")``; and, after the net's timed runs
+and profiler phases, the card's idle share over one graphed and one
+uncaptured chunk (the union of ``torch.profiler``'s device intervals over a
+window of CUDA events).  The kernels of ``noise``, ``step_front`` and
+``event_step`` are timed as the engines launch them, with ``t`` on the card.
+
 It ends with a JSON line of kernel figures, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a card it exits 1 before printing any result.
@@ -205,6 +220,8 @@ without a card it exits 1 before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import functools
 import gc
 import json
@@ -245,6 +262,7 @@ from repro_torch.snn import (  # noqa: E402
 )
 from repro_torch.snn.neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V  # noqa: E402
 from repro_torch.kernels.dispatch import launch_row_dot, panel_reduce  # noqa: E402
+from repro_torch.snn.session import _DEFAULT_CHUNK  # noqa: E402
 from repro_torch.snn.simulator import FRONT_ENGINES, slot_tables, state_reduce  # noqa: E402
 
 STEPS = 1000
@@ -585,7 +603,7 @@ def next_step_inputs(ses):
     the delivered ring slot plus the port's noise plus the bias, as
     ``make_core_step`` forms them."""
     sim, st = ses.simulator, ses.state
-    t, vtx = st["t"], st["vtx_state"]
+    t, vtx = int(st["t"]), st["vtx_state"]
     noise = ops.step_noise(sim.cfg.seed, t, sim.net.n, sim.noise_sigma, device=sim.device)
     ids = torch.from_numpy(ses.permanent_ids).to(sim.device)
     i_tot = (st["ring"][t % sim.d_ring] + noise.index_select(0, ids)) + vtx[:, LIF_BIAS]
@@ -859,11 +877,14 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
         n_ids = int(a.sum())
         e_bytes = (4 * (real + active) + n_p * 4 * 2 + rows * 12
                    + n_ids * (8 + nd * plan.num_blocks) + flags.numel() * 4)
+        # timed as the engines launch it: the step t on the card, the slots
+        # from t and the delays
+        t_dev = torch.tensor(STEPS, device=sim.device)
         t = dict(
             ms=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
-                a, ring, slot, write, plan, cols, weights, row_len, reduce=red), 20),
+                a, ring, t_dev, sim.dev.delays, plan, cols, weights, row_len, reduce=red), 20),
             ms_bitmask_l2=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
-                a, ring, slot, write, plan, cols, weights, row_len, reduce=red,
+                a, ring, t_dev, sim.dev.delays, plan, cols, weights, row_len, reduce=red,
                 shared_bitmask=False), 20),
         )
         t["bound_ms"], t["bound_by"] = bound_ms(e_bytes, 2 * active)
@@ -876,9 +897,10 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
             f"({t['bound_by']}: {e_bytes / 1e9:.4f} GB = 4 B x {real} real slots' cols + 4 B x "
             f"{active} active slots' weights + activity, ring, row_len, ids and touch bytes)")
     em, e5 = events["main-path step"], events["5% active"]
-    ring, slot, write = event_case(sim)
-    tp = cuda_ms(lambda: event_mod.event_post_exchange_plain(eact, ring, slot, write, plan,
-                                                             cols, weights), 5)
+    ring, _, _ = event_case(sim)
+    t_dev = torch.tensor(STEPS, device=sim.device)
+    tp = cuda_ms(lambda: event_mod.event_post_exchange_plain(eact, ring, t_dev, sim.dev.delays,
+                                                             plan, cols, weights), 5)
     say("timing", f"event_post_exchange plain version (main-path step) {tp:.3f} ms")
     out.append(dict(name="event_post_exchange", ms=em["ms"], plain_ms=tp, bound_ms=em["bound_ms"],
                     bound_by=em["bound_by"], library_ms=gm["library_ms"],
@@ -899,6 +921,9 @@ def phase_engines(ses):
     the main path ended in, alternating dense, event, dense, event."""
     sim = ses.simulator
     mode0, per = sim.gather, {}
+    for mode in ("dense", "event"):  # capture each key first: the timed runs replay
+        sim.set_gather(mode)
+        sim.run(ses.state, ENGINE_STEPS)
     for mode in ("dense", "event", "dense", "event"):
         sim.set_gather(mode)
         torch.cuda.synchronize()
@@ -950,25 +975,29 @@ def noise_add_case(n, card, seed):
 def count_device_kernels(fn, warm):
     """The device kernels ``fn()`` launches, by name, from ``torch.profiler``
     (CUPTI); empty when the trace dropped them all.  ``warm()``, the same work on
-    other operands, runs first in the profiler's warm-up step, whose events
-    are dropped: without it, a trace of one k>1 Brunel step missed launches
-    (2 of its 4 step fronts)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    other operands, runs first in the same session, and only the kernels
+    after a marker (``torch.cuda._sleep``'s spin kernel) launched between the
+    two are counted: without the warm-up, a trace of one k>1 Brunel step
+    missed launches (2 of its 4 step fronts).  One session and no schedule:
+    with a warm-up step in a schedule, traces on the card came back empty,
+    once three times in a row."""
+    from torch.profiler import ProfilerActivity, profile
 
-    events = []
     torch.cuda.synchronize()
     with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)  # one cycle: nothing to accumulate
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: events.extend(p.events())) as prof:
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             warm()
             torch.cuda.synchronize()
-            prof.step()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-            prof.step()
-    return Counter(e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [e.time_range.end for e in device if "spin" in e.name]
+    if not marks:
+        return Counter()
+    return Counter(e.name for e in device if e.time_range.start >= marks[-1])
 
 
 def old_chain_step(sim, gather):
@@ -1032,6 +1061,184 @@ def run_with_step(sim, step, state, steps):
         return sim.run(state, steps, record_raster=True)
     finally:
         sim._step = own
+
+
+# -- the compiled chunk: one CUDA graph per engine, chunk length and recordings
+
+# CUgraphNodeType (cuda.h): the node kinds a captured chunk holds
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+# per path the us/step graphed and uncaptured (phase_graph), for the summary
+GRAPH_US = {}
+# paths whose idle share phase_idle measures after their net's timed runs:
+# (tag, simulator, start state, gather mode)
+IDLE_PENDING = []
+
+
+@contextlib.contextmanager
+def uncaptured(sim):
+    """Runs of ``sim`` on the uncaptured loop: the ``_graphs=False`` seam,
+    turned on for the block on an engine built with graphs."""
+    own = sim._graphs_on
+    sim._graphs_on = False
+    try:
+        yield
+    finally:
+        sim._graphs_on = own
+
+
+def graph_node_kinds(graph) -> Counter:
+    """The nodes of a captured graph by kind, read with libcuda's
+    ``cuGraphGetNodes`` and ``cuGraphNodeGetType`` on
+    ``CUDAGraph.raw_cuda_graph()`` (a ``cudaGraph_t`` is a ``CUgraph``)."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    require(lib.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    require(lib.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kinds = Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        require(lib.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0, "cuGraphNodeGetType")
+        kinds[GRAPH_NODE_KINDS.get(kind.value, "other")] += 1
+    return kinds
+
+
+def idle_share(fn):
+    """``(idle share, device events, window ms)`` of the card over ``fn``,
+    on the device's clock: the window is ``fn``'s span between two CUDA
+    events recorded around it (a run without the profiler, whose per-launch
+    cost would stretch an uncaptured window), the busy time the union of
+    the device's kernel, copy and memset intervals that ``torch.profiler``
+    traced in another run of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm: a capture or the library load stays out of both runs
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    window_us = start.elapsed_time(stop) * 1e3
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, reach = 0.0, -math.inf
+    for lo, hi in spans:
+        lo = max(lo, reach)
+        if hi > lo:
+            busy += hi - lo
+            reach = hi
+    return max(0.0, 1.0 - busy / max(window_us, 1e-9)), len(spans), window_us / 1e3
+
+
+def carries_of(state):
+    return [state] if isinstance(state, dict) else list(state)
+
+
+def require_states_bit_equal(a, b, what):
+    for p, (ca, cb) in enumerate(zip(carries_of(a), carries_of(b))):
+        require(torch.equal(ca["t"], cb["t"]), f"{what}: partition {p} t differs")
+        for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
+            require_same_bits(ca[key], cb[key], f"{what}: partition {p} {key}")
+        for wa, wb in zip(ca["weights"], cb["weights"]):
+            require_same_bits(wa, wb, f"{what}: partition {p} weights")
+
+
+def require_no_host_sync(sim, state, steps=16):
+    """One uncaptured chunk under ``torch.cuda.set_sync_debug_mode("error")``:
+    no op of a step reads back to the host."""
+    with uncaptured(sim):
+        sim.run(state, 2, record_raster=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sim.run(state, steps, record_raster=True, record_v=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def phase_graph(tag, ses, st0, gather0, steps, raster, after=None, measure=True,
+                order=(True, False, False, True), **run):
+    """[graph] The path's ``steps`` steps from its start state ``st0``
+    (gather mode ``gather0``), graphed and uncaptured in turns (graphed,
+    uncaptured, uncaptured, graphed), each raster equal to the path's and
+    the end states bit-equal; the captured keys' set-up seconds and their
+    graphs' nodes by kind; one uncaptured chunk with no host sync; and the
+    path queued for ``phase_idle`` (``measure=False`` skips these three).
+    ``run`` goes to ``ses.run``, ``after()`` runs after each timed run, and
+    ``order`` says which runs are graphed.  Returns the us/step of both
+    (lists)."""
+    sim = ses.simulator
+    per, ends = {True: [], False: []}, {}
+    for graphed in order:
+        ses._state = st0
+        sim.set_gather(gather0)
+        with contextlib.nullcontext() if graphed else uncaptured(sim):
+            require(sim.graph_mode == ("cuda_graph" if graphed else "uncaptured: _graphs=False"),
+                    f"{tag}: graph mode {sim.graph_mode}")
+            mon = RasterMonitor()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ses.run(steps, monitors=[mon], **run)
+            torch.cuda.synchronize()
+            per[graphed].append((time.perf_counter() - t0) / steps * 1e6)
+        if after is not None:
+            after()
+        require(np.array_equal(mon.raster, raster),
+                f"{tag}: the {'graphed' if graphed else 'uncaptured'} raster differs from the path's")
+        ends.setdefault(graphed, ses.state)
+    require_states_bit_equal(ends[True], ends[False], f"{tag}: graphed vs uncaptured end state")
+    graphed, bare = (" and ".join(f"{x:.1f}" for x in per[g]) for g in (True, False))
+    say("graph", f"{tag}: {steps} steps from the path's start state, us/step graphed "
+        f"{graphed}, uncaptured (_graphs=False) {bare} (host clock, a "
+        f"RasterMonitor, in the order {', '.join('graphed' if g else 'uncaptured' for g in order)}"
+        "); rasters identical "
+        "to the path's, end states bit-equal (t, vtx_state, ring, hist, traces, weights)")
+    GRAPH_US[tag] = per
+    if not measure:
+        return per
+    for g in sim._graphs.graphs.values():
+        kinds = graph_node_kinds(g.graph)
+        say("graph", f"{tag}: key {g.what}: warm-up {g.warmup_s:.3f} s, capture {g.capture_s:.3f} "
+            f"s, instantiate {g.instantiate_s:.3f} s, {g.replays} replays; nodes "
+            + ", ".join(f"{k} {v}" for k, v in sorted(kinds.items()))
+            + f"; {kinds['kernel'] / g.steps:.2f} kernels a step")
+    require_no_host_sync(sim, st0)
+    say("graph", f"{tag}: an uncaptured chunk of {sim.engine_choice.engine} under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync")
+    IDLE_PENDING.append((tag, sim, st0, sim.gather))
+    return per
+
+
+def phase_idle():
+    """[graph] The idle share of the card over one graphed and one
+    uncaptured chunk of each path that ``phase_graph`` ran since the last
+    call, from its start state on its last engine.  Called after the timed
+    runs of the paths' net: a ``torch.profiler`` session slows the host
+    side of the runs after it."""
+    while IDLE_PENDING:
+        tag, sim, st0, gather = IDLE_PENDING.pop(0)
+        mode0 = sim.gather
+        sim.set_gather(gather)
+        engine, c = sim.engine_choice.engine, _DEFAULT_CHUNK
+        idle_g, n_g, ms_g = idle_share(lambda: sim.run(st0, c, record_raster=True))
+        with uncaptured(sim):
+            idle_u, n_u, ms_u = idle_share(lambda: sim.run(st0, c, record_raster=True))
+        sim.set_gather(mode0)
+        say("graph", f"{tag}: idle share of the card over one {c}-step chunk of {engine} (busy: "
+            "the union of the device intervals torch.profiler traced; window: CUDA events "
+            f"around an unprofiled run): graphed {idle_g:.4f} ({n_g} device events, window "
+            f"{ms_g:.3f} ms), uncaptured {idle_u:.4f} ({n_u}, {ms_u:.3f} ms)")
 
 
 def phase_noise_add(ses, seed, card, launches):
@@ -1107,11 +1314,13 @@ def phase_noise_add(ses, seed, card, launches):
     all_ids = torch.arange(n_main, device=card)
     full = ops.step_noise(seed, STEPS, n_main, sigma, device=card)
     slot = ring[3].clone()
-    tk = cuda_ms(lambda: noise_mod.noise_add_cuda(ring[3], ids_m, seed, STEPS, sigma, bias), 200)
-    tp = cuda_ms(lambda: ref.step_noise_add_ref(ring[3], ids_m, seed, STEPS, sigma, bias), 10)
+    # timed as the engines launch it: the step t on the card
+    t_dev = torch.tensor(STEPS, device=card)
+    tk = cuda_ms(lambda: noise_mod.noise_add_cuda(ring[3], ids_m, seed, t_dev, sigma, bias), 200)
+    tp = cuda_ms(lambda: ref.step_noise_add_ref(ring[3], ids_m, seed, t_dev, sigma, bias), 10)
     chain = dict(
         clone=cuda_ms(lambda: ring[3].clone(), 200),
-        noise=cuda_ms(lambda: noise_mod.noise_add_cuda(neg0, all_ids, seed, STEPS, sigma), 200),
+        noise=cuda_ms(lambda: noise_mod.noise_add_cuda(neg0, all_ids, seed, t_dev, sigma), 200),
         index_select=cuda_ms(lambda: full.index_select(0, ids_m), 200),
         add=cuda_ms(lambda: slot + full, 200),
         bias_add=cuda_ms(lambda: slot + bias, 200),
@@ -1258,7 +1467,7 @@ def front_case(ses, part=None):
     sim = ses.simulator
     carry = ses.state if part is None else ses.state[part]
     ids = sim._noise_ids if part is None else sim._noise_ids[part]
-    t = carry["t"]
+    t = int(carry["t"])
     slot = t % sim.d_ring
     return (carry["vtx_state"].clone(), carry["ring"][slot].clone(), ids,
             carry["hist"][slot].clone(), t)
@@ -1346,6 +1555,7 @@ def front_timing(what, vtx, slot, ids, hist_row, seed, t, sigma, params, launche
     its plain version's, its bound, and the device time of the chain it
     replaced, as one sequence and op by op."""
     n = vtx.shape[0]
+    t = torch.tensor(int(t), device=vtx.device)  # as the engines pass it: on the card
     tr = dict(tr_plus=traces[0], tr_minus=traces[1], taus=taus) if traces else {}
     kw = dict(seed=seed, t=t, sigma=sigma, draw=True, bias=True, params=params, **tr)
     vk, hk = vtx.clone(), hist_row.clone()
@@ -1716,6 +1926,8 @@ def phase_plastic_engines(fused_ses, unfused_ses):
     plastic path ended in, alternating fused, unfused, fused, unfused."""
     per = {}
     state = fused_ses.state
+    for ses in (fused_ses, unfused_ses):  # capture each key first: the timed runs replay
+        ses.simulator.run(state, ENGINE_STEPS)
     for ses in (fused_ses, unfused_ses, fused_ses, unfused_ses):
         sim = ses.simulator
         torch.cuda.synchronize()
@@ -2093,13 +2305,15 @@ def phase_k4_timing(dsim, act_np, errs, launches):
         n_ids = int(a.sum())
         e_bytes = (4 * (real + active) + n * 4 + rows * 12
                    + n_ids * (8 + nd * plan.num_blocks) + flags.numel() * 4)
+        # timed as the remote pass launches it: t on the card, no clear
+        t_dev = torch.tensor(STEPS, device=card)
         t = dict(
             ms=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
-                a, work, None, write, plan, dev.cols, dev.weights0, dev.row_len,
-                reduce=dev.reduce), 20),
+                a, work, t_dev, dev.delays, plan, dev.cols, dev.weights0, dev.row_len,
+                reduce=dev.reduce, clear=False), 20),
             ms_bitmask_l2=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
-                a, work, None, write, plan, dev.cols, dev.weights0, dev.row_len,
-                reduce=dev.reduce, shared_bitmask=False), 20),
+                a, work, t_dev, dev.delays, plan, dev.cols, dev.weights0, dev.row_len,
+                reduce=dev.reduce, shared_bitmask=False, clear=False), 20),
             library_ms=lib_a,
         )
         t["bound_ms"], t["bound_by"] = bound_ms(e_bytes, 2 * active)
@@ -2115,8 +2329,10 @@ def phase_k4_timing(dsim, act_np, errs, launches):
         if label == "main-path step":
             act_remote = a
     del csrs
-    tp = cuda_ms(lambda: event_mod.event_post_exchange_plain(act_remote, work, None, write,
-                                                             plan, dev.cols, dev.weights0), 5)
+    t_dev = torch.tensor(STEPS, device=card)
+    tp = cuda_ms(lambda: event_mod.event_post_exchange_plain(act_remote, work, t_dev, dev.delays,
+                                                             plan, dev.cols, dev.weights0,
+                                                             clear=False), 5)
     say("timing", f"event_post_exchange split use plain version (main-path step) {tp:.3f} ms")
     em, e5 = events["main-path step"], events["5% active"]
     out.append(dict(name="event_post_exchange_split", ms=em["ms"], plain_ms=tp,
@@ -2139,6 +2355,9 @@ def phase_k4_engines(ses):
     """Host-clock us/step of the split engines from the k>1 path's end state."""
     dsim, per = ses.simulator, {}
     mode0 = dsim.gather
+    for mode in ("dense", "event"):  # capture each key first: the timed runs replay
+        dsim.set_gather(mode)
+        dsim.run(ses.state, ENGINE_STEPS)
     for mode in ("dense", "event", "dense", "event"):
         dsim.set_gather(mode)
         torch.cuda.synchronize()
@@ -2529,6 +2748,7 @@ def phase_snapshot_brunel(ses4, card, smi):
 
     root = SNAP_ROOT / "ckpt"
     t0 = ses4.t
+    st_ck = ses4.state
     ckpt_mon = RasterMonitor()
     torch.cuda.synchronize()
     t_run = time.perf_counter()
@@ -2558,6 +2778,10 @@ def phase_snapshot_brunel(ses4, card, smi):
         f"without checkpoints ({int(plain.raster.sum())} spikes); step dirs {steps}; "
         f"Session(root) resumed at t={resumed.t} (load_latest_valid "
         f"{resumed.restore_seconds['load']:.3f} s), every carry array bit-equal; {smi}")
+    # the same checkpointed run graphed and uncaptured, from the same state
+    phase_graph("k4p checkpointed", ses4, st_ck, "dense", CKPT_STEPS, ckpt_mon.raster,
+                after=ses4.wait, measure=False, order=(True, False), checkpoint_every=CKPT_EVERY,
+                checkpoint_dir=str(SNAP_ROOT / "ckpt_ab"), max_to_keep=CKPT_KEEP)
     del resumed, restored4
     ses4.close()
 
@@ -2764,6 +2988,7 @@ def phase_rules_brunel(seed, card):
         f"{ses1.engine_choice.engine}, {ses4.engine_choice.engine}")
     require(ses1.engine_choice.engine == "fused_plastic", f"engine {ses1.engine_choice}")
     require(ses4.net.n == ses1.net.n == PLASTIC_N, "the k=4 rules net has padding")
+    st1, st4 = ses1.state, ses4.state
     reset_counts()
     _, _, r1, s1 = run_session(ses1, PARITY_STEPS)
     l1 = read_counts()
@@ -2772,6 +2997,8 @@ def phase_rules_brunel(seed, card):
     reset_counts()
     _, _, r4, s4 = run_session(ses4, PARITY_STEPS)
     l4 = read_counts()
+    phase_graph("p2 k=1", ses1, st1, "dense", PARITY_STEPS, r1.raster)
+    phase_graph(f"p2 k={K_PARTS}", ses4, st4, "dense", PARITY_STEPS, r4.raster)
     nd = len(ses4.simulator.devs[0].cols)
     require(l4 == plastic_k4_launches("local", True, PARITY_STEPS, nd), f"k=4 launches {l4}")
     require(int(r1.raster.sum()) > 0, "the Brunel rules net never spiked")
@@ -2782,6 +3009,7 @@ def phase_rules_brunel(seed, card):
         f"k={K_PARTS} fused_split_plastic {s4 / PARITY_STEPS * 1e6:.1f} us/step; raster "
         f"({int(r1.raster.sum())} spikes), hist, traces and weights ({changed} slots changed) "
         f"bit-identical, max |v difference| {dv:.3e}; launches {l1}, {l4}")
+    phase_idle()
 
 
 def phase_rules_microcircuit(args, card):
@@ -2807,7 +3035,9 @@ def phase_rules_microcircuit(args, card):
         f"{ses.engine_choice}; host peak RSS "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f} GiB")
     pops = {p: spec.offsets()[p] for p in (q.name for q in spec.populations)}
-    _, run_launches = phase_main_path(ses, ses.n, pops, tag="p3", need_event=False)
+    st0 = ses.state
+    raster, run_launches = phase_main_path(ses, ses.n, pops, tag="p3", need_event=False)
+    phase_graph("p3", ses, st0, "dense", STEPS, raster)
 
     part = ses.net.parts[0]
     bounds = np.concatenate([[0], np.cumsum(np.bincount(block_partition(spec.n, ROW_CHECK_K)))])
@@ -2828,6 +3058,7 @@ def phase_rules_microcircuit(args, card):
         "(numpy oracle build_partition) equal the card-built net's in row lengths, col_idx, "
         f"edge_model, edge_state, vtx_state, coords and global_ids "
         f"({time.perf_counter() - t0:.1f} s)")
+    phase_idle()
     return launches["keystream"], run_launches["fused_step"]
 
 
@@ -2911,7 +3142,9 @@ def main(argv=None) -> int:
 
     params = lif_params(net)
     inputs, errs = phase_kernels(sim, params, np.random.default_rng(args.seed))
+    st0 = ses.state
     main_raster, launches = phase_main_path(ses, net.n, pd14_populations(args.scale))
+    phase_graph("main", ses, st0, "dense", STEPS, main_raster)
     errs["event_post_exchange"], event_act = phase_event(sim, main_raster)
     unfused = phase_parity(net, main_raster, len(sim.dev.cols))
     # spike_gather and lif_step run only on the unfused path (the step front
@@ -2952,7 +3185,9 @@ def main(argv=None) -> int:
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f} GiB")
     k4_act = main_raster[STEPS // 2]
     k4_errs = phase_k4_kernels(dsim, k4_act)
+    st0 = ses4.state
     k4_raster, k4_launches, _ = phase_k4_main(ses4, main_raster, base)
+    phase_graph("k4", ses4, st0, "dense", STEPS, k4_raster)
     phase_k4_variants(ses4, card, k4_raster, len(dsim.devs[0].cols))
     kernels += phase_k4_timing(dsim, k4_act, k4_errs, k4_launches)
     phase_k4_engines(ses4)
@@ -2962,6 +3197,7 @@ def main(argv=None) -> int:
     # torch.profiler only now, after every timed k=1 and k>1 microcircuit run
     phase_step_kernels("front", sim, ses.state, k1_olds)
     phase_step_kernels("front", dsim, ses4.state, k4_olds)
+    phase_idle()
     del ses4, dsim, d4, k1_olds, k4_olds
     gc.collect()
     torch.cuda.empty_cache()
@@ -2989,7 +3225,9 @@ def main(argv=None) -> int:
         f"weights and masks on the card; engine {pses.engine_choice}; STDP {psim.stdp_params}")
     pparams = lif_params(pnet)
     p_inputs, p_errs = phase_plastic_kernels(psim, pparams, np.random.default_rng(args.seed))
+    st0 = pses.state
     p_raster, p_launches = phase_plastic_path(pses, pnet.n)
+    phase_graph("plastic", pses, st0, "dense", STEPS, p_raster)
     unf, fus, unf_launches = phase_plastic_parity(pnet, p_raster)
     # stdp_update runs only on the unfused plastic path: its count is that run's
     p_launches["stdp_update"] = unf_launches["stdp_update"]
@@ -3005,7 +3243,9 @@ def main(argv=None) -> int:
         f"{tuple(pdsim.devs[0].cols[0].shape)} a partition; engine {pses4.engine_choice}")
     k4p_inputs, k4p_errs = phase_k4_plastic_kernels(pdsim, pparams,
                                                     np.random.default_rng(args.seed))
+    st0 = pses4.state
     k4p_launches = phase_k4_plastic_path(pses4, pses, p_raster)
+    phase_graph("k4p", pses4, st0, "dense", STEPS, p_raster)
     k4p_var = phase_k4_plastic_variants(pses4, card, fus, p_raster, len(pdsim.devs[0].cols))
     taus = stdp_taus(pdsim)
     vtx0, slot0, ids0, hist0, t0_p = front_case(pses4, 0)
@@ -3023,6 +3263,7 @@ def main(argv=None) -> int:
                                 t0_p, pdsim.noise_sigma, pparams, k4p_launches["step_front"],
                                 "k4_plastic", traces0, taus))
     phase_step_kernels("front", pdsim, pses4.state, {"dense": [("the old chain", p_old)]})
+    phase_idle()
     phase_snapshot_brunel(pses4, card, smi)
     del pses4, pdsim, pses, psim, pnet, pd4, unf, fus, k4p_inputs, p_inputs
     gc.collect()
@@ -3040,6 +3281,10 @@ def main(argv=None) -> int:
     kernels.append(phase_keystream_timing(args.seed, card, ks_launches, ks_err))
     next(k for k in kernels if k["name"] == "fused_step")["launches_rules_microcircuit"] = \
         rules_fused
+    say("graph", "us/step of each path, graphed / uncaptured (_graphs=False), host clock, "
+        "in one call: " + "; ".join(
+            f"{tag} {min(per[True]):.1f} / {min(per[False]):.1f}" for tag, per in GRAPH_US.items())
+        + f" (the faster of two runs each); {smi}")
     say("done", f"every phase passed; whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -66,7 +66,8 @@ def carry_from_arrays(
     device,
 ) -> Union[Dict, List[Dict]]:
     """The port's step carry on ``device`` from the reference carry's
-    arrays (``t`` as a host int, the tensors in the reference's dtypes).
+    arrays (``t`` as a host int, made the carry's 0-d int64 tensor; the
+    tensors in the reference's dtypes).
 
     A stacked carry of the reference ``DistSimulator`` (``vtx_state`` of
     shape ``(k, n_p, S)``, every other array with the same leading
@@ -79,7 +80,7 @@ def carry_from_arrays(
     def one(p, dev):
         pick = (lambda a: np.asarray(a)) if p is None else (lambda a: np.asarray(a)[p])
         return dict(
-            t=int(t),
+            t=torch.tensor(int(t), dtype=torch.int64, device=dev),
             vtx_state=put(pick(vtx_state), torch.float32, dev),
             ring=put(pick(ring), torch.float32, dev),
             hist=put(pick(hist), torch.uint8, dev),

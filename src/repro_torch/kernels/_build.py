@@ -45,10 +45,30 @@ NVCC_FLAGS = (
 @dataclasses.dataclass
 class LaunchCounter:
     """Kernel launches made through one wrapper since the last reset; the
-    wrapper adds one where it launches its kernel and nowhere else."""
+    wrapper adds one where it launches its kernel and nowhere else.  A
+    captured CUDA graph holds the launches its capture counted, and each
+    replay adds them (``snn/simulator.py:ChunkGraphs``): the counts are
+    launches that ran on the card.  Every counter is listed in
+    :data:`COUNTERS`."""
 
     name: str
     launches: int = 0
+
+    def __post_init__(self):
+        COUNTERS.append(self)
+
+
+COUNTERS: List[LaunchCounter] = []
+
+
+def launch_counts() -> List[int]:
+    """Every counter's launches, in :data:`COUNTERS` order."""
+    return [c.launches for c in COUNTERS]
+
+
+def set_launch_counts(counts: List[int]) -> None:
+    for c, n in zip(COUNTERS, counts):
+        c.launches = n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,7 +169,7 @@ _SIGNATURES = {
     ),
     "repro_fused_plastic_step_max_buckets": [],
     "repro_event_step": (
-        [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P] * 6 + [_I, _I, _P, _I]
+        [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P] + [_I] * 5 + [_P] * 6 + [_I, _I, _P, _I]
     ),
     "repro_event_step_max_buckets": [],
     "repro_pre_exchange": [_P] * 10 + [_I] + [_F] * 9 + [_P, _I],
@@ -160,9 +180,10 @@ _SIGNATURES = {
     ),
     "repro_post_exchange_plastic_max_buckets": [],
     "repro_keystream": [_P, _P, _L, _I, _U, _U, _U, _P, _I],
-    "repro_noise_add": [_P, _P, _P, _L, _P, _L, _U, _U, _F, _P, _I],
+    "repro_noise_add": [_P, _P, _P, _L, _P, _L, _U, _P, _F, _P, _I],
     "repro_step_front": (
-        [_P, _I] + [_P] * 8 + [_I] + [_F] * 7 + [_U, _U] + [_F] * 3 + [_I, _I, _P, _I]
+        [_P, _I, _P, _I, _P, _P, _P, _I] + [_P] * 4 + [_I] + [_F] * 7 + [_U, _P]
+        + [_F] * 3 + [_I, _I, _P, _I]
     ),
 }
 
@@ -185,6 +206,21 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = library().repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def step_tensor(t, device: torch.device) -> torch.Tensor:
+    """The step ``t`` as the kernels read it: a 0-d int64 tensor on
+    ``device``.  A tensor there is taken as it is (a simulator's carry, read
+    on the card when the launch runs); an int is copied there, outside any
+    captured chunk."""
+    if torch.is_tensor(t):
+        if t.dtype != torch.int64 or t.dim() != 0 or t.device != device:
+            raise ValueError(f"t: expected a 0-d int64 tensor on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        return t
+    if int(t) < 0:
+        raise ValueError(f"step t={t}: must be >= 0")
+    return torch.tensor(int(t), dtype=torch.int64, device=device)
 
 
 def launch_args(t: torch.Tensor):

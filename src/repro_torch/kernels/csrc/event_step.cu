@@ -4,9 +4,12 @@
 // flagged rows of every delay bucket into the ring.  At k=1 the activity is
 // the partition's own spike vector; in the split engine (fused_split_event)
 // it is the exchanged (n_global,) vector while the ring has the partition's
-// n_p rows, and the overlap mode's remote pass runs with no clear (slot < 0),
-// as the reference passes a clear mask of ones there
-// (src/repro/snn/simulator.py:370-376, :608-614).
+// n_p rows, and the overlap mode's remote pass runs with no clear (clear ==
+// 0), as the reference passes a clear mask of ones there
+// (src/repro/snn/simulator.py:370-376, :608-614).  The ring slots come from
+// the step t, read from device memory: the delivered slot is t % D and bucket
+// b adds to (t + off_b) % D, off_b its delay (host constants of the net), so
+// one captured launch serves every step.
 //
 // Replaces: src/repro/kernels/event_step.py:event_post_exchange_pallas
 // (pallas_call at :198, body _make_event_kernel:135), together with the
@@ -76,7 +79,9 @@ struct EventArgs {
   int* flags;   // (nd, nb) out
   float* ring;  // (D, n_p), updated in place
   int n_p;
-  int slot;  // ring slot delivered this step (cleared here); < 0: no clear
+  const int64_t* t;  // the step, in device memory
+  int D;
+  int clear;  // != 0: clear the delivered slot t % D
   int nb;
   int block_r;
   int nd;
@@ -84,7 +89,7 @@ struct EventArgs {
   const float* w[kMaxBuckets];
   const int* row_len[kMaxBuckets];  // (R,) real slots a row; null: K
   int K[kMaxBuckets];
-  int wslot[kMaxBuckets];  // (t + d_b) % D
+  int wofs[kMaxBuckets];  // bucket b adds to ring slot (t + wofs[b]) % D
 };
 
 // at most 64 registers a thread, so that 4 blocks (32 warps) fit an SM
@@ -96,7 +101,8 @@ __global__ void __launch_bounds__(kThreads, 4) event_step_kernel(const EventArgs
   const int lane = threadIdx.x & 31;
   const int warp = tid >> 5;
   const int nwarps = nthreads >> 5;
-  float* ring_slot = a.ring + static_cast<size_t>(a.slot < 0 ? 0 : a.slot) * a.n_p;
+  const int64_t t = *a.t;
+  float* ring_slot = a.ring + static_cast<size_t>(t % a.D) * a.n_p;
   for (int word = warp; word < a.words; word += nwarps) {  // warp-uniform
     const int j = word * 32 + lane;
     if (j < a.n && a.act[j] > 0.0f) {
@@ -105,7 +111,7 @@ __global__ void __launch_bounds__(kThreads, 4) event_step_kernel(const EventArgs
     }
     if (!kRowDot) pack_active_bits(a.act, a.n, a.bits, word, lane);
   }
-  if (a.slot >= 0) {
+  if (a.clear) {
     for (int r = tid; r < a.n_p; r += nthreads) ring_slot[r] = 0.0f;
   }
   cg::grid_group grid = cg::this_grid();
@@ -137,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, 4) event_step_kernel(const EventArgs
     const float* w = a.w[b];
     const int* row_len = a.row_len[b];
     const int* flags = a.flags + static_cast<size_t>(b) * a.nb;
-    float* ring_w = a.ring + static_cast<size_t>(a.wslot[b]) * a.n_p;
+    float* ring_w = a.ring + static_cast<size_t>((t + a.wofs[b]) % a.D) * a.n_p;
     for (int r = warp; r < a.n_p; r += nwarps) {
       if (!__ldcg(flags + r / a.block_r)) continue;  // warp-uniform
       const size_t off = static_cast<size_t>(r) * K;
@@ -158,19 +164,22 @@ __global__ void __launch_bounds__(kThreads, 4) event_step_kernel(const EventArgs
 
 extern "C" int repro_event_step_max_buckets() { return kMaxBuckets; }
 
-// bits: scratch of ceil(n / 32) words.  row_len: per bucket a pointer to
-// (R,) int32, or null for rows K long.  smem_cap: the most bytes of shared
-// memory the bitmask may take (< 0: the card's limit; 0: read it from L2).
-// dense != 0: the row_dot variant (bits, row_len and smem_cap unused).
+// ring: (D, n_p); t: the step, one int64 >= 0 in device memory; clear != 0
+// clears ring slot t % D; bucket b adds to slot (t + wofs[b]) % D, wofs[b] in
+// [0, D).  bits: scratch of ceil(n / 32) words.  row_len: per bucket a
+// pointer to (R,) int32, or null for rows K long.  smem_cap: the most bytes
+// of shared memory the bitmask may take (< 0: the card's limit; 0: read it
+// from L2).  dense != 0: the row_dot variant (bits, row_len and smem_cap
+// unused).
 extern "C" int repro_event_step(const float* act, int n, const uint8_t* touch,
                                 int* ids, int* count, int cap, int* flags,
-                                float* ring, int n_p, int slot, int nb,
-                                int block_r, int nd, const void* const* cols,
+                                float* ring, int n_p, const int64_t* t, int D, int clear,
+                                int nb, int block_r, int nd, const void* const* cols,
                                 const void* const* w,
                                 const void* const* row_len, const int* K,
-                                const int* wslot, uint32_t* bits, int smem_cap,
+                                const int* wofs, uint32_t* bits, int smem_cap,
                                 int dense, void* stream, int device) {
-  if (nd < 1 || nd > kMaxBuckets || block_r < 1 || cap < 1)
+  if (nd < 1 || nd > kMaxBuckets || block_r < 1 || cap < 1 || D < 1)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -189,7 +198,9 @@ extern "C" int repro_event_step(const float* act, int n, const uint8_t* touch,
   a.flags = flags;
   a.ring = ring;
   a.n_p = n_p;
-  a.slot = slot;
+  a.t = t;
+  a.D = D;
+  a.clear = clear;
   a.nb = nb;
   a.block_r = block_r;
   a.nd = nd;
@@ -199,7 +210,7 @@ extern "C" int repro_event_step(const float* act, int n, const uint8_t* touch,
     a.w[b] = used ? static_cast<const float*>(w[b]) : nullptr;
     a.row_len[b] = used ? static_cast<const int*>(row_len[b]) : nullptr;
     a.K[b] = used ? K[b] : 0;
-    a.wslot[b] = used ? wslot[b] : 0;
+    a.wofs[b] = used ? wofs[b] : 0;
   }
   bool shared = false;
   if (!dense) {

@@ -12,7 +12,9 @@
 //   * the step key is fold_in((0, seed mod 2^32), t): the cipher applied to
 //     the counter pair (0, t mod 2^32) -- derived here from (seed, t), once a
 //     block (thread 0, through shared memory), so no generator state lives
-//     on the host;
+//     on the host.  t is read from device memory (a 0-d int64 tensor, the
+//     simulator's carry), so a captured launch draws the noise of whatever
+//     step the carry holds when its graph replays;
 //   * the raw bits of id i are x0 ^ x1 of the cipher under the step key at
 //     the counter pair (i >> 32, i & 0xffffffff), as jax's partitionable
 //     threefry draws them; so an id's draw does not depend on which other
@@ -55,8 +57,8 @@ constexpr int kMaxBlocks = 65535;
 __global__ void __launch_bounds__(kThreads)
     noise_add_kernel(const float* __restrict__ x, const int64_t* __restrict__ ids,
                      const float* __restrict__ bias, int64_t bias_stride,
-                     float* __restrict__ out, int64_t n, uint32_t seed, uint32_t t,
-                     float sigma, ThreefryMul mul) {
+                     float* __restrict__ out, int64_t n, uint32_t seed,
+                     const int64_t* __restrict__ t, float sigma, ThreefryMul mul) {
   uint32_t s0, s1;
   step_key(seed, t, mul, s0, s1);
   const uint32_t s2 = threefry_parity(s0, s1);
@@ -79,10 +81,10 @@ int64_t grid_blocks(int64_t n) {
 }  // namespace
 
 // x, ids, out: (n,) contiguous; bias: element r at bias[r * bias_stride], or
-// null.
+// null; t: the step, one int64 in device memory.
 extern "C" int repro_noise_add(const float* x, const int64_t* ids, const float* bias,
                                int64_t bias_stride, float* out, int64_t n, uint32_t seed,
-                               uint32_t t, float sigma, void* stream, int device) {
+                               const int64_t* t, float sigma, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;

@@ -79,12 +79,16 @@ __device__ __forceinline__ float scaled_normal(uint32_t s0, uint32_t s1, uint32_
   return __fmul_rn(sigma, z);
 }
 
-// The step key, fold_in(PRNGKey(seed), t): one cipher a block, by thread 0.
-__device__ __forceinline__ void step_key(uint32_t seed, uint32_t t, const ThreefryMul& mul,
+// The step key, fold_in(PRNGKey(seed), t): one cipher a block, by thread 0,
+// which reads the step t from device memory (the simulator's carry holds it
+// there, so one captured launch serves every step) and folds in its low 32
+// bits, t mod 2^32 as the reference's uint32 fold_in takes it.
+__device__ __forceinline__ void step_key(uint32_t seed, const int64_t* t, const ThreefryMul& mul,
                                          uint32_t& s0, uint32_t& s1) {
   __shared__ uint32_t key[2];
   if (threadIdx.x == 0) {
-    threefry2x32_20(0u, seed, threefry_parity(0u, seed), 0u, t, mul, key[0], key[1]);
+    threefry2x32_20(0u, seed, threefry_parity(0u, seed), 0u, static_cast<uint32_t>(*t), mul,
+                    key[0], key[1]);
   }
   __syncthreads();
   s0 = key[0];

@@ -1,5 +1,9 @@
 // The step front: everything of a partition's step before the exchange, in
-// one launch.  One thread per row r < n:
+// one launch.  The step t is read from device memory, and so are the rows it
+// selects: the delivered slot is row t % D of the (D, n) ring (a single (n,)
+// row passed as such is a ring of one row) and the history row is row t % D of
+// the (D, n) hist; so one captured launch serves every step.  One thread per
+// row r < n:
 //   x = slot[r]                          the delivered ring row, read in place
 //   x = x + sigma * normal(seed, t, ids[r])       (kDraw: the port's noise)
 //   x = x + vtx[r, LIF_BIAS]                                          (kBias)
@@ -52,10 +56,12 @@ constexpr int kBiasCol = 2;
 struct FrontArgs {
   float* vtx;  // (n, ld), v and refrac written in place
   int ld;
-  const float* slot;    // (n,) the delivered ring row (or slot + seam noise)
+  const float* slot;    // (slot_rows, n): row t % slot_rows is delivered
+  int slot_rows;        // D for the ring, 1 for a single row (or slot + seam noise)
   const int64_t* ids;   // (n,) permanent ids (kDraw)
   float* spikes;        // (n,) out
-  uint8_t* hist_row;    // (n,) out (kHist)
+  uint8_t* hist_row;    // (hist_rows, n): row t % hist_rows is written (kHist)
+  int hist_rows;
   const float* tr_plus;   // (n,) (kTraces)
   const float* tr_minus;  // (n,) (kTraces)
   float* tp_out;          // (n,) out (kTraces)
@@ -63,7 +69,7 @@ struct FrontArgs {
   int n;
   LifParams p;
   uint32_t seed;
-  uint32_t t;
+  const int64_t* t;  // the step, in device memory
   float sigma;
   float decay_plus;
   float decay_minus;
@@ -77,12 +83,21 @@ __global__ void __launch_bounds__(kThreads) step_front_kernel(const FrontArgs a)
     step_key(a.seed, a.t, a.mul, s0, s1);
     s2 = threefry_parity(s0, s1);
   }
+  // the offsets of the rows t selects, one 64-bit modulo each a block (by
+  // thread 0; every thread reaches the barrier)
+  __shared__ int64_t offset[2];
+  if (threadIdx.x == 0) {
+    const int64_t t = *a.t;
+    offset[0] = (t % a.slot_rows) * a.n;
+    offset[1] = (t % a.hist_rows) * a.n;
+  }
+  __syncthreads();
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= a.n) return;
   // every load before the first store: the in-place row and the outputs
   // share no __restrict__ promise with the inputs
   float* row = a.vtx + static_cast<int64_t>(r) * a.ld;
-  float x = a.slot[r];
+  float x = a.slot[offset[0] + r];
   const float v0 = row[kV];
   const float r0 = row[kRef];
   const float bias = kBias ? row[kBiasCol] : 0.0f;
@@ -99,7 +114,7 @@ __global__ void __launch_bounds__(kThreads) step_front_kernel(const FrontArgs a)
   row[kV] = v;
   row[kRef] = refrac;
   a.spikes[r] = s;
-  if constexpr (kHist) a.hist_row[r] = static_cast<uint8_t>(s);
+  if constexpr (kHist) a.hist_row[offset[1] + r] = static_cast<uint8_t>(s);
   if constexpr (kTraces) {
     a.tp_out[r] = trace_decay(tp, s, a.decay_plus);
     a.tm_out[r] = trace_decay(tm, s, a.decay_minus);
@@ -121,20 +136,24 @@ cudaError_t launch(const FrontArgs& a, const bool (&flags)[4], cudaStream_t stre
 
 }  // namespace
 
-// vtx: (n, ld) contiguous; slot, spikes: (n,); ids: (n,) or null without the
-// draw; hist_row: (n,) or null; the four traces all set or all null.
-extern "C" int repro_step_front(float* vtx, int ld, const float* slot, const int64_t* ids,
-                                float* spikes, uint8_t* hist_row, const float* tr_plus,
-                                const float* tr_minus, float* tp_out, float* tm_out, int n,
-                                float v_rest, float v_reset, float v_thresh, float decay,
+// vtx: (n, ld) contiguous; slot: (slot_rows, n); spikes: (n,); ids: (n,) or
+// null without the draw; hist_row: (hist_rows, n) or null; the four traces all
+// set or all null; t: the step, one int64 in device memory.
+extern "C" int repro_step_front(float* vtx, int ld, const float* slot, int slot_rows,
+                                const int64_t* ids, float* spikes, uint8_t* hist_row,
+                                int hist_rows, const float* tr_plus, const float* tr_minus,
+                                float* tp_out, float* tm_out, int n, float v_rest,
+                                float v_reset, float v_thresh, float decay,
                                 float one_minus_decay, float r_m, float ref_steps,
-                                uint32_t seed, uint32_t t, float sigma, float decay_plus,
+                                uint32_t seed, const int64_t* t, float sigma, float decay_plus,
                                 float decay_minus, int draw, int bias, void* stream,
                                 int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;
-  const FrontArgs a{vtx, ld, slot, ids, spikes, hist_row, tr_plus, tr_minus, tp_out, tm_out, n,
+  if (slot_rows < 1 || hist_rows < 1) return cudaErrorInvalidValue;
+  const FrontArgs a{vtx, ld, slot, slot_rows, ids, spikes, hist_row, hist_rows, tr_plus,
+                    tr_minus, tp_out, tm_out, n,
                     make_lif_params(v_rest, v_reset, v_thresh, decay, one_minus_decay, r_m,
                                     ref_steps),
                     seed, t, sigma, decay_plus, decay_minus, threefry_mul()};

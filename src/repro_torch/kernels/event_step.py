@@ -40,8 +40,17 @@ TPU block fetches and have no counterpart here.
 In the split engine (``fused_split_event``, k>1) the activity is the
 exchanged ``(n_global,)`` vector, the touch bitmaps of each partition run
 over ``n_global`` ids, and the ring has the partition's ``n_p`` rows; the
-overlap mode's remote pass passes ``slot=None`` (no clear), where the
-reference passes a clear mask of ones.
+overlap mode's remote pass runs with no clear, where the reference passes a
+clear mask of ones.
+
+The ring slots come in one of two forms.  With ints, ``slot`` is the
+delivered slot (None: no clear) and ``write_slots`` each bucket's slot.  The
+simulator passes the step ``t`` itself as ``slot``, a 0-d int64 tensor on the
+ring's device, and the buckets' delays as ``write_slots``: the delivered
+slot is ``t % D`` (cleared unless ``clear=False``) and bucket b adds to ``(t
++ delays[b]) % D``.  The kernel reads ``t`` when it runs, so one captured
+launch serves every step of a chunk; the int form is the same launch at
+``t = slot``.
 
 :func:`event_post_exchange_cuda` launches the kernel on CUDA tensors and
 raises on any other; ``ops.event_post_exchange`` takes the plain version
@@ -57,7 +66,7 @@ import torch
 
 from . import _build
 from .dispatch import launch_row_dot
-from .ref import spike_gather_ref
+from .ref import ring_row, spike_gather_ref
 
 COUNTER = _build.LaunchCounter("event_post_exchange")
 
@@ -156,36 +165,56 @@ def event_select_plain(act: torch.Tensor, touch: torch.Tensor, cap: int) -> torc
     return (touch.index_select(2, ids).amax(dim=2) > 0).to(torch.int32)
 
 
+def ring_slots(ring: torch.Tensor, slot, write_slots: Sequence[int], clear: bool = True):
+    """``(t, offsets, clear)`` of either form of the ring slots (module
+    docstring): the step as an int or the caller's 0-d tensor, per bucket
+    the offset of its write slot from ``t`` in ``[0, D)``, and whether the
+    delivered slot ``t % D`` is cleared.  An int slot outside ``[0, D)``
+    raises."""
+    D = ring.shape[0]
+    if torch.is_tensor(slot):
+        return slot, [int(d) % D for d in write_slots], bool(clear)
+    if not all(0 <= s < D for s in ((0 if slot is None else slot), *write_slots)):
+        raise ValueError(f"ring slots {slot}, {tuple(write_slots)} outside [0, {D})")
+    base = 0 if slot is None else int(slot)
+    return base, [(int(s) - base) % D for s in write_slots], slot is not None
+
+
 def event_post_exchange_plain(
     act: torch.Tensor,  # (n,) spike vector
     ring: torch.Tensor,  # (D, n_p) ring, updated in place
-    slot: Optional[int],  # delivered slot, cleared (None: no clear)
-    write_slots: Sequence[int],  # per bucket (t + d) % D
+    slot,  # delivered slot, cleared (None: no clear), or the step t (module)
+    write_slots: Sequence[int],  # per bucket (t + d) % D, or the delays
     plan: EventPlan,
     cols: Sequence[torch.Tensor],
     weights: Sequence[torch.Tensor],
     row_len: Optional[Sequence[torch.Tensor]] = None,  # ignored: see module
     *,
     reduce="row_dot",  # ignored: every slot is summed
+    clear: bool = True,
 ) -> torch.Tensor:
-    """The kernel's contract: clear ``ring[slot]`` (unless ``slot`` is
-    None), then per bucket in order add the flagged rows' gathers to
-    ``ring[write_slot]``.  Returns the flags."""
+    """The kernel's contract: clear the delivered slot (unless there is
+    none), then per bucket in order add the flagged rows' gathers to its
+    write slot; the slots in either form (module docstring), chosen with
+    index ops on the ring's device.  Returns the flags."""
+    t, offsets, clear = ring_slots(ring, slot, write_slots, clear)
+    D, n_p = ring.shape
+    rows_of = [ring_row(t + off, D, ring.device) for off in (0, *offsets)]
     flags = event_select_plain(act, plan.touch, plan.cap)
-    n_p = ring.shape[1]
-    if slot is not None:
-        ring[slot] = 0.0
-    for b, (c, w, ws) in enumerate(zip(cols, weights, write_slots)):
+    if clear:
+        ring.index_fill_(0, rows_of[0], 0.0)
+    for b, (c, w, ws) in enumerate(zip(cols, weights, rows_of[1:])):
         rows = flags[b].repeat_interleave(plan.block_r)[:n_p].bool()
         cur = spike_gather_ref(act, c, w)[:n_p]
-        ring[ws] = torch.where(rows, ring[ws] + cur, ring[ws])
+        before = ring.index_select(0, ws)[0]
+        ring.index_copy_(0, ws, torch.where(rows, before + cur, before)[None])
     return flags
 
 
 def event_post_exchange_cuda(
     act: torch.Tensor,
     ring: torch.Tensor,
-    slot: Optional[int],
+    slot,
     write_slots: Sequence[int],
     plan: EventPlan,
     cols: Sequence[torch.Tensor],
@@ -194,12 +223,15 @@ def event_post_exchange_cuda(
     *,
     reduce="row_dot",
     shared_bitmask: bool = True,
+    clear: bool = True,
 ) -> torch.Tensor:
     """Launch the kernel (one cooperative launch); updates ``ring`` in place
-    (``slot=None``: no clear) and returns the ``(nd, num_blocks)`` int32
-    flags.  ``row_len``: per bucket ``(R,)`` int32 real slots a row, or
-    None.  ``reduce``: ``"row_dot"`` or per bucket the recorded
-    choice (``dispatch.launch_row_dot``).
+    and returns the ``(nd, num_blocks)`` int32 flags.  ``slot`` and
+    ``write_slots`` in either form (module docstring; ``clear`` applies to
+    the tensor form, ``slot=None`` is the int form's no clear).
+    ``row_len``: per bucket ``(R,)`` int32 real slots a row, or None.
+    ``reduce``: ``"row_dot"`` or per bucket the recorded choice
+    (``dispatch.launch_row_dot``).
     ``shared_bitmask=False`` reads the bitmask from L2, the path a vector
     too long for shared memory takes anyway (for tests and timing)."""
     nd = len(cols)
@@ -234,8 +266,8 @@ def event_post_exchange_cuda(
             f"touch bitmaps {tuple(plan.touch.shape)} do not cover {nd} buckets "
             f"of {R} rows in blocks of {plan.block_r} over {n} ids"
         )
-    if not all(0 <= s < D for s in ((0 if slot is None else slot), *write_slots)):
-        raise ValueError(f"ring slots {slot}, {tuple(write_slots)} outside [0, {D})")
+    t, offsets, clear = ring_slots(ring, slot, write_slots, clear)
+    t_dev = _build.step_tensor(t, dev)
     flags = torch.empty((nd, plan.num_blocks), dtype=torch.int32, device=dev)
     if n_p == 0:
         return flags.zero_()
@@ -249,13 +281,13 @@ def event_post_exchange_cuda(
     rc = _build.library().repro_event_step(
         act.data_ptr(), n, plan.touch.data_ptr(),
         ids.data_ptr(), count.data_ptr(), plan.cap, flags.data_ptr(),
-        ring.data_ptr(), n_p, -1 if slot is None else int(slot),
+        ring.data_ptr(), n_p, t_dev.data_ptr(), D, int(clear),
         plan.num_blocks, plan.block_r, nd,
         ptrs(*[c.data_ptr() for c in cols]),
         ptrs(*[w.data_ptr() for w in weights]),
         ptrs(*([None] * nd if row_len is None else [rl.data_ptr() for rl in row_len])),
         ints(*[c.shape[1] for c in cols]),
-        ints(*[int(s) for s in write_slots]),
+        ints(*offsets),
         bits.data_ptr(), -1 if shared_bitmask else 0, int(dense),
         stream, device,
     )

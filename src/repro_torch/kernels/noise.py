@@ -37,10 +37,12 @@ COUNTER = _build.LaunchCounter("noise_add")
 __all__ = ["COUNTER", "noise_add_cuda", "noise_add_plain", "noise_cuda", "noise_plain"]
 
 
-def check_operands(seed: int, t: int, n: int) -> None:
+def check_operands(seed: int, t, n: int) -> None:
     """Raise on operands the noise does not take: a negative step or width.
-    The seed and the step enter as ``mod 2^32``, as in the reference."""
-    if int(n) < 0 or int(t) < 0:
+    The seed and the step enter as ``mod 2^32``, as in the reference.  A
+    step given as a tensor (a simulator's carry) stays on its device and is
+    not checked here: reading it would stall the host."""
+    if int(n) < 0 or (not torch.is_tensor(t) and int(t) < 0):
         raise ValueError(f"noise of step t={t} over n={n} ids: both must be >= 0")
 
 
@@ -57,12 +59,15 @@ def noise_cuda(seed: int, t: int, n: int, sigma: float, *, device) -> torch.Tens
     return noise_add_cuda(x, ids, seed, t, sigma)
 
 
-def noise_add_cuda(x: torch.Tensor, ids: torch.Tensor, seed: int, t: int, sigma: float,
+def noise_add_cuda(x: torch.Tensor, ids: torch.Tensor, seed: int, t, sigma: float,
                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel: ``(x + sigma * normal(seed, t, ids)) [+ bias]`` as a
     new ``(n,)`` f32 tensor on ``x``'s card.  ``x`` (f32) and ``ids`` (int64)
     are contiguous ``(n,)`` CUDA tensors; ``bias`` is an ``(n,)`` f32 tensor
-    of any stride (a column of ``vtx_state``) on the same card, or None."""
+    of any stride (a column of ``vtx_state``) on the same card, or None.
+    ``t`` is an int or the simulator's 0-d int64 step tensor on the card,
+    which the kernel reads when it runs (so a captured launch serves every
+    step)."""
     _build.require("x", x, torch.float32, 1)
     _build.require("ids", ids, torch.int64, 1, x.device)
     n = x.shape[0]
@@ -78,11 +83,12 @@ def noise_add_cuda(x: torch.Tensor, ids: torch.Tensor, seed: int, t: int, sigma:
     out = torch.empty_like(x)
     if n == 0:
         return out
+    t_dev = _build.step_tensor(t, x.device)
     stream, index = _build.launch_args(x)
     rc = _build.library().repro_noise_add(
         x.data_ptr(), ids.data_ptr(), None if bias is None else bias.data_ptr(),
         0 if bias is None else bias.stride(0), out.data_ptr(), n,
-        int(seed) & 0xFFFFFFFF, int(t) & 0xFFFFFFFF, float(sigma), stream, index,
+        int(seed) & 0xFFFFFFFF, t_dev.data_ptr(), float(sigma), stream, index,
     )
     _build.check(rc, "noise_add")
     COUNTER.launches += 1

@@ -64,7 +64,9 @@ def step_noise_add(x, ids, seed, t, sigma, bias=None):
     delivered ring slot, then to ``bias`` (the strided ``LIF_BIAS`` column
     of ``vtx_state``, for the fused engines), each add one f32 rounding in
     the reference's order.  Bit for bit ``x + step_noise(seed, t, n,
-    sigma)[ids]`` (then ``+ bias``), in one launch on the card."""
+    sigma)[ids]`` (then ``+ bias``), in one launch on the card.  ``t`` is
+    an int or a 0-d int64 tensor on ``x``'s device (the simulator's carry),
+    which stays there."""
     return lookup("step_noise_add", backend_for(x.device))(x, ids, seed, t, sigma, bias)
 
 
@@ -83,8 +85,11 @@ def step_front(vtx, slot, ids, *, seed, t, sigma, draw, bias, hist_row, tr_plus=
     ``vtx[:, LIF_V]`` and ``vtx[:, LIF_REF]``, written back into ``vtx`` in
     place, the spikes written to ``hist_row`` (``hist[t % D]``, uint8) when
     it is given, and with ``tr_plus``/``tr_minus`` both trace decays.
-    ``slot`` is read, not written.  Returns ``(spikes,)`` or ``(spikes,
-    tr_plus', tr_minus')``, new tensors; one launch on the card, bit for bit
+    ``slot`` is read, not written.  ``t`` is an int or a 0-d int64 tensor
+    on ``vtx``'s device; ``slot`` may be the ``(D, n)`` ring and
+    ``hist_row`` the ``(D, n)`` history, whose rows ``t % D`` the op picks
+    on the device.  Returns ``(spikes,)`` or ``(spikes, tr_plus',
+    tr_minus')``, new tensors; one launch on the card, bit for bit
     ``step_noise_add`` (or the adds), ``fused_pre_exchange``, the column
     writes and the history write."""
     return lookup("step_front", backend_for(vtx.device))(
@@ -207,16 +212,20 @@ implementation("event_post_exchange", "cuda")(event_post_exchange_cuda)
 
 
 def event_post_exchange(act, ring, slot, write_slots, plan, cols, weights, row_len=None, *,
-                        reduce="row_dot"):
+                        reduce="row_dot", clear=True):
     """Event-driven ring update, in place: clear ``ring[slot]``, then add
     each bucket's gather over the row blocks ``plan``'s touch bitmaps flag
-    for the active ids of ``act``.  ``row_len`` (per bucket ``(R,)`` int32
-    real slots a row, or None) lets the kernel skip the padding; ``reduce``
-    as for :func:`spike_gather`, per bucket.  Returns the ``(nd,
-    num_blocks)`` flags."""
+    for the active ids of ``act`` to its ``ring[write_slot]``.  The slots
+    are ints (``slot=None``: no clear), or ``slot`` is the step ``t``, a 0-d
+    int64 tensor on the ring's device, and ``write_slots`` the buckets'
+    delays: the slots ``t % D`` (cleared unless ``clear=False``) and ``(t +
+    delay) % D``, chosen on the device (``kernels/event_step.py``).
+    ``row_len`` (per bucket ``(R,)`` int32 real slots a row, or None) lets
+    the kernel skip the padding; ``reduce`` as for :func:`spike_gather`, per
+    bucket.  Returns the ``(nd, num_blocks)`` flags."""
     return lookup("event_post_exchange", backend_for(act.device))(
         act, ring, slot, tuple(write_slots), plan, tuple(cols), tuple(weights),
-        _tuple(row_len), reduce=reduce,
+        _tuple(row_len), reduce=reduce, clear=clear,
     )
 
 

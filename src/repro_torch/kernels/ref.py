@@ -387,10 +387,16 @@ def threefry2x32_ref(k0: int, k1: int, c0: Tensor, c1: Tensor) -> Tuple[Tensor, 
     return x0, x1
 
 
-def step_key_ref(seed: int, t: int) -> Tuple[int, int]:
+def step_key_ref(seed: int, t):
     """The reference's key of step ``t``, ``fold_in(PRNGKey(seed), t)``:
     ``PRNGKey(seed)`` is ``(0, seed mod 2^32)`` (jax without x64), and
-    ``fold_in`` applies the cipher to the counter pair ``(0, t mod 2^32)``."""
+    ``fold_in`` applies the cipher to the counter pair ``(0, t mod 2^32)``.
+    An int ``t`` gives two ints; a 0-d integer tensor (a simulator's carry)
+    gives two 0-d int64 tensors on its device, and is never read back to
+    the host."""
+    if torch.is_tensor(t):
+        t = t.to(torch.int64)
+        return threefry2x32_ref(0, int(seed) & _M32, torch.zeros_like(t), t & _M32)
     one = torch.ones((), dtype=torch.int64)
     x0, x1 = threefry2x32_ref(0, int(seed) & _M32, 0 * one, (int(t) & _M32) * one)
     return int(x0), int(x1)
@@ -403,8 +409,9 @@ def noise_bits_ref(seed: int, t: int, n: int, device=None) -> Tensor:
     return noise_bits_at_ref(seed, t, torch.arange(n, dtype=torch.int64, device=device))
 
 
-def noise_bits_at_ref(seed: int, t: int, ids: Tensor) -> Tensor:
-    """The raw bits of step ``t`` at the given int64 ids (read as uint64):
+def noise_bits_at_ref(seed: int, t, ids: Tensor) -> Tensor:
+    """The raw bits of step ``t`` (an int, or a 0-d integer tensor on the
+    ids' device) at the given int64 ids (read as uint64):
     ``noise_bits_ref(seed, t, n)[ids]`` for ids below ``n``, without drawing
     the others."""
     k0, k1 = step_key_ref(seed, t)
@@ -527,13 +534,14 @@ def step_noise_ref(seed: int, t: int, n: int, sigma: float, *, device=None) -> T
     return noise_normal_ref(noise_bits_ref(seed, t, n, device)) * _f32(sigma).to(device)
 
 
-def step_noise_add_ref(x: Tensor, ids: Tensor, seed: int, t: int, sigma: float,
+def step_noise_add_ref(x: Tensor, ids: Tensor, seed: int, t, sigma: float,
                        bias: Optional[Tensor] = None) -> Tensor:
     """``(x + sigma * normal(seed, t, ids)) [+ bias]``, each add one f32
     rounding, left to right: the reference's ``i_syn + noise + bias``
     (``repro/snn/simulator.py:409-438``) with the noise drawn at a
     partition's own ids, equal bit for bit to ``x + step_noise_ref(seed, t,
-    n, sigma)[ids]`` (then ``+ bias``)."""
+    n, sigma)[ids]`` (then ``+ bias``).  ``t`` is an int or the simulator's
+    0-d int64 step tensor, which stays on its device."""
     z = noise_normal_ref(noise_bits_at_ref(seed, t, ids)) * _f32(sigma).to(x.device)
     out = x + z
     return out if bias is None else out + bias
@@ -544,17 +552,35 @@ def step_noise_add_ref(x: Tensor, ids: Tensor, seed: int, t: int, sigma: float,
 LIF_COLUMNS = (0, 1, 2)
 
 
+def ring_row(t, rows: int, device) -> Tensor:
+    """The row ``t % rows`` of a ``(rows, n)`` ring or history that step
+    ``t`` selects, as a ``(1,)`` int64 index on ``device`` for
+    ``index_select``/``index_copy_``; ``t`` is an int or a 0-d integer tensor
+    there, which is never read back to the host."""
+    if torch.is_tensor(t):
+        return torch.remainder(t.to(torch.int64), rows).view(1)
+    return torch.tensor([int(t) % rows], dtype=torch.int64, device=device)
+
+
+def step_row(x: Tensor, t) -> Tensor:
+    """``x`` itself when it is one ``(n,)`` row, else the row ``t %
+    len(x)`` of the ``(D, n)`` ring ``x``, as a new tensor."""
+    if x.dim() == 1:
+        return x
+    return x.index_select(0, ring_row(t, x.shape[0], x.device))[0]
+
+
 def step_front_ref(
     vtx: Tensor,  # (n, ld) LIF vtx_state; v and refrac written in place
-    slot: Tensor,  # (n,) the delivered ring slot
+    slot: Tensor,  # (n,) the delivered ring slot, or the (D, n) ring
     ids: Optional[Tensor],  # (n,) int64 permanent ids (read with draw)
     *,
     seed: int,
-    t: int,
+    t,  # the step: an int or a 0-d integer tensor on vtx's device
     sigma: float,
     draw: bool,
     bias: bool,
-    hist_row: Optional[Tensor],  # (n,) uint8, written in place, or None
+    hist_row: Optional[Tensor],  # (n,) uint8 or the (D, n) hist, written in place, or None
     tr_plus: Optional[Tensor] = None,
     tr_minus: Optional[Tensor] = None,
     params: Dict[str, float],
@@ -564,9 +590,13 @@ def step_front_ref(
     bias]`` (each add one f32 rounding, left to right, as
     :func:`step_noise_add_ref`), then :func:`fused_pre_exchange_ref` on
     ``vtx``'s ``v`` and ``refrac`` columns, which it writes back into
-    ``vtx``; the spikes go to ``hist_row`` as uint8.  Returns ``(spikes,)``
-    or, with traces, ``(spikes, tr_plus', tr_minus')`` (new tensors)."""
+    ``vtx``; the spikes go to ``hist_row`` as uint8.  A 2-D ``slot`` is the
+    ``(D, n)`` ring, whose row ``t % D`` is delivered, and a 2-D
+    ``hist_row`` the ``(D, n)`` history, whose row ``t % D`` is written.
+    Returns ``(spikes,)`` or, with traces, ``(spikes, tr_plus', tr_minus')``
+    (new tensors)."""
     c_v, c_ref, c_bias = LIF_COLUMNS
+    slot = step_row(slot, t)
     b = vtx[:, c_bias] if bias else None
     if draw:
         i_tot = step_noise_add_ref(slot, ids, seed, t, sigma, b)
@@ -576,6 +606,9 @@ def step_front_ref(
                                            tr_minus, params=params, taus=taus)
     vtx[:, c_v] = v2
     vtx[:, c_ref] = r2
-    if hist_row is not None:
+    if hist_row is not None and hist_row.dim() == 2:
+        hist_row.index_copy_(0, ring_row(t, hist_row.shape[0], hist_row.device),
+                             rest[0].to(torch.uint8)[None])
+    elif hist_row is not None:
         hist_row.copy_(rest[0].to(torch.uint8))
     return tuple(rest)

@@ -3,10 +3,15 @@ its own or all on one card, stepped in lockstep in one process.
 
 Counterpart of ``repro/snn/dist_sim.py:DistSimulator``, where each partition
 runs on a device of a ``shard_map`` mesh and the exchange is a collective.
-Here the k partitions are driven by one Python loop: every step runs each
+Here the k partitions are driven by one loop: every step runs each
 partition's pre-exchange half (``make_core_step``'s ``step.pre``), then the
 exchange over all partitions, then each partition's post-exchange half
-(``step.post``).  ``devices`` may repeat one card (``["cuda:0"] * k``, how
+(``step.post``).  With every partition on one card a chunk of that loop is
+captured once into a CUDA graph per step engine, chunk length and
+recordings, and replayed at any ``t`` (``simulator.ChunkGraphs``), as the
+reference compiles its chunk (``dist_sim.py:464-475``); partitions on
+several cards run it uncaptured, until ``torch.distributed`` carries the
+exchange (ROADMAP queue 1).  ``devices`` may repeat one card (``["cuda:0"] * k``, how
 one H100 runs k partitions) or name the CPU (``["cpu"] * k``, how the tests
 run them), the counterpart of the reference's ``mesh=`` over fake host
 devices.  The exchange is a concatenation:
@@ -50,8 +55,8 @@ from ..kernels.event_step import EventPlan, event_id_cap
 from .neurons import LIF_V
 from .reshard import RUNTIME_KEYS, stack_runtime
 from .simulator import (
-    PartitionDeviceData, SimConfig, _models_present, checked_cols, load_runtime_arrays,
-    make_core_step, make_noise, plastic_masks, row_lengths, state_reduce,
+    ChunkGraphs, PartitionDeviceData, SimConfig, _models_present, checked_cols, copy_carry,
+    graph_mode, load_runtime_arrays, make_core_step, plastic_masks, row_lengths, state_reduce,
 )
 
 
@@ -227,7 +232,13 @@ class DistSimulator:
     seam of :class:`Simulator`.  ``_share``, another ``DistSimulator`` of
     the same net, alignments and devices, lends its host panels, device
     panels and touch bitmaps instead of building them again (no engine
-    writes into them), so several engines can be compared on one build."""
+    writes into them), so several engines can be compared on one build.
+
+    With every partition on one card, :meth:`run` replays one CUDA graph
+    per step engine, chunk length and recordings, all k partitions' steps
+    and exchanges in it (``simulator.ChunkGraphs``); on the CPU, with the
+    ``_noise_fn`` seam, with ``_graphs=False`` and with partitions on more
+    than one card it runs the same steps uncaptured (:attr:`graph_mode`)."""
 
     def __init__(
         self,
@@ -237,6 +248,7 @@ class DistSimulator:
         devices: Optional[Sequence] = None,
         _noise_fn: Optional[Callable[[int], object]] = None,
         _share: Optional["DistSimulator"] = None,
+        _graphs: bool = True,
     ):
         cfg = SimConfig() if cfg is None else cfg
         self.net = net
@@ -307,10 +319,11 @@ class DistSimulator:
             torch.from_numpy(part.global_ids).to(dev)
             for part, dev in zip(net.parts, self.devices)
         ]
-        # the seam's noise, drawn once a step for all partitions; without it
-        # each partition's step draws its own ids on its own device
-        self._seam_noise = None if _noise_fn is None else make_noise(_noise_fn, self.devices[0])
         self._noise_fn = _noise_fn
+        self._graphs_on = _graphs
+        self._graphs = (ChunkGraphs(self.devices[0], s.any_plastic)
+                        if graph_mode(self.devices[0].type, _graphs, False,
+                                      len(set(self.devices))) == "cuda_graph" else None)
         self._steps: Dict[str, List[Callable]] = {}
         self._event_plans: Optional[List[EventPlan]] = (
             None if _share is None else _share._event_plans
@@ -434,14 +447,22 @@ class DistSimulator:
         """The step engine the next :meth:`run` takes."""
         return self._step[0].engine_choice
 
+    @property
+    def graph_mode(self) -> str:
+        """How :meth:`run` steps: ``"cuda_graph"``, or why it runs the
+        uncaptured loop (``simulator.graph_mode``)."""
+        return graph_mode(self.devices[0].type, self._graphs_on, self._step[0].seam is not None,
+                          len(set(self.devices)))
+
     def init_state(self, t0: int = 0) -> List[Dict]:
-        """The list of k per-partition carries at step ``t0``."""
+        """The list of k per-partition carries at step ``t0``, each with its
+        ``t`` as a 0-d int64 tensor on its partition's device."""
         s = self.stacked
         out = []
         for dev in self.devs:
             zeros = dict(dtype=torch.float32, device=dev.vtx_state0.device)
             out.append(dict(
-                t=int(t0),
+                t=torch.tensor(int(t0), dtype=torch.int64, device=dev.vtx_state0.device),
                 vtx_state=dev.vtx_state0.clone(),
                 ring=torch.zeros((s.d_ring, s.n_p), **zeros),
                 hist=torch.zeros((s.d_ring, s.n_p), dtype=torch.uint8,
@@ -483,24 +504,41 @@ class DistSimulator:
         """Advance ``steps`` steps; returns ``(state', outs)`` with ``outs``
         on the first device: ``spike_count`` and ``overflow`` ``(steps, k)``
         int32, and, when recorded, ``raster`` ``(steps, k, n_p)`` uint8 and
-        ``v_mean`` ``(steps, k)`` f32.  The caller's state is not
-        changed."""
+        ``v_mean`` ``(steps, k)`` f32.  The caller's state is not changed,
+        and no later run changes what this one returned.  With every
+        partition on one card the chunk replays its CUDA graph
+        (:attr:`graph_mode`)."""
         if record_raster is None:
             record_raster = self.cfg.record_raster
         if record_v is None:
             record_v = self.cfg.record_v
+        fns = self._step
+        reduces = [state_reduce(dev, c["weights"]) for c, dev in zip(state, self.devs)]
+
+        def chunk(carries: List[Dict], n: int):
+            for c, r in zip(carries, reduces):
+                c["_reduce"] = r
+            outs = self._loop(fns, carries, n, record_raster, record_v)
+            for c in carries:
+                del c["_reduce"]
+            return carries, outs
+
+        plastic = self.stacked.any_plastic
+        if self.graph_mode != "cuda_graph":
+            return chunk([copy_carry(c, d, plastic) for c, d in zip(state, self.devices)], steps)
+        key = (tuple(fns), steps, record_raster, record_v, tuple(reduces),
+               () if plastic else tuple(w.data_ptr() for c in state for w in c["weights"]))
+        return self._graphs.run(key, list(state), chunk, steps,
+                                f"{fns[0].engine_choice.engine} x {steps} (k={len(fns)})")
+
+    def _loop(self, fns: List[Callable], carries: List[Dict], steps: int, record_raster: bool,
+              record_v: bool) -> Dict[str, torch.Tensor]:
+        """``steps`` lockstep steps of the partitions' step functions on
+        their carries, in place, then the trailing pending flush; returns
+        the recordings on the first device.  With the seam, its noise is
+        drawn once a step at the host's step, ``t`` read back once a
+        chunk."""
         s = self.stacked
-        plastic = s.any_plastic
-        carries = []
-        for c, dev in zip(state, self.devs):
-            carry = dict(c)
-            for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
-                carry[key] = c[key].clone()
-            if plastic:
-                carry["weights"] = tuple(w.clone() for w in c["weights"])
-            carry["_reduce"] = state_reduce(dev, carry["weights"])
-            carry["t"] = int(c["t"])
-            carries.append(carry)
         home = self.devices[0]
         on = dict(device=home)
         outs = dict(
@@ -511,11 +549,14 @@ class DistSimulator:
             outs["raster"] = torch.empty((steps, s.k, s.n_p), dtype=torch.uint8, **on)
         if record_v:
             outs["v_mean"] = torch.empty((steps, s.k), dtype=torch.float32, **on)
-        fns = self._step
         choice = fns[0].engine_choice
         has_post = choice.split or not choice.fused
+        # the seam's noise, drawn once a step for all partitions (on the
+        # first device); without it each partition's step draws its own ids
+        seam = fns[0].seam
+        t0 = None if seam is None else int(carries[0]["t"])
         for j in range(steps):
-            noise_g = None if self._seam_noise is None else self._seam_noise(carries[0]["t"])
+            noise_g = None if seam is None else seam(t0 + j)
             halves = [f.pre(c, noise_g) for f, c in zip(fns, carries)]
             spikes = [h[0] for h in halves]
             if has_post:
@@ -536,8 +577,7 @@ class DistSimulator:
                 )
         for f, c in zip(fns, carries):
             f.pending_flush(c)
-            del c["_reduce"]
-        return carries, outs
+        return outs
 
     # -- dCSR sync (simulation state -> serializable network) -------------
     def state_to_dcsr(self, state: List[Dict]) -> None:

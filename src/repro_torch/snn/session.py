@@ -68,6 +68,16 @@ as in the reference (``session.py:24-72``) and in its on-disk format 1.0
     ``close()`` or leaving a ``with`` block makes the writes durable, and a
     background write error is raised at the next boundary or there.
 
+On the card each chunk of ``run`` is one compiled device program, as the
+reference's ``jax.jit`` over ``lax.scan``: the engine replays one CUDA graph
+per step engine (gather mode), chunk length and recordings, captured the
+first time it sees the key, at any ``t`` (the carry's ``t`` and the ring
+rows it selects live on the device).  The CPU, the ``_noise_fn`` seam and
+partitions spread over more than one card run the same step code
+uncaptured; ``_graphs=False``, an internal seam, keeps the uncaptured loop
+on the card as the graphs' oracle.  ``describe()["graphs"]`` says which, and
+lists the captured keys with their set-up seconds.
+
 Not in this slice, each raising ``NotImplementedError`` that names the
 ROADMAP queue item porting it: ``run_supervised`` and streaming restore
 (``Session.restore(..., streaming=True)``).
@@ -155,6 +165,7 @@ class Session:
         build_path: str = "auto",
         _noise_fn=None,
         _share: Optional["Session"] = None,
+        _graphs: bool = True,
     ):
         sim_state, t_now, load_s = None, 0, None
         if isinstance(net_or_path, RuleSpec):
@@ -191,14 +202,15 @@ class Session:
             # _share: a spmd Session of the same net lends its panels
             self._sim = DistSimulator(
                 net, self.cfg, devices=devices, _noise_fn=_noise_fn,
-                _share=None if _share is None else _share.simulator,
+                _share=None if _share is None else _share.simulator, _graphs=_graphs,
             )
             self.net = net
             self.device = self._sim.devices[0]
         else:
             self.device = resolve_device(device)
             self.net = merge_to_single(net) if net.k > 1 else net
-            self._sim = Simulator(self.net, self.cfg, device=self.device, _noise_fn=_noise_fn)
+            self._sim = Simulator(self.net, self.cfg, device=self.device, _noise_fn=_noise_fn,
+                                  _graphs=_graphs)
         self._state = None
         # a restored snapshot's step and runtime, applied when the carry is made
         self._t0 = int(t_now)
@@ -288,7 +300,8 @@ class Session:
 
     @property
     def t(self) -> int:
-        """Next step index (steps completed since t=0)."""
+        """Next step index (steps completed since t=0): the carry's device
+        ``t``, read back to the host."""
         if self._state is None:
             return self._t0
         return int((self._state[0] if self.engine_kind == "spmd" else self._state)["t"])
@@ -327,6 +340,10 @@ class Session:
             overlap=self.engine_choice.overlap,
             backend=sim.backend,
             device=str(self.device),
+            # "cuda_graph" or why the run is uncaptured, and each captured
+            # key's steps, set-up seconds and replays
+            graphs=dict(mode=sim.graph_mode,
+                        captured=[] if sim._graphs is None else sim._graphs.summary()),
         )
         # the gathers' reduction per bucket, chosen from the weights at upload
         # ("active": real slots and active sources' weights only; "row_dot":
@@ -557,6 +574,7 @@ class Session:
         devices: Optional[Sequence] = None,
         streaming: bool = False,
         _noise_fn=None,
+        _graphs: bool = True,
     ) -> "Session":
         """A session from ``save``'s output, or from the newest valid step
         of a ``checkpoint_every`` root.  A ``k`` or ``assignment`` unlike
@@ -575,7 +593,8 @@ class Session:
                    else block_partition(net.n, k))
             net, sim_state = reshard_sim_state(net, sim_state, asn)
         t2 = time.perf_counter()
-        ses = cls(net, cfg, engine=engine, device=device, devices=devices, _noise_fn=_noise_fn)
+        ses = cls(net, cfg, engine=engine, device=device, devices=devices, _noise_fn=_noise_fn,
+                  _graphs=_graphs)
         ses._t0 = int(t_now)
         ses._pending_runtime = sim_state if sim_state else None
         ses.restore_seconds = dict(load=t1 - t0, reshard=t2 - t1, build=time.perf_counter() - t2)

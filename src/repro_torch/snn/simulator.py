@@ -14,7 +14,7 @@ reference's documented order:
      ``ring[(t + d_b) % D] += spike_gather(act, cols_b, w_b)[:n_p]``;
      on plastic nets the bucket's STDP update follows its gather, from the
      weights the gather read.
-  5. history: ``hist[t % D] = spikes``; ``t += 1``.
+  5. history: ``hist[t % D] = spikes``; ``t += 1`` (on the device).
 
 The k = 1 engines: ``fused`` does 2 and the gathers of 4 in one cooperative
 kernel launch, and ``fused_plastic`` also the trace decays and the STDP
@@ -43,12 +43,20 @@ at its end); the remote pass adds on top of the local pass's ring, so the
 ring may differ from ``off`` in its last bits, while raster, traces and
 weights are the reference's observable set.
 
-``lax.scan`` becomes a Python loop over steps with no host sync inside a
-run: spike counts, raster rows and ``v_mean`` go into tensors preallocated
-on the run's device and are copied to the host once, by the caller.  The
-carry's tensors are updated in place after ``run`` has copied them (the
-weights too, on plastic nets), so the state a caller passes in is never
-changed.
+``jax.jit`` over ``lax.scan`` becomes a compiled chunk: the carry's ``t``
+is a 0-d int64 tensor on the run's device, as in the reference's scan
+carry, and every op of a step reads it there (the kernels through a
+pointer; the ring rows ``t % D`` and ``(t + d) % D``, the history row and
+the split engines' clear and one-hot rows through index ops on device
+indices), so no step turns ``t`` into a host int.  On the card a run of
+``c`` steps replays one CUDA graph per step engine, ``c`` and recordings
+(:class:`ChunkGraphs`), captured the first time, at any ``t``; elsewhere
+the same steps run as a Python loop (:func:`graph_mode`).  Spike counts,
+raster rows and ``v_mean`` go into tensors on the run's device, copied to
+the host once a chunk by the caller.  The carry's tensors are updated in
+place after ``run`` has copied them (the weights too, on plastic nets), so
+the state a caller passes in is never changed, and what a run returns is
+its caller's: no later run changes it.
 
 ``SimConfig(gather="auto")``, the default, starts on the dense gather and
 lets ``Session``'s chunk loop switch to the event-driven engine while the
@@ -73,6 +81,9 @@ noise through the ``_noise_fn`` seam of :class:`Simulator` and
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
+import traceback
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -80,7 +91,7 @@ import torch
 
 from ..core.dcsr import DCSRNetwork, DCSRPartition
 from ..core.ell import DelayELL, build_delay_ell
-from ..kernels import ops, ref
+from ..kernels import _build, ops, ref
 from ..kernels.dispatch import (
     StepEngineChoice, backend_for, panel_reduce, resolve_device, select_step_engine,
 )
@@ -321,11 +332,10 @@ FRONT_ENGINES = ("fused_event", "fused_split", "fused_split_event", "fused_split
 
 
 def slot_tables(d_ring: int, delays: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split engines' slot arithmetic as device tables, indexed by
-    ``t % D`` on the host (a view, no transfer): ``clear[t % D]`` is the
-    ``(D,)`` mask with 0 at the delivered slot, ``onehot[t % D]`` the
-    ``(nd, D)`` one-hot of each bucket's write slot ``(t + d) % D``
-    (``repro/snn/simulator.py:420-431``)."""
+    """The split engines' slot arithmetic as device tables, one row per
+    ``t % D``: ``clear[t % D]`` is the ``(D,)`` mask with 0 at the delivered
+    slot, ``onehot[t % D]`` the ``(nd, D)`` one-hot of each bucket's write
+    slot ``(t + d) % D`` (``repro/snn/simulator.py:420-431``)."""
     rows = torch.arange(d_ring)
     clear = (rows[:, None] != rows[None, :]).to(torch.float32)
     write = (rows[:, None] + torch.tensor(list(delays), dtype=torch.int64)[None, :]) % d_ring
@@ -425,7 +435,39 @@ def make_core_step(
     own_noise = noise_fn is None and noise_sigma > 0
     use_front = front and choice.engine in FRONT_ENGINES
     seam_noise = None if noise_fn is None else make_noise(noise_fn, device)
-    clear_tab, onehot_tab = slot_tables(D, dev.delays, device) if choice.split else (None, None)
+    if choice.split:
+        # one (D, D + nd * D) table: a row holds the clear mask and the
+        # one-hots of its t % D, so one index_select fetches both
+        clear_tab, onehot_tab = slot_tables(D, dev.delays, device)
+        slot_tab = torch.cat([clear_tab, onehot_tab.reshape(D, -1)], dim=1)
+    # t % D, then per bucket (t + d) % D: added to the device t once a step
+    offsets = torch.tensor([0, *dev.delays], dtype=torch.int64, device=device)
+
+    def step_slots(carry: Dict) -> torch.Tensor:
+        """The ``(1 + nd,)`` int64 ring rows of the step on the device:
+        ``t % D``, then each bucket's ``(t + d) % D``; made once a step and
+        dropped by ``post``."""
+        idx = carry.get("_slots")
+        if idx is None:
+            idx = carry["_slots"] = torch.remainder(carry["t"] + offsets, D)
+        return idx
+
+    def slot_masks(carry: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The split kernels' ``(D,)`` clear mask and ``(nd, D)`` one-hots
+        of the step, one row of ``slot_tab`` picked on the device."""
+        row = slot_tab.index_select(0, step_slots(carry)[:1])[0]
+        return row[:D], row[D:].view(len(dev.delays), D)
+
+    def add_to_ring(ring: torch.Tensor, row: torch.Tensor, cur: torch.Tensor) -> None:
+        """``ring[row] += cur[:n_p]``, ``row`` a ``(1,)`` index on the
+        device: one f32 add per element, as the reference's
+        ``ring.at[slot].add``.  On the card ``index_add_`` (one kernel); on
+        the CPU the same add through ``index_put_``, since the CPU's
+        ``index_add_`` starts every core's thread for one row."""
+        if ring.is_cuda:
+            ring.index_add_(0, row, cur[:n_p].unsqueeze(0))
+        else:
+            ring.index_put_((row,), cur[:n_p].unsqueeze(0), accumulate=True)
 
     def apply_pending(carry: Dict) -> None:
         """Step t-1's deferred remote pass, before step t reads or clears a
@@ -445,9 +487,11 @@ def make_core_step(
             )
             carry["weights"] = tuple(new_w)
         elif choice.event:
+            # the slots of the pending step's t, no clear
             ops.event_post_exchange(
-                overlap_ctx["mask_remote"](pend["act"]), ring, None, pend["write_slots"],
+                overlap_ctx["mask_remote"](pend["act"]), ring, pend["t"], dev.delays,
                 event_plan, dev.cols, carry["weights"], dev.row_len, reduce=carry["_reduce"],
+                clear=False,
             )
         else:
             ops.fused_post_exchange_remote(
@@ -461,22 +505,23 @@ def make_core_step(
         input current as a new tensor, then the neuron step; returns the
         spikes.  The k = 1 single-launch engines also propagate here."""
         t = carry["t"]
-        slot = t % D
+        idx = step_slots(carry)
         ring = carry["ring"]
         vtx = carry["vtx_state"]
+        # the delivered slot, a new tensor
+        x = ring.index_select(0, idx[:1])[0]
         # i_syn + noise (+ bias on the fused engines, whose neuron step is
         # inside their kernel)
         bias = vtx[:, LIF_BIAS] if choice.fused else None
         if own_noise:
-            i_in = ops.step_noise_add(ring[slot], noise_ids, seed, t, noise_sigma, bias)
+            i_in = ops.step_noise_add(x, noise_ids, seed, t, noise_sigma, bias)
         else:
-            i_in = ring[slot].clone() if noise_g is None else (
-                ring[slot] + noise_g.to(device).index_select(0, noise_ids))
+            i_in = x if noise_g is None else x + noise_g.to(device).index_select(0, noise_ids)
             if bias is not None:
                 i_in += bias
         if not (choice.split or choice.event):
             # the split and event kernels rotate the ring themselves
-            ring[slot] = 0.0
+            ring.index_fill_(0, idx[:1], 0.0)
         if not choice.fused:
             new_vtx, spikes = neuron_step(dev.vtx_model, vtx, i_in)
             vtx.copy_(new_vtx)
@@ -494,8 +539,8 @@ def make_core_step(
                 v, refrac, i_in, dev.cols, carry["weights"], dev.row_len,
                 params=lif_params, reduce=carry["_reduce"],
             )
-            for cur, d in zip(currents, dev.delays):
-                ring[(t + d) % D] += cur[:n_p]
+            for b, cur in enumerate(currents):
+                add_to_ring(ring, idx[1 + b:2 + b], cur)
         elif choice.engine == "fused_plastic":
             # one cooperative launch: LIF advance + both trace decays, then
             # per bucket the gather from the pre-update weights and the
@@ -508,8 +553,8 @@ def make_core_step(
                 stdp=stdp_params,
             )
             carry["weights"] = tuple(new_weights)
-            for cur, d in zip(currents, dev.delays):
-                ring[(t + d) % D] += cur[:n_p]
+            for b, cur in enumerate(currents):
+                add_to_ring(ring, idx[1 + b:2 + b], cur)
         elif choice.plastic:  # fused_split_plastic: LIF + both trace decays
             v2, r2, spikes, carry["tr_plus"], carry["tr_minus"] = ops.fused_pre_exchange(
                 v, refrac, i_in, carry["tr_plus"], carry["tr_minus"],
@@ -528,19 +573,20 @@ def make_core_step(
         if choice.overlap == "double_buffer":
             apply_pending(carry)
         t = carry["t"]
-        slot = t % D
         ring = carry["ring"]
         if use_front:
             # one launch: the noise and the bias added to the delivered slot
-            # (read in place: the split and event kernels rotate the ring
-            # later in the step), LIF in place in vtx_state, the history row
-            # (and both trace decays, as new tensors: post's pending record
-            # keeps tr_minus)
-            x = ring[slot] if noise_g is None else (
-                ring[slot] + noise_g.to(device).index_select(0, noise_ids))
+            # (the ring's row t % D, read in place: the split and event
+            # kernels rotate the ring later in the step), LIF in place in
+            # vtx_state, the history row hist[t % D] (and both trace decays,
+            # as new tensors: post's pending record keeps tr_minus); the
+            # kernel picks both rows from the device t
+            x = ring if noise_g is None else (
+                ring.index_select(0, step_slots(carry)[:1])[0]
+                + noise_g.to(device).index_select(0, noise_ids))
             spikes, *traces = ops.step_front(
                 carry["vtx_state"], x, noise_ids, seed=seed, t=t, sigma=noise_sigma,
-                draw=own_noise, bias=True, hist_row=carry["hist"][slot],
+                draw=own_noise, bias=True, hist_row=carry["hist"],
                 tr_plus=carry["tr_plus"] if plastic else None,
                 tr_minus=carry["tr_minus"] if plastic else None, params=lif_params, taus=taus,
             )
@@ -551,10 +597,10 @@ def make_core_step(
         if choice.engine == "fused_event":
             # one launch that compresses the spikes to ids, flags the touched
             # row blocks and adds only their gathers to the ring (the
-            # delivered slot cleared first)
+            # delivered slot cleared first); the slots from t, on the card
             ops.event_post_exchange(
-                spikes, ring, slot, [(t + d) % D for d in dev.delays],
-                event_plan, dev.cols, carry["weights"], dev.row_len, reduce=carry["_reduce"],
+                spikes, ring, t, dev.delays, event_plan, dev.cols, carry["weights"],
+                dev.row_len, reduce=carry["_reduce"],
             )
         return spikes, carry["tr_plus"]
 
@@ -562,12 +608,10 @@ def make_core_step(
         """Propagate the exchanged activity into the ring (and learn), then
         record the history and advance ``t``."""
         t = carry["t"]
-        slot = t % D
         ring = carry["ring"]
         weights = carry["weights"]
-        if choice.split:
-            clear, onehot = clear_tab[slot], onehot_tab[slot]
-            write_slots = [(t + d) % D for d in dev.delays]
+        if (choice.split and choice.engine != "fused_split_event") or overlap_on:
+            clear, onehot = slot_masks(carry)
         if choice.split and overlap_on:
             if choice.plastic:
                 # plastic panels are never split (the weights are state):
@@ -582,7 +626,9 @@ def make_core_step(
                     overlap_ctx["local"](spikes), ring, clear, onehot, dev.cols_local,
                     dev.weights_local, dev.row_len_local, reduce=dev.reduce_local, out=ring,
                 )
-            pend = dict(act=act, onehot=onehot, write_slots=write_slots)
+            # t is never changed in place (the step ends with t + 1), so the
+            # record keeps this step's
+            pend = dict(act=act, onehot=onehot, t=t)
             if choice.plastic:
                 pend.update(pre_trace=pre_trace, post_trace=carry["tr_minus"], post_spike=spikes)
             carry["_pending"] = pend
@@ -592,7 +638,7 @@ def make_core_step(
             ops.fused_post_exchange(act, ring, clear, onehot, dev.cols, weights, dev.row_len,
                                     reduce=carry["_reduce"], out=ring)
         elif choice.engine == "fused_split_event":
-            ops.event_post_exchange(act, ring, slot, write_slots, event_plan, dev.cols, weights,
+            ops.event_post_exchange(act, ring, t, dev.delays, event_plan, dev.cols, weights,
                                     dev.row_len, reduce=carry["_reduce"])
         elif choice.engine == "fused_split_plastic":
             _, new_w = ops.fused_post_exchange_plastic(
@@ -601,24 +647,33 @@ def make_core_step(
             )
             carry["weights"] = tuple(new_w)
         elif not choice.fused:
+            idx = step_slots(carry)
             if plastic:
                 pad_r = dev.cols[0].shape[0] - n_p  # rows >= n_p: post terms 0
                 post_t = torch.nn.functional.pad(carry["tr_minus"], (0, pad_r))
                 post_s = torch.nn.functional.pad(spikes, (0, pad_r))
-            for i, (c, w, d) in enumerate(zip(dev.cols, weights, dev.delays)):
-                ring[(t + d) % D] += ops.spike_gather(act, c, w, dev.row_len[i],
-                                                      reduce=carry["_reduce"][i:i + 1])[:n_p]
+            for i, (c, w) in enumerate(zip(dev.cols, weights)):
+                add_to_ring(ring, idx[1 + i:2 + i],
+                            ops.spike_gather(act, c, w, dev.row_len[i],
+                                             reduce=carry["_reduce"][i:i + 1]))
                 if plastic:
                     # in place: run() cloned the weights, and the gather
                     # above read them first
                     ops.stdp_update(w, dev.plastic[i], c, pre_trace, act, post_t,
                                     post_s, params=stdp_params, out=w)
         if not use_front:  # the front wrote it
-            carry["hist"][slot] = spikes.to(torch.uint8)
+            carry["hist"].index_copy_(0, step_slots(carry)[:1], spikes.to(torch.uint8)[None])
+        carry.pop("_slots", None)
         carry["t"] = t + 1
 
-    def step(carry: Dict) -> torch.Tensor:
-        spikes, tr_plus = pre(carry, None if seam_noise is None else seam_noise(carry["t"]))
+    def step(carry: Dict, noise_g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One k = 1 step.  With the ``_noise_fn`` seam, ``noise_g`` is the
+        step's ``(n_global,)`` noise, which the run loop draws at the
+        host's step (``step.seam(t)``); given none, the step draws it
+        itself, reading ``t`` back to the host."""
+        if seam_noise is not None and noise_g is None:
+            noise_g = seam_noise(int(carry["t"]))
+        spikes, tr_plus = pre(carry, noise_g)
         post(carry, spikes, spikes, tr_plus)  # the identity exchange
         return spikes
 
@@ -630,7 +685,191 @@ def make_core_step(
     step.pre = pre
     step.post = post
     step.pending_flush = pending_flush
+    # the seam's noise of step t (a host int), None with the port's own
+    step.seam = seam_noise
     return step
+
+
+# carry entries the run copies: updated in place or replaced by every step
+# (the weights too, on plastic nets)
+STATE_KEYS = ("vtx_state", "ring", "hist", "tr_plus", "tr_minus")
+
+
+def copy_carry(state: Dict, device, plastic: bool) -> Dict:
+    """A run's own carry from a caller's state: the state tensors cloned
+    (the weights too on plastic nets, whose steps change them; a
+    non-plastic net's are only read), ``t`` as the 0-d int64 tensor on
+    ``device``, so the caller's state is never changed."""
+    carry = dict(state)
+    for key in STATE_KEYS:
+        carry[key] = state[key].clone()
+    if plastic:
+        carry["weights"] = tuple(w.clone() for w in state["weights"])
+    # an int t (a state made elsewhere) is copied to the device
+    carry["t"] = torch.as_tensor(state["t"], dtype=torch.int64, device=device).clone()
+    return carry
+
+
+def graph_failure(what: str, err: BaseException) -> RuntimeError:
+    """The error a failed capture raises: the chunk, and the innermost
+    line of the port that was running (the op that broke the capture)."""
+    frames = [f for f in traceback.extract_tb(err.__traceback__)
+              if f"{os.sep}repro_torch{os.sep}" in f.filename]
+    where = (f"{os.path.basename(frames[-1].filename)}:{frames[-1].lineno} "
+             f"({frames[-1].line})" if frames else "outside the port")
+    return RuntimeError(f"CUDA graph capture of {what} failed at {where}: "
+                        f"{type(err).__name__}: {err}")
+
+
+def graph_mode(device_type: str, graphs: bool, seam: bool, cards: int = 1) -> str:
+    """``"cuda_graph"`` when a run replays CUDA graphs, else why it runs the
+    uncaptured loop: on the CPU, with the ``_noise_fn`` seam, with
+    ``_graphs=False``, or with partitions on more than one card (which waits
+    for ``torch.distributed``, ROADMAP queue 1)."""
+    if device_type != "cuda":
+        return "uncaptured: the CPU"
+    if not graphs:
+        return "uncaptured: _graphs=False"
+    if seam:
+        return "uncaptured: the _noise_fn seam"
+    if cards > 1:
+        return "uncaptured: partitions on more than one card"
+    return "cuda_graph"
+
+
+@dataclasses.dataclass
+class ChunkGraph:
+    """One captured chunk: its graph, the carries it reads at its start
+    (``static``, which a replay first overwrites with the caller's state),
+    the carries and outputs it leaves in its memory pool, the launches its
+    capture counted (per ``_build.COUNTERS``), and its set-up seconds."""
+
+    graph: "torch.cuda.CUDAGraph"
+    static: List[Dict]
+    carries: List[Dict]
+    outs: Dict[str, torch.Tensor]
+    launches: List[int]
+    what: str
+    steps: int
+    warmup_s: float
+    capture_s: float
+    instantiate_s: float
+    replays: int = 0
+
+
+class ChunkGraphs:
+    """The compiled chunk on the card: one ``torch.cuda.CUDAGraph`` per key,
+    the counterpart of the reference's ``jax.jit`` over ``lax.scan`` with
+    ``steps`` static (``repro/snn/simulator.py:788-790``,
+    ``dist_sim.py:464-475``).
+
+    A key is the step function (the engine of a gather mode, one step
+    function a partition), the chunk's length, the recordings, and what the
+    graph takes as it is from the caller's state rather than copying (the
+    gathers' reduction, and a non-plastic net's weights, read in place).
+    The first run of a key warms the engine up on a scratch copy of the
+    state (one step, uncaptured: the kernel library is loaded and each
+    kernel's module and attributes set before the capture), then captures
+    the whole chunk, steps, recordings and the trailing pending flush, into
+    a graph in the simulator's one memory pool and instantiates it.  Every
+    run of the key then copies the caller's state into the graph's input
+    carries, replays the graph and clones what it leaves into new tensors
+    that belong to the caller: a later replay never changes a returned
+    state or output.  Since ``t`` and the ring rows live on the device, a
+    graph replays at any ``t``.
+
+    A capture that fails raises, naming the line of the port that broke
+    it; nothing falls back to the uncaptured loop.  The warm-up and the
+    capture run no step of the caller's: the launch counters are set back
+    after them, and each replay adds the launches its capture counted, so
+    the counters count the launches that ran for the caller."""
+
+    def __init__(self, device: torch.device, plastic: bool):
+        self.device = device
+        self.plastic = plastic
+        self.pool = None  # the one memory pool of every graph, made at the first capture
+        self.graphs: Dict[tuple, ChunkGraph] = {}
+
+    def run(self, key: tuple, states: List[Dict], chunk: Callable, steps: int, what: str):
+        """``chunk(carries, n)`` runs ``n`` steps on the carries and returns
+        ``(carries, outs)``; returns those of ``steps`` steps from
+        ``states``, replayed from the key's graph."""
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = self._capture(states, chunk, steps, what)
+        for static, state in zip(g.static, states):
+            for name in STATE_KEYS:
+                static[name].copy_(state[name])
+            if self.plastic:
+                for w, w_in in zip(static["weights"], state["weights"]):
+                    w.copy_(w_in)
+            if torch.is_tensor(state["t"]):
+                static["t"].copy_(state["t"])
+            else:
+                static["t"].fill_(int(state["t"]))
+        g.graph.replay()
+        for counter, n in zip(_build.COUNTERS, g.launches):
+            counter.launches += n
+        g.replays += 1
+        return self._clone_out(g.carries), {k: v.clone() for k, v in g.outs.items()}
+
+    def _clone_out(self, carries: List[Dict]) -> List[Dict]:
+        out = []
+        for c in carries:
+            c = dict(c)
+            for key in (*STATE_KEYS, "t"):
+                c[key] = c[key].clone()
+            if self.plastic:
+                c["weights"] = tuple(w.clone() for w in c["weights"])
+            out.append(c)
+        return out
+
+    def _capture(self, states: List[Dict], chunk: Callable, steps: int, what: str) -> ChunkGraph:
+        counts = _build.launch_counts()
+        t0 = time.perf_counter()
+
+        def copies():
+            return [copy_carry(s, self.device, self.plastic) for s in states]
+
+        chunk(copies(), 1)  # the warm-up, on a scratch copy
+        torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        static = copies()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        # keep_graph: the raw cudaGraph_t stays readable (its nodes are
+        # counted by chip_smoke.py), and instantiation is timed on its own
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = _build.launch_counts()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+                carries, outs = chunk([dict(c) for c in static], steps)
+        except Exception as err:
+            _build.set_launch_counts(counts)
+            # a capture that died leaves its pool registered for allocation
+            # (torch ends that in capture_end, which raised): end it, and
+            # take a new pool for the next capture
+            try:
+                index = self.device.index
+                torch._C._cuda_endAllocateToPool(
+                    torch.cuda.current_device() if index is None else index, self.pool)
+            except RuntimeError:  # capture_end had ended it
+                pass
+            self.pool = None
+            raise graph_failure(what, err) from err
+        t2 = time.perf_counter()
+        graph.instantiate()
+        t3 = time.perf_counter()
+        launches = [a - b for a, b in zip(_build.launch_counts(), before)]
+        _build.set_launch_counts(counts)
+        return ChunkGraph(graph, static, carries, outs, launches, what, steps,
+                          t1 - t0, t2 - t1, t3 - t2)
+
+    def summary(self) -> List[Dict]:
+        """Per captured key: its label, steps, set-up seconds and replays."""
+        return [dict(what=g.what, steps=g.steps, warmup_s=g.warmup_s, capture_s=g.capture_s,
+                     instantiate_s=g.instantiate_s, replays=g.replays)
+                for g in self.graphs.values()]
 
 
 class Simulator:
@@ -642,6 +881,14 @@ class Simulator:
     ``device`` is where it runs: the card unless the caller names another
     (``device="cpu"`` runs the plain torch versions).  ``_noise_fn`` is the
     internal noise seam (see :func:`make_core_step`).
+
+    On the card :meth:`run` replays one CUDA graph per step engine, chunk
+    length and recordings (:class:`ChunkGraphs`), at any ``t``.  It runs
+    the same step code uncaptured, a Python loop that launches each step's
+    kernels and ops, on the CPU, with the ``_noise_fn`` seam (a host
+    callable per step), and with ``_graphs=False``, the internal seam that
+    keeps the uncaptured loop on the card as the graphs' oracle.
+    :attr:`graph_mode` says which.
 
     ``gather`` is the panel traversal the next :meth:`run` takes,
     ``"dense"`` or ``"event"``; ``SimConfig(gather="auto")`` starts dense,
@@ -656,6 +903,7 @@ class Simulator:
         *,
         device=None,
         _noise_fn: Optional[Callable[[int], object]] = None,
+        _graphs: bool = True,
     ):
         if net.k != 1:
             raise ValueError("Simulator takes k=1 nets; Session merges k>1 nets")
@@ -680,6 +928,9 @@ class Simulator:
         )
         self._noise_ids = torch.from_numpy(part.global_ids).to(self.device)
         self._noise_fn = _noise_fn
+        self._graphs_on = _graphs
+        self._graphs = (ChunkGraphs(self.device, self.dev.any_plastic)
+                        if _graphs and self.device.type == "cuda" else None)
         self._models = _models_present(net)
         self._steps: Dict[str, Callable] = {}
         self._event_plan: Optional[EventPlan] = None
@@ -754,11 +1005,19 @@ class Simulator:
         """The step engine the next :meth:`run` takes."""
         return self._step.engine_choice
 
+    @property
+    def graph_mode(self) -> str:
+        """How :meth:`run` steps: ``"cuda_graph"``, or why it runs the
+        uncaptured loop."""
+        return graph_mode(self.device.type, self._graphs_on, self._step.seam is not None)
+
     def init_state(self, t0: int = 0) -> Dict:
+        """The carry at step ``t0``; its ``t`` is a 0-d int64 tensor on the
+        run's device, as the reference's scan carry holds it."""
         n_p = self.dev.n_p
         zeros = dict(dtype=torch.float32, device=self.device)
         return dict(
-            t=int(t0),
+            t=torch.tensor(int(t0), dtype=torch.int64, device=self.device),
             vtx_state=self.dev.vtx_state0.clone(),
             ring=torch.zeros((self.d_ring, n_p), **zeros),
             hist=torch.zeros(
@@ -781,18 +1040,38 @@ class Simulator:
         on the run's device: ``spike_count`` ``(steps,)`` int32, ``overflow``
         ``(steps,)`` int32 zeros (the identity exchange drops nothing), and,
         when recorded, ``raster`` ``(steps, n_p)`` uint8 and ``v_mean``
-        ``(steps,)`` f32.  The recordings default to the ``SimConfig``."""
+        ``(steps,)`` f32.  The recordings default to the ``SimConfig``.
+        The returned state and outputs are new tensors: the caller's state
+        is never changed, and no later run changes what this one returned.
+        On the card the chunk replays its CUDA graph (:attr:`graph_mode`)."""
         if record_raster is None:
             record_raster = self.cfg.record_raster
         if record_v is None:
             record_v = self.cfg.record_v
-        carry = dict(state)
-        for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
-            carry[key] = state[key].clone()
-        if self.dev.any_plastic:  # the weights change only on plastic nets
-            carry["weights"] = tuple(w.clone() for w in state["weights"])
-        carry["_reduce"] = state_reduce(self.dev, carry["weights"])
-        carry["t"] = int(state["t"])
+        step = self._step
+        reduce = state_reduce(self.dev, state["weights"])
+
+        def chunk(carries: List[Dict], n: int):
+            (carry,) = carries
+            carry["_reduce"] = reduce
+            outs = self._loop(step, carry, n, record_raster, record_v)
+            del carry["_reduce"]
+            return [carry], outs
+
+        if self.graph_mode != "cuda_graph":
+            (carry,), outs = chunk([copy_carry(state, self.device, self.dev.any_plastic)], steps)
+            return carry, outs
+        key = (step, steps, record_raster, record_v, reduce,
+               () if self.dev.any_plastic else tuple(w.data_ptr() for w in state["weights"]))
+        (carry,), outs = self._graphs.run(key, [state], chunk, steps,
+                                          f"{step.engine_choice.engine} x {steps}")
+        return carry, outs
+
+    def _loop(self, step: Callable, carry: Dict, steps: int, record_raster: bool,
+              record_v: bool) -> Dict[str, torch.Tensor]:
+        """``steps`` steps of ``step`` on ``carry``, in place; returns the
+        recordings, on the run's device.  With the seam, its noise is drawn
+        at the host's step, ``t`` read back once a chunk."""
         on = dict(device=self.device)
         outs = dict(
             spike_count=torch.empty(steps, dtype=torch.int32, **on),
@@ -804,15 +1083,15 @@ class Simulator:
             )
         if record_v:
             outs["v_mean"] = torch.empty(steps, dtype=torch.float32, **on)
+        t0 = None if step.seam is None else int(carry["t"])
         for j in range(steps):
-            spikes = self._step(carry)
+            spikes = step(carry, None if t0 is None else step.seam(t0 + j))
             outs["spike_count"][j] = spikes.sum()
             if "raster" in outs:
                 outs["raster"][j] = spikes
             if "v_mean" in outs:
                 outs["v_mean"][j] = carry["vtx_state"][:, LIF_V].mean()
-        del carry["_reduce"]
-        return carry, outs
+        return outs
 
     # -- dCSR sync (simulation state -> serializable network) -------------
     def state_to_dcsr(self, state: Dict) -> None:

@@ -1275,3 +1275,283 @@ def test_snapshot_continues_bit_for_bit_on_the_other_device(cuda, tmp_path, firs
     np.testing.assert_array_equal(na.parts[0].edge_state, nb.parts[0].edge_state)
     for key in sa[0]:
         np.testing.assert_array_equal(sa[0][key], sb[0][key], err_msg=key)
+
+
+# -- the compiled chunk: t on the card, one CUDA graph per key ------------------
+#
+# On the card Simulator.run and DistSimulator.run replay one CUDA graph per
+# step engine, chunk length and recordings (snn/simulator.py:ChunkGraphs);
+# _graphs=False keeps the uncaptured loop on the card as their oracle.
+
+def _graph_net(kind, k):
+    from repro_torch.core import block_partition
+    from repro_torch.snn import balanced_ei, microcircuit, to_dcsr
+
+    net = (microcircuit(scale=0.05, seed=0) if kind == "mc"
+           else balanced_ei(n=2000, stdp=True, seed=0))
+    if k == 1:
+        return to_dcsr(net, k=1)
+    return to_dcsr(net, assignment=block_partition(net.n, k), uniform=True)
+
+
+def _graph_sims(cuda, kind, k, **fields):
+    """A graphed simulator and an uncaptured one of the same net and
+    config on the card (the k>1 one lends the other its panels)."""
+    from repro_torch.snn import SimConfig, Simulator
+    from repro_torch.snn.dist_sim import DistSimulator
+
+    d = _graph_net(kind, k)
+    cfg = SimConfig(**fields)
+    if k == 1:
+        return Simulator(d, cfg, device=cuda), Simulator(d, cfg, device=cuda, _graphs=False)
+    on = DistSimulator(d, cfg, devices=[cuda] * k)
+    return on, DistSimulator(d, cfg, devices=[cuda] * k, _share=on, _graphs=False)
+
+
+def _carry_list(state):
+    return [state] if isinstance(state, dict) else list(state)
+
+
+def _assert_bit_equal_states(a, b):
+    for ca, cb in zip(_carry_list(a), _carry_list(b)):
+        assert torch.equal(ca["t"], cb["t"]) and ca["t"].dim() == 0
+        for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
+            assert torch.equal(ca[key].view(torch.uint8), cb[key].view(torch.uint8)), key
+        for wa, wb in zip(ca["weights"], cb["weights"]):
+            assert torch.equal(wa.view(torch.uint8), wb.view(torch.uint8))
+
+
+def _counts():
+    return _build.launch_counts()
+
+
+def _graph_ab(on, off, schedule, t0=0, **rec):
+    """The schedule's chunks from ``init_state(t0)`` on both simulators:
+    rasters, states and the launches each counted."""
+    out = []
+    for sim in (on, off):
+        before = _counts()
+        st, rasters = sim.init_state(t0), []
+        for c in schedule:
+            st, o = sim.run(st, c, record_raster=True, **rec)
+            rasters.append(o["raster"])
+        torch.cuda.synchronize()
+        out.append((st, torch.cat(rasters), [a - b for a, b in zip(_counts(), before)]))
+    return out
+
+
+K1_GRAPH_ENGINES = {
+    "fused_event": ("mc", dict(fused=True, gather="event")),
+    "fused": ("mc", dict(fused=True, gather="dense")),
+    "unfused": ("mc", dict(fused=False)),
+    "fused_plastic": ("ei", dict()),
+    "unfused_plastic": ("ei", dict(fused=False)),
+}
+
+
+@pytest.mark.parametrize("engine", list(K1_GRAPH_ENGINES))
+def test_k1_graphs_equal_the_uncaptured_loop(cuda, engine):
+    """Graphed against _graphs=False on the card: raster, vtx_state, ring,
+    hist, traces and weights bit-equal over chunks of 128, 128 and 44; each
+    key captured once, replayed after; the launch counters equal."""
+    kind, fields = K1_GRAPH_ENGINES[engine]
+    on, off = _graph_sims(cuda, kind, 1, **fields)
+    assert on.engine_choice.engine == engine.replace("unfused_plastic", "unfused")
+    assert (on.graph_mode, off.graph_mode) == ("cuda_graph", "uncaptured: _graphs=False")
+    (st_on, r_on, n_on), (st_off, r_off, n_off) = _graph_ab(on, off, [128, 128, 44],
+                                                            record_v=True)
+    assert int(r_on.sum()) > 0 and torch.equal(r_on, r_off)
+    _assert_bit_equal_states(st_on, st_off)
+    assert n_on == n_off and sum(n_on) > 0
+    summary = sorted((g["steps"], g["replays"]) for g in on._graphs.summary())
+    assert summary == [(44, 1), (128, 2)]
+
+
+@pytest.mark.parametrize("overlap", ["off", "local", "double_buffer"])
+@pytest.mark.parametrize("exchange", ["dense", "index"])
+@pytest.mark.parametrize("gather", ["dense", "event"])
+def test_k4_graphs_equal_the_uncaptured_loop(cuda, gather, exchange, overlap):
+    """Four partitions on one card, every exchange and overlap mode: the
+    graphed chunks bit-equal to the uncaptured ones."""
+    on, off = _graph_sims(cuda, "mc", 4, gather=gather, exchange=exchange, overlap=overlap)
+    assert on.graph_mode == "cuda_graph"
+    (st_on, r_on, n_on), (st_off, r_off, n_off) = _graph_ab(on, off, [64, 64, 19])
+    assert int(r_on.sum()) > 0 and torch.equal(r_on, r_off)
+    _assert_bit_equal_states(st_on, st_off)
+    assert n_on == n_off
+
+
+@pytest.mark.parametrize("fields", [dict(overlap="off"), dict(overlap="local"),
+                                    dict(overlap="double_buffer"), dict(exchange="index"),
+                                    dict(fused=False)])
+def test_k4_plastic_graphs_equal_the_uncaptured_loop(cuda, fields):
+    on, off = _graph_sims(cuda, "ei", 4, **fields)
+    (st_on, r_on, n_on), (st_off, r_off, n_off) = _graph_ab(on, off, [64, 64, 19])
+    assert int(r_on.sum()) > 0 and torch.equal(r_on, r_off)
+    _assert_bit_equal_states(st_on, st_off)
+    assert n_on == n_off
+
+
+@pytest.mark.parametrize("engine", ["fused_event", "fused"])
+def test_one_graph_replays_at_every_phase_and_any_t(cuda, engine):
+    """One key, replayed from every phase t0 % D of the ring and from t0
+    past 2^31: each equal to the uncaptured run from the same t0."""
+    kind, fields = K1_GRAPH_ENGINES[engine]
+    on, off = _graph_sims(cuda, kind, 1, **fields)
+    t0s = list(range(on.d_ring)) + [1000, 2**31 + 3]
+    for t0 in t0s:
+        (st_on, r_on, _), (st_off, r_off, _) = _graph_ab(on, off, [24], t0=t0)
+        assert torch.equal(r_on, r_off), t0
+        _assert_bit_equal_states(st_on, st_off)
+        assert int(st_on["t"]) == t0 + 24
+    (g,) = on._graphs.summary()
+    assert (g["steps"], g["replays"]) == (24, len(t0s))
+
+
+def test_a_returned_state_is_not_overwritten_by_a_later_replay(cuda):
+    on, _ = _graph_sims(cuda, "ei", 1)
+    st1, out1 = on.run(on.init_state(), 32, record_raster=True, record_v=True)
+    keep = {k: (tuple(w.clone() for w in v) if k == "weights" else v.clone())
+            for k, v in st1.items()}
+    keep_out = {k: v.clone() for k, v in out1.items()}
+    on.run(st1, 32, record_raster=True, record_v=True)
+    on.run(on.init_state(7), 32, record_raster=True, record_v=True)
+    torch.cuda.synchronize()
+    _assert_bit_equal_states(st1, keep)
+    for k, v in keep_out.items():
+        assert torch.equal(out1[k], v), k
+
+
+@pytest.mark.parametrize("engine", ["fused_event", "fused", "unfused", "fused_plastic",
+                                    "k4_split_event", "k4_split", "k4_split_plastic"])
+def test_an_uncaptured_chunk_never_syncs_the_host(cuda, engine):
+    """One uncaptured chunk of each engine under
+    ``torch.cuda.set_sync_debug_mode("error")``: no op of a step reads back
+    to the host (the graphs could not capture it otherwise)."""
+    k = 4 if engine.startswith("k4") else 1
+    kind = "ei" if engine.endswith("plastic") else "mc"
+    fields = dict(gather="event" if engine.endswith("event") else "dense")
+    if engine == "unfused":
+        fields["fused"] = False
+    _, off = _graph_sims(cuda, kind, k, **fields)
+    st = off.init_state(5)
+    st, _ = off.run(st, 3, record_raster=True, record_v=True)  # loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, out = off.run(st, 16, record_raster=True, record_v=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(out["spike_count"].sum()) >= 0 and all(int(c["t"]) == 24
+                                                       for c in _carry_list(st))
+
+
+def test_a_failed_capture_raises_and_does_not_fall_back(cuda, monkeypatch):
+    """An op that syncs the host breaks the capture: the run raises, naming
+    the line of the port that was running, and runs nothing uncaptured."""
+    on, _ = _graph_sims(cuda, "mc", 1, fused=True, gather="dense")
+    own = ops.step_noise_add
+
+    def syncing(*args, **kwargs):
+        torch.cuda.synchronize()
+        return own(*args, **kwargs)
+
+    before = _counts()
+    monkeypatch.setattr(ops, "step_noise_add", syncing)
+    with pytest.raises(RuntimeError, match=r"CUDA graph capture of fused x 16 failed at "
+                                           r"simulator\.py:\d+"):
+        on.run(on.init_state(), 16)
+    assert _counts() == before and not on._graphs.graphs
+    monkeypatch.setattr(ops, "step_noise_add", own)
+    st, _ = on.run(on.init_state(), 16)  # the card is usable after it
+    assert int(st["t"]) == 16
+
+
+def test_the_step_kernels_read_t_from_device_memory(cuda, rng):
+    """noise_add, the step front (ring and hist rows picked on the card)
+    and the event kernel (slots from t and the delays) with t as a device
+    tensor, bit-equal to their int forms and to their plain versions."""
+    n, D = 4099, 7
+    x = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(rng.permutation(n).astype(np.int64) + 2**32).to(cuda)
+    vtx, _, _, tp, tm, _ = _front_case(rng, n, 4, cuda)
+    ring = torch.from_numpy(rng.normal(0.0, 10.0, (D, n)).astype(np.float32)).to(cuda)
+    hist = torch.from_numpy(rng.integers(0, 2, (D, n)).astype(np.uint8)).to(cuda)
+    for t in (0, 5, 999, 2**31 + 3):
+        t_dev = torch.tensor(t, device=cuda)
+        a = noise_mod_add(x, ids, t_dev)
+        assert torch.equal(a.view(torch.int32), noise_mod_add(x, ids, t).view(torch.int32))
+        assert torch.equal(a.view(torch.int32),
+                           ref.step_noise_add_ref(x, ids, 42, t_dev, 0.8).view(torch.int32))
+        kw = dict(seed=42, sigma=0.8, draw=True, bias=True, params=LIF_PARAMS,
+                  tr_plus=tp, tr_minus=tm, taus=TAUS)
+        v1, v2, v3 = (vtx.clone() for _ in range(3))
+        h1, h2, h3 = (hist.clone() for _ in range(3))
+        got = ops.step_front(v1, ring, ids, t=t_dev, hist_row=h1, **kw)
+        want = ops.step_front(v2, ring[t % D].clone(), ids, t=t, hist_row=h2[t % D], **kw)
+        plain = ref.step_front_ref(v3, ring, ids, t=t_dev, hist_row=h3, **kw)
+        for g, w, p in zip(got, want, plain):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+            assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+        assert torch.equal(v1.view(torch.int32), v2.view(torch.int32))
+        assert torch.equal(v1.view(torch.int32), v3.view(torch.int32))
+        assert torch.equal(h1, h2) and torch.equal(h1, h3)
+
+
+def noise_mod_add(x, ids, t):
+    from repro_torch.kernels import noise as noise_mod
+
+    return noise_mod.noise_add_cuda(x, ids, 42, t, 0.8)
+
+
+@pytest.mark.parametrize("clear", [True, False])
+def test_event_kernel_takes_t_and_the_delays(cuda, rng, clear):
+    n, n_p, D, delays = 3000, 2048, 9, (2, 5, 8)
+    R = n_p
+    cols_np = [rng.integers(0, n, (R, 64)).astype(np.int32) for _ in delays]
+    valid = [rng.random((R, 64)) < 0.6 for _ in delays]
+    weights = [torch.from_numpy(np.where(v, rng.normal(size=v.shape), 0.0).astype(np.float32))
+               .to(cuda) for v in valid]
+    plan = event_mod.EventPlan.build(cols_np, valid, n, 64, cuda)
+    cols = [torch.from_numpy(c).to(cuda) for c in cols_np]
+    act = torch.from_numpy((rng.random(n) < 0.01).astype(np.float32)).to(cuda)
+    ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    for t in (0, 4, 17, 2**31 + 3):
+        got, want, plain = ring.clone(), ring.clone(), ring.clone()
+        f1 = ops.event_post_exchange(act, got, torch.tensor(t, device=cuda), delays, plan,
+                                     cols, weights, clear=clear)
+        f2 = ops.event_post_exchange(act, want, t % D if clear else None,
+                                     [(t + d) % D for d in delays], plan, cols, weights)
+        f3 = event_mod.event_post_exchange_plain(act, plain, torch.tensor(t, device=cuda),
+                                                 delays, plan, cols, weights, clear=clear)
+        assert torch.equal(f1, f2) and torch.equal(f1, f3)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+
+
+def test_checkpointed_and_restored_sessions_run_under_graphs(cuda, tmp_path):
+    """``run(checkpoint_every=...)`` and a session restored from its newest
+    checkpoint both replay graphs, and equal the uncaptured sessions."""
+    from repro_torch.snn import RasterMonitor, Session, SimConfig
+
+    runs = {}
+    for graphs in (True, False):
+        d = _graph_net("ei", 4)  # save writes the state back into the net: one each
+        root = str(tmp_path / f"ck{graphs}")
+        ses = Session(d, SimConfig(), engine="spmd", devices=[cuda] * 4, _graphs=graphs)
+        mon = RasterMonitor()
+        ses.run(96, monitors=[mon], checkpoint_every=32, checkpoint_dir=root, max_to_keep=2)
+        ses.wait()
+        back = Session(root, SimConfig(), engine="spmd", devices=[cuda] * 4, _graphs=graphs)
+        assert back.t == 96
+        mon2 = RasterMonitor()
+        back.run(40, monitors=[mon2], chunk_size=16)
+        runs[graphs] = (mon.raster, mon2.raster, ses.describe()["graphs"],
+                        back.describe()["graphs"])
+        ses.close()
+    (a1, a2, g_ses, g_back), (b1, b2, u_ses, _) = runs[True], runs[False]
+    assert a1.sum() > 0 and np.array_equal(a1, b1) and np.array_equal(a2, b2)
+    assert g_ses["mode"] == g_back["mode"] == "cuda_graph"
+    assert u_ses == dict(mode="uncaptured: _graphs=False", captured=[])
+    assert sorted(g["steps"] for g in g_ses["captured"]) == [32]
+    assert sorted(g["steps"] for g in g_back["captured"]) == [8, 16]
