@@ -178,9 +178,10 @@ Snapshots (``Session.save`` / ``Session.restore`` / ``Session(path)`` /
 written with fsync on under ``_snap/`` beside this script (the free space
 checked first; removed at the end):
  s1. after the k=1 microcircuit's profiler phase: ``save`` at its current
-     t, ``Session.restore(path)`` onto the card, then 200 steps of the live
-     and of the restored session: rasters, spike counts, ``vtx_state``,
-     ``ring``, ``hist`` and traces bit-equal;
+     t, ``Session.restore(path)`` onto the card in a fresh process (f1),
+     then 200 steps of the live and of the restored session: rasters, spike
+     counts, ``vtx_state``, ``ring``, ``hist`` and traces bit-equal (by
+     digest);
  s2. after the k=4 Brunel path's profiler phase: ``save``,
      ``Session.restore`` at k=4 (``[card] * 4``), k=2 (``[card] * 2``) and
      k=1, 256 steps each against the live session's own 256: rasters, the
@@ -197,6 +198,37 @@ checked first; removed at the end):
   ``load_latest_valid`` and the restored Session's build in seconds, the
   checkpoint stalls, the host's peak RSS and nvidia-smi's name and power
   limit.
+
+Fault tolerance, on the s1 snapshot before it is removed and on the p2
+session:
+ f1. ``[ingest]``: ``Session.restore(path)`` (s1's restore) and
+     ``Session.restore(path, streaming=True)`` onto the card, each in a fresh
+     process of this script (``--restore-child``, started through a small
+     launcher process made at the script's start, so that its
+     ``ru_maxrss`` is its own): load and build seconds, the child's peak RSS
+     after the load and after the build, its carry bit-equal (by digest) to
+     the live session's at the save, and 200 steps whose raster, spike
+     counts and end carry equal the live session's;
+ f2. ``[super] main``: the main path's session rewound to the snapshot's
+     step (the snapshot is the checkpoint root's first step), an undisturbed
+     ``run(256, chunk_size=64)``, then ``run_supervised(256, chunk_size=64,
+     checkpoint_every=128, max_to_keep=2)`` from the same state with a NaN
+     put into one membrane after the third chunk by a state hook: one
+     rollback, 64 steps lost, raster, spike counts, ``vtx_state``, ring and
+     hist bit-equal to the undisturbed run, the same simulator, no graph key
+     added or captured again; the rollback's seconds (writer drain,
+     ``restore_resilient``, in-place reload), us/step against the plain run
+     and the checkpoint stalls;
+ f3. ``[super] k4p chaos``: the p2 k=4 session (its manifest carries the
+     RuleSpec), ``run_supervised(512, chunk_size=128,
+     checkpoint_every=128)`` under a transient ``OSError`` on each shard's
+     first write, a NaN in partition 2 after chunk 2 and, armed with it, a
+     flipped byte in the newest step's ``part0.npz`` at its first read: one
+     rollback to t0 (256 steps lost) through the quarantine and the
+     regeneration of partition 0 from the keystream on the card; the whole
+     carry bit-equal to an undisturbed run and ``net.parts[0]`` equal to a
+     fresh ``build_partition``; the regeneration's seconds and keystream
+     launches.
 
 The compiled chunk (``[graph]`` lines; on the card every run replays one
 CUDA graph per step engine, chunk length and recordings): after each path
@@ -222,8 +254,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import errno
 import functools
 import gc
+import hashlib
 import json
 import math
 import os
@@ -255,15 +289,19 @@ from repro_torch.kernels import keystream as ks_mod  # noqa: E402
 from repro_torch.builder import (  # noqa: E402
     balanced_ei_rules, build_network, build_partition, crng, microcircuit_rules,
 )
-from repro_torch.core import block_partition, merge_to_single  # noqa: E402
-from repro_torch.io import fsync_enabled, load_binary, snapshot_steps  # noqa: E402
+from repro_torch.core import EDGE_DELAY, block_partition, merge_to_single  # noqa: E402
+from repro_torch.io import (  # noqa: E402
+    fault_hook, fsync_enabled, load_binary, snapshot_steps, state_fault_hook,
+)
 from repro_torch.snn import (  # noqa: E402
     RasterMonitor, RateMonitor, Session, SimConfig, balanced_ei, microcircuit, to_dcsr,
 )
 from repro_torch.snn.neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V  # noqa: E402
 from repro_torch.kernels.dispatch import launch_row_dot, panel_reduce  # noqa: E402
 from repro_torch.snn.session import _DEFAULT_CHUNK  # noqa: E402
-from repro_torch.snn.simulator import FRONT_ENGINES, slot_tables, state_reduce  # noqa: E402
+from repro_torch.snn.simulator import (  # noqa: E402
+    FRONT_ENGINES, TOPOLOGY_FIELDS, slot_tables, state_reduce,
+)
 
 STEPS = 1000
 PARITY_STEPS = 256
@@ -2633,42 +2671,369 @@ def require_same_bits(a, b, what):
 
 def phase_snapshot_microcircuit(ses, smi):
     """[snap] The main path's session at its current t: ``save`` (fsync on),
-    ``Session.restore`` onto the card, then the live session and the
-    restored one 200 steps each; rasters, spike counts, ``vtx_state``,
-    ``ring``, ``hist`` and the traces bit-equal."""
+    then the live session 200 steps and ``Session.restore`` onto the card in
+    a fresh process (``phase_ingest``, eager and streamed), 200 steps of
+    each; rasters, spike counts, ``vtx_state``, ``ring``, ``hist`` and the
+    traces bit-equal.  Then ``[super] main`` on the same snapshot."""
     part = ses.net.parts[0]
     arrays = {key: getattr(part, key).nbytes for key in BUILD_ARRAYS}
     need = sum(arrays.values()) + sum(ses.state[key].numel() * ses.state[key].element_size()
                                       for key in ("ring", "hist", "tr_plus", "tr_minus"))
     require_disk(need + need // 20)
     path = SNAP_ROOT / "microcircuit"
-    t_save = ses.t
     stall, write, n_bytes = timed_save(ses, path)
     say("snap", save_line(f"microcircuit k=1 (n={ses.n}, m={ses.m})", ses, stall, write,
                           n_bytes, smi))
     say("snap", "arrays (GB): " + ", ".join(f"{key} {b / 1e9:.3f}" for key, b in arrays.items()))
-    restored = Session.restore(str(path))
-    torch.cuda.synchronize()
-    say("snap", "Session.restore(path) onto the card: " + restore_line(restored))
-    require(restored.t == t_save and restored.device == ses.device, "restored t or device")
-    require(restored.describe()["reduce"] == ses.describe()["reduce"], "restored reduce differs")
-    for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
-        require_same_bits(restored.state[key], ses.state[key], f"restored {key}")
+    live_st0 = ses.state  # runs never change a caller's state: the rewind point
     live_res, _, live, live_s = run_session(ses, VARIANT_STEPS)
-    res, _, got, secs = run_session(restored, VARIANT_STEPS)
     require(int(live.raster.sum()) > 0, "the live microcircuit never spiked")
-    require(np.array_equal(got.raster, live.raster), "restored raster differs from the live one")
-    require(np.array_equal(res.spike_count, live_res.spike_count), "spike counts differ")
-    for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus"):
-        require_same_bits(restored.state[key], ses.state[key],
-                          f"after {VARIANT_STEPS} steps, {key}")
-    say("snap", f"live and restored microcircuit, {VARIANT_STEPS} steps each (gather modes "
-        f"{ses.last_gather_modes} and {restored.last_gather_modes}): {int(live.raster.sum())} "
-        f"spikes, raster, spike counts, vtx_state, ring, hist and traces bit-equal; "
-        f"{live_s / VARIANT_STEPS * 1e6:.1f} and {secs / VARIANT_STEPS * 1e6:.1f} us/step")
-    del restored
+    phase_ingest(ses, path, live_st0, live_res, live, live_s)
+    phase_super_main(ses, path, live_st0, n_bytes, smi)
     ses.close()  # the background writer's thread ends here
-    shutil.rmtree(path)
+
+
+SUPER_STEPS, SUPER_CHUNK, SUPER_EVERY, SUPER_KEEP = 256, 64, 128, 2
+CHAOS_STEPS, CHAOS_CHUNK, CHAOS_EVERY = 512, 128, 128
+CARRY_KEYS = ("vtx_state", "ring", "hist", "tr_plus", "tr_minus")
+
+
+def sha(*arrays):
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def carry_digest(state):
+    """A digest of every carry array but the weights, partition by
+    partition."""
+    return sha(*(c[key].cpu().numpy() for c in carries_of(state) for key in CARRY_KEYS))
+
+
+class Launcher:
+    """A small process started before the script grows, which starts the
+    restore children on request: a child's ``ru_maxrss`` starts at its
+    parent's, so a child of this script's main process would report that
+    process's peak, not its own.  ``run(argv)`` gives ``(returncode, stdout,
+    stderr)``; ``close()`` ends it."""
+
+    CODE = ("import json, subprocess, sys\n"
+            "for line in sys.stdin:\n"
+            "    try:\n"
+            "        out = subprocess.run(json.loads(line), capture_output=True, text=True,"
+            " timeout=900)\n"
+            "        res = [out.returncode, out.stdout, out.stderr]\n"
+            "    except subprocess.TimeoutExpired as e:\n"
+            "        res = [-9, str(e.stdout), 'timed out']\n"
+            "    print(json.dumps(res), flush=True)\n")
+
+    def __init__(self):
+        self.proc = subprocess.Popen([sys.executable, "-c", self.CODE], stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, text=True)
+
+    def run(self, argv):
+        self.proc.stdin.write(json.dumps(argv) + "\n")
+        self.proc.stdin.flush()
+        return json.loads(self.proc.stdout.readline())
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+LAUNCHER = []  # the one Launcher, made at the start of main()
+
+
+def restore_child(path, streaming):
+    """The body of ``--restore-child``: ``Session.restore(path)`` (or with
+    ``streaming=True``) onto the card in this fresh process, its peak RSS
+    (``ru_maxrss``) after the load and after the build,
+    ``restore_seconds``, its t, device and reduce, a digest of the restored
+    carry, then 200 steps and the digests of their raster, spike counts and
+    end carry, as one ``RESTORE_CHILD {json}`` line."""
+    from repro_torch.snn import session as session_mod
+
+    rss = dict(start=host_rss_gib())
+    load = session_mod.load_latest_valid
+
+    def load_and_read_rss(*a, **kw):
+        out = load(*a, **kw)
+        rss["load"] = host_rss_gib()
+        return out
+
+    session_mod.load_latest_valid = load_and_read_rss
+    ses = Session.restore(path, streaming=streaming)
+    torch.cuda.synchronize()
+    rss["build"] = host_rss_gib()
+    start = carry_digest(ses.state)
+    t, device, reduce = ses.t, ses.device.type, ses.describe()["reduce"]
+    engine = ses.engine_choice.engine
+    res, _, raster, secs = run_session(ses, VARIANT_STEPS)
+    print("RESTORE_CHILD " + json.dumps(dict(
+        streaming=streaming, t=t, device=device, reduce=reduce, seconds=ses.restore_seconds,
+        engine=engine, rss_gib=rss, carry=start, raster=sha(raster.raster),
+        spikes=int(raster.raster.sum()), spike_count=sha(res.spike_count),
+        end=carry_digest(ses.state), modes=ses.last_gather_modes,
+        us_per_step=secs / VARIANT_STEPS * 1e6)))
+    return 0
+
+
+def phase_ingest(ses, path, live_st0, live_res, live, live_s):
+    """[snap] and [ingest]: the microcircuit's snapshot restored onto the
+    card in a fresh process each, ``Session.restore(path)`` and
+    ``Session.restore(path, streaming=True)``: each child's t, device and
+    gathers' reduction equal the live session's, its carry bit-equal (by
+    digest) to the live session's at the save, and its 200 steps' raster,
+    spike counts and end carry equal to the live session's; with each
+    child's peak RSS after the load and after the build and its
+    ``restore_seconds``."""
+    want = dict(carry=carry_digest(live_st0), raster=sha(live.raster),
+                spike_count=sha(live_res.spike_count), end=carry_digest(ses.state))
+    got = {}
+    for streaming in (False, True):
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--restore-child", str(path)]
+        rc, stdout, stderr = LAUNCHER[0].run(cmd + (["--streaming"] if streaming else []))
+        lines = [x for x in stdout.splitlines() if x.startswith("RESTORE_CHILD ")]
+        require(rc == 0 and len(lines) == 1,
+                f"restore child (streaming={streaming}) exited {rc}: {stdout[-2000:]} "
+                f"{stderr[-4000:]}")
+        r = got[streaming] = json.loads(lines[0].split(" ", 1)[1])
+        require(r["t"] == int(live_st0["t"]) and r["device"] == "cuda",
+                f"restored t {r['t']} or device {r['device']}")
+        require(tuple(r["reduce"]) == tuple(ses.describe()["reduce"]),
+                f"restored reduce {r['reduce']}")
+        for key, digest in want.items():
+            require(r[key] == digest, f"restore child (streaming={streaming}): {key} digest "
+                    f"{r[key]} differs from the live session's {digest}")
+        rs, rss = r["seconds"], r["rss_gib"]
+        if not streaming:
+            say("snap", f"Session.restore(path) onto the card, in a fresh process: "
+                f"load_latest_valid {rs['load']:.3f} s, reshard {rs['reshard']:.3f} s, Session "
+                f"build (ELL, upload) {rs['build']:.3f} s; engine {r['engine']}, k=1; its peak "
+                f"RSS {rss['build']:.1f} GiB")
+            say("snap", f"live and restored microcircuit, {VARIANT_STEPS} steps each (gather "
+                f"modes {ses.last_gather_modes} and {tuple(r['modes'])}): {r['spikes']} spikes, "
+                f"raster, spike counts, vtx_state, ring, hist and traces bit-equal (by digest); "
+                f"{live_s / VARIANT_STEPS * 1e6:.1f} and {r['us_per_step']:.1f} us/step")
+        say("ingest", f"fresh process, Session.restore(path{', streaming=True' if streaming else ''})"
+            f" onto the card: load {rs['load']:.3f} s, build {rs['build']:.3f} s; peak RSS "
+            f"(ru_maxrss) {rss['start']:.2f} GiB at start, {rss['load']:.2f} after the load, "
+            f"{rss['build']:.2f} after the build; vtx_state, ring, hist and traces bit-equal "
+            f"to the live session at t={r['t']}; {VARIANT_STEPS} steps: raster ({r['spikes']} "
+            f"spikes), spike counts and end carry equal to the live session's; "
+            f"{r['us_per_step']:.1f} us/step")
+    e, st = got[False], got[True]
+    peak = {k: "the load" if r["rss_gib"]["load"] >= r["rss_gib"]["build"] else "the build"
+            for k, r in got.items()}
+    say("ingest", f"eager against streamed: load {e['seconds']['load']:.3f} / "
+        f"{st['seconds']['load']:.3f} s, build {e['seconds']['build']:.3f} / "
+        f"{st['seconds']['build']:.3f} s, child peak RSS {e['rss_gib']['build']:.2f} / "
+        f"{st['rss_gib']['build']:.2f} GiB (after the load {e['rss_gib']['load']:.2f} / "
+        f"{st['rss_gib']['load']:.2f}); the whole restore's peak is set by {peak[False]} "
+        f"(eager) and {peak[True]} (streamed); the snapshot's file was in the page cache "
+        f"(written by this process); this process, which built the net, read "
+        f"{host_rss_gib():.1f} GiB")
+
+
+def graph_keys(sim):
+    """Each captured key's label and set-up seconds: a key captured again
+    would show new seconds."""
+    return {key: (g.what, g.warmup_s, g.capture_s) for key, g in sim._graphs.graphs.items()}
+
+
+def phase_super_main(ses, path, live_st0, n_bytes, smi):
+    """[super] main: the main path's session, rewound to the snapshot's
+    step, runs ``run_supervised(256, chunk_size=64, checkpoint_every=128,
+    max_to_keep=2)`` (the snapshot, moved into the checkpoint root, is the
+    first rollback target); the chip's own state hook puts a NaN into one
+    membrane after the third chunk, which rolls the run back to t0 + 128.
+    Raster, spike counts, ``vtx_state``, ring and hist bit-equal to an
+    undisturbed ``run(256, chunk_size=64)`` from the same state; the
+    simulator object and its captured graphs are the same after the
+    rollback, with no key added or captured again."""
+    sim = ses.simulator
+    t0 = int(live_st0["t"])
+    root = SNAP_ROOT / "super_main"
+    root.mkdir()
+    os.replace(path, root / f"step_{t0:08d}")
+    require_disk(2 * n_bytes + n_bytes // 10)
+    ses._state = live_st0
+    sim.set_gather("dense")
+    plain = RasterMonitor()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    res_plain = ses.run(SUPER_STEPS, monitors=[plain], chunk_size=SUPER_CHUNK)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t_run
+    want_end = ses.state
+    keys0 = graph_keys(sim)
+
+    nan_row = ses.n // 2
+    calls = []
+
+    def poison(site, state):
+        calls.append(site)
+        if len(calls) == 3:
+            state["vtx_state"][nan_row, LIF_V] = float("nan")
+        return state
+
+    ses._state = live_st0
+    sim.set_gather("dense")
+    mon = RasterMonitor()
+    reset_counts()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    with state_fault_hook(poison), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = ses.run_supervised(SUPER_STEPS, monitors=[mon], chunk_size=SUPER_CHUNK,
+                                 checkpoint_every=SUPER_EVERY, checkpoint_dir=str(root),
+                                 max_to_keep=SUPER_KEEP)
+    torch.cuda.synchronize()
+    sup_s = time.perf_counter() - t_run
+    launches = read_counts()
+    require(res.rollbacks == 1 and res.steps_lost == SUPER_CHUNK,
+            f"rollbacks {res.rollbacks}, steps lost {res.steps_lost}")
+    require(res.t_final == t0 + SUPER_STEPS and ses.t == t0 + SUPER_STEPS, f"t {ses.t}")
+    require(np.array_equal(mon.raster, plain.raster) and int(plain.raster.sum()) > 0,
+            "the supervised raster differs from the undisturbed run's")
+    require(np.array_equal(res.spike_count, res_plain.spike_count), "spike counts differ")
+    require_states_bit_equal(ses.state, want_end, "supervised vs undisturbed end state")
+    require(ses.simulator is sim, "the rollback replaced the simulator")
+    keys1 = graph_keys(sim)
+    require(keys1 == keys0, f"graph keys added or captured again: {len(keys0)} -> {len(keys1)}")
+    (rb,) = ses.last_rollbacks
+    require(rb["in_place"] and (rb["t_from"], rb["t_to"]) == (t0 + 3 * SUPER_CHUNK,
+                                                              t0 + SUPER_EVERY), f"rollback {rb}")
+    steps = snapshot_steps(str(root))
+    require(steps == [t0 + SUPER_EVERY, t0 + SUPER_STEPS], f"step dirs {steps}")
+    stalls = ses.last_ckpt_stalls
+    warned = [str(w.message) for w in caught if "rolled back" in str(w.message)]
+    require(len(warned) == 1, f"rollback warnings {warned}")
+    say("super", f"main: run_supervised({SUPER_STEPS}, chunk_size={SUPER_CHUNK}, "
+        f"checkpoint_every={SUPER_EVERY}, max_to_keep={SUPER_KEEP}) from t0={t0}, a NaN in "
+        f"membrane {nan_row} after chunk 3: rollbacks {res.rollbacks}, steps lost "
+        f"{res.steps_lost}, events {[(e.kind, e.t) for e in res.events]}; raster "
+        f"({int(mon.raster.sum())} spikes), spike counts, vtx_state, ring and hist bit-equal to "
+        f"the undisturbed run; the same simulator, {len(keys1)} graph keys before and after, none "
+        f"captured again; step dirs {steps}; launches {launches}")
+    say("super", f"main: the rollback {rb['t_from']} -> {rb['t_to']}: writer drain "
+        f"{rb['drain']:.3f} s, restore_resilient {rb['restore']:.3f} s, in-place reload "
+        f"{rb['reload']:.3f} s (topology check, vtx_state and runtime upload); supervised "
+        f"{sup_s / SUPER_STEPS * 1e6:.1f} us/step ({sup_s:.3f} s, checkpoints, the rollback and "
+        f"the re-run included) against plain {plain_s / SUPER_STEPS * 1e6:.1f} us/step; "
+        f"checkpoint stalls {[round(x, 3) for x in stalls]} s; {smi}")
+    shutil.rmtree(root)
+
+
+def phase_super_chaos(spec, ses4, card, smi):
+    """[super] k4p chaos: the Brunel rules net's k=4 spmd session (built on
+    the card, so its manifest carries the RuleSpec) runs
+    ``run_supervised(512, chunk_size=128, checkpoint_every=128)`` under
+    three faults from the chip's own callables on the port's hooks: a
+    transient ``OSError`` on each shard path's first write (the writer's
+    retries absorb it), a NaN in one membrane of partition 2 after chunk 2,
+    and, armed with the NaN, one flipped byte of the newest step's
+    ``part0.npz`` at its first read.  The rollback quarantines that shard,
+    regenerates partition 0 from the keystream on the card, and falls back
+    to t0: 256 steps lost; raster, spike counts and the whole carry
+    (``vtx_state``, every plastic weight, both traces) bit-equal to an
+    undisturbed run, and ``net.parts[0]`` equal to a fresh
+    ``build_partition``."""
+    sim = ses4.simulator
+    t0 = ses4.t
+    st0 = ses4.state
+    plain = RasterMonitor()
+    res_plain = ses4.run(CHAOS_STEPS, monitors=[plain], chunk_size=CHAOS_CHUNK)
+    want_end = ses4.state
+    root = SNAP_ROOT / "super_chaos"
+    require_disk(8 * sum(getattr(p, key).nbytes for p in ses4.net.parts for key in BUILD_ARRAYS))
+    flip_at = os.path.join(f"step_{t0 + CHAOS_EVERY:08d}", "part0.npz")
+    written, fired = set(), []
+    armed = [False]
+
+    def file_faults(site, path):
+        if site == "shard_write" and path not in written:
+            written.add(path)
+            fired.append("io_error")
+            raise OSError(errno.EIO, "transient write error on the first write of a shard", path)
+        if site == "shard_read" and armed[0] and path.endswith(flip_at):
+            armed[0] = False
+            with open(path, "r+b") as f:
+                f.seek(200)
+                b = f.read(1)
+                f.seek(200)
+                f.write(bytes([b[0] ^ 0xFF]))
+            fired.append("bit_flip")
+
+    calls = []
+
+    def poison(site, state):
+        calls.append(site)
+        if len(calls) == 2:
+            state[2]["vtx_state"][7, LIF_V] = float("nan")
+            armed[0] = True
+            fired.append("nan")
+        return state
+
+    ses4._state = st0
+    mon = RasterMonitor()
+    reset_counts()
+    t_run = time.perf_counter()
+    with fault_hook(file_faults), state_fault_hook(poison), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = ses4.run_supervised(CHAOS_STEPS, monitors=[mon], chunk_size=CHAOS_CHUNK,
+                                  checkpoint_every=CHAOS_EVERY, checkpoint_dir=str(root))
+    torch.cuda.synchronize()
+    sup_s = time.perf_counter() - t_run
+    launches = read_counts()
+    require(fired.count("nan") == 1 and fired.count("bit_flip") == 1
+            and fired.count("io_error") == len(written) > 0, f"faults fired {Counter(fired)}")
+    require(res.rollbacks == 1 and res.steps_lost == 2 * CHAOS_CHUNK,
+            f"rollbacks {res.rollbacks}, steps lost {res.steps_lost}")
+    (rep,) = res.restore_reports
+    require(rep.regenerated == [0] and [ps for _, _, ps in rep.quarantined] == [[0]]
+            and rep.t_now == t0, f"restore report {rep}")
+    require(np.array_equal(mon.raster, plain.raster) and int(plain.raster.sum()) > 0,
+            "the chaos run's raster differs from the undisturbed run's")
+    require(np.array_equal(res.spike_count, res_plain.spike_count), "spike counts differ")
+    require_states_bit_equal(ses4.state, want_end, "chaos vs undisturbed end state")
+    (rb,) = ses4.last_rollbacks
+    require(ses4.simulator is sim and rb["in_place"], "the rollback replaced the simulator")
+    fresh, part = build_partition(spec, K_PARTS, 0, uniform=True, device=card), ses4.net.parts[0]
+    for key in TOPOLOGY_FIELDS:
+        require(np.array_equal(getattr(part, key), getattr(fresh, key)),
+                f"net.parts[0].{key} differs from a fresh build_partition")
+    # delays, and the weights STDP never changes
+    fixed = fresh.edge_model != ses4.net.registry.edge_id("syn_stdp")
+    require(np.array_equal(part.edge_state[:, EDGE_DELAY], fresh.edge_state[:, EDGE_DELAY])
+            and np.array_equal(part.edge_state[fixed], fresh.edge_state[fixed]),
+            "net.parts[0] delays or non-plastic weights differ from a fresh build_partition")
+    require(launches["keystream"] > 0, f"no keystream launch regenerated partition 0: {launches}")
+    say("super", f"k4p chaos: run_supervised({CHAOS_STEPS}, chunk_size={CHAOS_CHUNK}, "
+        f"checkpoint_every={CHAOS_EVERY}) on the Brunel rules net, {K_PARTS} partitions on the "
+        f"card, from t0={t0}: {fired.count('io_error')} transient shard write errors absorbed by "
+        f"the writer's retries, a NaN in partition 2 after chunk 2, part0.npz of step "
+        f"{t0 + CHAOS_EVERY} bit-flipped at its first read -> quarantined, fell back to t0: "
+        f"rollbacks {res.rollbacks}, steps lost {res.steps_lost}, events "
+        f"{[(e.kind, e.t) for e in res.events]}; raster ({int(mon.raster.sum())} spikes), spike "
+        f"counts, vtx_state, every plastic weight and both traces bit-equal to the undisturbed "
+        f"run; the same simulator; net.parts[0] equal to a fresh build_partition(spec, "
+        f"{K_PARTS}, 0, uniform=True, device=card) in its topology arrays, delays and "
+        f"non-plastic weights")
+    say("super", f"k4p chaos: the rollback {rb['t_from']} -> {rb['t_to']}: writer drain "
+        f"{rb['drain']:.3f} s, restore_resilient {rb['restore']:.3f} s (keystream regeneration of "
+        f"partition 0 {rb['regenerate']:.3f} s, {launches['keystream']} keystream launches), "
+        f"in-place reload {rb['reload']:.3f} s; {sup_s / CHAOS_STEPS * 1e6:.1f} us/step "
+        f"supervised ({sup_s:.3f} s); checkpoint stalls "
+        f"{[round(x, 3) for x in ses4.last_ckpt_stalls]} s; {smi}")
+    ses4.close()
+    shutil.rmtree(root)
 
 
 def snapshot_arrays(path):
@@ -2962,7 +3327,7 @@ def build_line(rep):
             f"{rep.assembly_seconds:.1f} s")
 
 
-def phase_rules_brunel(seed, card):
+def phase_rules_brunel(seed, card, smi):
     """p2: the Brunel rules net built on the card equals the numpy build;
     k=4 on one card equals k=1 in raster, traces and weights."""
     spec = balanced_ei_rules(n=PLASTIC_N, stdp=True, seed=seed)
@@ -3010,6 +3375,8 @@ def phase_rules_brunel(seed, card):
         f"({int(r1.raster.sum())} spikes), hist, traces and weights ({changed} slots changed) "
         f"bit-identical, max |v difference| {dv:.3e}; launches {l1}, {l4}")
     phase_idle()
+    del ses1
+    phase_super_chaos(spec, ses4, card, smi)
 
 
 def phase_rules_microcircuit(args, card):
@@ -3106,11 +3473,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="network and input seed")
     ap.add_argument("--scale", type=float, default=1.0, help="microcircuit scale")
+    ap.add_argument("--restore-child", metavar="PATH", help=argparse.SUPPRESS)
+    ap.add_argument("--streaming", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the card",
               file=sys.stderr)
         return 1
+    if args.restore_child:  # the [ingest] phase's fresh process
+        return restore_child(args.restore_child, args.streaming)
+    LAUNCHER.append(Launcher())
     t_start = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
@@ -3272,7 +3644,7 @@ def main(argv=None) -> int:
     # procedural construction: RuleSpec -> build_network (keystream on the
     # card) -> Session
     ks_err = phase_keystream_kernel(args.seed, card)
-    phase_rules_brunel(args.seed, card)
+    phase_rules_brunel(args.seed, card, smi)
     gc.collect()
     torch.cuda.empty_cache()
     ks_launches, rules_fused = phase_rules_microcircuit(args, card)
@@ -3293,7 +3665,11 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    child = "--restore-child" in sys.argv
     try:
         sys.exit(main())
     finally:
-        shutil.rmtree(SNAP_ROOT, ignore_errors=True)
+        for launcher in LAUNCHER:
+            launcher.close()
+        if not child:  # the parent owns the snapshots
+            shutil.rmtree(SNAP_ROOT, ignore_errors=True)

@@ -8,8 +8,10 @@ chunk size and sampling path build the bit-identical network.  The
 keystream runs on the card (``ops.builder_keystream``); the float assembly
 stays in numpy on the host.
 
-The reference's streaming snapshot reader (``repro.builder.ingest``) is not
-ported yet; the port reads snapshots whole (``repro_torch.io``).
+:mod:`.ingest` is the chunked streaming reader over on-disk dCSR snapshots
+(``open_snapshot`` -> ``iter_rows``), feeding partition assembly and
+``Session.restore(streaming=True)`` without holding more than one chunk plus
+one partition in host memory.
 """
 
 from .rules import (  # noqa: F401
@@ -30,4 +32,11 @@ from .procedural import (  # noqa: F401
     build_partition,
     network_def,
     resolve_build_path,
+)
+from .ingest import (  # noqa: F401
+    RowChunk,
+    SnapshotReader,
+    load_binary_streamed,
+    load_merged_streamed,
+    open_snapshot,
 )

@@ -484,7 +484,7 @@ def build_network(
     # carry the generating spec (JSON form) so snapshots of this network
     # can regenerate a corrupt shard's topology bit-identically at restore
     # (io.dcsr_binary embeds it in the manifest, as the reference's does;
-    # the reference's snn.supervisor consumes it, not ported yet)
+    # snn.supervisor.restore_resilient consumes it)
     from .rules import spec_to_dict
 
     net.rule_spec = {"spec": spec_to_dict(spec), "uniform": bool(uniform),

@@ -1,8 +1,10 @@
-"""Serialization of the port: dCSR snapshots in the reference's binary
-format 1.0 (``docs/FORMAT.md``), the atomic directory swap, the background
-writer, the fsync policy and the fault hook (counterpart of ``repro.io``;
-the paper's text format, the interop adapters and the tensor
-``CheckpointManager`` are not ported yet)."""
+"""Serialization of the port (counterpart of ``repro.io``): the paper's
+plain-text dCSR format, dCSR snapshots in the reference's binary format 1.0
+(``docs/FORMAT.md``), the atomic directory swap, the background writer, the
+fsync policy, the fault hooks and the interop adapters (adjacency dicts,
+ParMETIS triples).  The reference's tensor ``CheckpointManager`` belongs to
+its LM substrate and is not ported."""
+from .dcsr_text import save_text, load_text  # noqa: F401
 from .dcsr_binary import (  # noqa: F401
     NetSnapshot,
     ShardWriteError,
@@ -23,4 +25,14 @@ from .durability import (  # noqa: F401
     set_fsync,
     write_bytes_verified,
 )
-from .hooks import fault_hook, fault_point  # noqa: F401
+from .hooks import (  # noqa: F401
+    apply_state_faults,
+    fault_hook,
+    fault_point,
+    state_fault_hook,
+)
+from .interop import (  # noqa: F401
+    to_adjacency_dict,
+    from_adjacency_dict,
+    to_parmetis,
+)

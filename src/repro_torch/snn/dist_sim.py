@@ -56,7 +56,8 @@ from .neurons import LIF_V
 from .reshard import RUNTIME_KEYS, stack_runtime
 from .simulator import (
     ChunkGraphs, PartitionDeviceData, SimConfig, _models_present, checked_cols, copy_carry,
-    graph_mode, load_runtime_arrays, make_core_step, plastic_masks, row_lengths, state_reduce,
+    bucket_weights, graph_mode, load_runtime_arrays, make_core_step, plastic_masks, row_lengths,
+    state_reduce,
 )
 
 
@@ -585,13 +586,7 @@ class DistSimulator:
         place (weights via each partition's ELL ``edge_index``).  The ELLs
         are built once and kept: they depend only on topology."""
         s = self.stacked
-        if self._sync_ells is None:
-            self._sync_ells = [
-                build_delay_ell(part, self.net.n, align_k=self.cfg.align_k,
-                                align_rows=self.cfg.align_rows)
-                for part in self.net.parts
-            ]
-        for part, ell, carry in zip(self.net.parts, self._sync_ells, state):
+        for part, ell, carry in zip(self.net.parts, self._ells(), state):
             part.vtx_state = carry["vtx_state"].cpu().numpy()[: part.n]
             new_w = []
             for b in ell.buckets:
@@ -599,6 +594,38 @@ class DistSimulator:
                 new_w.append(carry["weights"][s.delays.index(b.delay)][:R, :K].cpu().numpy())
             ell.update_bucket_weights(new_w)
             ell.scatter_weights_back(part)
+
+    def _ells(self):
+        """Each partition's ELL of the host net, built once and kept: they
+        depend only on topology (the sync between carries and dCSR)."""
+        if self._sync_ells is None:
+            self._sync_ells = [
+                build_delay_ell(part, self.net.n, align_k=self.cfg.align_k,
+                                align_rows=self.cfg.align_rows)
+                for part in self.net.parts
+            ]
+        return self._sync_ells
+
+    def state_from_dcsr(self, net: DCSRNetwork, t0: int) -> List[Dict]:
+        """The inverse of :meth:`state_to_dcsr`: the carries at step ``t0``
+        with ``net``'s vertex state and, on a plastic net, its weights put
+        into each partition's padded ELL slot order; non-plastic carries
+        keep the uploaded panels (the graphs read them in place).  ``net``
+        becomes the engine's host net, so its topology must be this
+        engine's (``simulator.same_engine_inputs``)."""
+        s = self.stacked
+        ells = self._ells()
+        states = self.init_state(t0)
+        for part, ell, carry, dev in zip(net.parts, ells, states, self.devices):
+            carry["vtx_state"] = torch.tensor(part.vtx_state, device=dev)
+            if s.any_plastic:
+                panels = [np.zeros(w.shape[1:], np.float32) for w in s.weights]
+                for b in ell.buckets:
+                    r, kk = b.weights.shape
+                    panels[s.delays.index(b.delay)][:r, :kk] = bucket_weights(b, part)
+                carry["weights"] = tuple(torch.tensor(w, device=dev) for w in panels)
+        self.net = net
+        return states
 
     def runtime_state(self, state: List[Dict]) -> Dict[int, Dict[str, np.ndarray]]:
         """In-flight runtime arrays (ring/hist/traces) keyed per partition.

@@ -78,9 +78,14 @@ uncaptured; ``_graphs=False``, an internal seam, keeps the uncaptured loop
 on the card as the graphs' oracle.  ``describe()["graphs"]`` says which, and
 lists the captured keys with their set-up seconds.
 
-Not in this slice, each raising ``NotImplementedError`` that names the
-ROADMAP queue item porting it: ``run_supervised`` and streaming restore
-(``Session.restore(..., streaming=True)``).
+``Session.restore(path, streaming=True)`` reads the snapshot chunk by chunk
+(:mod:`repro_torch.builder.ingest`) through the same CRC and ``.old`` walk,
+bit-identical to the eager load.  ``run_supervised`` is the self-healing
+run of :mod:`.supervisor`: per-chunk health checks on the device, rollback to
+the newest valid checkpoint, corrupt-shard quarantine and keystream
+regeneration.  A rollback whose restored net has the running engine's
+topology keeps the engine, its panels and its captured graphs, and uploads
+a new carry; otherwise it builds a new engine, as the reference does.
 """
 from __future__ import annotations
 
@@ -108,17 +113,9 @@ from ..io.dcsr_binary import (
 from ..kernels.dispatch import EVENT_ACTIVITY_THRESHOLD, resolve_device
 from .dist_sim import DistSimulator
 from .reshard import reshard_sim_state
-from .simulator import SimConfig, Simulator, _not_ported as _unported
+from .simulator import SimConfig, Simulator, same_engine_inputs
 
 _DEFAULT_CHUNK = 128
-
-
-def _raises(what: str, queue_item: str):
-    def stub(*args, **kwargs):
-        raise _unported(what, queue_item)
-
-    stub.__doc__ = f"Not ported yet: raises NotImplementedError ({queue_item})."
-    return stub
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -197,20 +194,21 @@ class Session:
         self.cfg = cfg if cfg is not None else SimConfig()
         self.source_k = net.k
         self.engine_kind = self._select_engine_kind(net, engine, device, devices)
+        # what a rollback that cannot keep the engine builds the new one with
+        self._engine_kw = dict(_noise_fn=_noise_fn, _graphs=_graphs)
         if self.engine_kind == "spmd":
             # built once, eagerly: surfaces SimConfig/device errors here
             # _share: a spmd Session of the same net lends its panels
             self._sim = DistSimulator(
-                net, self.cfg, devices=devices, _noise_fn=_noise_fn,
-                _share=None if _share is None else _share.simulator, _graphs=_graphs,
+                net, self.cfg, devices=devices,
+                _share=None if _share is None else _share.simulator, **self._engine_kw,
             )
             self.net = net
             self.device = self._sim.devices[0]
         else:
             self.device = resolve_device(device)
             self.net = merge_to_single(net) if net.k > 1 else net
-            self._sim = Simulator(self.net, self.cfg, device=self.device, _noise_fn=_noise_fn,
-                                  _graphs=_graphs)
+            self._sim = Simulator(self.net, self.cfg, device=self.device, **self._engine_kw)
         self._state = None
         # a restored snapshot's step and runtime, applied when the carry is made
         self._t0 = int(t_now)
@@ -221,6 +219,10 @@ class Session:
         # run-loop stall (seconds) of each checkpoint of the last
         # run(checkpoint_every=...)
         self.last_ckpt_stalls: Tuple[float, ...] = ()
+        # per rollback of the last run_supervised: its steps, host seconds
+        # (writer drain, restore_resilient, reload) and whether it kept the
+        # engine
+        self.last_rollbacks: Tuple[Dict, ...] = ()
         # step of the newest snapshot whose background write landed: the
         # rollback point named when a later write fails
         self._last_good_ckpt_step: Optional[int] = None
@@ -573,6 +575,7 @@ class Session:
         device=None,
         devices: Optional[Sequence] = None,
         streaming: bool = False,
+        chunk_rows: Optional[int] = None,
         _noise_fn=None,
         _graphs: bool = True,
     ) -> "Session":
@@ -582,11 +585,25 @@ class Session:
         (:func:`.reshard.reshard_sim_state`, ``block_partition`` for
         ``k``) before the engine is built; the continued trajectory is the
         uninterrupted run's.  ``engine``, ``device`` and ``devices`` are as
-        in ``Session(net)``."""
-        if streaming:
-            raise _unported("Session.restore(streaming=True)", "streaming ingest")
+        in ``Session(net)``.
+
+        ``streaming=True`` reads the snapshot ``chunk_rows`` rows at a time
+        (:mod:`repro_torch.builder.ingest`) through the same CRC and
+        ``.old`` walk, bit-identical to the eager load: at the snapshot's
+        own k, or merged straight to k = 1 with ``k=1``, it never holds more
+        than one chunk plus one partition of intermediate arrays.  A
+        restore onto another k still repartitions eagerly."""
         t0 = time.perf_counter()
-        net, sim_state, t_now = load_latest_valid(os.fspath(path))
+        if streaming:
+            from ..builder.ingest import DEFAULT_CHUNK_ROWS, make_streaming_loader
+
+            loader = make_streaming_loader(
+                k=1 if (k == 1 and assignment is None) else None,
+                chunk_rows=chunk_rows or DEFAULT_CHUNK_ROWS,
+            )
+            net, sim_state, t_now = load_latest_valid(os.fspath(path), loader=loader)
+        else:
+            net, sim_state, t_now = load_latest_valid(os.fspath(path))
         t1 = time.perf_counter()
         if assignment is not None or (k is not None and k != net.k):
             asn = (np.asarray(assignment, np.int64) if assignment is not None
@@ -607,5 +624,64 @@ class Session:
             shutil.rmtree(d, ignore_errors=True)
             shutil.rmtree(d + ".old", ignore_errors=True)
 
-    # -- not ported yet (ROADMAP queue) ------------------------------------
-    run_supervised = _raises("Session.run_supervised", "fault tolerance")
+    # -- supervised run ----------------------------------------------------
+    def run_supervised(
+        self,
+        steps: int,
+        monitors: Iterable = (),
+        *,
+        chunk_size: Optional[int] = None,
+        checkpoint_every: int,
+        checkpoint_dir: str,
+        max_to_keep: Optional[int] = None,
+        health=None,
+        retry=None,
+    ):
+        """Self-healing ``run``: per-chunk health checks (non-finite
+        membranes, membrane and spike-storm ceilings, exchange overflow),
+        rollback to the newest valid checkpoint with bounded retries and
+        exponential backoff, and corrupt-shard quarantine with RuleSpec
+        keystream regeneration on restore.  See :mod:`.supervisor` for the
+        policies (``health``: :class:`~.supervisor.HealthConfig`,
+        ``retry``: :class:`~.supervisor.RetryPolicy`) and the rollback and
+        replay semantics."""
+        from .supervisor import run_supervised
+
+        return run_supervised(
+            self, steps, monitors, chunk_size=chunk_size,
+            checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
+            max_to_keep=max_to_keep, health=health, retry=retry,
+        )
+
+    def _reload_from_snapshot(self, net: DCSRNetwork, sim_state, t_now: int) -> bool:
+        """Rollback: go on from a restored snapshot (in the layout this
+        session saves) at ``t_now``.  When the restored net has the running
+        engine's topology, delays, models and, on a non-plastic net,
+        weights, the engine stays, with its panels and captured graphs, and
+        the carry is made from the restored vertex state, plastic weights
+        and runtime; otherwise a new engine is built from the restored net,
+        as the reference does.  Returns whether the engine stayed."""
+        if self.engine_kind == "single" and net.k > 1:
+            net = merge_to_single(net)
+        if net.k != self.net.k or net.n != self.net.n:
+            raise ValueError(
+                f"rollback snapshot is k={net.k}, n={net.n}; this "
+                f"session runs k={self.net.k}, n={self.net.n}"
+            )
+        sim = self._sim
+        plastic = (sim.stacked if self.engine_kind == "spmd" else sim.dev).any_plastic
+        in_place = same_engine_inputs(self.net, net, plastic)
+        if in_place:
+            state = sim.state_from_dcsr(net, t_now)
+            if sim_state:
+                state = sim.load_runtime(state, sim_state)
+            self._state, self._pending_runtime = state, None
+        else:
+            if self.engine_kind == "spmd":
+                self._sim = DistSimulator(net, self.cfg, devices=sim.devices, **self._engine_kw)
+            else:
+                self._sim = Simulator(net, self.cfg, device=self.device, **self._engine_kw)
+            self._state, self._pending_runtime = None, (sim_state if sim_state else None)
+        self.net = net
+        self._t0 = int(t_now)
+        return in_place

@@ -90,7 +90,8 @@ import numpy as np
 import torch
 
 from ..core.dcsr import DCSRNetwork, DCSRPartition
-from ..core.ell import DelayELL, build_delay_ell
+from ..core.ell import DelayELL, ELLBucket, build_delay_ell
+from ..core.state import EDGE_DELAY, EDGE_WEIGHT
 from ..kernels import _build, ops, ref
 from ..kernels.dispatch import (
     StepEngineChoice, backend_for, panel_reduce, resolve_device, select_step_engine,
@@ -281,6 +282,39 @@ def state_reduce(dev: PartitionDeviceData, weights: Sequence[torch.Tensor]) -> T
     if dev.any_plastic or all(w is w0 for w, w0 in zip(weights, dev.weights0)):
         return dev.reduce
     return panel_reduce(weights)
+
+
+TOPOLOGY_FIELDS = (
+    "row_ptr", "col_idx", "vtx_model", "edge_model", "coords", "global_ids",
+)
+
+
+def same_engine_inputs(old: DCSRNetwork, new: DCSRNetwork, plastic: bool) -> bool:
+    """Whether an engine built from ``old`` computes ``new`` as it stands:
+    the same partitions, topology (``TOPOLOGY_FIELDS``), delays, models,
+    meta and, on a non-plastic net, weights.  Vertex state and plastic
+    weights may differ: they are the carry's, not the engine's."""
+    if (old.k != new.k or old.n != new.n or old.m != new.m
+            or not np.array_equal(old.dist, new.dist) or old.meta != new.meta
+            or old.registry.to_entries() != new.registry.to_entries()):
+        return False
+    for po, pn in zip(old.parts, new.parts):
+        if any(not np.array_equal(getattr(po, f), getattr(pn, f)) for f in TOPOLOGY_FIELDS):
+            return False
+        cols = [EDGE_DELAY] if plastic else [EDGE_DELAY, EDGE_WEIGHT]
+        if not np.array_equal(po.edge_state[:, cols], pn.edge_state[:, cols]):
+            return False
+    return True
+
+
+def bucket_weights(bucket: ELLBucket, part: DCSRPartition) -> np.ndarray:
+    """A bucket's ``(R, K)`` weight panel read from the partition's
+    ``edge_state`` through its ``edge_index`` (0 in the padding): the
+    inverse of ``DelayELL.scatter_weights_back``."""
+    w = np.zeros(bucket.weights.shape, np.float32)
+    sel = bucket.edge_index >= 0
+    w[sel] = part.edge_state[bucket.edge_index[sel], EDGE_WEIGHT]
+    return w
 
 
 def load_runtime_arrays(carry: Dict, arrays: Dict[str, np.ndarray], where: str) -> Dict:
@@ -1106,6 +1140,22 @@ class Simulator:
         """In-flight runtime arrays (ring/hist/traces) keyed per partition.
         On the CPU they are views of the carry: a snapshot copies them."""
         return {0: {k: state[k].cpu().numpy() for k in RUNTIME_KEYS if k in state}}
+
+    def state_from_dcsr(self, net: DCSRNetwork, t0: int) -> Dict:
+        """The inverse of :meth:`state_to_dcsr`: the carry at step ``t0``
+        with ``net``'s vertex state and, on a plastic net, its weights put
+        into ELL slot order; a non-plastic carry keeps the uploaded panels
+        (the graphs read them in place).  ``net`` becomes the engine's host
+        net, so its topology must be this engine's
+        (:func:`same_engine_inputs`)."""
+        part = net.parts[0]
+        state = self.init_state(t0)
+        state["vtx_state"] = torch.tensor(part.vtx_state, device=self.device)
+        if self.dev.any_plastic:
+            state["weights"] = tuple(torch.tensor(bucket_weights(b, part), device=self.device)
+                                     for b in self.ell.buckets)
+        self.net = net
+        return state
 
     def load_runtime(self, state: Dict, sim_state: Dict[int, Dict[str, np.ndarray]]) -> Dict:
         """``state`` with a snapshot's runtime arrays; a k > 1 snapshot's

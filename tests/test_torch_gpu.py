@@ -1555,3 +1555,86 @@ def test_checkpointed_and_restored_sessions_run_under_graphs(cuda, tmp_path):
     assert u_ses == dict(mode="uncaptured: _graphs=False", captured=[])
     assert sorted(g["steps"] for g in g_ses["captured"]) == [32]
     assert sorted(g["steps"] for g in g_back["captured"]) == [8, 16]
+
+
+def _poison_once(at, part=None, row=5):
+    """A state hook putting a NaN into one membrane at its ``at``-th call."""
+    import math
+
+    calls = []
+
+    def hook(site, state):
+        calls.append(site)
+        if len(calls) == at:
+            carry = state if part is None else state[part]
+            carry["vtx_state"][row, 0] = math.nan
+        return state
+
+    return hook
+
+
+@pytest.mark.parametrize("kind,k,fields", [
+    ("mc", 1, dict(gather="dense")),
+    ("mc", 1, dict(fused=True, gather="event")),
+    ("ei", 1, dict()),
+    ("ei", 4, dict()),
+])
+def test_supervised_rollback_keeps_the_graphs_and_stays_bit_equal(cuda, tmp_path, kind, k,
+                                                                  fields):
+    """On the card, a NaN after the third chunk rolls a supervised run back
+    one checkpoint: raster, spike counts and the whole carry bit-equal to an
+    undisturbed run from the same state, the same simulator, and no graph
+    key added or captured again by the rollback and the re-run."""
+    import warnings
+
+    from repro_torch.io import state_fault_hook
+    from repro_torch.snn import RasterMonitor, Session, SimConfig
+
+    place = dict(engine="spmd", devices=[cuda] * k) if k > 1 else dict(device=cuda)
+    ses = Session(_graph_net(kind, k), SimConfig(**fields), **place)
+    sim = ses.simulator
+    st0 = ses.state
+    plain = RasterMonitor()
+    res_plain = ses.run(128, monitors=[plain], chunk_size=32)
+    want = ses.state
+    keys = {key: (g.what, g.capture_s) for key, g in sim._graphs.graphs.items()}
+    ses._state = st0
+    mon = RasterMonitor()
+    hook = _poison_once(3, part=None if k == 1 else k - 1)
+    with state_fault_hook(hook), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = ses.run_supervised(128, monitors=[mon], chunk_size=32, checkpoint_every=64,
+                                 checkpoint_dir=str(tmp_path), max_to_keep=2)
+    assert (res.rollbacks, res.steps_lost, res.t_final) == (1, 32, 128)
+    assert int(plain.raster.sum()) > 0 and np.array_equal(mon.raster, plain.raster)
+    assert np.array_equal(res.spike_count, res_plain.spike_count)
+    _assert_bit_equal_states(ses.state, want)
+    assert ses.simulator is sim and ses.last_rollbacks[0]["in_place"]
+    assert {key: (g.what, g.capture_s) for key, g in sim._graphs.graphs.items()} == keys
+    assert ses.describe()["graphs"]["mode"] == "cuda_graph"
+    ses.close()
+
+
+@pytest.mark.parametrize("k,restore_k", [(1, None), (4, None), (4, 1)])
+def test_streamed_restore_equals_the_eager_one_on_the_card(cuda, tmp_path, k, restore_k):
+    """``Session.restore(path, streaming=True)`` onto the card (at the
+    snapshot's k, and merged to k=1) gives the eager restore's carry bit for
+    bit, and the same next 64 steps."""
+    from repro_torch.snn import RasterMonitor, Session, SimConfig
+
+    place = dict(engine="spmd", devices=[cuda] * k) if k > 1 else dict(device=cuda)
+    ses = Session(_graph_net("ei", k), SimConfig(), **place)
+    ses.run(40)
+    ses.save(str(tmp_path / "snap"))
+    back = dict(k=restore_k, device=cuda) if restore_k == 1 else place
+    out = []
+    for streaming in (False, True):
+        r = Session.restore(str(tmp_path / "snap"), streaming=streaming, chunk_rows=300, **back)
+        assert r.t == 40 and r.k == (restore_k or k)
+        mon = RasterMonitor()
+        r.run(64, monitors=[mon])
+        out.append((r.state, mon.raster))
+    (a, ra), (b, rb) = out
+    assert int(ra.sum()) > 0 and np.array_equal(ra, rb)
+    _assert_bit_equal_states(a, b)
+    ses.close()

@@ -1,5 +1,7 @@
 """The port's ``Session`` against the reference ``Session`` on the CPU, and
 the surfaces left to later slices."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -116,20 +118,65 @@ def test_config_checks_mirror_the_reference():
 
 
 def test_unported_session_surfaces_raise(tmp_path):
+    """The surfaces that raised ``NotImplementedError`` before their slices
+    now run: ``run_supervised`` (fault tolerance), ``restore(streaming=True)``
+    (streaming ingest) and plastic nets.  ``SimConfig(max_k=...)`` still
+    raises (``test_unported_config_values_raise``)."""
     d = tnet.to_dcsr(tnet.microcircuit(scale=0.01), k=1)
     ses = Session(d, SimConfig(align_k=32), device="cpu")
-    with pytest.raises(NotImplementedError, match="fault tolerance"):
-        ses.run_supervised(10)
-    # snapshots run since their slice (tests/test_torch_snapshot.py); the
-    # streaming restore waits for streaming ingest
+    res = ses.run_supervised(10, chunk_size=5, checkpoint_every=5,
+                             checkpoint_dir=str(tmp_path / "ck"))
+    assert (res.t_final, res.rollbacks, res.chunks) == (10, 0, (5, 5))
     ses.save(str(tmp_path / "snap"))
-    with pytest.raises(NotImplementedError, match="streaming ingest"):
-        Session.restore(str(tmp_path / "snap"), device="cpu", streaming=True)
+    streamed = Session.restore(str(tmp_path / "snap"), device="cpu", streaming=True,
+                               chunk_rows=100)
+    eager = Session.restore(str(tmp_path / "snap"), device="cpu")
+    assert streamed.t == eager.t == ses.t == 10
+    for key in ("vtx_state", "ring", "hist"):
+        assert torch.equal(streamed.state[key], eager.state[key])
     # plastic nets run since the plasticity slice
     plastic = Session(tnet.to_dcsr(tnet.balanced_ei(n=200, stdp=True), k=1), device="cpu")
     assert plastic.simulator.dev.any_plastic
     assert plastic.run(5).t_final == 5
-    assert ses.t == 0
+    ses.close()
+
+
+# names of the reference's packages the port does not export, each with the
+# ROADMAP.md queue 1 item that ports it
+NOT_EXPORTED = {
+    "snn": {"StepEngine": "a typing Protocol of the reference's engines (item 8)"},
+    "io": {"CheckpointManager": "the LM substrate's tensor checkpoints (item 8)"},
+    "builder": {},
+}
+
+
+@pytest.mark.parametrize("pkg", sorted(NOT_EXPORTED))
+def test_port_packages_export_the_reference_names(pkg):
+    """``repro_torch.<pkg>`` exports every public name ``repro.<pkg>``
+    does, but for the listed exceptions."""
+    import importlib
+
+    ref = importlib.import_module(f"repro.{pkg}")
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    names = set(getattr(ref, "__all__", None) or (n for n in vars(ref) if not n.startswith("_")))
+    names = {n for n in names if not isinstance(getattr(ref, n, None), type(importlib))}
+    missing = sorted(n for n in names - set(NOT_EXPORTED[pkg]) if not hasattr(port, n))
+    assert missing == [], f"repro_torch.{pkg} lacks {missing}"
+
+
+def test_gc_checkpoints_removes_a_torn_swap_leftover(tmp_path):
+    """Both packages' retention removes a step that survives only as its
+    ``step_X.old`` sibling (a torn atomic swap) once it falls outside
+    ``max_to_keep``, and keeps the newest steps."""
+    from repro.snn import Session as JSession
+
+    for cls, name in ((JSession, "ref"), (Session, "port")):
+        root = tmp_path / name
+        for d in ("step_00000010.old", "step_00000020", "step_00000030", "step_00000040"):
+            (root / d).mkdir(parents=True)
+            (root / d / "manifest.json").write_text("{}")
+        cls._gc_checkpoints(str(root), 2)
+        assert sorted(os.listdir(root)) == ["step_00000030", "step_00000040"], name
 
 
 @pytest.mark.parametrize("runs", [
