@@ -24,6 +24,11 @@ event gather).  Phases, each printing its own lines:
   1. device: the card's name, count, name and power limit from nvidia-smi;
   2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc``,
      with nvcc's register, shared-memory and spill report;
+  [contracts] the card view of the engine-contract matrix
+     (``python -m repro_torch.analysis.contracts --device cuda``): every
+     row's uncaptured ops (exchanges, host syncs, 8-byte values), its
+     captured graph's kernel nodes a step and no memcpy to the host, and
+     an uncaptured chunk under ``set_sync_debug_mode("error")``;
   3. kernels vs plain at the main path's shapes (the session's own panels,
      inputs from ``--seed``): ``lif_step`` bit-exact, ``spike_gather``
      (with the panels' row lengths) within rtol=atol=1e-5, equal to itself
@@ -32,7 +37,8 @@ event gather).  Phases, each printing its own lines:
      forced ``row_dot`` variant; ``fused_step`` (row lengths, the session's
      recorded ``reduce``) bit-exact against its forced ``row_dot`` variant,
      its L2 bitmask and ``lif_step`` then ``spike_gather``, and within 1e-5
-     of its plain version;
+     of its plain version; both again on the session's panels cast to
+     bf16, bit-equal to the same kernels on the panels' f32 widening;
   4. main path: 1000 steps; the launch counts, set to 0 just before the run
      and read just after, must match the gather mode of every chunk (a
      ``fused`` step launches ``noise_add`` and ``fused_step``, a
@@ -42,7 +48,15 @@ event gather).  Phases, each printing its own lines:
      raster;
   6. the unfused path: 256 steps on the ``unfused`` engine, counts set to
      0 before and read after, whose raster must equal the main path's
-     first 256 steps; then a small network on the card against the plain
+     first 256 steps (on the main session's panels, ``_share``); then
+     ``[maxk]``: ``Session(net, SimConfig(max_k=512))`` on the same net
+     (and, after the plastic parity, ``SimConfig(max_k=64, align_k=32)``
+     on the Brunel net): the segmented gather bit-equal to the unsegmented
+     kernel's virtual rows added in ascending order (``ref.segment_add_ref``)
+     and within 1e-5 of its plain version on a main-path and a 5% vector,
+     timed; 256 steps graphed, uncaptured and replayed, rasters and end
+     states bit-equal, one launch per kernel, bucket and step; then a
+     small network on the card against the plain
      torch versions on the CPU, fed the seam's numpy noise and then the
      port's own noise, whose vectors must be bit-identical on both; then
      NaN weights on silent sources of a small net (k=1 and k=4): the
@@ -53,7 +67,8 @@ event gather).  Phases, each printing its own lines:
      plain version, ``torch.sparse.mm`` over the same synapses for the
      gathers, and the bound (the bytes and operations this run's inputs
      need); the two gathers at a 5% vector and at a spike vector of the
-     main path, with the bitmask read from device memory too;
+     main path, with the bitmask read from device memory too, and with
+     bf16 weights (2 B an active weight in the bound);
      ``fused_step`` on the main path's next step beside its ``row_dot``
      variant; ``noise_add`` bit-exact against its plain version over 2^20
      shuffled ids (past 2^32, repeated) at four steps (t up to 2^31 + 3),
@@ -234,7 +249,7 @@ The compiled chunk (``[graph]`` lines; on the card every run replays one
 CUDA graph per step engine, chunk length and recordings): after each path
 (main, k4, plastic, k4p, p2 at k=1 and k=4, p3, and the checkpointed Brunel
 run) the session is rewound to the path's start state and run the path's
-steps graphed and uncaptured (the ``_graphs=False`` seam) in turns, each
+steps graphed and uncaptured (the ``_graphs=False`` seam), once each, each
 raster equal to the path's and the end states bit-equal, with the us/step
 of both; each captured key's warm-up, capture and instantiation seconds and
 its graph's nodes by kind (``cuGraphGetNodes`` on ``raw_cuda_graph()``),
@@ -253,7 +268,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import errno
 import functools
 import gc
@@ -286,6 +300,9 @@ from repro_torch.kernels import split_step as split_mod  # noqa: E402
 from repro_torch.kernels import step_front as front_mod  # noqa: E402
 from repro_torch.kernels import stdp_update as stdp_mod  # noqa: E402
 from repro_torch.kernels import keystream as ks_mod  # noqa: E402
+from repro_torch.analysis.contracts import (  # noqa: E402
+    graph_node_kinds, run_matrix, uncaptured,
+)
 from repro_torch.builder import (  # noqa: E402
     balanced_ei_rules, build_network, build_partition, crng, microcircuit_rules,
 )
@@ -550,7 +567,48 @@ def phase_kernels(sim, params, rng):
         "bit-exact vs its forced row_dot variant, vs the bitmask read from L2 and vs lif_step + "
         f"spike_gather kernels; max |kernel - plain| = {errs['fused_step']:.3e} "
         "(rtol=atol=1e-5)")
-    return (v, refrac, i_tot, act), errs
+
+    # bf16 weights: the session's panels cast to bf16, against the same
+    # kernels on their f32 widening bit for bit (the widening is exact and
+    # the sums run in the same order), and against the plain versions
+    # (which widen with .float()) within the f32 tolerance
+    w16 = [w.to(torch.bfloat16) for w in weights]
+    red16 = panel_reduce(w16)
+    errs["spike_gather_bf16"] = errs["fused_step_bf16"] = 0.0
+    for c, w, rl, rb in zip(cols, w16, row_len, red16):
+        wide = w.float()
+        got = gather_mod.spike_gather_cuda(act, c, w, rl, reduce=(rb,))
+        require(got.dtype == torch.float32 and torch.equal(
+            got.view(torch.int32),
+            gather_mod.spike_gather_cuda(act, c, wide, rl, reduce=(rb,)).view(torch.int32)),
+            "bf16 spike_gather differs from the kernel on its f32 widening")
+        require(torch.equal(gather_mod.spike_gather_cuda(act, c, w, reduce="row_dot"),
+                            gather_mod.spike_gather_cuda(act, c, wide, reduce="row_dot")),
+                "bf16 spike_gather's row_dot variant differs from its f32 widening's")
+        want = ref.spike_gather_ref(act, c, w)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        errs["spike_gather_bf16"] = max(errs["spike_gather_bf16"], float((got - want).abs().max()))
+        del wide
+    f16 = fused_mod.fused_step_cuda(v, refrac, i_tot, cols, w16, row_len, params=params,
+                                    reduce=red16)
+    f32w = fused_mod.fused_step_cuda(v, refrac, i_tot, cols, [w.float() for w in w16], row_len,
+                                     params=params, reduce=red16)
+    require(all(torch.equal(a, b) for a, b in zip(f16[:3], f32w[:3])),
+            "bf16 fused_step's LIF phase differs")
+    require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(f16[3], f32w[3])),
+            "bf16 fused_step differs from the kernel on its f32 widening")
+    del f32w
+    _, _, s_p, curs_p = ref.fused_step_ref(v, refrac, i_tot, cols, w16, params=params)
+    require(torch.equal(f16[2], s_p), "bf16 fused_step spikes differ from the plain version")
+    for a, b in zip(f16[3], curs_p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        errs["fused_step_bf16"] = max(errs["fused_step_bf16"], float((a - b).abs().max()))
+    say("kernels", f"bf16 weights (the session's panels cast, reduce {red16}): spike_gather and "
+        "fused_step bit-exact vs the same kernels on the panels' f32 widening (and spike_gather's "
+        "row_dot variant); max |kernel - plain| = "
+        f"{errs['spike_gather_bf16']:.3e} and {errs['fused_step_bf16']:.3e} (rtol=atol=1e-5)")
+    return (v, refrac, i_tot, act, w16), errs
 
 
 def run_session(ses, steps):
@@ -695,8 +753,10 @@ def phase_event(sim, raster):
     return err, acts[f"main-path step {STEPS // 2}"]
 
 
-def phase_parity(net, main_raster, nd):
-    ses = Session(net, SimConfig(fused=False))
+def phase_parity(net, main_raster, nd, main_ses):
+    """256 steps of the unfused engine on the main session's own panels
+    (``_share``: no second ELL build), raster-equal to the main path."""
+    ses = Session(net, SimConfig(fused=False), _share=main_ses)
     require(ses.engine_choice.engine == "unfused", f"engine {ses.engine_choice}")
     reset_counts()
     _, _, raster, secs = run_session(ses, PARITY_STEPS)
@@ -709,6 +769,156 @@ def phase_parity(net, main_raster, nd):
     say("parity", f"unfused {PARITY_STEPS} steps: raster identical to the main path's "
         f"(fused, then fused_event); {secs / PARITY_STEPS * 1e6:.1f} us/step; launches {launches}")
     return launches
+
+
+# [maxk] figures for the kernels line, by session
+MAXK = {}
+
+
+def phase_maxk(tag, net, cfg, act_main, unsplit_raster, steps=PARITY_STEPS):
+    """[maxk] ``Session(net, cfg)`` with ``cfg.max_k`` at full width: the
+    unfused engine with split buckets.  The segmented gather against the
+    unsegmented kernel's virtual rows added in ascending order
+    (``ref.segment_add_ref``) bit for bit, in both reductions, and against
+    the plain version within 1e-5, on a main-path spike vector and a 5%
+    vector, timed; then ``steps`` steps graphed and uncaptured, rasters and
+    end states bit-equal, one launch per kernel, bucket and step."""
+    t0 = time.perf_counter()
+    ses = Session(net, cfg)
+    sim = ses.simulator
+    dev = sim.dev
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    plastic = dev.any_plastic
+    require(ses.engine_choice.engine == "unfused", f"{tag}: engine {ses.engine_choice}")
+    split = [i for i, ident in enumerate(dev.identity_rows) if not ident]
+    require(split, f"{tag}: max_k={cfg.max_k} split no row")
+    n_p, nd = dev.n_p, len(dev.cols)
+    v_rows = {i: int(dev.row_ptr[i][-1]) for i in split}
+    panel_gb = sum(c.numel() * (12 if plastic else 8) for c in dev.cols) / 1e9
+    say("maxk", f"{tag}: Session(SimConfig(max_k={cfg.max_k}, align_k={cfg.align_k})) on the "
+        f"same net: {build_s:.1f} s (ELL build, upload); engine {ses.engine_choice.engine} "
+        f"({ses.engine_choice.reason}); buckets "
+        + ", ".join(f"d={d} {tuple(c.shape)}" + (f" split: {v_rows[i]} virtual rows, depth "
+                                                 f"{dev.split_depth[i]}" if i in v_rows else "")
+                    for i, (d, c) in enumerate(zip(dev.delays, dev.cols)))
+        + f"; {panel_gb:.3f} GB of cols + weights{' + masks' if plastic else ''}; fill "
+        f"{sim.ell.fill_factor:.3f}")
+    gen = torch.Generator(sim.device).manual_seed(2)
+    vecs = {"main-path step": torch.from_numpy(act_main.astype(np.float32)).to(sim.device),
+            "5% active": (torch.rand(n_p, generator=gen, device=sim.device) < 0.05).float()}
+    fig, err = {}, 0.0
+    for label, a in vecs.items():
+        t = dict(ms_segment=0.0, ms_unsegmented=0.0, plain_ms=0.0)
+        nb = active = 0
+        for i in split:
+            c, w, rl, rp = dev.cols[i], dev.weights0[i], dev.row_len[i], dev.row_ptr[i]
+            depth, rb = dev.split_depth[i], dev.reduce[i:i + 1]
+            got = gather_mod.spike_gather_cuda(a, c, w, rl, row_ptr=rp, reduce=rb)
+            vrows = gather_mod.spike_gather_cuda(a, c, w, rl, reduce=rb)
+            want = ref.segment_add_ref(vrows, rp, depth)
+            require(got.shape == (n_p,) and torch.equal(got.view(torch.int32),
+                                                         want.view(torch.int32)),
+                    f"{tag}: the segmented gather differs from the ascending sum of its "
+                    f"virtual rows ({label}, d={dev.delays[i]})")
+            require(torch.equal(got, gather_mod.spike_gather_cuda(a, c, w, row_ptr=rp,
+                                                                  reduce="row_dot")),
+                    f"{tag}: the segmented gather differs from its row_dot variant ({label})")
+            plain = ref.spike_gather_segment_ref(a, c, w, rp, depth=depth)
+            torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+            err = max(err, float((got - plain).abs().max()))
+            t["ms_segment"] += cuda_ms(lambda: gather_mod.spike_gather_cuda(
+                a, c, w, rl, row_ptr=rp, reduce=rb), 20)
+            t["ms_unsegmented"] += cuda_ms(lambda: gather_mod.spike_gather_cuda(
+                a, c, w, rl, reduce=rb), 20)
+            t["plain_ms"] += cuda_ms(lambda: ref.spike_gather_segment_ref(
+                a, c, w, rp, depth=depth), 3)
+            rows = torch.arange(c.shape[0], device=c.device) < v_rows[i]
+            real_, active_, _ = gather_traffic(a, c, rl, rows)
+            if rb == ("row_dot",):  # every slot of the virtual rows: col and weight
+                real_ = active_ = v_rows[i] * c.shape[1]
+            active += active_
+            # cols and weights read, the activity and row_ptr read (and
+            # row_len, which the row_dot variant does not read), the (n_p,)
+            # sums written
+            nb += (4 * (real_ + active_) + 4 * n_p + 4 * (n_p + 1) + 4 * n_p
+                   + (0 if rb == ("row_dot",) else 4 * v_rows[i]))
+        t["bound_ms"], t["bound_by"] = bound_ms(nb, 2 * active)
+        fig[label] = t
+        say("maxk", f"{tag}: segmented spike_gather over the {len(split)} split bucket(s), "
+            f"{label} ({int(a.sum())} of {n_p} ids): bit-equal to the unsegmented kernel's "
+            f"virtual rows added in ascending order and to its row_dot variant; kernel "
+            f"{t['ms_segment']:.4f} ms, unsegmented (the virtual rows alone) "
+            f"{t['ms_unsegmented']:.4f} ms, plain {t['plain_ms']:.3f} ms; bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nb / 1e9:.4f} GB)")
+
+    # graphed (capturing its keys, launches counted), uncaptured, graphed
+    # again (replays): each run from the session's start state
+    st0 = ses.state
+    reset_counts()
+    _, _, r_g, secs_c = run_session(ses, steps)
+    launches = read_counts()
+    want = dict(lif_step=steps, spike_gather=steps * nd, noise_add=steps)
+    if plastic:
+        want["stdp_update"] = steps * nd
+    require(launches == only(**want), f"{tag}: launches {launches}")
+    st_g = ses.state
+    require(sim.graph_mode == "cuda_graph", f"{tag}: graph mode {sim.graph_mode}")
+    nodes = {}
+    for g in sim._graphs.graphs.values():
+        kinds = graph_node_kinds(g.graph)
+        require(kinds["memcpy_to_host"] == 0, f"{tag}: a memcpy to the host in {g.what}")
+        nodes[g.what] = kinds["kernel"] / g.steps
+    ses._state = st0
+    with uncaptured(sim):
+        _, _, r_u, secs_u = run_session(ses, steps)
+    require(np.array_equal(r_g.raster, r_u.raster), f"{tag}: graphed and uncaptured rasters differ")
+    require_states_bit_equal(st_g, ses.state, f"{tag}: graphed vs uncaptured end state")
+    ses._state = st0
+    _, _, r_r, secs_g = run_session(ses, steps)
+    require(np.array_equal(r_g.raster, r_r.raster), f"{tag}: the replayed raster differs")
+    require_states_bit_equal(st_g, ses.state, f"{tag}: replayed vs captured end state")
+    spikes = int(r_g.raster.sum())
+    require(spikes > 0, f"{tag}: the net never spiked")
+    differ = int((r_g.raster != unsplit_raster[:steps]).sum())
+    say("maxk", f"{tag}: {steps} steps graphed {secs_g / steps * 1e6:.1f} us/step (replays; "
+        f"{secs_c / steps * 1e6:.1f} with the captures), uncaptured "
+        f"{secs_u / steps * 1e6:.1f} us/step (host clock, monitors); rasters ({spikes} spikes) "
+        f"and end states (t, vtx_state, ring, hist, traces"
+        f"{', weights' if plastic else ''}) bit-equal; kernel nodes a step "
+        + ", ".join(f"{k}: {v:.2f}" for k, v in nodes.items())
+        + f"; launches {launches}; against the unsplit path's raster: {differ} entries differ "
+        "(the split sums each row in another order); max |segmented - plain| "
+        f"{err:.3e} (rtol=atol=1e-5)")
+    MAXK[tag] = dict(fig=fig, launches=launches, err=err, us_graphed=secs_g / steps * 1e6,
+                     us_uncaptured=secs_u / steps * 1e6)
+    del ses, sim, dev, st0, st_g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_contracts(card):
+    """[contracts] The card view of every row of the engine-contract matrix
+    (``repro_torch.analysis.contracts``): the ops of uncaptured steps, the
+    captured graphs' kernel nodes a step and memcpy nodes to the host, and
+    an uncaptured chunk under ``set_sync_debug_mode("error")``."""
+    t0 = time.perf_counter()
+    violations, results = run_matrix(device=card, verbose=False)
+    per_engine = {}
+    for name, res in results.items():
+        facts = res.facts
+        nodes = ", ".join(f"{k:.2f}" for k in res.kernels_per_step.values())
+        if facts is not None:
+            say("contracts", f"{name}: {res.engine}, {facts.exchanges / facts.steps:g} "
+                f"exchange(s) a step, {facts.ops / facts.steps:.1f} torch ops a step beside the "
+                f"kernels, widest 1-D f32 {facts.max_f32_vector}; kernel nodes a step {nodes}; "
+                + ("clean" if not res.problems else "; ".join(res.problems)))
+        per_engine.setdefault(res.engine, []).extend(res.kernels_per_step.values())
+    require(not violations, f"contract violations on the card: {violations}")
+    say("contracts", f"{len(results)} rows of the matrix honour their engine contracts on the "
+        f"card ({time.perf_counter() - t0:.1f} s); kernel nodes a step by engine (k=1 and k=2 "
+        "rows of balanced_ei(160)): " + "; ".join(
+            f"{e} {min(v):.2f}-{max(v):.2f}" for e, v in per_engine.items() if v))
 
 
 def phase_small_net():
@@ -793,7 +1003,8 @@ def event_traffic(act, plan, flags, cols, row_len, n_p):
 
 def phase_timing(ses, params, inputs, event_act, errs, launches):
     sim = ses.simulator
-    v, refrac, i_tot, act = inputs
+    v, refrac, i_tot, act, w16 = inputs
+    red16 = panel_reduce(w16)
     n_p = sim.dev.n_p
     cols, weights = sim.dev.cols, sim.dev.weights0
     nd = len(cols)
@@ -822,10 +1033,12 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
     gathers = {}
     for label, a in (("5% active", act), ("main-path step", eact)):
         a2 = a[:, None].contiguous()
-        t = dict(ms=0.0, ms_no_row_len=0.0, ms_bitmask_l2=0.0, library_ms=0.0)
+        t = dict(ms=0.0, ms_no_row_len=0.0, ms_bitmask_l2=0.0, library_ms=0.0, ms_bf16=0.0)
         real = active = moved = 0
         for b, (c, w, rl, csr) in enumerate(zip(cols, weights, row_len, csrs)):
             rb = red[b:b + 1]
+            t["ms_bf16"] += cuda_ms(lambda c=c, w=w16[b], rl=rl, rb=red16[b:b + 1]:
+                                    gather_mod.spike_gather_cuda(a, c, w, rl, reduce=rb), 20)
             torch.testing.assert_close(torch.sparse.mm(csr, a2)[:, 0],
                                        gather_mod.spike_gather_cuda(a, c, w, rl, reduce=rb),
                                        rtol=1e-5, atol=1e-5)
@@ -839,9 +1052,11 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
             t["library_ms"] += cuda_ms(lambda csr=csr: torch.sparse.mm(csr, a2), 20)
             r_, a_, m_ = gather_traffic(a, c, rl)
             real, active, moved = real + r_, active + a_, moved + m_
-        # each launch reads the activity and row_len and writes R currents
+        # each launch reads the activity and row_len and writes R currents;
+        # a bf16 weight is 2 bytes
         nb = 4 * (real + active) + nd * (4 * n_p + 8 * R)
         t["bound_ms"], t["bound_by"] = bound_ms(nb, 2 * active)
+        t["bound_ms_bf16"], _ = bound_ms(nb - 2 * active, 2 * active)
         t.update(real=real, active=active, moved=moved, bytes=nb)
         gathers[label] = t
         say("timing", f"spike_gather, both buckets, {label} ({int(a.sum())} of {n_p} ids): "
@@ -851,7 +1066,8 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
             f"cols and one sector per 8 slots holding an active one, in 32-byte sectors: "
             f"{moved / t['ms'] / 1e6:.0f} GB/s); bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
             f"{nb / 1e9:.4f} GB = 4 B x {real} real slots' cols + 4 B x {active} active "
-            "slots' weights + activity, row_len and currents)")
+            "slots' weights + activity, row_len and currents); bf16 weights: kernel "
+            f"{t['ms_bf16']:.4f} ms, bound {t['bound_ms_bf16']:.4f} ms (2 B an active weight)")
     # fused_step on the main path's next step (its end state, the ring slot
     # it delivers, the port's noise and the bias): the gathers read the
     # step's own spikes, so its bound counts what those spikes need
@@ -872,6 +1088,11 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
                                                    params=params, reduce=sim.dev.reduce), 20)
     tk_dot = cuda_ms(lambda: fused_mod.fused_step_cuda(fv, fr, fi, cols, weights, params=params,
                                                        reduce="row_dot"), 20)
+    tk16 = cuda_ms(lambda: fused_mod.fused_step_cuda(fv, fr, fi, cols, w16, row_len,
+                                                     params=params, reduce=red16), 20)
+    b16, _ = bound_ms(f_bytes - 2 * f_active, 10 * n_p + 2 * f_active)
+    b16_pad, _ = bound_ms(lif_bytes + panel_bytes * 6 // 8 + nd * R * 4,
+                          10 * n_p + sum(2 * c.numel() for c in cols))
     tp = cuda_ms(lambda: ref.fused_step_ref(fv, fr, fi, cols, weights, params=params), 5)
     fs2 = fs[:, None].contiguous()
     f_lib = sum(cuda_ms(lambda csr=csr: torch.sparse.mm(csr, fs2), 20) for csr in csrs)
@@ -881,9 +1102,12 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
         f"plain {tp:.3f} ms; torch.sparse.mm over both buckets on the same spikes {f_lib:.4f} "
         f"ms; bound {b:.4f} ms ({by}: {f_bytes / 1e9:.4f} GB = 4 B x {f_real} real slots' cols "
         f"+ 4 B x {f_active} active slots' weights + state, bitmask, row_len and currents); "
-        f"padded bound {b_pad:.4f} ms (every slot's col and weight)")
+        f"padded bound {b_pad:.4f} ms (every slot's col and weight); bf16 weights: kernel "
+        f"{tk16:.4f} ms, bound {b16:.4f} ms, padded {b16_pad:.4f} ms (6 B a slot)")
     out.append(dict(name="fused_step", ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
                     library_ms=f_lib, ms_row_dot=tk_dot, bound_ms_padded=b_pad,
+                    ms_bf16=tk16, bound_ms_bf16=b16, bound_ms_bf16_padded=b16_pad,
+                    max_abs_err_bf16=errs["fused_step_bf16"],
                     vector=f"the main path's step {ses.t}: {int(fs.sum())} spikes"))
     del csrs
     g_p = sum(cuda_ms(lambda c=c, w=w: ref.spike_gather_ref(act, c, w), 5)
@@ -891,9 +1115,11 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
     g5, gm = gathers["5% active"], gathers["main-path step"]
     g_pad, _ = bound_ms(panel_bytes + nd * (4 * n_p + 4 * R), 2 * sum(c.numel() for c in cols))
     g_real, _ = bound_ms(8 * real_syn + nd * (4 * n_p + 4 * R), 2 * real_syn)
+    g_pad16, _ = bound_ms(panel_bytes * 6 // 8 + nd * (4 * n_p + 4 * R),
+                          2 * sum(c.numel() for c in cols))
     say("timing", f"spike_gather plain version (5% active) {g_p:.3f} ms; earlier bounds: "
-        f"{g_pad:.4f} ms padded ELL ({panel_bytes / 1e9:.3f} GB), {g_real:.4f} ms every real "
-        "synapse's col and weight")
+        f"{g_pad:.4f} ms padded ELL ({panel_bytes / 1e9:.3f} GB; bf16 weights {g_pad16:.4f} ms, "
+        f"6 B a slot), {g_real:.4f} ms every real synapse's col and weight")
     out.append(dict(name="spike_gather", ms=g5["ms"], plain_ms=g_p, bound_ms=g5["bound_ms"],
                     bound_by=g5["bound_by"], library_ms=g5["library_ms"],
                     bound_ms_real_synapses=g_real, bound_ms_padded_ell=g_pad,
@@ -901,6 +1127,9 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
                     ms_main_path=gm["ms"], library_ms_main_path=gm["library_ms"],
                     bound_ms_main_path=gm["bound_ms"],
                     ms_main_path_bitmask_l2=gm["ms_bitmask_l2"],
+                    ms_bf16=g5["ms_bf16"], bound_ms_bf16=g5["bound_ms_bf16"],
+                    ms_bf16_main_path=gm["ms_bf16"], bound_ms_bf16_main_path=gm["bound_ms_bf16"],
+                    bound_ms_bf16_padded_ell=g_pad16, max_abs_err_bf16=errs["spike_gather_bf16"],
                     vector="5% active; *_main_path: a spike vector of the main path"))
 
     # the event kernel on the same two vectors: what it must move depends on
@@ -1103,46 +1332,11 @@ def run_with_step(sim, step, state, steps):
 
 # -- the compiled chunk: one CUDA graph per engine, chunk length and recordings
 
-# CUgraphNodeType (cuda.h): the node kinds a captured chunk holds
-GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
 # per path the us/step graphed and uncaptured (phase_graph), for the summary
 GRAPH_US = {}
 # paths whose idle share phase_idle measures after their net's timed runs:
 # (tag, simulator, start state, gather mode)
 IDLE_PENDING = []
-
-
-@contextlib.contextmanager
-def uncaptured(sim):
-    """Runs of ``sim`` on the uncaptured loop: the ``_graphs=False`` seam,
-    turned on for the block on an engine built with graphs."""
-    own = sim._graphs_on
-    sim._graphs_on = False
-    try:
-        yield
-    finally:
-        sim._graphs_on = own
-
-
-def graph_node_kinds(graph) -> Counter:
-    """The nodes of a captured graph by kind, read with libcuda's
-    ``cuGraphGetNodes`` and ``cuGraphNodeGetType`` on
-    ``CUDAGraph.raw_cuda_graph()`` (a ``cudaGraph_t`` is a ``CUgraph``)."""
-    lib = ctypes.CDLL("libcuda.so.1")
-    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.POINTER(ctypes.c_size_t)]
-    lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    require(lib.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    require(lib.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
-    kinds = Counter()
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        require(lib.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0, "cuGraphNodeGetType")
-        kinds[GRAPH_NODE_KINDS.get(kind.value, "other")] += 1
-    return kinds
 
 
 def idle_share(fn):
@@ -1206,10 +1400,10 @@ def require_no_host_sync(sim, state, steps=16):
 
 
 def phase_graph(tag, ses, st0, gather0, steps, raster, after=None, measure=True,
-                order=(True, False, False, True), **run):
+                order=(True, False), **run):
     """[graph] The path's ``steps`` steps from its start state ``st0``
-    (gather mode ``gather0``), graphed and uncaptured in turns (graphed,
-    uncaptured, uncaptured, graphed), each raster equal to the path's and
+    (gather mode ``gather0``), graphed and uncaptured in turns (by default
+    graphed, then uncaptured: one run each way), each raster equal to the path's and
     the end states bit-equal; the captured keys' set-up seconds and their
     graphs' nodes by kind; one uncaptured chunk with no host sync; and the
     path queued for ``phase_idle`` (``measure=False`` skips these three).
@@ -1251,6 +1445,7 @@ def phase_graph(tag, ses, st0, gather0, steps, raster, after=None, measure=True,
             f"s, instantiate {g.instantiate_s:.3f} s, {g.replays} replays; nodes "
             + ", ".join(f"{k} {v}" for k, v in sorted(kinds.items()))
             + f"; {kinds['kernel'] / g.steps:.2f} kernels a step")
+        require(kinds["memcpy_to_host"] == 0, f"{tag}: a memcpy to the host in {g.what}")
     require_no_host_sync(sim, st0)
     say("graph", f"{tag}: an uncaptured chunk of {sim.engine_choice.engine} under "
         "torch.cuda.set_sync_debug_mode('error'): no host sync")
@@ -3487,6 +3682,7 @@ def main(argv=None) -> int:
     name, count, smi = phase_device()
     phase_build()
     card = torch.device("cuda", torch.cuda.current_device())
+    phase_contracts(card)
 
     # one build of the microcircuit, as the uniform k>1 net; the k=1 paths
     # run its merge (the same labelling, with the inert padding neurons)
@@ -3518,7 +3714,8 @@ def main(argv=None) -> int:
     main_raster, launches = phase_main_path(ses, net.n, pd14_populations(args.scale))
     phase_graph("main", ses, st0, "dense", STEPS, main_raster)
     errs["event_post_exchange"], event_act = phase_event(sim, main_raster)
-    unfused = phase_parity(net, main_raster, len(sim.dev.cols))
+    unfused = phase_parity(net, main_raster, len(sim.dev.cols), ses)
+    phase_maxk("microcircuit", net, SimConfig(max_k=512), main_raster[STEPS // 2], main_raster)
     # spike_gather and lif_step run only on the unfused path (the step front
     # took lif_step's place on fused_event): their counts are that run's
     launches["spike_gather"] = unfused["spike_gather"]
@@ -3601,6 +3798,7 @@ def main(argv=None) -> int:
     p_raster, p_launches = phase_plastic_path(pses, pnet.n)
     phase_graph("plastic", pses, st0, "dense", STEPS, p_raster)
     unf, fus, unf_launches = phase_plastic_parity(pnet, p_raster)
+    phase_maxk("brunel", pnet, SimConfig(max_k=64, align_k=32), p_raster[STEPS // 2], p_raster)
     # stdp_update runs only on the unfused plastic path: its count is that run's
     p_launches["stdp_update"] = unf_launches["stdp_update"]
     phase_plastic_engines(pses, unf)
@@ -3653,10 +3851,25 @@ def main(argv=None) -> int:
     kernels.append(phase_keystream_timing(args.seed, card, ks_launches, ks_err))
     next(k for k in kernels if k["name"] == "fused_step")["launches_rules_microcircuit"] = \
         rules_fused
+    # the heavy-row split runs unfused: its segmented launches are the
+    # spike_gather row's, and it launches no fused_step
+    for k in kernels:
+        if k["name"] in ("spike_gather", "fused_step"):
+            k["launches_maxk"] = sum(m["launches"][k["name"]] for m in MAXK.values())
+    seg = MAXK["microcircuit"]["fig"]
+    next(k for k in kernels if k["name"] == "spike_gather").update(
+        ms_segment=seg["5% active"]["ms_segment"],
+        bound_ms_segment=seg["5% active"]["bound_ms"],
+        ms_segment_main_path=seg["main-path step"]["ms_segment"],
+        bound_ms_segment_main_path=seg["main-path step"]["bound_ms"],
+        plain_ms_segment=seg["5% active"]["plain_ms"],
+        max_abs_err_segment=max(m["err"] for m in MAXK.values()),
+        segment="SimConfig(max_k=512) on the microcircuit, both buckets split; "
+                "launches_maxk: both [maxk] sessions' runs")
     say("graph", "us/step of each path, graphed / uncaptured (_graphs=False), host clock, "
         "in one call: " + "; ".join(
             f"{tag} {min(per[True]):.1f} / {min(per[False]):.1f}" for tag, per in GRAPH_US.items())
-        + f" (the faster of two runs each); {smi}")
+        + f" (one run each way); {smi}")
     say("done", f"every phase passed; whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

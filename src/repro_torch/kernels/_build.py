@@ -158,9 +158,11 @@ _U = ctypes.c_uint32
 _L = ctypes.c_int64
 _SIGNATURES = {
     "repro_lif_step": [_P] * 6 + [_I] + [_F] * 7 + [_P, _I],
-    "repro_spike_gather": [_P, _I] + [_P] * 5 + [_I] * 4 + [_P, _I],
+    "repro_spike_gather": (
+        [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P] + [_I] * 4 + [_P, _I]
+    ),
     "repro_fused_step": (
-        [_P] * 6 + [_I, _I, _I] + [_P] * 6 + [_I, _I] + [_F] * 7 + [_P, _I]
+        [_P] * 6 + [_I, _I, _I] + [_P] * 2 + [_I] + [_P] * 4 + [_I, _I] + [_F] * 7 + [_P, _I]
     ),
     "repro_fused_step_max_buckets": [],
     "repro_stdp_update": [_P] * 8 + [_I, _I] + [_F] * 4 + [_P, _I],
@@ -246,6 +248,20 @@ def require(
         raise ValueError(f"{name}: expected {ndim}-D, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+# the weight panels a gather kernel takes (spike_gather.cu, fused_step.cu)
+GATHER_WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def require_weights(name: str, w: torch.Tensor, device, dtype=None) -> int:
+    """Validate a gather's 2-D weight panel: f32 or bf16 (``dtype``, when
+    given, the type every panel of the launch shares); returns the kernel's
+    ``w_bf16`` flag."""
+    if w.dtype not in GATHER_WEIGHT_DTYPES:
+        raise TypeError(f"{name}: expected float32 or bfloat16 weights, got {w.dtype}")
+    require(name, w, dtype or w.dtype, 2, device)
+    return int(w.dtype == torch.bfloat16)
 
 
 def check_row_len(row_len, nd: int, R: int, device) -> None:

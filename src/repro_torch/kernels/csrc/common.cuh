@@ -14,8 +14,19 @@
 // on the card.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// A panel weight, widened to f32.  The gathers take f32 or bf16 panels
+// (spike_gather.cu, fused_step.cu); a bf16 weight is the top half of an f32
+// with the same value, so the widening is exact, and everything after it
+// (the fma chain, the xor tree) runs in f32 as for an f32 panel.
+__device__ __forceinline__ float load_weight(const float* w) { return __ldg(w); }
+__device__ __forceinline__ float load_weight(const __nv_bfloat16* w) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(w))));
+}
 
 // Host-precomputed LIF constants: decay = exp(-dt/tau_m) in f32 and
 // ref_steps = round(t_ref/dt), exactly as the plain torch version computes
@@ -61,7 +72,9 @@ __device__ __forceinline__ void lif_advance(float v, float refrac, float i_syn,
 // which hit L2 (the activity vector of a full microcircuit is 308 KB).
 // Padding slots carry weight 0 and col 0, so no mask is needed.  act is read
 // with plain loads: in fused_step it is written earlier in the same launch.
-__device__ __forceinline__ float row_dot(const int* cols, const float* w,
+// W is float or __nv_bfloat16 (load_weight widens it exactly).
+template <class W>
+__device__ __forceinline__ float row_dot(const int* cols, const W* w,
                                          const float* act, int K, int lane) {
   float acc = 0.0f;
   int k = lane;
@@ -70,10 +83,10 @@ __device__ __forceinline__ float row_dot(const int* cols, const float* w,
     const int c1 = __ldg(cols + k + 32);
     const int c2 = __ldg(cols + k + 64);
     const int c3 = __ldg(cols + k + 96);
-    const float w0 = __ldg(w + k);
-    const float w1 = __ldg(w + k + 32);
-    const float w2 = __ldg(w + k + 64);
-    const float w3 = __ldg(w + k + 96);
+    const float w0 = load_weight(w + k);
+    const float w1 = load_weight(w + k + 32);
+    const float w2 = load_weight(w + k + 64);
+    const float w3 = load_weight(w + k + 96);
     const float a0 = act[c0];
     const float a1 = act[c1];
     const float a2 = act[c2];
@@ -84,7 +97,7 @@ __device__ __forceinline__ float row_dot(const int* cols, const float* w,
     acc = __fmaf_rn(w3, a3, acc);
   }
   for (; k < K; k += 32) {
-    acc = __fmaf_rn(__ldg(w + k), act[__ldg(cols + k)], acc);
+    acc = __fmaf_rn(load_weight(w + k), act[__ldg(cols + k)], acc);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -170,9 +183,9 @@ struct L2Floats {
 // and a panel that is not, or whose weights change (plastic), takes the
 // row_dot variant of the launch.
 // Act is a plain pointer, or L2Floats for an activity written earlier in
-// the same launch.
-template <class Bits, class Act>
-__device__ __forceinline__ float row_dot_active(const int* cols, const float* w,
+// the same launch; W as for row_dot.
+template <class Bits, class Act, class W>
+__device__ __forceinline__ float row_dot_active(const int* cols, const W* w,
                                                 Act act, Bits bits, int len,
                                                 int lane) {
   constexpr int kChunks = 8;
@@ -206,7 +219,7 @@ __device__ __forceinline__ float row_dot_active(const int* cols, const float* w,
 #pragma unroll
     for (int u = 0; u < kChunks; ++u) {
       const int k = base + 32 * u + lane;
-      wv[u] = on[u] ? __ldg(w + k) : 0.0f;
+      wv[u] = on[u] ? load_weight(w + k) : 0.0f;
       av[u] = on[u] ? act[c[u]] : 0.0f;
     }
 #pragma unroll

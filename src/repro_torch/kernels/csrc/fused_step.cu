@@ -42,6 +42,9 @@
 // needed: unlike the TPU kernel's lane-padded vectors (fused_step.py:182-188,
 // padded v = v_reset with zero input), the loops here are bounds-checked.
 // Rows R > n_p carry no real slot and give current 0.
+// Weights: f32 or bf16 panels (the template W, one type for every bucket of a
+// launch, widened exactly by common.cuh:load_weight), accumulated in f32 as
+// the reference's kernel does (fused_step.py:101); the currents are f32.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -67,14 +70,14 @@ struct FusedArgs {
   int nd;
   LifParams p;
   const int* cols[kMaxBuckets];
-  const float* w[kMaxBuckets];
+  const void* w[kMaxBuckets];  // f32 or bf16 (the kernel's W)
   const int* row_len[kMaxBuckets];  // (R,) real slots a row; null: K
   float* cur[kMaxBuckets];
   int K[kMaxBuckets];
 };
 
 // at most 64 registers a thread, so that 4 blocks (32 warps) fit an SM
-template <bool kShared, bool kRowDot>
+template <bool kShared, bool kRowDot, class W>
 __global__ void __launch_bounds__(kThreads, 4) fused_step_kernel(const FusedArgs a) {
   extern __shared__ uint32_t staged[];
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -106,7 +109,7 @@ __global__ void __launch_bounds__(kThreads, 4) fused_step_kernel(const FusedArgs
   for (int b = 0; b < a.nd; ++b) {
     const int K = a.K[b];
     const int* cols = a.cols[b];
-    const float* w = a.w[b];
+    const W* w = static_cast<const W*>(a.w[b]);
     const int* row_len = a.row_len[b];
     float* cur = a.cur[b];
     for (int r = warp; r < a.R; r += nwarps) {
@@ -133,10 +136,11 @@ extern "C" int repro_fused_step_max_buckets() { return kMaxBuckets; }
 // (R,) int32, or null for rows K long.  smem_cap: the most bytes of shared
 // memory the bitmask may take (< 0: the card's limit; 0: read it from L2).
 // dense != 0: the row_dot variant (bits, row_len and smem_cap unused).
+// w_bf16 != 0: every bucket's weights are bf16, else f32.
 extern "C" int repro_fused_step(const float* v, const float* refrac,
                                 const float* i_tot, float* v_out, float* r_out,
                                 float* s_out, int n_p, int R, int nd,
-                                const void* const* cols, const void* const* w,
+                                const void* const* cols, const void* const* w, int w_bf16,
                                 const void* const* row_len, const int* K,
                                 void* const* cur, uint32_t* bits, int smem_cap,
                                 int dense, float v_rest, float v_reset,
@@ -163,7 +167,7 @@ extern "C" int repro_fused_step(const float* v, const float* refrac,
   for (int b = 0; b < kMaxBuckets; ++b) {
     const bool used = b < nd;
     a.cols[b] = used ? static_cast<const int*>(cols[b]) : nullptr;
-    a.w[b] = used ? static_cast<const float*>(w[b]) : nullptr;
+    a.w[b] = used ? w[b] : nullptr;
     a.row_len[b] = used ? static_cast<const int*>(row_len[b]) : nullptr;
     a.cur[b] = used ? static_cast<float*>(cur[b]) : nullptr;
     a.K[b] = used ? K[b] : 0;
@@ -174,9 +178,12 @@ extern "C" int repro_fused_step(const float* v, const float* refrac,
     if (err != cudaSuccess) return err;
   }
   const void* kernel =
-      dense    ? reinterpret_cast<const void*>(fused_step_kernel<false, true>)
-      : shared ? reinterpret_cast<const void*>(fused_step_kernel<true, false>)
-               : reinterpret_cast<const void*>(fused_step_kernel<false, false>);
+      w_bf16 ? (dense    ? reinterpret_cast<const void*>(fused_step_kernel<false, true, __nv_bfloat16>)
+                : shared ? reinterpret_cast<const void*>(fused_step_kernel<true, false, __nv_bfloat16>)
+                         : reinterpret_cast<const void*>(fused_step_kernel<false, false, __nv_bfloat16>))
+             : (dense    ? reinterpret_cast<const void*>(fused_step_kernel<false, true, float>)
+                : shared ? reinterpret_cast<const void*>(fused_step_kernel<true, false, float>)
+                         : reinterpret_cast<const void*>(fused_step_kernel<false, false, float>));
   const size_t smem = shared ? 4 * static_cast<size_t>(a.words) : 0;
   int grid = 0;
   err = resident_blocks(kernel, device, kThreads, smem, &grid);

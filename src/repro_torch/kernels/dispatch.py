@@ -38,6 +38,11 @@ step t+1.  ``overlap="auto"`` resolves to ``local`` on the ``cuda`` backend
 and to ``off`` on ``ref``, as the reference resolves it per backend
 (``local`` on its compiled kernels).
 
+Each engine declares its contract in :data:`ENGINE_CONTRACTS` (exchanges a
+step by exchange key, host syncs a step, where 8-byte ints may appear),
+which ``repro_torch.analysis.contracts`` checks on every eligible
+configuration.
+
 The reference's VMEM budgets (``FUSED_*_MAX_N_P``,
 ``FUSED_SPLIT_*_MAX_N_GLOBAL``, the event id-buffer budget) have no
 counterpart: the kernels keep nothing resident beyond what L2 holds on its
@@ -177,6 +182,107 @@ STEP_ENGINES = (
     "unfused",
 )
 OVERLAP_MODES = ("off", "local", "double_buffer")
+
+
+# -- per-engine contracts (checked by repro_torch.analysis.contracts) -------
+#
+# The counterpart of the reference's ENGINE_CONTRACTS
+# (repro/kernels/dispatch.py:255-360): what one step of each engine may do,
+# checked on every eligible configuration of the selector's matrix, on the
+# CPU (the ops of uncaptured steps) and on the card (the captured graphs).
+# The reference's VMEM residency counts have no counterpart: the port's
+# kernels keep nothing resident, and the limits they have (LIF-only,
+# FUSED_MAX_BUCKETS, the bitmask's shared-memory threshold) are the
+# selector's and the kernels' own checks.
+
+# Where a step may make an int64 tensor (a view of one makes none), and why.
+# Any other int64 value, and any float64 or complex128 value, is a breach:
+# the engines hold f32 state and int32 panels.
+INT64_PLACES = {
+    "t": "the carry's step t, a 0-d int64 on the device (the reference's "
+         "scan carry), made only at T_PLACES: each partition's copy of it for "
+         "the run, and its t + 1 once a step",
+    "simulator.py:make_core_step.<locals>.step_slots":
+        "the step's ring rows t % D and (t + d) % D, made from t on the device: "
+        "torch's index ops (index_select, index_copy_, index_add_) take int64 indices",
+    "dist_sim.py:compact_spike_ids":
+        "the index exchange's prefix sum and its scatter_ indices (torch's "
+        "cumsum of a bool and scatter_ are int64), the reference's "
+        "jnp.nonzero(size=cap)",
+    "dist_sim.py:DistSimulator._exchange":
+        "the index exchange's global ids (ids + p * n_p), as int64 index tensors",
+    "dist_sim.py:DistSimulator._gather":
+        "the index exchange's one exchange, the partitions' int64 ids concatenated",
+    "dist_sim.py:_scatter_ones":
+        "the index exchange's ids clamped for index_fill_ (an int64 index)",
+}
+# where the carry's t is made: the run's copy, and each step's t + 1
+T_PLACES = ("simulator.py:copy_carry", "simulator.py:make_core_step.<locals>.post")
+_RING_ROWS = ("t", "simulator.py:make_core_step.<locals>.step_slots")
+_INDEX_EXCHANGE = (
+    "dist_sim.py:compact_spike_ids", "dist_sim.py:DistSimulator._exchange",
+    "dist_sim.py:DistSimulator._gather", "dist_sim.py:_scatter_ones",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineContract:
+    """The checked promises of one step engine.
+
+    ``exchanges_per_step`` maps an exchange key -- ``identity`` / ``dense``
+    / ``index``, with ``+plastic`` when the exchange also carries the
+    pre-trace vector -- to the EXACT number of exchanges one step makes (an
+    exchange is one gather over the partitions, the reference's one
+    ``all_gather``; ``DistSimulator._gather``).  A key absent from the map
+    is no configuration of the engine, and the checker fails if the
+    selector ever produces it.  ``host_syncs_per_step`` is the number of
+    reads back to the host a step may make: 0 for every engine, so a chunk
+    can be captured as one CUDA graph.  ``int64_places`` are the keys of
+    :data:`INT64_PLACES` where a step may make int64 values (the index
+    exchange's places count only on its ``index`` keys).  No float64 value
+    is ever allowed."""
+
+    engine: str
+    exchanges_per_step: Dict[str, int]
+    host_syncs_per_step: int = 0
+    int64_places: Tuple[str, ...] = _RING_ROWS
+
+
+ENGINE_CONTRACTS: Dict[str, EngineContract] = {
+    c.engine: c
+    for c in (
+        EngineContract("fused", {"identity": 0}),
+        EngineContract("fused_plastic", {"identity+plastic": 0}),
+        EngineContract("fused_event", {"identity": 0}),
+        EngineContract("fused_split", {"dense": 1, "index": 1},
+                       int64_places=_RING_ROWS + _INDEX_EXCHANGE),
+        EngineContract(
+            "fused_split_plastic",
+            # dense carries spikes and traces in ONE exchange; the index
+            # exchange needs a second one for the dense real-valued
+            # pre-trace vector
+            {"dense+plastic": 1, "index+plastic": 2},
+            int64_places=_RING_ROWS + _INDEX_EXCHANGE,
+        ),
+        EngineContract("fused_split_event", {"dense": 1, "index": 1},
+                       int64_places=_RING_ROWS + _INDEX_EXCHANGE),
+        EngineContract(
+            # its exchange discipline is the split engines'
+            "unfused",
+            {
+                "identity": 0, "identity+plastic": 0,
+                "dense": 1, "index": 1,
+                "dense+plastic": 1, "index+plastic": 2,
+            },
+            int64_places=_RING_ROWS + _INDEX_EXCHANGE,
+        ),
+    )
+}
+if set(ENGINE_CONTRACTS) != set(STEP_ENGINES):
+    raise AssertionError(
+        "every step engine must declare an EngineContract: missing "
+        f"{sorted(set(STEP_ENGINES) - set(ENGINE_CONTRACTS))}"
+    )
 
 
 @dataclasses.dataclass(frozen=True)

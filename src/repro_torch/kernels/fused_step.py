@@ -12,6 +12,10 @@ plain versions (:func:`fused_step_plain`, :func:`fused_step_plastic_plain`,
 i.e. ``ref.fused_step_ref`` and ``ref.fused_step_plastic_ref``) only for CPU
 tensors.
 
+Weights: ``fused_step`` takes f32 or bf16 panels (all buckets one type),
+widened exactly and summed in f32 as the reference's kernel
+(``fused_step.py:101``); the plastic kernel takes f32.
+
 Preconditions: all buckets share R >= n_p, and every col id is a local id
 (< n_p; the exchange is the identity at k=1).  The simulator checks the col
 range on the host when it builds the panels.
@@ -61,10 +65,14 @@ def _check_operands(
     vectors: Dict[str, torch.Tensor],
     cols: Sequence[torch.Tensor],
     panels: Dict[str, Sequence[torch.Tensor]],
+    weights: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[int, int]:
     """Validate the state vectors (``v`` and ``vectors``, all ``(n_p,)``
-    f32) and the per-bucket panels (``cols`` int32 and each of ``panels``
-    f32, all ``(R, K_d)`` with a common R >= n_p); returns ``(n_p, R)``."""
+    f32) and the per-bucket panels (``cols`` int32, each of ``panels`` f32
+    and ``weights``, when given, f32 or bf16 of one type, all ``(R, K_d)``
+    with a common R >= n_p); returns ``(n_p, R)``."""
+    if weights is not None:
+        panels = dict(panels, weights=weights)
     nd = len(cols)
     if not 1 <= nd <= MAX_BUCKETS or any(len(p) != nd for p in panels.values()):
         raise ValueError(
@@ -82,7 +90,10 @@ def _check_operands(
     for i, c in enumerate(cols):
         _build.require(f"cols[{i}]", c, torch.int32, 2, dev)
         for name, p in panels.items():
-            _build.require(f"{name}[{i}]", p[i], torch.float32, 2, dev)
+            if name == "weights" and weights is not None:
+                _build.require_weights(f"weights[{i}]", p[i], dev, weights[0].dtype)
+            else:
+                _build.require(f"{name}[{i}]", p[i], torch.float32, 2, dev)
         if any(p[i].shape != c.shape for p in panels.values()) or c.shape[0] != R \
                 or c.shape[1] < 1:
             raise ValueError(
@@ -110,14 +121,15 @@ def fused_step_cuda(
     shared_bitmask: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, List[torch.Tensor]]:
     """Launch the kernel: ``(v', refrac', spikes, currents)`` with the
-    state vectors ``(n_p,)`` and ``currents[i]`` of shape ``(R,)``.
+    state vectors ``(n_p,)`` and ``currents[i]`` of shape ``(R,)`` (f32;
+    the weights are f32 or bf16, one type for every bucket).
     ``row_len``: per bucket ``(R,)`` int32 real slots a row, or None (rows
     K long).  ``reduce``: ``"row_dot"`` or per bucket the recorded
     choice (``dispatch.launch_row_dot``).
     ``shared_bitmask=False`` reads the bitmask from L2, the path of more
     neurons than shared memory holds bits for (for tests and timing)."""
     n_p, R = _check_operands(
-        "fused_step", v, dict(refrac=refrac, i_tot=i_tot), cols, dict(weights=weights)
+        "fused_step", v, dict(refrac=refrac, i_tot=i_tot), cols, {}, weights
     )
     nd = len(cols)
     _build.check_row_len(row_len, nd, R, v.device)
@@ -135,7 +147,7 @@ def fused_step_cuda(
         v_out.data_ptr(), r_out.data_ptr(), s_out.data_ptr(),
         n_p, R, nd,
         ptrs(*[c.data_ptr() for c in cols]),
-        ptrs(*[w.data_ptr() for w in weights]),
+        ptrs(*[w.data_ptr() for w in weights]), int(weights[0].dtype == torch.bfloat16),
         ptrs(*([None] * nd if row_len is None else [rl.data_ptr() for rl in row_len])),
         (ctypes.c_int * nd)(*[c.shape[1] for c in cols]),
         ptrs(*[c.data_ptr() for c in currents]),

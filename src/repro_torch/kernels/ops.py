@@ -101,26 +101,36 @@ def step_front(vtx, slot, ids, *, seed, t, sigma, draw, bias, hist_row, tr_plus=
 # -- spike_gather ---------------------------------------------------------
 
 @implementation("spike_gather", "ref")
-def _spike_gather_ref(activity, cols, weights, row_len=None, *, reduce="row_dot"):
+def _spike_gather_ref(activity, cols, weights, row_len=None, *, row_ptr=None, depth=None,
+                      reduce="row_dot"):
     # the slots past row_len are (col 0, weight 0): the whole row sums the
     # same; every slot is summed, whatever reduce says
+    if row_ptr is not None:
+        return ref.spike_gather_segment_ref(activity, cols, weights, row_ptr, depth=depth)
     return ref.spike_gather_ref(activity, cols, weights)
 
 
 implementation("spike_gather", "cuda")(spike_gather_cuda)
 
 
-def spike_gather(activity, cols, weights, row_len=None, *, reduce="row_dot"):
-    """``cur[r] = sum_k weights[r,k] * activity[cols[r,k]]`` (f32).
+def spike_gather(activity, cols, weights, row_len=None, *, row_ptr=None, depth=None,
+                 reduce="row_dot"):
+    """``cur[r] = sum_k weights[r,k] * activity[cols[r,k]]`` (f32), for f32
+    or bf16 ``weights`` (widened exactly, summed in f32) and any float
+    ``activity``.
 
     ``row_len``, the ``(R,)`` int32 count of real slots per row (the ELL
     puts them first, ``(col 0, weight 0)`` after), lets the kernel skip the
-    padding; None takes every row as ``K`` long.  ``reduce`` picks the
+    padding; None takes every row as ``K`` long.  ``row_ptr``, an ``(n_out
+    + 1,)`` int32 of offsets, makes the rows virtual rows of a heavy-row
+    split (``SimConfig(max_k=...)``): the result is ``(n_out,)``, each real
+    row the ascending sum of its virtual rows (``depth``: the most of them
+    in one row, the plain version's loop count).  ``reduce`` picks the
     kernel's reduction (``dispatch.launch_row_dot``): ``"row_dot"`` (the
     default) sums every slot, and the engines pass the choice recorded at
     upload (``PartitionDeviceData.reduce``, ``dispatch.panel_reduce``)."""
     return lookup("spike_gather", backend_for(activity.device))(
-        activity, cols, weights, row_len, reduce=reduce
+        activity, cols, weights, row_len, row_ptr=row_ptr, depth=depth, reduce=reduce
     )
 
 
@@ -154,7 +164,8 @@ def fused_step(v, refrac, i_tot, cols, weights, row_len=None, *, params, reduce=
     """Fused LIF step: ``(v', refrac', spikes, per-bucket currents)``.
 
     ``cols``/``weights`` are per-delay-bucket (R, K_d) panels with common
-    R; eligibility rules live in ``dispatch.select_step_engine``.
+    R, the weights all f32 or all bf16 (summed in f32); eligibility rules
+    live in ``dispatch.select_step_engine``.
     ``row_len`` and ``reduce`` as for :func:`spike_gather`, per bucket."""
     return lookup("fused_step", backend_for(v.device))(
         v, refrac, i_tot, tuple(cols), tuple(weights), _tuple(row_len), params=params,

@@ -58,6 +58,43 @@ def spike_gather_ref(
     return torch.sum(weights.float() * vals.float(), dim=-1)
 
 
+def segment_add_ref(cur: Tensor, row_ptr: Tensor, depth: Optional[int] = None) -> Tensor:
+    """``out[r] = cur[row_ptr[r]] + ... + cur[row_ptr[r+1] - 1]``, added in
+    ascending order to an f32 ``+0.0``: the reference's ``segment_sum`` over
+    a split bucket's ``row_map`` (``repro/snn/simulator.py:648-653``; its
+    padding rows add ``+0.0`` to row 0, which changes no sum that starts at
+    ``+0.0``).  A loop over the split depth: step ``j`` adds each row's
+    ``j``-th virtual row, or ``+0.0`` past its last.  ``depth``, the most
+    virtual rows of one row, is read from ``row_ptr`` on the host when not
+    given (the engines pass the one recorded at upload)."""
+    starts = row_ptr[:-1]
+    counts = row_ptr[1:] - starts
+    if depth is None:
+        depth = int(counts.max()) if counts.numel() else 0
+    out = torch.zeros(counts.shape[0], dtype=torch.float32, device=cur.device)
+    last = max(cur.shape[0] - 1, 0)
+    for j in range(depth):
+        take = cur.index_select(0, torch.clamp(starts + j, max=last))
+        out = out + torch.where(counts > j, take, 0.0)
+    return out
+
+
+def spike_gather_segment_ref(
+    activity: Tensor,  # (n,) global activity
+    cols: Tensor,  # (R, K) int32, rows are virtual rows
+    weights: Tensor,  # (R, K)
+    row_ptr: Tensor,  # (n_out + 1,) int32 offsets of each real row's virtual rows
+    row_len: Optional[Tensor] = None,
+    *,
+    depth: Optional[int] = None,
+) -> Tensor:  # (n_out,)
+    """The segmented gather of a heavy-row split bucket: the gather over
+    every virtual row, then each real row's virtual rows added in ascending
+    order (:func:`segment_add_ref`).  ``row_len`` is ignored, as in
+    :func:`spike_gather_ref`: the slots past it are zero."""
+    return segment_add_ref(spike_gather_ref(activity, cols, weights), row_ptr, depth)
+
+
 def lif_step_ref(
     v: Tensor,  # (R,) membrane potential
     refrac: Tensor,  # (R,) remaining refractory steps (float, >= 0)

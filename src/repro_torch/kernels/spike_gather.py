@@ -5,7 +5,17 @@ Counterpart of ``repro/kernels/spike_gather.py:spike_gather_pallas``.
 :func:`spike_gather_cuda` launches the kernel on CUDA tensors and raises on
 any other; ``ops.spike_gather`` takes the plain version
 (:func:`spike_gather_plain`, i.e. ``ref.spike_gather_ref``) only for CPU
-tensors.  Weights are f32 on this path; bf16 panels are not ported yet.
+tensors.  Weights are f32 or bf16 panels, widened exactly and accumulated
+in f32 as the reference's wrapper does (``spike_gather.py:36-42``); any
+float activity is cast to f32; the currents are f32.
+
+With ``row_ptr`` the kernel runs its segmented mode, the heavy-row split
+of ``SimConfig(max_k=...)``: the panel's rows are virtual rows, real row
+``r`` owns rows ``row_ptr[r] .. row_ptr[r+1]-1`` (contiguous, ascending),
+and the result is ``(len(row_ptr) - 1,)``, each real row the ascending f32
+sum, from ``+0.0``, of its virtual rows' gathers: the reference's
+``jax.ops.segment_sum`` over ``row_map``.  Its plain version is
+``ref.spike_gather_segment_ref``.
 
 The kernel reads only what carries information: a pack launch turns the
 activity into a bitmask (one bit per id, set iff ``act != 0``), and the
@@ -39,10 +49,11 @@ import torch
 from . import _build
 from .dispatch import launch_row_dot
 from .ref import spike_gather_ref as spike_gather_plain
+from .ref import spike_gather_segment_ref as spike_gather_segment_plain
 
 COUNTER = _build.LaunchCounter("spike_gather")
 
-__all__ = ["COUNTER", "spike_gather_cuda", "spike_gather_plain"]
+__all__ = ["COUNTER", "spike_gather_cuda", "spike_gather_plain", "spike_gather_segment_plain"]
 
 
 def spike_gather_cuda(
@@ -51,18 +62,26 @@ def spike_gather_cuda(
     weights: torch.Tensor,
     row_len: Optional[torch.Tensor] = None,
     *,
+    row_ptr: Optional[torch.Tensor] = None,
+    depth: Optional[int] = None,
     reduce="row_dot",
     shared_bitmask: bool = True,
 ) -> torch.Tensor:
-    """Launch the kernel: ``(R,)`` f32 currents.  ``reduce``: ``"row_dot"``
+    """Launch the kernel: ``(R,)`` f32 currents, or with ``row_ptr`` (an
+    ``(n_out + 1,)`` int32 of offsets into the virtual rows, ascending,
+    ending at most at ``R``) the ``(n_out,)`` segment sums.  ``depth``,
+    the most virtual rows of one real row, is the plain version's loop
+    count; the kernel reads ``row_ptr`` alone.  ``reduce``: ``"row_dot"``
     or a one-panel sequence (the engines pass the choice recorded at
-    upload; ``dispatch.launch_row_dot``).  ``shared_bitmask=False``
-    reads the bitmask from device memory, the path a vector too long for
-    shared memory takes anyway (for tests and timing)."""
+    upload; ``dispatch.launch_row_dot``).  ``shared_bitmask=False`` reads
+    the bitmask from device memory, the path a vector too long for shared
+    memory takes anyway (for tests and timing)."""
+    if activity.dtype.is_floating_point:
+        activity = activity.float()  # itself when already f32
     _build.require("activity", activity, torch.float32, 1)
     dev = activity.device
     _build.require("cols", cols, torch.int32, 2, dev)
-    _build.require("weights", weights, torch.float32, 2, dev)
+    w_bf16 = _build.require_weights("weights", weights, dev)
     if cols.shape != weights.shape:
         raise ValueError(
             f"cols {tuple(cols.shape)} and weights {tuple(weights.shape)} differ"
@@ -72,9 +91,15 @@ def spike_gather_cuda(
         _build.require("row_len", row_len, torch.int32, 1, dev)
         if row_len.shape[0] != R:
             raise ValueError(f"row_len {tuple(row_len.shape)} for {R} rows")
-    out = torch.empty(R, dtype=torch.float32, device=dev)
-    if R == 0:
-        return out
+    n_out = R
+    if row_ptr is not None:
+        _build.require("row_ptr", row_ptr, torch.int32, 1, dev)
+        if row_ptr.shape[0] < 1:
+            raise ValueError("row_ptr needs at least one offset")
+        n_out = row_ptr.shape[0] - 1
+    out = torch.empty(n_out, dtype=torch.float32, device=dev)
+    if n_out == 0 or R == 0:
+        return out.zero_()
     if K == 0:
         return out.zero_()
     dense = launch_row_dot(reduce, [weights])
@@ -82,8 +107,9 @@ def spike_gather_cuda(
     bits = torch.empty(0 if dense else -(-n // 32), dtype=torch.int32, device=dev)
     stream, device = _build.launch_args(activity)
     rc = _build.library().repro_spike_gather(
-        activity.data_ptr(), n, cols.data_ptr(), weights.data_ptr(),
-        None if row_len is None else row_len.data_ptr(), bits.data_ptr(),
+        activity.data_ptr(), n, cols.data_ptr(), weights.data_ptr(), w_bf16,
+        None if row_len is None else row_len.data_ptr(),
+        None if row_ptr is None else row_ptr.data_ptr(), n_out, bits.data_ptr(),
         out.data_ptr(), R, K, -1 if shared_bitmask else 0, int(dense), stream, device,
     )
     _build.check(rc, "spike_gather")

@@ -96,7 +96,9 @@ def stack_partitions(net: DCSRNetwork, cfg: SimConfig) -> StackedNet:
     n_p = n_ps.pop()
     k = net.k
     ells = [
-        build_delay_ell(p, net.n, align_k=cfg.align_k, align_rows=cfg.align_rows)
+        # max_k=None: k > 1 ignores the heavy-row split, as the reference
+        # does (repro/snn/dist_sim.py:100)
+        build_delay_ell(p, net.n, align_k=cfg.align_k, align_rows=cfg.align_rows, max_k=None)
         for p in net.parts
     ]
     stdp_id = net.registry.edge_id("syn_stdp")
@@ -474,24 +476,43 @@ class DistSimulator:
             ))
         return out
 
+    def _gather(self, *fields: Sequence[torch.Tensor]):
+        """One exchange over the partitions, the reference's one
+        ``all_gather`` over the parts axis (whose operand may stack several
+        vectors): per field, the partitions' tensors concatenated on the
+        first device.  Every exchange of a step goes through here, so the
+        engine contracts (``dispatch.ENGINE_CONTRACTS``) count them here."""
+        home = self.devices[0]
+        out = tuple(torch.cat([x.to(home) for x in f]) for f in fields)
+        return out[0] if len(out) == 1 else out
+
     def _exchange(self, spikes: Sequence[torch.Tensor], tr_plus: Sequence[torch.Tensor]):
         """Per partition ``(act, pre_trace)`` on its device, and the
-        ``(k,)`` int32 dropped-spike counts (None for the dense exchange)."""
+        ``(k,)`` int32 dropped-spike counts (None for the dense exchange).
+        Plastic nets also gather the real-valued pre-traces, densely: in the
+        dense exchange's one exchange, or in a second one after the index
+        exchange, as the reference does."""
         home = self.devices[0]
         dropped = None
+        plastic = bool(self.stdp_params)
         if self.exchange == "dense":
-            act = torch.cat([x.to(home) for x in spikes])
+            if plastic:
+                act, pre = self._gather(spikes, tr_plus)
+            else:
+                act = self._gather(spikes)
         else:
             n_p, n = self.stacked.n_p, self.n_global
             gids, dropped = [], []
             for p, x in enumerate(spikes):
                 ids, drop = compact_spike_ids(x, self.index_cap)
-                gids.append(torch.where(ids < n_p, ids + p * n_p, n).to(home))
+                gids.append(torch.where(ids < n_p, ids + p * n_p, n))
                 dropped.append(drop.to(home))
-            act = _scatter_ones(torch.cat(gids), n)
+            act = _scatter_ones(self._gather(gids), n)
             dropped = torch.stack(dropped)
-        # plastic nets also gather the real-valued pre-traces, densely
-        pre = torch.cat([x.to(home) for x in tr_plus]) if self.stdp_params else act
+            if plastic:
+                pre = self._gather(tr_plus)
+        if not plastic:
+            pre = act
         return [(act.to(d), pre.to(d)) for d in self.devices], dropped
 
     def run(

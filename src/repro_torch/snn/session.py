@@ -208,7 +208,9 @@ class Session:
         else:
             self.device = resolve_device(device)
             self.net = merge_to_single(net) if net.k > 1 else net
-            self._sim = Simulator(self.net, self.cfg, device=self.device, **self._engine_kw)
+            # _share: a single Session of the same net lends its panels
+            self._sim = Simulator(self.net, self.cfg, device=self.device, **self._engine_kw,
+                                  _share=None if _share is None else _share.simulator)
         self._state = None
         # a restored snapshot's step and runtime, applied when the carry is made
         self._t0 = int(t_now)

@@ -81,6 +81,7 @@ noise through the ``_noise_fn`` seam of :class:`Simulator` and
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import time
 import traceback
@@ -101,26 +102,21 @@ from .neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V, make_neuron_step
 from .reshard import RUNTIME_KEYS, concat_runtime
 
 
-def _not_ported(what: str, queue_item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, modules "
-        f"still to port: {queue_item})"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """User-facing simulation knobs (the reference's fields and checks).
 
-    Values the reference accepts but this slice does not run raise
-    ``NotImplementedError`` at construction, naming the ROADMAP queue item
-    that ports them.  There is no ``backend`` field: the run's device
-    decides between the CUDA kernels and the plain versions."""
+    ``max_k`` splits rows wider than it into virtual rows (the k = 1
+    engine's ELL, ``core/ell.py``; k > 1 ignores it, as the reference
+    does), which takes the ``unfused`` engine: its gathers add each row's
+    virtual rows in the segmented mode of ``ops.spike_gather``.  There is no
+    ``backend`` field: the run's device decides between the CUDA kernels and
+    the plain versions."""
 
     fused: Optional[bool] = None  # None=auto, True=require fused step, False=off
     align_k: int = 128
     align_rows: int = 8
-    max_k: Optional[int] = None  # heavy-row split cap
+    max_k: Optional[int] = None  # heavy-row split cap (single-partition only)
     record_raster: bool = False
     record_v: bool = False
     exchange: str = "auto"
@@ -163,12 +159,6 @@ class SimConfig:
                 f"SimConfig(align_k={self.align_k}, "
                 f"align_rows={self.align_rows}): ELL alignments must be >= 1"
             )
-        if self.max_k is not None:
-            raise _not_ported(
-                "SimConfig(max_k=...) heavy-row split (segment_sum on CUDA "
-                "needs atomics, which break determinism)",
-                "k=1 simulator, heavy-row split",
-            )
 
 
 @dataclasses.dataclass
@@ -209,6 +199,15 @@ class PartitionDeviceData:
     weights_local: Optional[List[torch.Tensor]] = None
     row_len_local: Optional[List[torch.Tensor]] = None  # per bucket (R,) int32
     reduce_local: Optional[Tuple[str, ...]] = None
+    # per bucket of a heavy-row split (SimConfig(max_k=...)), whose panel
+    # rows are virtual rows: the (n_p + 1,) int32 offsets of each real row's
+    # virtual rows (the segmented gather's row_ptr) and the most virtual
+    # rows of one real row; None and 0 for a bucket of real rows
+    row_ptr: Optional[List[Optional[torch.Tensor]]] = None
+    split_depth: Tuple[int, ...] = ()
+    # per split bucket of a plastic partition the (R,) int32 virtual row ->
+    # real row map (stdp_update's post-synaptic terms); None elsewhere
+    row_map: Optional[List[Optional[torch.Tensor]]] = None
     cols_remote: Optional[List[torch.Tensor]] = None  # per bucket (R, K_r)
     weights_remote: Optional[List[torch.Tensor]] = None
     row_len_remote: Optional[List[torch.Tensor]] = None
@@ -252,11 +251,25 @@ def row_lengths(valid: Sequence[np.ndarray], device) -> List[torch.Tensor]:
             for v in valid]
 
 
+def split_row_ptr(row_map: np.ndarray, n_p: int) -> np.ndarray:
+    """The ``(n_p + 1,)`` int32 offsets of each real row's virtual rows in a
+    split bucket: ``core/ell.py`` gives row ``r`` one virtual row or more,
+    contiguous and ascending (``row_map[:R_v]`` is nondecreasing), and maps
+    the padding rows ``R_v:`` to row 0; they hold no slot and are left out
+    (at ``n_p = 1`` they stay in row 0's range, where they add ``+0.0``, as
+    the reference's ``segment_sum`` adds them)."""
+    r_v = int(np.flatnonzero(row_map == n_p - 1).max()) + 1 if n_p else 0
+    counts = np.bincount(row_map[:r_v], minlength=n_p)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
 def partition_device_data(
     part: DCSRPartition, ell: DelayELL, device: torch.device, stdp_id: int
 ) -> PartitionDeviceData:
     plastic = plastic_masks(part, ell, stdp_id)
     weights0 = [torch.from_numpy(b.weights).to(device) for b in ell.buckets]
+    split = not all(b.identity_rows for b in ell.buckets)
+    ptrs = [None if b.identity_rows else split_row_ptr(b.row_map, part.n) for b in ell.buckets]
     return PartitionDeviceData(
         n_p=part.n,
         vtx_model=torch.from_numpy(part.vtx_model).to(device),
@@ -268,6 +281,11 @@ def partition_device_data(
         reduce=panel_reduce(weights0, plastic is not None),
         identity_rows=tuple(b.identity_rows for b in ell.buckets),
         plastic=None if plastic is None else [torch.from_numpy(m).to(device) for m in plastic],
+        row_ptr=[None if p is None else torch.from_numpy(p).to(device) for p in ptrs]
+        if split else None,
+        split_depth=tuple(0 if p is None else int(np.diff(p).max(initial=0)) for p in ptrs),
+        row_map=[None if b.identity_rows else torch.from_numpy(b.row_map).to(device)
+                 for b in ell.buckets] if split and plastic is not None else None,
     )
 
 
@@ -682,15 +700,25 @@ def make_core_step(
             carry["weights"] = tuple(new_w)
         elif not choice.fused:
             idx = step_slots(carry)
-            if plastic:
-                pad_r = dev.cols[0].shape[0] - n_p  # rows >= n_p: post terms 0
-                post_t = torch.nn.functional.pad(carry["tr_minus"], (0, pad_r))
-                post_s = torch.nn.functional.pad(spikes, (0, pad_r))
+            post_terms = {}  # panel rows -> the padded post terms, made once a step
             for i, (c, w) in enumerate(zip(dev.cols, weights)):
+                # a split bucket's segmented gather gives the (n_p,) sums of
+                # each row's virtual rows (the reference's segment_sum)
+                row_ptr = None if dev.row_ptr is None else dev.row_ptr[i]
                 add_to_ring(ring, idx[1 + i:2 + i],
-                            ops.spike_gather(act, c, w, dev.row_len[i],
+                            ops.spike_gather(act, c, w, dev.row_len[i], row_ptr=row_ptr,
+                                             depth=None if row_ptr is None else dev.split_depth[i],
                                              reduce=carry["_reduce"][i:i + 1]))
                 if plastic:
+                    if row_ptr is not None:  # each virtual row takes its row's terms
+                        post_t = carry["tr_minus"].index_select(0, dev.row_map[i])
+                        post_s = spikes.index_select(0, dev.row_map[i])
+                    else:
+                        R = c.shape[0]
+                        if R not in post_terms:  # rows >= n_p: post terms 0
+                            post_terms[R] = tuple(torch.nn.functional.pad(x, (0, R - n_p))
+                                                  for x in (carry["tr_minus"], spikes))
+                        post_t, post_s = post_terms[R]
                     # in place: run() cloned the weights, and the gather
                     # above read them first
                     ops.stdp_update(w, dev.plastic[i], c, pre_trace, act, post_t,
@@ -875,6 +903,12 @@ class ChunkGraphs:
         # counted by chip_smoke.py), and instantiation is timed on its own
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = _build.launch_counts()
+        # the cyclic collector is off while the stream captures: a dead
+        # cycle that holds another graph, collected mid-capture, would free
+        # that graph (CUDAGraph.reset), which the capturing thread may not
+        # do, and the capture would be invalidated
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
                 carries, outs = chunk([dict(c) for c in static], steps)
@@ -891,6 +925,9 @@ class ChunkGraphs:
                 pass
             self.pool = None
             raise graph_failure(what, err) from err
+        finally:
+            if collecting:
+                gc.enable()
         t2 = time.perf_counter()
         graph.instantiate()
         t3 = time.perf_counter()
@@ -914,7 +951,11 @@ class Simulator:
 
     ``device`` is where it runs: the card unless the caller names another
     (``device="cpu"`` runs the plain torch versions).  ``_noise_fn`` is the
-    internal noise seam (see :func:`make_core_step`).
+    internal noise seam (see :func:`make_core_step`).  ``_share``, another
+    ``Simulator`` of the same net, device, alignments, ``max_k`` and event
+    cap, lends its host ELL, device panels and touch bitmaps instead of
+    building them again (no engine writes into them; a plastic net's carry
+    holds its own weights), so two configs can be compared on one build.
 
     On the card :meth:`run` replays one CUDA graph per step engine, chunk
     length and recordings (:class:`ChunkGraphs`), at any ``t``.  It runs
@@ -938,6 +979,7 @@ class Simulator:
         device=None,
         _noise_fn: Optional[Callable[[int], object]] = None,
         _graphs: bool = True,
+        _share: Optional["Simulator"] = None,
     ):
         if net.k != 1:
             raise ValueError("Simulator takes k=1 nets; Session merges k>1 nets")
@@ -949,13 +991,18 @@ class Simulator:
         self.dt = float(net.meta.get("dt", 0.1))
         self.noise_sigma = float(net.meta.get("noise_sigma", 0.0))
         part = net.parts[0]
+        layout = ("align_k", "align_rows", "max_k", "event_cap_frac")
+        if _share is not None and (
+                _share.net is not net or _share.device != self.device
+                or any(getattr(_share.cfg, f) != getattr(cfg, f) for f in layout)):
+            raise ValueError(f"_share needs the same net, device and {', '.join(layout)}")
         self.ell = build_delay_ell(
-            part, net.n, align_k=cfg.align_k, align_rows=cfg.align_rows,
-        )
+            part, net.n, align_k=cfg.align_k, align_rows=cfg.align_rows, max_k=cfg.max_k,
+        ) if _share is None else _share.ell
         self.d_ring = max(self.ell.max_delay, 1)
         self.dev = partition_device_data(
             part, self.ell, self.device, net.registry.edge_id("syn_stdp")
-        )
+        ) if _share is None else _share.dev
         # the registry's STDP params (repro/snn/simulator.py:734-738)
         self.stdp_params = (
             dict(net.registry.spec("syn_stdp").params) if self.dev.any_plastic else None
@@ -967,7 +1014,7 @@ class Simulator:
                         if _graphs and self.device.type == "cuda" else None)
         self._models = _models_present(net)
         self._steps: Dict[str, Callable] = {}
-        self._event_plan: Optional[EventPlan] = None
+        self._event_plan: Optional[EventPlan] = None if _share is None else _share._event_plan
         # False on plastic nets, whose every step must visit every panel
         # (dispatch.event_gather_blocker): gather="auto" then stays dense
         try:

@@ -1392,6 +1392,29 @@ def test_k4_plastic_graphs_equal_the_uncaptured_loop(cuda, fields):
     assert n_on == n_off
 
 
+def test_the_cyclic_collector_is_off_while_a_chunk_is_captured(cuda, monkeypatch):
+    """A dead cycle that holds a captured graph, collected while another
+    chunk is captured, would invalidate that capture (a capturing thread
+    may not free a graph): the collector is off during a capture and on
+    again after it."""
+    import gc
+
+    on, _ = _graph_sims(cuda, "ei", 4)
+    seen = []
+    own = on._gather
+
+    def gather(*fields):
+        seen.append((torch.cuda.is_current_stream_capturing(), gc.isenabled()))
+        return own(*fields)
+
+    monkeypatch.setattr(on, "_gather", gather)
+    on.run(on.init_state(), 8)
+    captured = [enabled for capturing, enabled in seen if capturing]
+    assert captured and not any(captured)
+    assert any(enabled for capturing, enabled in seen if not capturing)  # the warm-up
+    assert gc.isenabled()
+
+
 @pytest.mark.parametrize("engine", ["fused_event", "fused"])
 def test_one_graph_replays_at_every_phase_and_any_t(cuda, engine):
     """One key, replayed from every phase t0 % D of the ring and from t0
@@ -1638,3 +1661,137 @@ def test_streamed_restore_equals_the_eager_one_on_the_card(cuda, tmp_path, k, re
     assert int(ra.sum()) > 0 and np.array_equal(ra, rb)
     _assert_bit_equal_states(a, b)
     ses.close()
+
+
+# -- the heavy-row split and bf16 weights in the gathers ----------------------
+#
+# The segmented gather (row_ptr, SimConfig(max_k=...)) must equal the
+# unsegmented kernel's virtual rows added in ascending order
+# (ref.segment_add_ref) bit for bit, in both reductions and with the
+# bitmask in either memory; a bf16 panel must equal its exact f32 widening
+# bit for bit, in spike_gather (segmented too) and fused_step.
+
+
+def _split_case(rng, n, n_rows, K, depth, device):
+    """A heavy-row split's panels: row r owns 1..depth contiguous virtual
+    rows (row_ptr), each laid out as the ELL builder lays a row out; eight
+    padding rows after them, empty."""
+    counts = rng.integers(1, depth + 1, n_rows)
+    counts[0] = depth  # the deepest row is row 0
+    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    cols, weights, valid = _ell_case(rng, n, int(row_ptr[-1]) + 8, (K,), int(row_ptr[-1]),
+                                     device)
+    return (cols[0], weights[0], _row_lengths(valid, device)[0],
+            torch.from_numpy(row_ptr).to(device), int(depth))
+
+
+@pytest.mark.parametrize("kind", ACT_KINDS)
+@pytest.mark.parametrize("n,n_rows,K,depth", [
+    (400, 100, 32, 3), (5000, 2000, 129, 10), (77172, 20000, 512, 4),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segmented_gather_bit_exact_vs_ascending_sum(cuda, rng, kind, n, n_rows, K, depth, dtype):
+    c, w, rl, row_ptr, depth = _split_case(rng, n, n_rows, K, depth, cuda)
+    w = w.to(getattr(torch, dtype))
+    act = _activity(kind, rng, n, cuda)
+    red = panel_reduce([w])
+    before = gather_mod.COUNTER.launches
+    got = ops.spike_gather(act, c, w, rl, row_ptr=row_ptr, depth=depth, reduce=red)
+    assert gather_mod.COUNTER.launches == before + 1 and got.shape == (n_rows,)
+    vrows = ops.spike_gather(act, c, w, rl, reduce=red)
+    want = ref.segment_add_ref(vrows, row_ptr, depth)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))  # signed zeros too
+    for other in (
+        gather_mod.spike_gather_cuda(act, c, w, rl, row_ptr=row_ptr, reduce="row_dot"),
+        gather_mod.spike_gather_cuda(act, c, w, row_ptr=row_ptr, reduce=red),
+        gather_mod.spike_gather_cuda(act, c, w, rl, row_ptr=row_ptr, reduce=red,
+                                     shared_bitmask=False),
+    ):
+        assert torch.equal(got, other)
+    # the plain version: the gather summed in another order
+    plain = ref.spike_gather_segment_ref(act, c, w, row_ptr)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ACT_KINDS)
+@pytest.mark.parametrize("n_act,R,K", [(64, 8, 32), (1000, 1000, 200), (20000, 20000, 1408)])
+def test_bf16_spike_gather_equals_its_f32_widening(cuda, rng, kind, n_act, R, K):
+    """The reference's bf16 sweep shapes and larger: a bf16 panel gives the
+    currents of its f32 widening bit for bit (the widening is exact, the
+    sums the same); bf16 activity is cast to f32 as the reference casts it."""
+    cols, weights, valid = _ell_case(rng, n_act, R, (K,), R, cuda)
+    c, rl = cols[0], _row_lengths(valid, cuda)[0]
+    w16 = weights[0].to(torch.bfloat16)
+    w32 = w16.float()
+    act = _activity(kind, rng, n_act, cuda)
+    for red in (panel_reduce([w16]), "row_dot"):
+        got = ops.spike_gather(act, c, w16, rl, reduce=red)
+        assert got.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32),
+                           ops.spike_gather(act, c, w32, rl, reduce=red).view(torch.int32))
+    assert torch.equal(ops.spike_gather(act.to(torch.bfloat16), c, w16, rl, reduce="row_dot"),
+                       ops.spike_gather(act, c, w32, rl, reduce="row_dot"))
+    torch.testing.assert_close(got, ref.spike_gather_ref(act, c, w16), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_p,R,ks", [
+    (64, 64, (16,)), (100, 104, (8, 24)), (37, 40, (4, 12, 20)), (19288, 19288, (512, 1408)),
+])
+def test_bf16_fused_step_equals_its_f32_widening(cuda, rng, n_p, R, ks):
+    v, r, i = _lif_inputs(rng, n_p, cuda)
+    cols, weights = _panels(rng, n_p, R, ks, n_p, cuda)
+    w16 = [w.to(torch.bfloat16) for w in weights]
+    w32 = [w.float() for w in w16]
+    for red in (panel_reduce(w16), "row_dot"):
+        got = ops.fused_step(v, r, i, cols, w16, params=LIF_PARAMS, reduce=red)
+        want = ops.fused_step(v, r, i, cols, w32, params=LIF_PARAMS, reduce=red)
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b)
+        for a, b in zip(got[3], want[3]):
+            assert a.dtype == torch.float32 and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    _, _, s_p, curs_p = ref.fused_step_ref(v, r, i, cols, w16, params=LIF_PARAMS)
+    assert torch.equal(got[2], s_p)
+    for a, b in zip(got[3], curs_p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_gathers_refuse_mixed_or_wide_weights(cuda):
+    act = torch.zeros(32, device=cuda)
+    c = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    w = torch.zeros((8, 4), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        gather_mod.spike_gather_cuda(act, c, w.double())
+    with pytest.raises(TypeError):
+        fused_mod.fused_step_cuda(act, act, act, [c, c], [w, w.to(torch.bfloat16)],
+                                  params=LIF_PARAMS)
+    with pytest.raises(TypeError):
+        gather_mod.spike_gather_cuda(act, c, w, row_ptr=torch.zeros(3, dtype=torch.int64,
+                                                                    device=cuda))
+
+
+@pytest.mark.parametrize("kind,max_k", [("mc", 64), ("ei", 16)])
+def test_max_k_graphs_equal_the_uncaptured_loop(cuda, kind, max_k):
+    """SimConfig(max_k=...) on the card: the unfused engine with split
+    buckets, graphed against _graphs=False bit-equal (raster, state, traces,
+    weights), one segmented launch a split bucket and step."""
+    on, off = _graph_sims(cuda, kind, 1, max_k=max_k, align_k=32)
+    assert on.engine_choice.engine == "unfused"
+    split = sum(not x for x in on.dev.identity_rows)
+    assert split >= 1
+    (st_a, r_a, n_a), (st_b, r_b, n_b) = _graph_ab(on, off, (64, 64, 20))
+    assert int(r_a.sum()) > 0 and torch.equal(r_a, r_b)
+    _assert_bit_equal_states(st_a, st_b)
+    assert n_a == n_b
+    assert n_a[_build.COUNTERS.index(gather_mod.COUNTER)] == 148 * len(on.dev.delays)
+
+
+def test_contract_matrix_on_the_card(cuda):
+    """The card view of every row of the engine-contract matrix: the ops of
+    uncaptured steps, the captured graphs' nodes (no memcpy to the host)
+    and an uncaptured chunk under set_sync_debug_mode("error")."""
+    from repro_torch.analysis.contracts import run_matrix
+
+    violations, results = run_matrix(device=cuda, verbose=False)
+    assert violations == []
+    for name, res in results.items():
+        assert res.kernels_per_step and all(k > 0 for k in res.kernels_per_step.values()), name

@@ -92,8 +92,17 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     (dict(max_k=64), "heavy-row split"),
 ])
 def test_unported_config_values_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        SimConfig(**kw)
+    """No config value raises any more: ``SimConfig(max_k=...)``, the last
+    one, runs since the heavy-row split's slice.  With rows wider than
+    ``max_k`` the selector takes ``unfused``, whose reason names the split,
+    and a run steps on the CPU."""
+    d = tnet.to_dcsr(tnet.microcircuit(scale=0.01), k=1)
+    ses = Session(d, SimConfig(align_k=32, **kw), device="cpu")
+    assert not all(ses.simulator.dev.identity_rows)
+    assert ses.describe()["step_engine"] == "unfused"
+    assert match.replace(" ", "-") in ses.engine_choice.reason  # the reference's blocker
+    res = ses.run(5)
+    assert res.t_final == 5 and res.spike_count.shape == (5,)
 
 
 @pytest.mark.parametrize("kw", [dict(exchange="index"), dict(overlap="local")])
@@ -120,8 +129,8 @@ def test_config_checks_mirror_the_reference():
 def test_unported_session_surfaces_raise(tmp_path):
     """The surfaces that raised ``NotImplementedError`` before their slices
     now run: ``run_supervised`` (fault tolerance), ``restore(streaming=True)``
-    (streaming ingest) and plastic nets.  ``SimConfig(max_k=...)`` still
-    raises (``test_unported_config_values_raise``)."""
+    (streaming ingest) and plastic nets; ``SimConfig(max_k=...)`` too
+    (``test_unported_config_values_raise``)."""
     d = tnet.to_dcsr(tnet.microcircuit(scale=0.01), k=1)
     ses = Session(d, SimConfig(align_k=32), device="cpu")
     res = ses.run_supervised(10, chunk_size=5, checkpoint_every=5,
