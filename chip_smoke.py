@@ -29,6 +29,19 @@ event gather).  Phases, each printing its own lines:
      row's uncaptured ops (exchanges, host syncs, 8-byte values), its
      captured graph's kernel nodes a step and no memcpy to the host, and
      an uncaptured chunk under ``set_sync_debug_mode("error")``;
+  [lm] the LM substrate's serving path at full width (``repro_torch.models``,
+     ``repro_torch.train.serve``): smollm-135m, granite-moe-3b-a800m,
+     recurrentgemma-2b, xlstm-350m, paligemma-3b (256 stub image tokens) and
+     whisper-small (16 stub frames), each with its own param and compute
+     dtypes and weights drawn on the card from ``--seed``: ``greedy_generate``
+     at batch 4, prompt 16, 24 new tokens; the prefill and the decode steps
+     timed, peak device memory; one decode step under
+     ``set_sync_debug_mode("error")`` with its aten ops counted; the last
+     decode step against a cache-free forward over the whole sequence (the
+     VLM at ``S + n_img``, ROADMAP F10; an MoE at a capacity where nothing
+     drops); at 2 periods and fp32 compute, the card against the CPU and the
+     card's cache path against its forward; then smollm-135m at batch 64,
+     prompt 512, 128 new tokens (the LM adds no kernel);
   3. kernels vs plain at the main path's shapes (the session's own panels,
      inputs from ``--seed``): ``lif_step`` bit-exact, ``spike_gather``
      (with the panels' row lengths) within rtol=atol=1e-5, equal to itself
@@ -45,7 +58,8 @@ event gather).  Phases, each printing its own lines:
      ``fused_event`` step ``step_front`` and the event kernel);
   5. the event kernel against its plain version, its forced ``row_dot``
      variant and the dense kernels, on spike vectors of the main path's
-     raster;
+     raster, and on the panels cast to bf16 bit-equal to their f32
+     widening;
   6. the unfused path: 256 steps on the ``unfused`` engine, counts set to
      0 before and read after, whose raster must equal the main path's
      first 256 steps (on the main session's panels, ``_share``); then
@@ -101,7 +115,7 @@ devices=[card] * 4)``, four partitions on the one card, stepped in lockstep
       bit-exact against its forced ``row_dot`` variant, and with the event kernel's split use (with
       and without the clear) against ``spike_gather`` composed with the
       reference's ring formulation, within rtol=atol=1e-5 of the plain
-      version;
+      version; each on bf16 panels bit-equal to their f32 widening;
   k2. 1000 steps with both monitors, counts set to 0 before and read after
       and matched to the chunks' gather modes; overflow 0; the raster equal
       to the k=1 main path's;
@@ -268,6 +282,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import errno
 import functools
 import gc
@@ -287,6 +302,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -303,6 +319,9 @@ from repro_torch.kernels import keystream as ks_mod  # noqa: E402
 from repro_torch.analysis.contracts import (  # noqa: E402
     graph_node_kinds, run_matrix, uncaptured,
 )
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.train import greedy_generate, make_prefill_fn, make_serve_step  # noqa: E402
 from repro_torch.builder import (  # noqa: E402
     balanced_ei_rules, build_network, build_partition, crng, microcircuit_rules,
 )
@@ -410,8 +429,11 @@ SOURCES = {
 }
 
 
+T_START = time.perf_counter()  # reset by main(); every line carries the seconds since
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase}] (at {time.perf_counter() - T_START:.1f} s) {msg}", flush=True)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -706,10 +728,13 @@ def next_step_inputs(ses):
     return vtx[:, LIF_V].contiguous(), vtx[:, LIF_REF].contiguous(), i_tot
 
 
-def phase_event(sim, raster):
+def phase_event(sim, raster, w16):
     """The event kernel against its plain version and the dense kernels, on
-    spike vectors of the main path (and one whose ids overflow the buffer)."""
+    spike vectors of the main path (and one whose ids overflow the buffer);
+    on the session's panels cast to bf16 (``w16``) bit-equal to the same
+    kernel on their f32 widening."""
     plan, cols, weights = sim.event_plan, sim.dev.cols, sim.dev.weights0
+    red16, wide = panel_reduce(w16), [w.float() for w in w16]
     row_len = sim.dev.row_len
     n_p = sim.dev.n_p
     clear_tab, onehot_tab = slot_tables(sim.d_ring, sim.dev.delays, sim.device)
@@ -741,14 +766,23 @@ def phase_event(sim, raster):
                                            reduce="row_dot")
         require(torch.equal(got, forced), f"event ring differs from its forced row_dot "
                 f"variant ({what})")
+        for rb in (red16, "row_dot"):
+            g16, g32 = ring.clone(), ring.clone()
+            f16 = event_mod.event_post_exchange_cuda(act, g16, slot, write, plan, cols, w16,
+                                                     row_len, reduce=rb)
+            f32 = event_mod.event_post_exchange_cuda(act, g32, slot, write, plan, cols, wide,
+                                                     row_len, reduce=rb)
+            require(torch.equal(f16, f32) and torch.equal(g16.view(torch.int32),
+                                                          g32.view(torch.int32)),
+                    f"bf16 event kernel ({rb}) differs from its f32 widening ({what})")
         err = max(err, float((got - want).abs().max()))
         frac = float(flags.float().mean())
         flagged.append(frac)
         say("event", f"{what}: {int(a.sum())} spikes, {frac:.4f} of {flags.numel()} "
             f"(bucket, block) pairs flagged (blocks of {plan.block_r} rows); flags equal "
             "plain, ring bit-equal to spike_gather's, to its row_dot variant's and to "
-            "post_exchange's row_dot variant, "
-            "max |kernel - plain| = "
+            "post_exchange's row_dot variant; bf16 panels bit-equal to their f32 widening "
+            "(recorded reduce and row_dot); max |kernel - plain| = "
             f"{float((got - want).abs().max()):.3e} (rtol=atol=1e-5)")
     return err, acts[f"main-path step {STEPS // 2}"]
 
@@ -919,6 +953,255 @@ def phase_contracts(card):
         f"card ({time.perf_counter() - t0:.1f} s); kernel nodes a step by engine (k=1 and k=2 "
         "rows of balanced_ei(160)): " + "; ".join(
             f"{e} {min(v):.2f}-{max(v):.2f}" for e, v in per_engine.items() if v))
+
+
+# [lm]: the LM substrate's serving path at full width, each config with its
+# own param_dtype and compute_dtype, weights drawn on the card from --seed
+LM_ARCHS = ("smollm-135m", "granite-moe-3b-a800m", "recurrentgemma-2b", "xlstm-350m",
+            "paligemma-3b", "whisper-small")
+LM_BATCH, LM_PROMPT, LM_NEW, LM_FRAMES = 4, 16, 24, 16
+LM_LONG = ("smollm-135m", 64, 512, 128)  # arch, batch, prompt, new tokens
+# the last decode step against a cache-free forward over the same tokens,
+# at full depth in the config's compute dtype (bf16 for all six): the cache
+# path rounds its activations, and the recurrent states of rglru and xlstm,
+# to bf16 at every step, the forward only within each layer.  xlstm-350m
+# stores its mLSTM matrix memory C and normalizer n in bf16 between decode
+# steps, as the reference does (repro/models/xlstm.py:166-168), where the
+# forward carries them in fp32 through the sequence: its gap is the widest
+# and grows with depth.  At the published widths on the CPU
+# (tests/lm_cache_gap.py, seed 0, batch 2, 24 steps) the reference reads
+# 5.8e-3, 1.1e-2, 1.7e-2, 3.5e-2 at 2, 4, 8, 12 layers and the port on the
+# same params 4.8e-3, 1.0e-2, 2.0e-2, 3.1e-2; at 24 layers on the card the
+# port reads 5.9e-2.  The limit sits above both with room; a fault in the
+# bf16 state would part the port from the reference at every depth
+LM_CACHE_TOL = {"xlstm-350m": 1e-1}  # max |delta| <= tol * max |logits|
+LM_CACHE_TOL_DEFAULT = 2e-2
+# card against CPU at full width, 2 periods deep, fp32 compute, TF32 off:
+# the same math, summed in other orders by cuBLAS and the CPU's BLAS; and
+# at fp32 on the card, the cache path against the cache-free forward
+LM_CARD_CPU_TOL = 1e-4  # max |delta| <= tol * max |logits|
+
+
+def lm_inputs(cfg, batch, prompt_len, seed, dev):
+    """A prompt and the stub frontend's embeddings, drawn on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=dev,
+                           dtype=torch.int32)
+    extras = None
+    if cfg.encdec:
+        extras = dict(frames=torch.randn((batch, LM_FRAMES, cfg.d_model), generator=gen,
+                                         device=dev))
+    elif cfg.n_img_tokens:
+        extras = dict(img_embed=torch.randn((batch, cfg.n_img_tokens, cfg.d_model),
+                                            generator=gen, device=dev))
+    return prompt, extras
+
+
+def lm_no_drop(model, cfg):
+    """``(cfg, model)``, or for an MoE the config at a capacity factor of
+    ``E / k``, where no assignment drops, and a model of it that holds
+    ``model``'s parameters (shared, not copied)."""
+    if not cfg.moe:
+        return cfg, model
+    check = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    dev = next(model.parameters()).device
+    twin = build_model(check, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return check, twin
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the aten ops dispatched inside it (each one host-side call,
+    and at least one device kernel for most)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops += 1
+        return func(*args, **(kwargs or {}))
+
+
+def lm_replay(model, cfg, prompt, extras, toks, cache_len, sync_check=False):
+    """The prefill, then one decode step per token of ``toks`` at the
+    positions the cache holds them (``S + n_img`` on the VLM, not F10's
+    ``S``), the first under ``set_sync_debug_mode("error")`` when asked;
+    the prefill's and the steps' seconds, each step's argmax, the last
+    step's logits and the aten ops of the first step."""
+    S, new = prompt.shape[1], toks.shape[1]
+    prefill = make_prefill_fn(model, cfg, cache_len=cache_len)
+    step = make_serve_step(model, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = prefill(prompt, extras)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pos = torch.full((), S + (cfg.n_img_tokens or 0), dtype=torch.int32, device=prompt.device)
+    if sync_check:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        with OpCount() as count:
+            logits, cache = step(cache, toks[:, :1], pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    picks = [logits.argmax(-1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, new):
+        pos = pos + 1
+        logits, cache = step(cache, toks[:, i:i + 1], pos)
+        picks.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    return prefill_s, time.perf_counter() - t0, picks, logits, count.ops
+
+
+def lm_serve(model, cfg, prompt, extras, new):
+    """``greedy_generate`` (its tokens and seconds, peak device memory),
+    then the same path in pieces (``lm_replay``): the prefill timed, one
+    decode step under ``set_sync_debug_mode("error")`` and the other ``new
+    - 1`` timed; the last step's logits against a cache-free forward over
+    the whole sequence.  An MoE drops assignments past its per-sequence
+    capacity, which differs between a prefill, a decode step and the whole
+    sequence, so its check replays under a capacity factor of ``E / k``,
+    where nothing drops (the same parameters)."""
+    B, S = prompt.shape
+    n_img = cfg.n_img_tokens or 0
+    cache_len = S + new + n_img
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = greedy_generate(model, cfg, prompt, new, extras=extras, cache_len=cache_len)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require(toks.shape == (B, new) and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+            f"{cfg.name}: greedy tokens {tuple(toks.shape)} out of range")
+    prefill_s, decode_s, picks, logits, ops = lm_replay(model, cfg, prompt, extras, toks,
+                                                        cache_len, sync_check=True)
+    check, twin = lm_no_drop(model, cfg)
+    with torch.no_grad():
+        if cfg.moe:
+            logits = lm_replay(twin, check, prompt, extras, toks, cache_len)[3]
+        full, _, _ = twin(torch.cat([prompt, toks], dim=1), logits_slice=1, **(extras or {}))
+    del twin
+    full = full[:, -1].float()
+    require(bool(torch.isfinite(full).all()) and bool(torch.isfinite(logits.float()).all()),
+            f"{cfg.name}: non-finite logits")
+    delta = float((logits.float() - full).abs().max())
+    scale = float(full.abs().max())
+    tol = LM_CACHE_TOL.get(cfg.name, LM_CACHE_TOL_DEFAULT)
+    require(delta <= tol * scale,
+            f"{cfg.name}: the last decode step differs from the cache-free forward by {delta} "
+            f"(max |logits| {scale}, tol {tol} x)")
+    same = bool(torch.equal(torch.stack(picks[:-1], 1).to(torch.int32), toks[:, 1:]))
+    return dict(gen_s=gen_s, prefill_ms=prefill_s * 1e3, decode_ms=decode_s / (new - 1) * 1e3,
+                tok_s=B * (new - 1) / decode_s, peak_gb=peak / 1e9, delta=delta, scale=scale,
+                tol=tol, replay_equal=same, ops=ops)
+
+
+def lm_card_vs_cpu(cfg, card, seed):
+    """``cfg`` at full width, 2 periods deep, fp32 compute: the parameters
+    drawn on the card and copied to the CPU; a prefill (the text
+    positions' logits) and two decode steps on fixed tokens on both."""
+    P = cfg.pattern_period
+    cfg2 = dataclasses.replace(cfg, n_layers=2 * P, compute_dtype="float32",
+                               enc_layers=min(cfg.enc_layers, 2))
+    model = build_model(cfg2, device=card, generator=torch.Generator(card).manual_seed(seed))
+    B, S, n_img = 2, 8, cfg.n_img_tokens or 0
+    prompt, extras = lm_inputs(cfg2, B, S + 2, seed + 1, card)
+
+    def run(model, dev):
+        p = prompt.to(dev)
+        kw = {k: v.to(dev) for k, v in (extras or {}).items()}
+        cache = (model.init_cache(B, S + 2, LM_FRAMES) if cfg.encdec
+                 else model.init_cache(B, S + n_img + 2))
+        with torch.no_grad():
+            lg, cache, _ = model(p[:, :S], cache=cache, logits_slice=S, **kw)
+            outs = [lg]
+            for i in range(2):
+                lg, cache, _ = model(p[:, S + i:S + i + 1], cache=cache,
+                                     cache_pos=torch.tensor(S + n_img + i, device=dev))
+                outs.append(lg)
+        return [o.float().cpu() for o in outs]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        on_card = run(model, card)
+        # the cache path against the cache-free forward, fp32 (an MoE with
+        # nothing dropped, as in lm_serve)
+        _, twin = lm_no_drop(model, cfg2)
+        with torch.no_grad():
+            last = run(twin, card)[-1] if cfg2.moe else on_card[-1]
+            full, _, _ = twin(prompt, logits_slice=1, **(extras or {}))
+        del twin
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    full = full[:, -1].float().cpu()
+    d, m = float((last[:, -1] - full).abs().max()), float(full.abs().max())
+    require(d <= LM_CARD_CPU_TOL * m, f"{cfg.name}: at fp32 on the card the last decode step "
+            f"differs from the cache-free forward by {d} (max |logits| {m}, tol "
+            f"{LM_CARD_CPU_TOL} x)")
+    fp32_cache = d / m
+    model.cpu()
+    t0 = time.perf_counter()
+    on_cpu = run(model, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    rel = []
+    for a, b in zip(on_card, on_cpu):
+        d, m = float((a - b).abs().max()), float(b.abs().max())
+        require(d <= LM_CARD_CPU_TOL * m, f"{cfg.name}: card vs CPU max |delta| {d} over "
+                f"max |logits| {m} (tol {LM_CARD_CPU_TOL} x)")
+        rel.append(d / m)
+    del model
+    return cfg2.n_layers, rel, cpu_s, fp32_cache
+
+
+def phase_lm(card, seed, smi):
+    """[lm] The LM substrate's serving path on the card: six configs at
+    full width through ``greedy_generate`` (batch 4, prompt 16, 24 new
+    tokens), each with its cache checked against a cache-free forward, a
+    decode step under sync debug and the port held against the CPU at 2
+    periods; then smollm-135m at batch 64, prompt 512, 128 new tokens."""
+    t_phase = time.perf_counter()
+    runs = [(name, LM_BATCH, LM_PROMPT, LM_NEW, True) for name in LM_ARCHS]
+    runs.append(LM_LONG + (False,))
+    for name, B, S, new, vs_cpu in runs:
+        cfg = get_config(name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=card, generator=torch.Generator(card).manual_seed(seed))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        prompt, extras = lm_inputs(cfg, B, S, seed + 1, card)
+        f = lm_serve(model, cfg, prompt, extras, new)
+        del model, prompt, extras
+        gc.collect()
+        torch.cuda.empty_cache()
+        tail = ""
+        if vs_cpu:
+            depth, rel, cpu_s, fp32_cache = lm_card_vs_cpu(cfg, card, seed)
+            tail = (f"; card vs CPU ({depth} layers, fp32 compute, TF32 off): max |delta| / max "
+                    f"|logits| prefill {rel[0]:.2e}, decode {rel[1]:.2e}, {rel[2]:.2e}, and the "
+                    f"card's last decode step vs its cache-free forward {fp32_cache:.2e} (tol "
+                    f"{LM_CARD_CPU_TOL:g}; CPU {cpu_s:.1f} s)")
+            gc.collect()
+            torch.cuda.empty_cache()
+        say("lm", f"{name} ({cfg.family}; {cfg.n_layers} layers, d {cfg.d_model}, params "
+            f"{cfg.param_dtype}, compute {cfg.compute_dtype}): {n_params / 1e6:.1f} M params "
+            f"drawn in {build_s:.2f} s; batch {B}, prompt {S}"
+            + (f" + {cfg.n_img_tokens} image tokens" if cfg.n_img_tokens else "")
+            + (f", {LM_FRAMES} frames" if cfg.encdec else "")
+            + f", {new} new: greedy_generate {f['gen_s']:.3f} s; prefill {f['prefill_ms']:.2f} "
+            f"ms, decode {f['decode_ms']:.3f} ms a token (step), {f['tok_s']:.1f} tok/s, peak "
+            f"{f['peak_gb']:.3f} GB; last step vs cache-free forward max |delta| "
+            f"{f['delta']:.4g} of max |logits| {f['scale']:.4g} (tol {f['tol']:g} x); "
+            f"replay's tokens equal greedy's: {f['replay_equal']}; a decode step clean under "
+            f"sync debug 'error', {f['ops']} aten ops ({f['decode_ms'] * 1e3 / f['ops']:.1f} us "
+            f"of the step each){tail}; {smi}")
+    say("lm", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_small_net():
@@ -1153,8 +1436,11 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
             ms_bitmask_l2=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
                 a, ring, t_dev, sim.dev.delays, plan, cols, weights, row_len, reduce=red,
                 shared_bitmask=False), 20),
+            ms_bf16=cuda_ms(lambda: event_mod.event_post_exchange_cuda(
+                a, ring, t_dev, sim.dev.delays, plan, cols, w16, row_len, reduce=red16), 20),
         )
         t["bound_ms"], t["bound_by"] = bound_ms(e_bytes, 2 * active)
+        t["bound_ms_bf16"], _ = bound_ms(e_bytes - 2 * active, 2 * active)
         events[label] = t
         say("timing", f"event_post_exchange, {label} ({n_ids} spikes, {rows} of {nd * n_p} "
             f"(bucket, row) pairs in flagged blocks): kernel {t['ms']:.4f} ms, bitmask in L2 "
@@ -1162,7 +1448,8 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
             f"{gathers[label]['library_ms']:.4f} ms; moves about {moved / 1e9:.4f} GB of panel "
             f"({moved / t['ms'] / 1e6:.0f} GB/s); bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}: {e_bytes / 1e9:.4f} GB = 4 B x {real} real slots' cols + 4 B x "
-            f"{active} active slots' weights + activity, ring, row_len, ids and touch bytes)")
+            f"{active} active slots' weights + activity, ring, row_len, ids and touch bytes); "
+            f"bf16 weights: kernel {t['ms_bf16']:.4f} ms, bound {t['bound_ms_bf16']:.4f} ms")
     em, e5 = events["main-path step"], events["5% active"]
     ring, _, _ = event_case(sim)
     t_dev = torch.tensor(STEPS, device=sim.device)
@@ -1173,6 +1460,8 @@ def phase_timing(ses, params, inputs, event_act, errs, launches):
                     bound_by=em["bound_by"], library_ms=gm["library_ms"],
                     ms_bitmask_l2=em["ms_bitmask_l2"], ms_5pct=e5["ms"],
                     bound_ms_5pct=e5["bound_ms"], library_ms_5pct=g5["library_ms"],
+                    ms_bf16=em["ms_bf16"], bound_ms_bf16=em["bound_ms_bf16"],
+                    ms_bf16_5pct=e5["ms_bf16"], bound_ms_bf16_5pct=e5["bound_ms_bf16"],
                     vector="a spike vector of the main path; *_5pct: 5% active"))
 
     for k in out:
@@ -2279,11 +2568,21 @@ def phase_k4_kernels(dsim, act_np):
                                      reduce=reduce, out=inplace)
         require(torch.equal(inplace.view(torch.int32), got.view(torch.int32)),
                 f"post_exchange {what} differs when written in place")
+        # bf16 panels: bit-equal to the same kernel on their f32 widening
+        w16 = [w.to(torch.bfloat16) for w in weights]
+        wide = [w.float() for w in w16]
+        for rb in (panel_reduce(w16), "row_dot"):
+            g16 = split_mod.post_exchange_cuda(a, ring, cl, onehot, cols, w16, row_len, reduce=rb)
+            g32 = split_mod.post_exchange_cuda(a, ring, cl, onehot, cols, wide, row_len, reduce=rb)
+            require(torch.equal(g16.view(torch.int32), g32.view(torch.int32)),
+                    f"bf16 post_exchange {what} ({rb}) differs from its f32 widening")
+        del w16, wide
         say("k4", f"post_exchange {what}, panels {[tuple(c.shape) for c in cols]}, row_len, "
             f"reduce {reduce}, {int(a.sum())} of {a.shape[0]} ids active, {n_active} slots "
             "with an active source: bit-exact (signed zeros too) vs its forced row_dot variant, vs "
             "the activity tested in device memory, vs spike_gather + ring formulation, and in "
-            f"place; max |kernel - plain| = {e:.3e} (rtol=atol=1e-5)")
+            "place; bf16 panels bit-equal to their f32 widening (recorded reduce and row_dot); "
+            f"max |kernel - plain| = {e:.3e} (rtol=atol=1e-5)")
     # the local pass then the remote pass give the full pass's ring to the
     # rounding of the split sum
     two = split_mod.post_exchange_cuda(act_local, ring, clear, onehot, dev.cols_local,
@@ -2319,13 +2618,23 @@ def phase_k4_kernels(dsim, act_np):
                                                dev.cols, dev.weights0, reduce="row_dot")
         require(torch.equal(got, row_dot), f"split event ring differs from the row_dot kernel's "
                 f"(post_exchange) ({what})")
+        w16 = [w.to(torch.bfloat16) for w in dev.weights0]
+        g16, g32 = ring.clone(), ring.clone()
+        event_mod.event_post_exchange_cuda(a, g16, s, write, plan, dev.cols, w16, dev.row_len,
+                                           reduce=panel_reduce(w16))
+        event_mod.event_post_exchange_cuda(a, g32, s, write, plan, dev.cols,
+                                           [w.float() for w in w16], dev.row_len,
+                                           reduce=panel_reduce(w16))
+        require(torch.equal(g16.view(torch.int32), g32.view(torch.int32)),
+                f"bf16 split event ring differs from its f32 widening ({what})")
+        del w16
         e = float((got - want).abs().max())
         e_err = max(e_err, e)
         say("k4", f"event_post_exchange split use, {what}: act ({a.shape[0]},) with "
             f"{int(a.sum())} spikes, ring {tuple(ring.shape)}, {float(flags.float().mean()):.4f} "
             f"of {flags.numel()} (bucket, block) pairs flagged; flags equal plain, ring "
-            f"bit-equal to spike_gather's and to post_exchange's row_dot variant, max "
-            f"|kernel - plain| "
+            f"bit-equal to spike_gather's, to post_exchange's row_dot variant and, on bf16 "
+            f"panels, to their f32 widening; max |kernel - plain| "
             f"= {e:.3e} (rtol=atol=1e-5)")
     return {"post_exchange": err, "event_post_exchange_split": e_err}
 
@@ -2444,6 +2753,11 @@ def phase_k4_timing(dsim, act_np, errs, launches):
                                                           row_len, reduce=reduce, out=work), 20)
         t_dot = cuda_ms(lambda: split_mod.post_exchange_cuda(a, work, cl, onehot, cols, weights,
                                                              reduce="row_dot", out=work), 20)
+        w16 = [w.to(torch.bfloat16) for w in weights]
+        red16 = panel_reduce(w16)
+        t16 = cuda_ms(lambda: split_mod.post_exchange_cuda(a, work, cl, onehot, cols, w16,
+                                                           row_len, reduce=red16, out=work), 20)
+        del w16
         if cl is None:
             tp = cuda_ms(lambda: ref.fused_post_exchange_remote_ref(a, ring, onehot, cols,
                                                                     weights), 5)
@@ -2466,8 +2780,10 @@ def phase_k4_timing(dsim, act_np, errs, launches):
         rest = a.shape[0] * 4 + 2 * D * n_p * 4 + (len(cols) + 1) * D * 4 + len(cols) * 4 * R
         nb = 4 * (real + active) + rest
         b, by = bound_ms(nb, 2 * active)
+        b16, _ = bound_ms(nb - 2 * active, 2 * active)  # a bf16 weight is 2 bytes
         b_pad, _ = bound_ms(post_bytes(cols, a.shape[0], D, n_p), 2 * sum(c.numel() for c in cols))
-        return dict(ms=tk, ms_row_dot=t_dot, plain_ms=tp, library_ms=lib_p, bound_ms=b,
+        return dict(ms=tk, ms_row_dot=t_dot, ms_bf16=t16, bound_ms_bf16=b16, plain_ms=tp,
+                    library_ms=lib_p, bound_ms=b,
                     bound_by=by, bound_ms_padded=b_pad, bytes=nb, moved=moved + rest,
                     real=real, active=active, spikes=int(a.sum()), ids=a.shape[0])
 
@@ -2501,7 +2817,8 @@ def phase_k4_timing(dsim, act_np, errs, launches):
             f"{x['library_ms']:.4f} ms; bound {x['bound_ms']:.4f} ms ({x['bound_by']}: "
             f"{x['bytes'] / 1e9:.4f} GB = 4 B x {x['real']} real slots' cols + 4 B x "
             f"{x['active']} active slots' weights + activity, ring, slot tables and row_len); "
-            f"padded bound {x['bound_ms_padded']:.4f} ms")
+            f"padded bound {x['bound_ms_padded']:.4f} ms; bf16 weights: kernel "
+            f"{x['ms_bf16']:.4f} ms, bound {x['bound_ms_bf16']:.4f} ms")
     say("timing", f"library: torch.sparse.mm over partition 0's real synapses, both buckets: "
         f"{lib:.3f} ms")
     full, loc, loc5, rem = (passes[k] for k in ("full pass (overlap off)", "local pass",
@@ -2514,7 +2831,7 @@ def phase_k4_timing(dsim, act_np, errs, launches):
                 **{f"{key}_{tag}": x[key] for tag, x in (("local", loc), ("local_5pct", loc5),
                                                           ("remote", rem), ("full_pass", full))
                    for key in ("ms", "ms_row_dot", "plain_ms", "library_ms", "bound_ms",
-                               "bound_ms_padded")},
+                               "bound_ms_padded", "ms_bf16", "bound_ms_bf16")},
                 library_ms_partition=lib)]
 
     # the event kernel's remote pass (own slice of the activity zeroed) at a
@@ -3678,11 +3995,13 @@ def main(argv=None) -> int:
     if args.restore_child:  # the [ingest] phase's fresh process
         return restore_child(args.restore_child, args.streaming)
     LAUNCHER.append(Launcher())
-    t_start = time.perf_counter()
+    global T_START
+    T_START = t_start = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
     card = torch.device("cuda", torch.cuda.current_device())
     phase_contracts(card)
+    phase_lm(card, args.seed, smi)
 
     # one build of the microcircuit, as the uniform k>1 net; the k=1 paths
     # run its merge (the same labelling, with the inert padding neurons)
@@ -3713,7 +4032,7 @@ def main(argv=None) -> int:
     st0 = ses.state
     main_raster, launches = phase_main_path(ses, net.n, pd14_populations(args.scale))
     phase_graph("main", ses, st0, "dense", STEPS, main_raster)
-    errs["event_post_exchange"], event_act = phase_event(sim, main_raster)
+    errs["event_post_exchange"], event_act = phase_event(sim, main_raster, inputs[4])
     unfused = phase_parity(net, main_raster, len(sim.dev.cols), ses)
     phase_maxk("microcircuit", net, SimConfig(max_k=512), main_raster[STEPS // 2], main_raster)
     # spike_gather and lif_step run only on the unfused path (the step front

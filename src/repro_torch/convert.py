@@ -9,11 +9,14 @@ packages:
   * :func:`carry_from_arrays` builds the port's step carry from the
     reference ``Simulator``'s carry, or the list of per-partition carries
     of the port's ``DistSimulator`` from the reference ``DistSimulator``'s
-    stacked ``(k, ...)`` carry.
+    stacked ``(k, ...)`` carry;
+  * :func:`lm_params_from_arrays` and :func:`lm_cache_from_arrays` carry an
+    LM's parameters and a prefilled cache across from the reference's
+    pytrees (nested dicts, lists and tuples of numpy arrays).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple, Union
+from typing import Any, Dict, List, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -96,3 +99,89 @@ def carry_from_arrays(
     if len(devices) != k:
         raise ValueError(f"{len(devices)} devices for a carry of {k} partitions")
     return [one(p, dev) for p, dev in enumerate(devices)]
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array (bf16 ones included, which numpy holds as ml_dtypes'
+    ``bfloat16``) as a CPU tensor of the same dtype and values."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_state_dict(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A reference pytree of arrays as a ``state_dict``: each leaf under its
+    dotted path (list and tuple entries by index), as a CPU tensor.  The
+    port's modules name their parameters after the reference's keys, so
+    this loads a module's counterpart: ``module.load_state_dict(
+    tree_state_dict(jax_params))``."""
+    return {k: _tensor(v) for k, v in _flatten(tree, prefix, {}).items()}
+
+
+def _flatten(tree, prefix: str, out: Dict[str, Any]) -> Dict[str, Any]:
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}.{k}" if prefix else str(k), out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}.{i}", out)
+    else:
+        out[prefix] = tree
+    return out
+
+
+def _unstack_layers(cfg, tree) -> List[Any]:
+    """The reference DecoderLM's per-layer subtrees in layer order: layer
+    ``g * P + j`` is ``tree["groups"][j]`` at index ``g`` of its leading
+    axis, for the ``cfg.n_layers // P`` full groups when ``layer_stack ==
+    "scan"`` (``repro/models/transformer.py:140-165``), then
+    ``tree["rest"]``."""
+    P = cfg.pattern_period
+    n_groups = cfg.n_layers // P if cfg.layer_stack == "scan" else 0
+    layers = []
+    for g in range(n_groups):
+        for j in range(P):
+            layers.append(_tree_map(lambda a, g=g: np.asarray(a)[g], tree["groups"][j]))
+    return layers + list(tree["rest"])
+
+
+def lm_params_from_arrays(cfg, tree) -> Dict[str, torch.Tensor]:
+    """The port model's ``state_dict`` (CPU tensors in the arrays' dtypes;
+    ``model.load_state_dict`` casts and moves them) from the reference's
+    params for ``cfg``.  A decoder's ``groups`` are unstacked into layers
+    (``_unstack_layers``), the enc-dec's ``enc_layers``/``dec_layers``
+    along their leading axis; every other key keeps its path."""
+    if cfg.encdec:
+        flat: Dict[str, Any] = {}
+        for key, sub in tree.items():
+            if key in ("enc_layers", "dec_layers"):
+                n = cfg.enc_layers if key == "enc_layers" else cfg.n_layers
+                for i in range(n):
+                    _flatten(_tree_map(lambda a, i=i: np.asarray(a)[i], sub), f"{key}.{i}", flat)
+            else:
+                _flatten(sub, key, flat)
+    else:
+        flat = {}
+        for key in ("emb", "ln_f"):
+            _flatten(tree[key], key, flat)
+        for i, layer in enumerate(_unstack_layers(cfg, tree)):
+            _flatten(layer, f"layers.{i}", flat)
+    return {k: _tensor(v) for k, v in flat.items()}
+
+
+def lm_cache_from_arrays(cfg, tree):
+    """The port's cache on the CPU from the reference's: for a decoder
+    the list of per-layer dicts (unstacked as the params are), for the
+    enc-dec the dict of ``(L, B, S, KV, hd)`` stacks as it is."""
+    if cfg.encdec:
+        return {k: _tensor(v) for k, v in tree.items()}
+    return [_tree_map(_tensor, dict(layer)) for layer in _unstack_layers(cfg, tree)]

@@ -171,11 +171,14 @@ _SIGNATURES = {
     ),
     "repro_fused_plastic_step_max_buckets": [],
     "repro_event_step": (
-        [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P] + [_I] * 5 + [_P] * 6 + [_I, _I, _P, _I]
+        [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P] + [_I] * 5 + [_P] * 2 + [_I] + [_P] * 4
+        + [_I, _I, _P, _I]
     ),
     "repro_event_step_max_buckets": [],
     "repro_pre_exchange": [_P] * 10 + [_I] + [_F] * 9 + [_P, _I],
-    "repro_post_exchange": [_P, _I] + [_P] * 4 + [_I] * 3 + [_P] * 4 + [_I, _I, _P, _I],
+    "repro_post_exchange": (
+        [_P, _I] + [_P] * 4 + [_I] * 3 + [_P] * 2 + [_I] + [_P] * 2 + [_I, _I, _P, _I]
+    ),
     "repro_post_exchange_max_buckets": [],
     "repro_post_exchange_plastic": (
         [_P] * 9 + [_I] * 4 + [_P] * 5 + [_F] * 4 + [_P, _I]
@@ -250,7 +253,8 @@ def require(
         raise ValueError(f"{name}: must be contiguous")
 
 
-# the weight panels a gather kernel takes (spike_gather.cu, fused_step.cu)
+# the weight panels a gather kernel takes (spike_gather.cu, fused_step.cu,
+# event_step.cu, post_exchange.cu)
 GATHER_WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -258,10 +262,18 @@ def require_weights(name: str, w: torch.Tensor, device, dtype=None) -> int:
     """Validate a gather's 2-D weight panel: f32 or bf16 (``dtype``, when
     given, the type every panel of the launch shares); returns the kernel's
     ``w_bf16`` flag."""
-    if w.dtype not in GATHER_WEIGHT_DTYPES:
-        raise TypeError(f"{name}: expected float32 or bfloat16 weights, got {w.dtype}")
-    require(name, w, dtype or w.dtype, 2, device)
+    require_panel(name, w, dtype or w.dtype, device, GATHER_WEIGHT_DTYPES)
     return int(w.dtype == torch.bfloat16)
+
+
+def require_panel(name: str, t: torch.Tensor, dtype, device, allowed=None) -> None:
+    """Validate a 2-D panel of a launch: of ``dtype``, the type its launch's
+    panels of this kind share, which must be one of ``allowed`` (f32 when
+    None)."""
+    allowed = allowed or (torch.float32,)
+    if t.dtype not in allowed:
+        raise TypeError(f"{name}: expected {' or '.join(map(str, allowed))}, got {t.dtype}")
+    require(name, t, dtype, 2, device)
 
 
 def check_row_len(row_len, nd: int, R: int, device) -> None:

@@ -54,6 +54,9 @@
 // launch with row_dot over every slot of each flagged row, and no bitmask:
 // it runs for panels whose weights are not all finite (the caller's choice
 // from the data), and is the bit-exact oracle of the active variant.
+// Weights: f32 or bf16 panels (the template W, one type for every bucket of a
+// launch, widened exactly by common.cuh:load_weight), summed in f32 as the
+// reference's kernel does (event_step.py:154); the ring is f32.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -86,14 +89,14 @@ struct EventArgs {
   int block_r;
   int nd;
   const int* cols[kMaxBuckets];
-  const float* w[kMaxBuckets];
+  const void* w[kMaxBuckets];  // f32 or bf16 (the kernel's W)
   const int* row_len[kMaxBuckets];  // (R,) real slots a row; null: K
   int K[kMaxBuckets];
   int wofs[kMaxBuckets];  // bucket b adds to ring slot (t + wofs[b]) % D
 };
 
 // at most 64 registers a thread, so that 4 blocks (32 warps) fit an SM
-template <bool kShared, bool kRowDot>
+template <bool kShared, bool kRowDot, class W>
 __global__ void __launch_bounds__(kThreads, 4) event_step_kernel(const EventArgs a) {
   extern __shared__ uint32_t staged[];
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -140,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, 4) event_step_kernel(const EventArgs
   for (int b = 0; b < a.nd; ++b) {
     const int K = a.K[b];
     const int* cols = a.cols[b];
-    const float* w = a.w[b];
+    const W* w = static_cast<const W*>(a.w[b]);
     const int* row_len = a.row_len[b];
     const int* flags = a.flags + static_cast<size_t>(b) * a.nb;
     float* ring_w = a.ring + static_cast<size_t>((t + a.wofs[b]) % a.D) * a.n_p;
@@ -170,12 +173,12 @@ extern "C" int repro_event_step_max_buckets() { return kMaxBuckets; }
 // pointer to (R,) int32, or null for rows K long.  smem_cap: the most bytes
 // of shared memory the bitmask may take (< 0: the card's limit; 0: read it
 // from L2).  dense != 0: the row_dot variant (bits, row_len and smem_cap
-// unused).
+// unused).  w_bf16 != 0: every bucket's weights are bf16, else f32.
 extern "C" int repro_event_step(const float* act, int n, const uint8_t* touch,
                                 int* ids, int* count, int cap, int* flags,
                                 float* ring, int n_p, const int64_t* t, int D, int clear,
                                 int nb, int block_r, int nd, const void* const* cols,
-                                const void* const* w,
+                                const void* const* w, int w_bf16,
                                 const void* const* row_len, const int* K,
                                 const int* wofs, uint32_t* bits, int smem_cap,
                                 int dense, void* stream, int device) {
@@ -207,7 +210,7 @@ extern "C" int repro_event_step(const float* act, int n, const uint8_t* touch,
   for (int b = 0; b < kMaxBuckets; ++b) {
     const bool used = b < nd;
     a.cols[b] = used ? static_cast<const int*>(cols[b]) : nullptr;
-    a.w[b] = used ? static_cast<const float*>(w[b]) : nullptr;
+    a.w[b] = used ? w[b] : nullptr;
     a.row_len[b] = used ? static_cast<const int*>(row_len[b]) : nullptr;
     a.K[b] = used ? K[b] : 0;
     a.wofs[b] = used ? wofs[b] : 0;
@@ -218,9 +221,12 @@ extern "C" int repro_event_step(const float* act, int n, const uint8_t* touch,
     if (err != cudaSuccess) return err;
   }
   const void* kernel =
-      dense    ? reinterpret_cast<const void*>(event_step_kernel<false, true>)
-      : shared ? reinterpret_cast<const void*>(event_step_kernel<true, false>)
-               : reinterpret_cast<const void*>(event_step_kernel<false, false>);
+      w_bf16 ? (dense    ? reinterpret_cast<const void*>(event_step_kernel<false, true, __nv_bfloat16>)
+                : shared ? reinterpret_cast<const void*>(event_step_kernel<true, false, __nv_bfloat16>)
+                         : reinterpret_cast<const void*>(event_step_kernel<false, false, __nv_bfloat16>))
+             : (dense    ? reinterpret_cast<const void*>(event_step_kernel<false, true, float>)
+                : shared ? reinterpret_cast<const void*>(event_step_kernel<true, false, float>)
+                         : reinterpret_cast<const void*>(event_step_kernel<false, false, float>));
   const size_t smem = shared ? 4 * static_cast<size_t>(a.words) : 0;
   int grid = 0;
   err = resident_blocks(kernel, device, kThreads, smem, &grid);

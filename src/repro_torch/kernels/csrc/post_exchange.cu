@@ -47,6 +47,9 @@
 // are not all finite or change (plastic panels; the caller's choice from
 // the data, PartitionDeviceData.reduce), and it is the bit-exact oracle of
 // the active variant on the card.
+// Weights: f32 or bf16 panels (the template W, one type for every bucket of a
+// launch, widened exactly by common.cuh:load_weight), summed in f32 as the
+// reference's kernel does (fused_step.py:528, :716); the ring is f32.
 #include "common.cuh"
 
 namespace {
@@ -67,13 +70,13 @@ struct PostArgs {
   int D;
   int nd;
   const int* cols[kMaxBuckets];
-  const float* w[kMaxBuckets];
+  const void* w[kMaxBuckets];  // f32 or bf16 (the kernel's W)
   const int* row_len[kMaxBuckets];  // (R,) real slots a row; null: K
   int K[kMaxBuckets];
 };
 
 // one block per SM: 64 registers a thread
-template <bool kShared, bool kRowDot>
+template <bool kShared, bool kRowDot, class W>
 __global__ void __launch_bounds__(kThreads, 1) post_exchange_kernel(const PostArgs a) {
   extern __shared__ uint32_t staged[];
   __shared__ float cur_s[kWarpsPerBlock][kMaxBuckets];
@@ -95,7 +98,7 @@ __global__ void __launch_bounds__(kThreads, 1) post_exchange_kernel(const PostAr
       const int K = a.K[b];
       const size_t off = static_cast<size_t>(r) * K;
       const int* cols = a.cols[b] + off;
-      const float* w = a.w[b] + off;
+      const W* w = static_cast<const W*>(a.w[b]) + off;
       float c;
       if (kRowDot) {
         c = row_dot(cols, w, a.act, K, lane);
@@ -120,6 +123,29 @@ __global__ void __launch_bounds__(kThreads, 1) post_exchange_kernel(const PostAr
   }
 }
 
+template <class W>
+int launch(const PostArgs& a, int dense, bool shared, int device, void* stream) {
+  const void* kernel =
+      dense    ? reinterpret_cast<const void*>(post_exchange_kernel<false, true, W>)
+      : shared ? reinterpret_cast<const void*>(post_exchange_kernel<true, false, W>)
+               : reinterpret_cast<const void*>(post_exchange_kernel<false, false, W>);
+  const size_t smem = shared ? 4 * static_cast<size_t>(a.words) : 0;
+  int grid = 0;
+  cudaError_t err = resident_blocks(kernel, device, kThreads, smem, &grid);
+  if (err != cudaSuccess) return err;
+  const int needed = (a.n_p + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (needed < grid) grid = needed;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dense) {
+    post_exchange_kernel<false, true, W><<<grid, kThreads, 0, s>>>(a);
+  } else if (shared) {
+    post_exchange_kernel<true, false, W><<<grid, kThreads, smem, s>>>(a);
+  } else {
+    post_exchange_kernel<false, false, W><<<grid, kThreads, 0, s>>>(a);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int repro_post_exchange_max_buckets() { return kMaxBuckets; }
@@ -127,12 +153,13 @@ extern "C" int repro_post_exchange_max_buckets() { return kMaxBuckets; }
 // row_len: per bucket a pointer to (R,) int32, or null for rows K long.
 // smem_cap: the most bytes of shared memory the bitmask may take (< 0: the
 // card's limit; 0: test act in device memory).  dense != 0: the row_dot
-// variant (row_len and smem_cap unused).
+// variant (row_len and smem_cap unused).  w_bf16 != 0: every bucket's
+// weights are bf16, else f32.
 extern "C" int repro_post_exchange(const float* act, int n, const float* ring_in,
                                    float* ring_out, const float* clear,
                                    const float* onehot, int n_p, int D, int nd,
                                    const void* const* cols,
-                                   const void* const* w,
+                                   const void* const* w, int w_bf16,
                                    const void* const* row_len, const int* K,
                                    int smem_cap, int dense, void* stream,
                                    int device) {
@@ -153,7 +180,7 @@ extern "C" int repro_post_exchange(const float* act, int n, const float* ring_in
   for (int b = 0; b < kMaxBuckets; ++b) {
     const bool used = b < nd;
     a.cols[b] = used ? static_cast<const int*>(cols[b]) : nullptr;
-    a.w[b] = used ? static_cast<const float*>(w[b]) : nullptr;
+    a.w[b] = used ? w[b] : nullptr;
     a.row_len[b] = used ? static_cast<const int*>(row_len[b]) : nullptr;
     a.K[b] = used ? K[b] : 0;
   }
@@ -162,23 +189,6 @@ extern "C" int repro_post_exchange(const float* act, int n, const float* ring_in
     err = bits_in_shared(device, a.words, smem_cap, &shared);
     if (err != cudaSuccess) return err;
   }
-  const void* kernel =
-      dense    ? reinterpret_cast<const void*>(post_exchange_kernel<false, true>)
-      : shared ? reinterpret_cast<const void*>(post_exchange_kernel<true, false>)
-               : reinterpret_cast<const void*>(post_exchange_kernel<false, false>);
-  const size_t smem = shared ? 4 * static_cast<size_t>(a.words) : 0;
-  int grid = 0;
-  err = resident_blocks(kernel, device, kThreads, smem, &grid);
-  if (err != cudaSuccess) return err;
-  const int needed = (n_p + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (needed < grid) grid = needed;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dense) {
-    post_exchange_kernel<false, true><<<grid, kThreads, 0, s>>>(a);
-  } else if (shared) {
-    post_exchange_kernel<true, false><<<grid, kThreads, smem, s>>>(a);
-  } else {
-    post_exchange_kernel<false, false><<<grid, kThreads, 0, s>>>(a);
-  }
-  return cudaGetLastError();
+  if (w_bf16) return launch<__nv_bfloat16>(a, dense, shared, device, stream);
+  return launch<float>(a, dense, shared, device, stream);
 }

@@ -20,6 +20,9 @@ nor the weights of silent sources cross the memory bus.  ``row_len`` is
 per bucket the ``(R,)`` int32 count of real slots per row
 (``PartitionDeviceData.row_len``); ``None`` takes every row as ``K`` long.
 The plain version ignores it: the slots past it are ``(col 0, weight 0)``.
+Weights are f32 or bf16 panels, one type for every bucket of a launch,
+widened exactly and summed in f32 as the reference's kernel does
+(``event_step.py:154``); the plain version widens with ``.float()``.
 Preconditions, as for ``spike_gather``: finite activity, and every product
 of a weight and an active source's activity exact in f32 (always so for 0/1
 spike vectors).  Weights that are not all finite (recorded ``row_dot``
@@ -250,7 +253,7 @@ def event_post_exchange_cuda(
     R = cols[0].shape[0]
     for i, (c, w) in enumerate(zip(cols, weights)):
         _build.require(f"cols[{i}]", c, torch.int32, 2, dev)
-        _build.require(f"weights[{i}]", w, torch.float32, 2, dev)
+        _build.require_weights(f"weights[{i}]", w, dev, weights[0].dtype)
         if c.shape != w.shape or c.shape[0] != R or c.shape[1] < 1:
             raise ValueError(
                 "event_post_exchange needs (R, K_d) col/weight panels with a "
@@ -284,7 +287,7 @@ def event_post_exchange_cuda(
         ring.data_ptr(), n_p, t_dev.data_ptr(), D, int(clear),
         plan.num_blocks, plan.block_r, nd,
         ptrs(*[c.data_ptr() for c in cols]),
-        ptrs(*[w.data_ptr() for w in weights]),
+        ptrs(*[w.data_ptr() for w in weights]), int(weights[0].dtype == torch.bfloat16),
         ptrs(*([None] * nd if row_len is None else [rl.data_ptr() for rl in row_len])),
         ints(*[c.shape[1] for c in cols]),
         ints(*offsets),

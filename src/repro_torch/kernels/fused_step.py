@@ -65,14 +65,13 @@ def _check_operands(
     vectors: Dict[str, torch.Tensor],
     cols: Sequence[torch.Tensor],
     panels: Dict[str, Sequence[torch.Tensor]],
-    weights: Optional[Sequence[torch.Tensor]] = None,
+    panel_dtypes: Optional[Dict[str, Tuple[torch.dtype, ...]]] = None,
 ) -> Tuple[int, int]:
     """Validate the state vectors (``v`` and ``vectors``, all ``(n_p,)``
-    f32) and the per-bucket panels (``cols`` int32, each of ``panels`` f32
-    and ``weights``, when given, f32 or bf16 of one type, all ``(R, K_d)``
-    with a common R >= n_p); returns ``(n_p, R)``."""
-    if weights is not None:
-        panels = dict(panels, weights=weights)
+    f32) and the per-bucket panels (``cols`` int32, each of ``panels`` f32,
+    or one of the types ``panel_dtypes`` allows it, the same in every
+    bucket, all ``(R, K_d)`` with a common R >= n_p); returns ``(n_p,
+    R)``."""
     nd = len(cols)
     if not 1 <= nd <= MAX_BUCKETS or any(len(p) != nd for p in panels.values()):
         raise ValueError(
@@ -90,10 +89,8 @@ def _check_operands(
     for i, c in enumerate(cols):
         _build.require(f"cols[{i}]", c, torch.int32, 2, dev)
         for name, p in panels.items():
-            if name == "weights" and weights is not None:
-                _build.require_weights(f"weights[{i}]", p[i], dev, weights[0].dtype)
-            else:
-                _build.require(f"{name}[{i}]", p[i], torch.float32, 2, dev)
+            _build.require_panel(f"{name}[{i}]", p[i], p[0].dtype, dev,
+                                 (panel_dtypes or {}).get(name))
         if any(p[i].shape != c.shape for p in panels.values()) or c.shape[0] != R \
                 or c.shape[1] < 1:
             raise ValueError(
@@ -129,7 +126,8 @@ def fused_step_cuda(
     ``shared_bitmask=False`` reads the bitmask from L2, the path of more
     neurons than shared memory holds bits for (for tests and timing)."""
     n_p, R = _check_operands(
-        "fused_step", v, dict(refrac=refrac, i_tot=i_tot), cols, {}, weights
+        "fused_step", v, dict(refrac=refrac, i_tot=i_tot), cols, dict(weights=weights),
+        dict(weights=_build.GATHER_WEIGHT_DTYPES),
     )
     nd = len(cols)
     _build.check_row_len(row_len, nd, R, v.device)

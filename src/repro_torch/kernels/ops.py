@@ -233,7 +233,8 @@ def event_post_exchange(act, ring, slot, write_slots, plan, cols, weights, row_l
     delay) % D``, chosen on the device (``kernels/event_step.py``).
     ``row_len`` (per bucket ``(R,)`` int32 real slots a row, or None) lets
     the kernel skip the padding; ``reduce`` as for :func:`spike_gather`, per
-    bucket.  Returns the ``(nd, num_blocks)`` flags."""
+    bucket.  The weights are all f32 or all bf16 (widened exactly, summed in
+    f32).  Returns the ``(nd, num_blocks)`` flags."""
     return lookup("event_post_exchange", backend_for(act.device))(
         act, ring, slot, tuple(write_slots), plan, tuple(cols), tuple(weights),
         _tuple(row_len), reduce=reduce, clear=clear,
@@ -297,7 +298,9 @@ def fused_post_exchange(act, ring, clear_mask, write_onehot, cols, weights, row_
                         reduce="row_dot", out=None):
     """Post-exchange half of the split step: ``ring * clear_mask``, then per
     bucket in order ``+ write_onehot[i] (x) gather_i(act)``.  ``row_len``
-    and ``reduce`` as for :func:`spike_gather`, per bucket."""
+    and ``reduce`` as for :func:`spike_gather`, per bucket; the weights of
+    all three passes are all f32 or all bf16 (widened exactly, summed in
+    f32)."""
     return lookup("fused_post_exchange", backend_for(ring.device))(
         act, ring, clear_mask, write_onehot, tuple(cols), tuple(weights), _tuple(row_len),
         reduce=reduce, out=out,

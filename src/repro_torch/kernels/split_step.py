@@ -17,6 +17,11 @@ Counterparts of ``repro/kernels/fused_step.py``'s split kernels:
     activity, or the remote pass's activity with the own slice zeroed), the
     STDP update the full ``act`` and ``pre_trace``.
 
+:func:`post_exchange_cuda` takes f32 or bf16 weight panels (one type for
+every bucket of a launch), widened exactly and summed in f32 as the
+reference's kernel does (``fused_step.py:528``); the plastic kernel takes
+f32.
+
 The ``*_cuda`` wrappers launch on CUDA tensors and raise on any other;
 ``ops.fused_pre_exchange`` and the ``ops.fused_post_exchange*`` entry points
 take the plain versions of ``kernels/ref.py`` only for CPU tensors.  The
@@ -98,9 +103,11 @@ def _check_post(
     cols: Sequence[torch.Tensor],
     panels: Dict[str, Sequence[torch.Tensor]],
     out: Optional[torch.Tensor],
+    panel_dtypes: Optional[Dict[str, Tuple[torch.dtype, ...]]] = None,
 ) -> Tuple[int, int, int]:
-    """Validate the operands of a post-exchange launch; returns ``(D, n_p,
-    R)``."""
+    """Validate the operands of a post-exchange launch (each of ``panels``
+    f32, or one of the types ``panel_dtypes`` allows it, the same in every
+    bucket); returns ``(D, n_p, R)``."""
     nd = len(cols)
     if not 1 <= nd <= MAX_BUCKETS or any(len(p) != nd for p in panels.values()):
         raise ValueError(
@@ -130,7 +137,8 @@ def _check_post(
     for i, c in enumerate(cols):
         _build.require(f"cols[{i}]", c, torch.int32, 2, dev)
         for name, p in panels.items():
-            _build.require(f"{name}[{i}]", p[i], torch.float32, 2, dev)
+            _build.require_panel(f"{name}[{i}]", p[i], p[0].dtype, dev,
+                                 (panel_dtypes or {}).get(name))
         if any(p[i].shape != c.shape for p in panels.values()) or c.shape[0] != R \
                 or c.shape[1] < 1:
             raise ValueError(
@@ -172,7 +180,7 @@ def post_exchange_cuda(
     bitmask to fit shared memory (for tests and timing)."""
     D, n_p, R = _check_post(
         "post_exchange", dict(act=act), ring, clear_mask, write_onehot, cols,
-        dict(weights=weights), out,
+        dict(weights=weights), out, dict(weights=_build.GATHER_WEIGHT_DTYPES),
     )
     nd = len(cols)
     _build.check_row_len(row_len, nd, R, ring.device)
@@ -186,7 +194,7 @@ def post_exchange_cuda(
         act.data_ptr(), act.shape[0], ring.data_ptr(), out.data_ptr(), _ptr(clear_mask),
         write_onehot.data_ptr(), n_p, D, nd,
         ptrs(*[c.data_ptr() for c in cols]),
-        ptrs(*[w.data_ptr() for w in weights]),
+        ptrs(*[w.data_ptr() for w in weights]), int(weights[0].dtype == torch.bfloat16),
         ptrs(*([None] * nd if row_len is None else [rl.data_ptr() for rl in row_len])),
         (ctypes.c_int * nd)(*[c.shape[1] for c in cols]),
         -1 if shared_bitmask else 0, int(dense), stream, device,

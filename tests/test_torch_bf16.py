@@ -1,6 +1,8 @@
-"""bf16 weights through the port's two gather ops on the CPU, against the
+"""bf16 weights through the port's gather ops on the CPU, against the
 reference's bf16 sweeps (``tests/test_kernels.py:22-48``,
-``tests/test_fused_step.py:36-55``).
+``tests/test_fused_step.py:36-55``) and, for the post-exchange gathers,
+against the reference's kernels, which widen a bf16 panel the same way
+(``repro/kernels/event_step.py:154``, ``fused_step.py:528``).
 
 The same numpy inputs, cast to bf16, go through the reference's Pallas
 kernels in interpret mode (``spike_gather_pallas``,
@@ -11,15 +13,19 @@ sum runs in f32, so only the order of the f32 sums differs: the f32
 tolerances hold (1e-6 for the gather, 1e-5 for the fused step, as the
 reference's f32 cases).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import event_step as jev
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.fused_step import fused_lif_step_pallas
 from repro.kernels.spike_gather import spike_gather_pallas
 from repro_torch.kernels import dispatch, ops, ref
+from repro_torch.kernels import event_step as tev
 
 LIF_PARAMS = dict(
     dt=0.1, tau_m=10.0, v_rest=-65.0, v_reset=-65.0, v_thresh=-50.0,
@@ -99,3 +105,86 @@ def test_panel_reduce_reads_bf16_panels():
     bad[1, 2] = float("nan")
     assert dispatch.panel_reduce([ok, bad]) == ("active", "row_dot")
     assert dispatch.panel_reduce([ok], plastic=True) == ("row_dot",)
+
+
+def _post_panels(rng, n_p, n, R, ks, fill=0.4):
+    """ELL-layout panels (padding: col 0, weight 0) with bf16 weights."""
+    cols, valid, w_t, w_j = [], [], [], []
+    for K in ks:
+        v = rng.random((R, K)) < fill
+        v[n_p:] = False
+        cols.append(np.where(v, rng.integers(0, n, (R, K)), 0).astype(np.int32))
+        valid.append(v)
+        t, j = _bf16(np.where(v, rng.normal(size=(R, K)), 0.0))
+        w_t.append(t)
+        w_j.append(j)
+    return cols, valid, w_t, w_j
+
+
+@pytest.mark.parametrize("n_p,R,ks,block_r,p_active", [
+    (64, 64, (16,), 16, 0.05), (100, 104, (8, 24), 8, 0.1), (250, 256, (4, 12, 20), 32, 0.02),
+])
+def test_event_post_exchange_bf16_matches_the_reference(rng, n_p, R, ks, block_r, p_active):
+    D, t, cap = 16, 21, 32
+    cols, valid, w_t, w_j = _post_panels(rng, n_p, n_p, R, ks)
+    delays = [2 + 3 * i for i in range(len(ks))]
+    nb = R // block_r
+    masks = jev.build_touch_masks(cols, valid, n_p, nb, block_r)
+    act = (rng.random(n_p) < p_active).astype(np.float32)
+    ring = rng.normal(size=(D, n_p)).astype(np.float32)
+    write = [(t + d) % D for d in delays]
+    plan = tev.EventPlan(block_r, nb, cap, torch.from_numpy(np.stack(masks)))
+    tcols = [torch.from_numpy(c) for c in cols]
+    got = torch.from_numpy(ring.copy())
+    flags = ops.event_post_exchange(torch.from_numpy(act), got, t % D, write, plan, tcols, w_t)
+    # the exact widening: the f32 panels of the same values give the same bits
+    wide = torch.from_numpy(ring.copy())
+    ops.event_post_exchange(torch.from_numpy(act), wide, t % D, write, plan, tcols,
+                            [w.float() for w in w_t])
+    assert got.dtype == torch.float32 and torch.equal(got, wide)
+    sel, jflags = jax.jit(jev.event_select, static_argnums=2)(
+        jnp.asarray(act), [jnp.asarray(m) for m in masks], cap)
+    np.testing.assert_array_equal(flags.numpy(), np.asarray(jflags))
+    clear = (np.arange(D) != t % D).astype(np.float32)
+    onehot = (np.asarray(write)[:, None] == np.arange(D)[None, :]).astype(np.float32)
+    for backend in ("ref", "pallas_interpret"):
+        want = jax.jit(jops.event_post_exchange, static_argnames="backend")(
+            jnp.asarray(act), jnp.asarray(ring), jnp.asarray(clear), jnp.asarray(onehot), sel,
+            jflags, [jnp.asarray(c) for c in cols], w_j, backend=backend)
+        # f32 sums in another order: rtol=atol=1e-5, as the f32 case
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["full", "local", "remote"])
+def test_post_exchange_bf16_matches_the_reference(rng, variant):
+    n_p, D, R = 16, 5, 16
+    n = n_p if variant == "local" else 4 * n_p
+    cols, _, w_t, w_j = _post_panels(rng, n_p, n, R, (8, 16, 24))
+    act = (rng.random(n) < 0.3).astype(np.float32)
+    ring = rng.normal(size=(D, n_p)).astype(np.float32)
+    slot, delays = 2, np.asarray([1, 3, 5])
+    clear = (np.arange(D) != slot).astype(np.float32)
+    onehot = (((slot + delays) % D)[:, None] == np.arange(D)[None, :]).astype(np.float32)
+    tc, jc = [torch.from_numpy(c) for c in cols], [jnp.asarray(c) for c in cols]
+    ta, tr = torch.from_numpy(act), torch.from_numpy(ring)
+    ja, jr, jcl, joh = (jnp.asarray(a) for a in (act, ring, clear, onehot))
+    if variant == "remote":
+        def run(w):
+            return ops.fused_post_exchange_remote(ta, tr, torch.from_numpy(onehot), tc, w)
+        jop = jax.jit(jops.fused_post_exchange_remote, static_argnames="backend")
+        want = [jref.fused_post_exchange_remote_ref(ja, jr, joh, jc, w_j),
+                jop(ja, jr, joh, jc, w_j, backend="pallas_interpret")]
+    else:
+        op = ops.fused_post_exchange_local if variant == "local" else ops.fused_post_exchange
+        jop = jax.jit(jops.fused_post_exchange_local if variant == "local"
+                      else jops.fused_post_exchange, static_argnames="backend")
+
+        def run(w):
+            return op(ta, tr, torch.from_numpy(clear), torch.from_numpy(onehot), tc, w)
+        want = [jref.fused_post_exchange_ref(ja, jr, jcl, joh, jc, w_j),
+                jop(ja, jr, jcl, joh, jc, w_j, backend="pallas_interpret")]
+    got = run(w_t)
+    assert got.dtype == torch.float32 and torch.equal(got, run([w.float() for w in w_t]))
+    for w in want:
+        # f32 sums in another order: rtol=atol=1e-5, as the f32 case
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)

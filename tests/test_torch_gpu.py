@@ -1795,3 +1795,181 @@ def test_contract_matrix_on_the_card(cuda):
     assert violations == []
     for name, res in results.items():
         assert res.kernels_per_step and all(k > 0 for k in res.kernels_per_step.values()), name
+
+
+# -- bf16 weights in the post-exchange gathers ----------------------------------
+
+def _post_args(rng, n_p, n, R, ks, device, p_active=0.1):
+    """ELL-layout panels (real slots first, (col 0, weight 0) after), their
+    row lengths, an activity, a ring and the slot tables of one step."""
+    cols, weights, valid = _ell_case(rng, n, R, ks, n_p, device)
+    act = torch.from_numpy((rng.random(n) < p_active).astype(np.float32)).to(device)
+    D = 16
+    ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(device)
+    slot, write = 5, [(5 + 2 + 3 * i) % D for i in range(len(ks))]
+    clear = torch.ones(D, device=device)
+    clear[slot] = 0.0
+    onehot = torch.zeros((len(ks), D), device=device)
+    for i, w in enumerate(write):
+        onehot[i, w] = 1.0
+    return cols, weights, _row_lengths(valid, device), act, ring, slot, write, clear, onehot
+
+
+@pytest.mark.parametrize("variant", ["full", "local", "remote"])
+@pytest.mark.parametrize("n_p,R,ks", [(100, 104, (8, 24)), (19288, 19288, (512, 1408))])
+def test_bf16_post_exchange_equals_its_f32_widening(cuda, rng, variant, n_p, R, ks):
+    """The three post_exchange passes on bf16 panels give the ring of the
+    panels' f32 widening bit for bit (both reductions), and the plain
+    version's within the f32 tolerance."""
+    n = n_p if variant == "local" else 4 * n_p
+    cols, weights, row_len, act, ring, _, _, clear, onehot = _post_args(rng, n_p, n, R, ks, cuda)
+    w16 = [w.to(torch.bfloat16) for w in weights]
+    w32 = [w.float() for w in w16]
+    before = split_mod.POST_COUNTER.launches
+    for red in (panel_reduce(w16), "row_dot"):
+        if variant == "remote":
+            got = ops.fused_post_exchange_remote(act, ring, onehot, cols, w16, row_len, reduce=red)
+            want = ops.fused_post_exchange_remote(act, ring, onehot, cols, w32, row_len,
+                                                  reduce=red)
+        else:
+            op = ops.fused_post_exchange_local if variant == "local" else ops.fused_post_exchange
+            got = op(act, ring, clear, onehot, cols, w16, row_len, reduce=red)
+            want = op(act, ring, clear, onehot, cols, w32, row_len, reduce=red)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert split_mod.POST_COUNTER.launches == before + 4
+    if variant == "remote":
+        plain = ref.fused_post_exchange_remote_ref(act, ring, onehot, cols, w16)
+    else:
+        plain = ref.fused_post_exchange_ref(act, ring, clear, onehot, cols, w16)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("clear", [True, False])
+@pytest.mark.parametrize("n_p,R,ks,p_active", [(100, 104, (8, 24), 0.05),
+                                               (19288, 19288, (512, 1408), 0.002)])
+def test_bf16_event_post_exchange_equals_its_f32_widening(cuda, rng, clear, n_p, R, ks, p_active):
+    cols, weights, row_len, act, ring, slot, write, _, _ = _post_args(rng, n_p, n_p, R, ks, cuda,
+                                                                     p_active)
+    valid = [rl[:, None] > torch.arange(c.shape[1], device=cuda)[None, :]
+             for rl, c in zip(row_len, cols)]
+    plan = event_mod.EventPlan.build([c.cpu().numpy() for c in cols],
+                                     [v.cpu().numpy() for v in valid], n_p, 256, cuda)
+    w16 = [w.to(torch.bfloat16) for w in weights]
+    w32 = [w.float() for w in w16]
+    for red in (panel_reduce(w16), "row_dot"):
+        a, b = ring.clone(), ring.clone()
+        fa = ops.event_post_exchange(act, a, slot if clear else None, write, plan, cols, w16,
+                                     row_len, reduce=red)
+        fb = ops.event_post_exchange(act, b, slot if clear else None, write, plan, cols, w32,
+                                     row_len, reduce=red)
+        assert torch.equal(fa, fb) and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    want = ring.clone()
+    event_mod.event_post_exchange_plain(act, want, slot if clear else None, write, plan, cols,
+                                        w16)
+    torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-4)
+
+
+def test_post_exchange_gathers_refuse_mixed_or_wide_weights(cuda, rng):
+    cols, weights, row_len, act, ring, slot, write, clear, onehot = _post_args(
+        rng, 64, 64, 64, (8, 16), cuda)
+    mixed = [weights[0], weights[1].to(torch.bfloat16)]
+    with pytest.raises(TypeError):
+        split_mod.post_exchange_cuda(act, ring, clear, onehot, cols, mixed)
+    with pytest.raises(TypeError, match="bfloat16"):
+        split_mod.post_exchange_cuda(act, ring, clear, onehot, cols, [w.double() for w in weights])
+    valid = [np.ones(tuple(c.shape), bool) for c in cols]
+    plan = event_mod.EventPlan.build([c.cpu().numpy() for c in cols], valid, 64, 64, cuda)
+    with pytest.raises(TypeError):
+        event_mod.event_post_exchange_cuda(act, ring, slot, write, plan, cols, mixed)
+
+
+# -- the LM substrate's serving path ----------------------------------------------
+
+LM_FAMILIES = ["smollm-135m", "granite-moe-3b-a800m", "recurrentgemma-2b", "xlstm-350m",
+               "paligemma-3b", "whisper-small"]
+
+
+def _lm_case(name, device, seed=0):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name).reduced()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen, device=device)
+    kw = {}
+    if cfg.encdec:
+        kw["frames"] = torch.randn((2, 10, cfg.d_model), generator=gen, device=device)
+    elif cfg.n_img_tokens:
+        kw["img_embed"] = torch.randn((2, cfg.n_img_tokens, cfg.d_model), generator=gen,
+                                      device=device)
+    return cfg, prompt, kw
+
+
+def _lm_steps(model, cfg, prompt, kw, device):
+    """A prefill of 10 tokens and two decode steps on the prompt's last two;
+    the logits of all three, on the CPU."""
+    n_img = cfg.n_img_tokens or 0
+    cache = model.init_cache(2, 12, 10) if cfg.encdec else model.init_cache(2, 12 + n_img)
+    p = prompt.to(device)
+    kw = {k: v.to(device) for k, v in kw.items()}
+    with torch.no_grad():
+        lg, cache, _ = model(p[:, :10], cache=cache, **kw)
+        outs = [lg]
+        for i in range(2):
+            lg, cache, _ = model(p[:, 10 + i:11 + i], cache=cache,
+                                 cache_pos=torch.tensor(10 + n_img + i, device=device))
+            outs.append(lg)
+    return [o.cpu() for o in outs]
+
+
+@pytest.mark.parametrize("name", LM_FAMILIES)
+def test_lm_card_matches_the_cpu(cuda, name):
+    """One reduced arch per family (fp32): prefill and two decode steps on
+    the card against the same parameters on the CPU; greedy tokens equal."""
+    from repro_torch.models import build_model
+    from repro_torch.train import greedy_generate
+
+    cfg, prompt, kw = _lm_case(name, cuda)
+    model = build_model(cfg, generator=torch.Generator(cuda).manual_seed(3))
+    assert model.emb.embed.device.type == "cuda"
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = _lm_steps(model, cfg, prompt, kw, cuda)
+        toks = greedy_generate(model, cfg, prompt[:, :8], 5, extras=kw or None,
+                               cache_len=13 + (cfg.n_img_tokens or 0)).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    model.cpu()
+    cpu = _lm_steps(model, cfg, prompt, kw, torch.device("cpu"))
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    want = greedy_generate(model, cfg, prompt[:, :8].cpu(), 5,
+                           extras={k: v.cpu() for k, v in kw.items()} or None,
+                           cache_len=13 + (cfg.n_img_tokens or 0))
+    assert torch.equal(toks, want)
+
+
+@pytest.mark.parametrize("name", LM_FAMILIES)
+def test_lm_decode_step_never_syncs_the_host(cuda, name):
+    """A decode step reads its position from the card and writes the cache
+    in place: nothing in it waits on the host."""
+    from repro_torch.models import build_model
+    from repro_torch.train import make_prefill_fn, make_serve_step
+
+    cfg, prompt, kw = _lm_case(name, cuda)
+    model = build_model(cfg)
+    cache, logits = make_prefill_fn(model, cfg, cache_len=16 + (cfg.n_img_tokens or 0))(
+        prompt, kw or None)
+    step = make_serve_step(model, cfg)
+    pos = torch.full((), 12, dtype=torch.int32, device=cuda)
+    nxt = logits.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            logits, cache = step(cache, nxt, pos)
+            nxt = logits.argmax(-1, keepdim=True)
+            pos = pos + 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(logits).all())
