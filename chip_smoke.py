@@ -42,6 +42,22 @@ event gather).  Phases, each printing its own lines:
      drops); at 2 periods and fp32 compute, the card against the CPU and the
      card's cache path against its forward; then smollm-135m at batch 64,
      prompt 512, 128 new tokens (the LM adds no kernel);
+  [train] the LM substrate's training slice (``repro_torch.train``,
+     ``repro_torch.io.CheckpointManager``; no kernel of its own):
+     smollm-135m at full width and depth (fp32 params, bf16 compute, batch
+     8, seq 128, the affine task, AdamW with fp32 moments under the
+     launcher's cosine schedule): 8 steps straight, an async checkpoint of
+     the reference launcher's tree at step 4 (fsync on, under ``_snap/``),
+     then a fresh model restored from step 4 through ``fit`` to step 8,
+     whose parameters match the straight run's; every loss finite, the
+     last 5 under the first; one step under ``set_sync_debug_mode("error")``;
+     ms a step, tokens/s, peak device memory, the checkpoint's bytes, save
+     stall, write and restore seconds; then granite-moe-3b-a800m at full
+     width and depth with 8-bit moments, 3 steps at batch 4, seq 128 (the
+     MoE aux losses in the metrics, every parameter moved, the drop
+     fraction); then both configs at full width, 2 periods deep, fp32
+     compute, on the card against the CPU: the loss, every gradient and
+     the optimizer's update given the same gradients;
   3. kernels vs plain at the main path's shapes (the session's own panels,
      inputs from ``--seed``): ``lif_step`` bit-exact, ``spike_gather``
      (with the panels' row lengths) within rtol=atol=1e-5, equal to itself
@@ -320,14 +336,20 @@ from repro_torch.analysis.contracts import (  # noqa: E402
     graph_node_kinds, run_matrix, uncaptured,
 )
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, lm_param_leaves  # noqa: E402
 from repro_torch.train import greedy_generate, make_prefill_fn, make_serve_step  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    AdamW, DataConfig, batch_iterator, cosine_schedule, fit, host_batch, make_loss_fn,
+    make_train_step,
+)
+from repro_torch.train.optimizer import flat_params  # noqa: E402
 from repro_torch.builder import (  # noqa: E402
     balanced_ei_rules, build_network, build_partition, crng, microcircuit_rules,
 )
 from repro_torch.core import EDGE_DELAY, block_partition, merge_to_single  # noqa: E402
 from repro_torch.io import (  # noqa: E402
-    fault_hook, fsync_enabled, load_binary, snapshot_steps, state_fault_hook,
+    CheckpointManager, fault_hook, fsync_enabled, load_binary, snapshot_steps, state_fault_hook,
 )
 from repro_torch.snn import (  # noqa: E402
     RasterMonitor, RateMonitor, Session, SimConfig, balanced_ei, microcircuit, to_dcsr,
@@ -1202,6 +1224,310 @@ def phase_lm(card, seed, smi):
             f"sync debug 'error', {f['ops']} aten ops ({f['decode_ms'] * 1e3 / f['ops']:.1f} us "
             f"of the step each){tail}; {smi}")
     say("lm", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# [train]: the LM substrate's training slice at full width
+TRAIN_SMOLLM = ("smollm-135m", 8, 128, 8, 4)  # arch, batch, seq, steps, checkpoint step
+TRAIN_GRANITE = ("granite-moe-3b-a800m", 4, 128, 3)  # arch, batch, seq, steps (8-bit moments)
+TRAIN_LR = 3e-4  # the launcher's default, under its cosine schedule
+# the straight run against the run restored at step 4: each parameter's
+# change since step 4 within this share of its leaf's largest change.  The
+# card's embedding backward adds with atomics, in no fixed order, so the
+# runs need not be bit-equal; on an NVIDIA H100 80GB HBM3 at 700 W the gap
+# has read 0 in every run so far.  Each planted resume fault must read over
+# the limit: the count restored one short (bias correction and schedule a
+# step off) read 1.17 there, one leaf's moments (ln_f's) restored as zeros
+# 1.0; the limit sits between, well under either.
+TRAIN_RESUME_TOL = 1e-3
+TRAIN_RESUME_FAULTS = ("count one short", "ln_f moments zeroed")
+# card against CPU at 2 periods, fp32 compute, TF32 off: a leaf's gradient
+# within this share of its largest |g| (floored at 1e-3 of the model's
+# largest), the loss within it relative; then the update on the same
+# gradients: parameters within 2^-21 of max(1, max |p|) (four ulps at 1:
+# the card's and the CPU's pow and gradient norm round apart), fp32 moments
+# within 1e-6 of their leaf's largest, 8-bit q one step apart in at most
+# 1 in 10^4 entries and scale within 2 ulps
+TRAIN_CARD_CPU_TOL = 1e-4
+
+
+def train_batches(cfg, batch, seq, steps, card, start=0):
+    """``host_batch`` of steps ``start .. steps - 1`` (the affine task),
+    moved to the card before any timed step."""
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)
+    return dc, [{k: v.to(card) for k, v in host_batch(dc, s).items()}
+                for s in range(start, steps)]
+
+
+def param_prints(model):
+    """Per parameter, its sum and norm in fp64 (a fingerprint that any
+    update moves)."""
+    with torch.no_grad():
+        return torch.stack([torch.stack([p.sum(dtype=torch.float64),
+                                         torch.linalg.vector_norm(p, dtype=torch.float64)])
+                            for p in model.parameters()])
+
+
+def resume_gaps(model, straight, base):
+    """Per parameter, ``max |change in model - change in straight|`` over
+    ``max |change in straight|``, each change since ``base``."""
+    gaps = {}
+    for k, want in straight.items():
+        d_want = (want - base[k]).double()
+        d_got = (model.state_dict()[k] - base[k]).double()
+        gaps[k] = float((d_got - d_want).abs().max()) / max(float(d_want.abs().max()), 1e-30)
+    return gaps
+
+
+def plant_resume_fault(fault, state):
+    """``state`` (a restored AdamW state) with ``fault`` planted."""
+    if fault == "count one short":
+        state["count"] = state["count"] - 1
+    else:
+        i = next(i for i, leaf in enumerate(state["leaves"]) if leaf.path[0] == "ln_f")
+        state["m"][i].zero_()
+        state["v"][i].zero_()
+    return state
+
+
+def train_smollm(card, seed, smi):
+    """(a) smollm-135m at full width and depth: 8 steps straight with an
+    async checkpoint at step 4, then steps 4-7 again from the checkpoint,
+    and once more for each planted resume fault, which must read over the
+    limit."""
+    name, B, S, steps, at = TRAIN_SMOLLM
+    cfg = get_config(name)
+    model = build_model(cfg, device=card, generator=torch.Generator(card).manual_seed(seed))
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, warmup=min(50, steps // 10 + 1), total=steps))
+    state = opt.init(lm_param_leaves(cfg, model))
+    dc, batches = train_batches(cfg, B, S, steps, card)
+    step_fn = make_train_step(model, cfg, opt)
+    root = SNAP_ROOT / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    cm = CheckpointManager(str(root), max_to_keep=2)
+    losses, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(steps):
+        if s == at:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cm.save(at, convert.lm_train_tree(cfg, model, state))
+            stall = time.perf_counter() - t0
+            cm.wait()
+            write = time.perf_counter() - t0 - stall
+            base = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        if s == 1:  # warmed: the first step allocates
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            state, metrics = step_fn(state, batches[s])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    require(all(math.isfinite(x) for x in losses), f"{name}: a loss is not finite: {losses}")
+    require(np.mean(losses[-5:]) < losses[0],
+            f"{name}: the last 5 losses {losses[-5:]} are not under the first, {losses[0]}")
+    n_bytes = snapshot_bytes(cm.step_dir(at))
+    straight = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, state, step_fn
+    gc.collect()
+
+    twin = build_model(cfg, device=card, generator=torch.Generator(card).manual_seed(seed + 9))
+    t0 = time.perf_counter()
+    like = convert.lm_train_tree(cfg, twin, opt.init(lm_param_leaves(cfg, twin)),
+                                 like=True)
+    tree, got = cm.restore(at, like=like)
+    twin.load_state_dict(convert.lm_params_from_arrays(cfg, tree["params"]))
+    restored = convert.lm_opt_state_from_arrays(cfg, twin, tree["opt_state"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require(got == at and int(restored["count"]) == at, f"{name}: restored step {got}")
+    planted = []
+    for fault in TRAIN_RESUME_FAULTS:
+        bad = build_model(cfg, device=card)
+        bad.load_state_dict(twin.state_dict())
+        planted.append((fault, bad, plant_resume_fault(
+            fault, convert.lm_opt_state_from_arrays(cfg, bad, tree["opt_state"]))))
+    del tree
+    fit(twin, cfg, opt, batch_iterator(dc, start_step=at), steps=steps, opt_state=restored,
+        log_every=0)
+    gaps = resume_gaps(twin, straight, base)
+    worst = max(gaps.values())
+    for k, gap in gaps.items():
+        require(gap <= TRAIN_RESUME_TOL, f"{name}: {k} after the resumed run differs from the "
+                f"straight run by {gap:.3g} of its largest change since step {at} (tol "
+                f"{TRAIN_RESUME_TOL})")
+    fault_gaps = {}
+    for fault, bad, bad_state in planted:
+        fit(bad, cfg, opt, batch_iterator(dc, start_step=at), steps=steps, opt_state=bad_state,
+            log_every=0)
+        fault_gaps[fault] = max(resume_gaps(bad, straight, base).values())
+        require(fault_gaps[fault] > TRAIN_RESUME_TOL, f"{name}: a resume with the planted fault "
+                f"'{fault}' reads {fault_gaps[fault]:.3g}, within the limit {TRAIN_RESUME_TOL}")
+    del planted, bad, bad_state
+    cm.close()
+    shutil.rmtree(root, ignore_errors=True)
+    ms = 1e3 * float(np.mean(step_s[1:]))
+    say("train", f"{name} ({cfg.n_layers} layers, d {cfg.d_model}, params {cfg.param_dtype}, "
+        f"compute {cfg.compute_dtype}; {sum(p.numel() for p in twin.parameters()) / 1e6:.1f} M "
+        f"params), batch {B} x seq {S}, AdamW fp32 moments, lr {TRAIN_LR:g} cosine: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; {ms:.1f} ms a step (steps 2-{steps}, host clock with a sync; first "
+        f"{1e3 * step_s[0]:.1f} ms), {B * S / (ms / 1e3):.0f} tokens/s, peak "
+        f"{peak / 1e9:.3f} GB; step 2 clean under sync debug 'error'; checkpoint at step {at}: "
+        f"{n_bytes} bytes, save stall {stall:.3f} s, write {write:.3f} s "
+        f"({n_bytes / 1e9 / max(write, 1e-9):.3f} GB/s, fsync {'on' if fsync_enabled() else 'off'}), "
+        f"restore {restore_s:.3f} s; resumed from it to step {steps}: largest parameter gap "
+        f"{worst:.3g} of its leaf's change since step {at} (tol {TRAIN_RESUME_TOL}); planted "
+        "faults: " + ", ".join(f"{f} {g:.3g}" for f, g in fault_gaps.items()) + f"; {smi}")
+    del twin, straight, base, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_granite(card, seed, smi):
+    """(b) granite-moe-3b-a800m at full width and depth, 8-bit moments."""
+    name, B, S, steps = TRAIN_GRANITE
+    cfg = get_config(name)
+    model = build_model(cfg, device=card, generator=torch.Generator(card).manual_seed(seed))
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, warmup=1, total=steps), quantize_moments=True)
+    state = opt.init(lm_param_leaves(cfg, model))
+    _, batches = train_batches(cfg, B, S, steps, card)
+    step_fn = make_train_step(model, cfg, opt)
+    before = param_prints(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, out = [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batches[s])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        out.append({k: float(v) for k, v in metrics.items()})
+    peak = torch.cuda.max_memory_allocated()
+    moved = (param_prints(model) != before).any(dim=1)
+    n_params = sum(p.numel() for p in model.parameters())
+    require(all(math.isfinite(m["loss"]) for m in out), f"{name}: a loss is not finite")
+    require(all(k in out[-1] for k in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")),
+            f"{name}: the MoE aux losses are missing from the metrics {sorted(out[-1])}")
+    require(bool(moved.all()), f"{name}: {int((~moved).sum())} parameters did not move")
+    q_bytes = sum(x["q"].numel() + 4 * x["scale"].numel() for key in ("m", "v")
+                  for x in state[key])
+    ms = 1e3 * float(np.mean(step_s[1:]))
+    say("train", f"{name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_experts} experts top "
+        f"{cfg.top_k}; {n_params / 1e9:.3f} B params {cfg.param_dtype}), batch {B} x seq {S}, "
+        f"AdamW 8-bit moments ({q_bytes / 1e9:.3f} GB): losses "
+        + ", ".join(f"{m['loss']:.4f}" for m in out)
+        + f"; lb {out[-1]['moe_lb_loss']:.4f}, z {out[-1]['moe_z_loss']:.4f}, drop fraction "
+        f"summed over layers {out[-1]['moe_drop_frac']:.4f} (a layer's mean "
+        f"{out[-1]['moe_drop_frac'] / cfg.n_layers:.4f}); {ms:.1f} ms a step (steps 2-{steps}; "
+        f"first {1e3 * step_s[0]:.1f} ms), {B * S / (ms / 1e3):.0f} tokens/s, peak "
+        f"{peak / 1e9:.3f} GB; every parameter moved; {smi}")
+    del model, state, step_fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _leaf_gap(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def train_card_vs_cpu(name, card, seed, quantize):
+    """(c) ``name`` at full width, 2 periods deep, fp32 compute: one step's
+    loss and gradients on the card and on the CPU from the same parameters
+    and batch; then the update on both given the CPU's gradients.  Returns
+    the largest relative gaps."""
+    cfg = dataclasses.replace(get_config(name), n_layers=2 * get_config(name).pattern_period,
+                              compute_dtype="float32")
+    model = build_model(cfg, device=card, generator=torch.Generator(card).manual_seed(seed))
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch = host_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2), 0)
+    opt = AdamW(lr=1e-3, quantize_moments=quantize)
+    runs = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for m, dev in ((model, card), (cpu_model, torch.device("cpu"))):
+            state = opt.init(lm_param_leaves(cfg, m))
+            loss, _ = make_loss_fn(m, cfg)({k: v.to(dev) for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, flat_params(state), allow_unused=True,
+                                        materialize_grads=True)
+            runs.append((m, state, float(loss.detach()), [g.detach().cpu() for g in grads]))
+        (_, s_card, l_card, g_card), (_, s_cpu, l_cpu, g_cpu) = runs
+        require(abs(l_card - l_cpu) <= TRAIN_CARD_CPU_TOL * abs(l_cpu),
+                f"{name}: loss {l_card} on the card, {l_cpu} on the CPU")
+        floor = 1e-3 * max(float(g.abs().max()) for g in g_cpu)
+        g_rel = 0.0
+        for p_name, a, b in zip((leaf.name for leaf in s_cpu["leaves"]
+                                 for _ in leaf.params), g_card, g_cpu):
+            rel = _leaf_gap(a, b) / max(float(b.abs().max()), floor)
+            g_rel = max(g_rel, rel)
+            require(rel <= TRAIN_CARD_CPU_TOL, f"{name}: gradient of {p_name} on the card vs "
+                    f"the CPU {rel:.3g} of its largest (tol {TRAIN_CARD_CPU_TOL})")
+        opt.update([g.to(card) for g in g_cpu], s_card)
+        opt.update(g_cpu, s_cpu)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    p_gap = 0.0
+    for a, b in zip(flat_params(s_card), flat_params(s_cpu)):
+        a, b = a.detach().cpu(), b.detach()
+        gap = _leaf_gap(a, b)
+        p_gap = max(p_gap, gap / max(1.0, float(b.abs().max())))
+        require(gap <= 2.0**-21 * max(1.0, float(b.abs().max())),
+                f"{name}: a parameter after the update differs by {gap} card vs CPU")
+    m_note = ""
+    if quantize:
+        n_diff = n_all = 0
+        s_rel = 0.0
+        for key in ("m", "v"):
+            for a, b in zip(s_card[key], s_cpu[key]):
+                d = (a["q"].cpu().int() - b["q"].int()).abs()
+                require(int(d.max()) <= 1, f"{name}: 8-bit {key} q apart by {int(d.max())}")
+                n_diff += int((d > 0).sum())
+                n_all += d.numel()
+                s_rel = max(s_rel, _leaf_gap(a["scale"].cpu(), b["scale"]) /
+                            max(float(b["scale"].abs().max()), 1e-30))
+        require(n_diff <= max(n_all // 10**4, 1) and s_rel <= 2.4e-7,
+                f"{name}: 8-bit moments card vs CPU: {n_diff} of {n_all} q apart, scale "
+                f"{s_rel:.3g} relative")
+        m_note = f"8-bit q apart in {n_diff} of {n_all} entries, scale {s_rel:.2e} relative"
+    else:
+        m_rel = 0.0
+        for key in ("m", "v"):
+            for a, b in zip(s_card[key], s_cpu[key]):
+                rel = _leaf_gap(a.cpu(), b) / max(float(b.abs().max()), 1e-30)
+                m_rel = max(m_rel, rel)
+                require(rel <= 1e-6, f"{name}: {key} card vs CPU {rel:.3g} of its largest")
+        m_note = f"moments {m_rel:.2e} of their largest"
+    del runs, model, cpu_model, s_card, s_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"{name} ({cfg.n_layers} layers, fp32 compute, batch 2 x 32): loss "
+            f"{abs(l_card - l_cpu) / abs(l_cpu):.2e} relative, gradients {g_rel:.2e} of their "
+            f"leaf's largest, after the update parameters {p_gap:.2e} of max(1, |p|), "
+            f"{m_note}")
+
+
+def phase_train(card, seed, smi):
+    """[train] The LM substrate's training slice on the card: (a) smollm
+    with the resume check, (b) granite with 8-bit moments, (c) card
+    against CPU."""
+    t_phase = time.perf_counter()
+    require_disk(4 << 30)
+    train_smollm(card, seed, smi)
+    train_granite(card, seed, smi)
+    notes = [train_card_vs_cpu(TRAIN_SMOLLM[0], card, seed, False),
+             train_card_vs_cpu(TRAIN_GRANITE[0], card, seed, True)]
+    say("train", "card vs CPU (TF32 off; tol: loss and gradients "
+        f"{TRAIN_CARD_CPU_TOL:g}, parameters 2^-21 of max(1, |p|)): " + "; ".join(notes)
+        + f"; {smi}")
+    say("train", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_small_net():
@@ -4002,6 +4328,7 @@ def main(argv=None) -> int:
     card = torch.device("cuda", torch.cuda.current_device())
     phase_contracts(card)
     phase_lm(card, args.seed, smi)
+    phase_train(card, args.seed, smi)
 
     # one build of the microcircuit, as the uniform k>1 net; the k=1 paths
     # run its merge (the same labelling, with the inert padding neurons)

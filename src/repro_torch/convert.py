@@ -12,7 +12,13 @@ packages:
     stacked ``(k, ...)`` carry;
   * :func:`lm_params_from_arrays` and :func:`lm_cache_from_arrays` carry an
     LM's parameters and a prefilled cache across from the reference's
-    pytrees (nested dicts, lists and tuples of numpy arrays).
+    pytrees (nested dicts, lists and tuples of numpy arrays);
+    :func:`lm_params_to_arrays` restacks a port model's parameters into the
+    reference's params tree, and :func:`lm_opt_state_to_arrays` /
+    :func:`lm_opt_state_from_arrays` carry an optimizer state (fp32 or
+    8-bit moments) both ways, through ``models.leaves.lm_param_leaves``,
+    the map between the two layouts.  What they return holds copies,
+    never views of a live parameter or moment.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ import torch
 
 from .core.dcsr import DCSRNetwork, DCSRPartition
 from .core.state import ModelRegistry
+from .io.checkpoint import host_array
+from .models.leaves import ParamLeaf, lm_param_leaves
 
 _PART_KEYS = (
     "row_ptr", "col_idx", "vtx_model", "vtx_state", "edge_model",
@@ -185,3 +193,94 @@ def lm_cache_from_arrays(cfg, tree):
     if cfg.encdec:
         return {k: _tensor(v) for k, v in tree.items()}
     return [_tree_map(_tensor, dict(layer)) for layer in _unstack_layers(cfg, tree)]
+
+
+# -- the LM's params and optimizer state in the reference's leaf layout ------
+
+def _params_tree(cfg, leaves: Sequence[ParamLeaf], values: Sequence[Any]):
+    """``values[i]`` at ``leaves[i].path`` in the reference's tree: a
+    decoder's ``groups`` a tuple of ``P`` dicts and its ``rest`` a list."""
+    root: Dict[Any, Any] = {}
+    for leaf, v in zip(leaves, values, strict=True):
+        node = root
+        for k in leaf.path[:-1]:
+            node = node.setdefault(k, {})
+        node[leaf.path[-1]] = v
+    if not cfg.encdec:
+        if "groups" in root:
+            root["groups"] = tuple(root["groups"][j] for j in range(cfg.pattern_period))
+        rest = root.get("rest", {})
+        root["rest"] = [rest[i] for i in range(len(rest))]
+    return root
+
+
+def _leaf_array(leaf: ParamLeaf) -> np.ndarray:
+    if leaf.stacked:
+        return host_array(torch.stack([p.detach() for p in leaf.params]))
+    return host_array(leaf.params[0])
+
+
+def lm_params_to_arrays(cfg, model):
+    """The reference's params tree for ``cfg`` (numpy arrays on the host)
+    from the port model's parameters: the inverse of
+    :func:`lm_params_from_arrays`, the layers restacked into ``groups``
+    (``enc_layers`` / ``dec_layers``)."""
+    leaves = lm_param_leaves(cfg, model)
+    return _params_tree(cfg, leaves, [_leaf_array(leaf) for leaf in leaves])
+
+
+_OPT_SKIP = ("count", "leaves")
+
+
+def lm_opt_state_to_arrays(cfg, state, like: bool = False):
+    """The reference optimizer's state tree from the port's (``AdamW``:
+    ``dict(m, v, count)``, each moment a params tree of fp32 arrays in the
+    stacked shapes or of ``{"q", "scale"}`` dicts; ``SGDM``: ``dict(mu,
+    count)``).  With ``like`` the same structure holding 0s, no copies (a
+    ``CheckpointManager.restore`` structure)."""
+    conv = (lambda x: 0) if like else host_array
+    out: Dict[str, Any] = {"count": conv(state["count"])}
+    for key, per_leaf in state.items():
+        if key in _OPT_SKIP:
+            continue
+        vals = [{k: conv(t) for k, t in x.items()} if isinstance(x, Mapping) else conv(x)
+                for x in per_leaf]
+        out[key] = _params_tree(cfg, state["leaves"], vals)
+    return out
+
+
+def lm_opt_state_from_arrays(cfg, model, tree) -> Dict[str, Any]:
+    """The port optimizer's state for ``model`` from the reference's state
+    tree (see :func:`lm_opt_state_to_arrays`), on the model's device."""
+    leaves = lm_param_leaves(cfg, model)
+    dev = leaves[0].params[0].device
+
+    def put(a):
+        return _tensor(a).to(dev)
+
+    def at(node, path):
+        for k in path:
+            node = node[k]
+        return node
+
+    state: Dict[str, Any] = {"leaves": leaves,
+                             "count": put(tree["count"]).to(torch.int32).reshape(())}
+    for key, sub in tree.items():
+        if key == "count":
+            continue
+        vals = [at(sub, leaf.path) for leaf in leaves]
+        state[key] = [{k: put(x) for k, x in v.items()} if isinstance(v, Mapping) else put(v)
+                      for v in vals]
+    return state
+
+
+def lm_train_tree(cfg, model, state, like: bool = False):
+    """The reference train launcher's checkpoint tree, ``dict(params=...,
+    opt_state=...)`` in its layouts; with ``like`` the structure only (0s,
+    no copies)."""
+    if like:
+        leaves = lm_param_leaves(cfg, model)
+        params = _params_tree(cfg, leaves, [0] * len(leaves))
+    else:
+        params = lm_params_to_arrays(cfg, model)
+    return dict(params=params, opt_state=lm_opt_state_to_arrays(cfg, state, like=like))

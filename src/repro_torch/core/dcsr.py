@@ -10,8 +10,8 @@ k+1 over rows; the column/value arrays split along the same boundaries
 (``edist``).  Vertex and edge state are tuples aligned with the row / column
 arrays, typed through a :class:`~repro.core.state.ModelRegistry`.
 
-Everything here is plain numpy (host-side network construction and
-serialization); the simulation-facing, device-resident layout is derived in
+Everything here is host-side numpy (network construction and
+serialization; the edge sort runs ``torch.sort`` on the host); the simulation-facing, device-resident layout is derived in
 :mod:`repro.core.ell`.
 """
 from __future__ import annotations
@@ -20,10 +20,23 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .state import ModelRegistry, default_registry, EDGE_DELAY
 
 Array = np.ndarray
+
+
+def edge_order(nsrc: Array, ndst: Array, n: int) -> Array:
+    """The permutation that sorts edges by (target, source), stable:
+    ``np.lexsort((nsrc, ndst))``.  Where ``n * n`` fits in int64 it is one
+    stable sort of the packed key ``ndst * n + nsrc`` (``torch.sort`` on the
+    host's threads; the same permutation, since both sorts are stable and
+    the key orders pairs as the lexsort does), else the lexsort itself."""
+    if n and n > np.iinfo(np.int64).max // n:
+        return np.lexsort((nsrc, ndst))
+    key = torch.from_numpy(ndst * np.int64(n) + nsrc)
+    return torch.sort(key, stable=True).indices.numpy()
 
 
 @dataclasses.dataclass
@@ -217,7 +230,7 @@ def from_edges(
     # cost of a merge.
     d_dst = np.diff(ndst)
     if not ((d_dst >= 0).all() and ((d_dst > 0) | (np.diff(nsrc) >= 0)).all()):
-        eorder = np.lexsort((nsrc, ndst))
+        eorder = edge_order(nsrc, ndst, n)
         nsrc, ndst = nsrc[eorder], ndst[eorder]
         edge_state = edge_state[eorder]
         edge_model = edge_model[eorder]

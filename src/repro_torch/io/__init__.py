@@ -1,9 +1,9 @@
 """Serialization of the port (counterpart of ``repro.io``): the paper's
 plain-text dCSR format, dCSR snapshots in the reference's binary format 1.0
-(``docs/FORMAT.md``), the atomic directory swap, the background writer, the
-fsync policy, the fault hooks and the interop adapters (adjacency dicts,
-ParMETIS triples).  The reference's tensor ``CheckpointManager`` belongs to
-its LM substrate and is not ported."""
+(``docs/FORMAT.md``), the LM substrate's tensor checkpoints
+(``CheckpointManager``, the reference's on-disk layout), the atomic
+directory swap, the background writer, the fsync policy, the fault hooks
+and the interop adapters (adjacency dicts, ParMETIS triples)."""
 from .dcsr_text import save_text, load_text  # noqa: F401
 from .dcsr_binary import (  # noqa: F401
     NetSnapshot,
@@ -18,7 +18,7 @@ from .dcsr_binary import (  # noqa: F401
     write_snapshot,
 )
 from .async_writer import AsyncWriter, WriteJobError  # noqa: F401
-from .checkpoint import atomic_dir  # noqa: F401
+from .checkpoint import CheckpointManager, atomic_dir  # noqa: F401
 from .durability import (  # noqa: F401
     fsync_enabled,
     fsync_override,

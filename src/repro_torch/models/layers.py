@@ -337,7 +337,11 @@ class Embed(nn.Module):
             self.register_parameter("out_head", None)
 
     def lookup(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens.long(), self.embed).to(dtype_of(self.cfg.compute_dtype))
+        # index_select, not F.embedding: on the card the embedding's backward
+        # reads a segment count back to the host, index_select's (an
+        # index_add_) does not
+        rows = self.embed.index_select(0, tokens.reshape(-1).long())
+        return rows.reshape(tokens.shape + (-1,)).to(dtype_of(self.cfg.compute_dtype))
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         cdt = dtype_of(self.cfg.compute_dtype)

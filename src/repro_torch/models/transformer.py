@@ -7,8 +7,12 @@ stacks the ``L // P`` full groups of its block pattern (period P) under
 ``jax.lax.scan`` and runs the ``L % P`` remainder layers after them; that
 is a tracing device, so here layer ``g * P + j`` is the reference's group
 ``g``, position ``j``, and the remainder follows (``convert`` unstacks a
-reference tree the same way).  The cache is a list with one dict per layer:
-``k``/``v`` for attention (a ring of ``min(window, seq_len)`` slots for
+reference tree the same way).  With ``cfg.remat``, a forward that builds a
+graph (no cache, grad enabled) runs each full group of ``P`` layers under
+``torch.utils.checkpoint`` (non-reentrant), the reference's
+``jax.checkpoint`` around ``run_group``: the group's activations are
+recomputed in the backward instead of kept.  The cache is a list with one
+dict per layer: ``k``/``v`` for attention (a ring of ``min(window, seq_len)`` slots for
 local attention), ``h``/``conv`` for RG-LRU, ``C``/``n``/``m``/``conv`` for
 mLSTM, ``c``/``n``/``m``/``h`` for sLSTM; every entry is written in place.
 """
@@ -18,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .moe import MoE
@@ -113,6 +118,16 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         return self.emb.embed.device
 
+    def _run_group(self, x, g0: int, positions, prefix_len):
+        """Layers ``g0 .. g0 + P - 1`` without a cache (the reference's
+        ``run_group``): ``(x, the group's aux summed)``."""
+        auxs = L.zeros_aux(self.cfg, x.device)
+        for layer in self.layers[g0:g0 + self.cfg.pattern_period]:
+            x, _, aux = layer(x, positions=positions, prefix_len=prefix_len)
+            for key in auxs:
+                auxs[key] = auxs[key] + aux.get(key, 0.0)
+        return x, auxs
+
     def init_cache(self, batch: int, seq_len: int) -> List[Dict[str, torch.Tensor]]:
         cdt = L.dtype_of(self.cfg.compute_dtype)
         return [block_cache_init(self.cfg, layer.btype, batch, seq_len, cdt, self.device)
@@ -145,10 +160,19 @@ class DecoderLM(nn.Module):
             else:
                 positions = torch.arange(S, dtype=torch.int32, device=dev)[None, :] * ones
         aux_total = L.zeros_aux(cfg, dev)
-        for i, layer in enumerate(self.layers):
-            x, _, aux = layer(x, positions=positions,
-                              cache=cache[i] if cache is not None else None,
-                              cache_pos=cache_pos, prefix_len=prefix_len)
+        P = cfg.pattern_period
+        n_remat = 0
+        if cfg.remat and cache is None and torch.is_grad_enabled():
+            n_remat = (cfg.n_layers // P) * P if cfg.layer_stack == "scan" else 0
+        for g0 in range(0, n_remat, P):
+            x, aux = checkpoint(self._run_group, x, g0, positions, prefix_len,
+                                use_reentrant=False)
+            for key in aux_total:
+                aux_total[key] = aux_total[key] + aux[key]
+        for i in range(n_remat, len(self.layers)):
+            x, _, aux = self.layers[i](x, positions=positions,
+                                       cache=cache[i] if cache is not None else None,
+                                       cache_pos=cache_pos, prefix_len=prefix_len)
             for key in aux_total:
                 aux_total[key] = aux_total[key] + aux.get(key, 0.0)
         x = self.ln_f(x)

@@ -125,3 +125,33 @@ def test_to_dcsr_rejects_other_inputs():
         tnet.to_dcsr(jmicrocircuit_rules(scale=0.01))
     with pytest.raises(TypeError, match="NetworkDef"):
         tnet.to_dcsr(object())
+
+
+@pytest.mark.parametrize("n,k", [(97, 1), (97, 3), (2**32, 1)])
+def test_packed_edge_sort_equals_lexsort_and_the_reference(n, k):
+    """``from_edges`` sorts edges by (target, source) with one stable sort of
+    the packed key ``dst * n + src`` (the lexsort where ``n * n`` would pass
+    int64): on shuffled edges with multapses the permutation is the
+    lexsort's, and the built network is the reference's byte for byte."""
+    from repro.core import from_edges as j_from_edges
+    from repro_torch.core import dcsr as tdcsr
+
+    rng = np.random.default_rng(n % 1000 + k)
+    m = 4000
+    lo = n - 97  # the ids of the last 97 vertices: a key past int64 for n = 2^32
+    src = rng.integers(0, 97, m) + lo
+    dst = rng.integers(0, 97, m) + lo
+    src[:500], dst[:500] = src[500:1000], dst[500:1000]  # multapses
+    perm = rng.permutation(m)
+    src, dst = src[perm], dst[perm]
+    np.testing.assert_array_equal(tdcsr.edge_order(src, dst, n), np.lexsort((src, dst)))
+    if n > 10**6:
+        return  # the network itself would hold n vertices
+    state = rng.normal(size=(m, 2)).astype(np.float32)
+    state[:, 1] = rng.integers(1, 16, m)
+    jd = j_from_edges(n, src, dst, state, k=k)
+    td = tdcsr.from_edges(n, src, dst, state, k=k)
+    _assert_same_array(jd.dist, td.dist, "dist")
+    for jp, tp in zip(jd.parts, td.parts, strict=True):
+        for key in _PART_ARRAYS:
+            _assert_same_array(getattr(jp, key), getattr(tp, key), key)

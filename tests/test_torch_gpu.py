@@ -1973,3 +1973,120 @@ def test_lm_decode_step_never_syncs_the_host(cuda, name):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(logits).all())
+
+
+# -- the LM substrate's training slice ---------------------------------------------
+
+def _train_batch(cfg, prompt, kw):
+    return dict(tokens=prompt.to(torch.int32), **kw)
+
+
+@pytest.mark.parametrize("name", LM_FAMILIES)
+def test_lm_train_step_card_matches_the_cpu(cuda, name):
+    """One reduced arch per family (fp32): the loss and every gradient on
+    the card against the same parameters and batch on the CPU (a leaf
+    within 1e-4 of its largest |g|, floored at 1e-3 of the model's
+    largest); then one AdamW update (fp32 moments, clipping, decay) on both
+    given the CPU's gradients: the parameters within 2^-21 of max(1,
+    |p|), the moments within 1e-6 of their largest.  (Each device's own
+    gradients would not do for the update: a gradient that is zero but for
+    rounding, as the keys' bias gradient, moves its parameter by a full
+    ``lr`` in the rounding's direction under Adam.)"""
+    from repro_torch.models import build_model, lm_param_leaves
+    from repro_torch.train import AdamW, make_loss_fn
+    from repro_torch.train.optimizer import flat_params
+
+    cfg, prompt, kw = _lm_case(name, cuda)
+    batch = _train_batch(cfg, prompt, kw)
+    model = build_model(cfg, generator=torch.Generator(cuda).manual_seed(3))
+    twin = build_model(cfg, device="cpu")
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    opt = AdamW(lr=1e-2)
+    runs = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for m, dev in ((model, cuda), (twin, torch.device("cpu"))):
+            state = opt.init(lm_param_leaves(cfg, m))
+            loss, _ = make_loss_fn(m, cfg)({k: v.to(dev) for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, flat_params(state), materialize_grads=True,
+                                        allow_unused=True)
+            runs.append((state, float(loss.detach()), [g.cpu() for g in grads]))
+        (s_card, l_card, g_card), (s_cpu, l_cpu, g_cpu) = runs
+        assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+        floor = 1e-3 * max(float(g.abs().max()) for g in g_cpu)
+        for a, b in zip(g_card, g_cpu):
+            assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), floor)
+        opt.update([g.to(cuda) for g in g_cpu], s_card)
+        opt.update(g_cpu, s_cpu)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(flat_params(s_card), flat_params(s_cpu)):
+        bound = 2.0**-21 * max(1.0, float(b.abs().max()))
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= bound
+    for key in ("m", "v"):
+        for a, b in zip(s_card[key], s_cpu[key]):
+            assert float((a.cpu() - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("name", LM_FAMILIES)
+def test_lm_train_step_never_syncs_the_host(cuda, name):
+    """A train step with its batch on the card (forward, backward, clipping,
+    AdamW with 8-bit moments, the cosine schedule) reads nothing back to the
+    host."""
+    from repro_torch.models import build_model, lm_param_leaves
+    from repro_torch.train import AdamW, cosine_schedule, make_train_step
+
+    cfg, prompt, kw = _lm_case(name, cuda)
+    batch = _train_batch(cfg, prompt, kw)
+    model = build_model(cfg)
+    opt = AdamW(lr=cosine_schedule(1e-3, 2, 10), quantize_moments=True)
+    state = opt.init(lm_param_leaves(cfg, model))
+    step = make_train_step(model, cfg, opt, grad_accum=2)
+    state, metrics = step(state, batch)  # warm: the first step allocates
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(metrics["loss"])) and int(state["count"]) == 2
+
+
+def test_adamw_8bit_card_matches_the_cpu(cuda):
+    """The 8-bit moments on the card against the CPU on the same gradients
+    (recurrentgemma-2b reduced at 8 layers: stacked 2-D norms whose blocks
+    straddle layers, per-slice blocks, and rest layers): ``scale`` within
+    1e-6 relative, ``q`` apart by at most one step in at most 1 in 10^4
+    entries (a division rounded to a tie one way on the card)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, lm_param_leaves
+    from repro_torch.train import AdamW
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b").reduced(), n_layers=8)
+    model = build_model(cfg, generator=torch.Generator(cuda).manual_seed(3))
+    twin = build_model(cfg, device="cpu")
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    opt = AdamW(lr=1e-2, quantize_moments=True)
+    gen = torch.Generator().manual_seed(0)
+    grads = [[0.01 * torch.randn(p.shape, generator=gen)
+              for leaf in lm_param_leaves(cfg, twin) for p in leaf.params]
+             for _ in range(3)]
+    states = []
+    for m, dev in ((model, cuda), (twin, torch.device("cpu"))):
+        state = opt.init(lm_param_leaves(cfg, m))
+        for gs in grads:
+            state, _ = opt.update([g.to(dev) for g in gs], state)
+        states.append(state)
+    card, cpu = states
+    n_diff = n_all = 0
+    for key in ("m", "v"):
+        for a, b in zip(card[key], cpu[key]):
+            torch.testing.assert_close(a["scale"].cpu(), b["scale"], rtol=1e-6, atol=0)
+            d = (a["q"].cpu().int() - b["q"].int()).abs()
+            assert int(d.max()) <= 1
+            n_diff += int((d > 0).sum())
+            n_all += d.numel()
+    assert n_diff <= max(n_all // 10**4, 1), (n_diff, n_all)
