@@ -58,6 +58,18 @@ event gather).  Phases, each printing its own lines:
      fraction); then both configs at full width, 2 periods deep, fp32
      compute, on the card against the CPU: the loss, every gradient and
      the optimizer's update given the same gradients;
+  [mesh] the LM substrate's mesh half (``repro_torch.sharding``; no kernel
+     of its own), in a child process (``--mesh-child``) with a world-size-1
+     NCCL process group and a 1x1 ``("data", "model")`` mesh on the card:
+     smollm-135m at full width in fp32 compute, batch 8 x 128, 2 AdamW steps
+     with the policy (parameters as DTensors) against 2 without, losses and
+     parameters within the stated tolerances, ms a step each way
+     (DTensor's host cost); granite-moe-3b-a800m with
+     ``moe_impl="ep_shard_map"`` under the policy against ``gspmd`` without
+     one, a prefill and 8 greedy decode steps, equal tokens; then the two
+     dry-run cells started after the build in background processes (smollm-135m
+     ``train_4k``, granite-moe-3b-a800m ``decode_32k`` with EP, a fake 16x16
+     process group, meta shards: seconds and bytes per device);
   3. kernels vs plain at the main path's shapes (the session's own panels,
      inputs from ``--seed``): ``lif_step`` bit-exact, ``spike_gather``
      (with the panels' row lengths) within rtol=atol=1e-5, equal to itself
@@ -84,7 +96,9 @@ event gather).  Phases, each printing its own lines:
      on the Brunel net): the segmented gather bit-equal to the unsegmented
      kernel's virtual rows added in ascending order (``ref.segment_add_ref``)
      and within 1e-5 of its plain version on a main-path and a 5% vector,
-     timed; 256 steps graphed, uncaptured and replayed, rasters and end
+     timed (on the Brunel net also ``stdp_update`` over every bucket, the
+     split ones with ``row_map``'s post terms, bit-equal to its plain
+     version, timed beside its bound); 256 steps graphed, uncaptured and replayed, rasters and end
      states bit-equal, one launch per kernel, bucket and step; then a
      small network on the card against the plain
      torch versions on the CPU, fed the seam's numpy noise and then the
@@ -908,6 +922,39 @@ def phase_maxk(tag, net, cfg, act_main, unsplit_raster, steps=PARITY_STEPS):
             f"{t['ms_unsegmented']:.4f} ms, plain {t['plain_ms']:.3f} ms; bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nb / 1e9:.4f} GB)")
 
+    if plastic:  # stdp_update over every bucket, as the unfused step calls it
+        gen2 = torch.Generator(sim.device).manual_seed(3)
+        pre_t, post_full = (torch.rand(n_p, generator=gen2, device=sim.device) for _ in range(2))
+        act = vecs["5% active"]
+        st = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, launches_a_step=nd)
+        nb_all = 0
+        for i, (c, w, pm) in enumerate(zip(dev.cols, dev.weights0, dev.plastic)):
+            R = c.shape[0]
+            if i in split:  # each virtual row takes its row's post terms
+                post_t, post_s = (x.index_select(0, dev.row_map[i]) for x in (post_full, act))
+            else:
+                post_t, post_s = (torch.nn.functional.pad(x, (0, R - n_p)) for x in (post_full, act))
+            args = (pre_t, act, post_t, post_s)
+            require(torch.equal(stdp_mod.stdp_update_cuda(w, pm, c, *args, params=sim.stdp_params),
+                                stdp_mod.stdp_update_plain(w, pm, c, *args,
+                                                           params=sim.stdp_params)),
+                    f"{tag}: stdp_update differs from its plain version (d={dev.delays[i]})")
+            st["ms"] += cuda_ms(lambda: stdp_mod.stdp_update_cuda(
+                w, pm, c, *args, params=sim.stdp_params), 50)
+            st["plain_ms"] += cuda_ms(lambda: stdp_mod.stdp_update_plain(
+                w, pm, c, *args, params=sim.stdp_params), 5)
+            # col, weight and mask read and the weight written: 16 bytes a
+            # slot, plus the two presynaptic and two postsynaptic vectors
+            nb = c.numel() * 16 + 2 * n_p * 4 + 2 * R * 4
+            nb_all += nb
+            st["bound_ms"] += bound_ms(nb, 6 * c.numel())[0]
+        fig["stdp_update"] = st
+        say("maxk", f"{tag}: stdp_update over the {nd} buckets (a step's launches, split ones "
+            f"with each virtual row's post terms; 5% spikes): bit-equal to its plain version; "
+            f"kernel {st['ms']:.4f} ms ({st['ms'] / nd * 1e3:.2f} us a launch), plain "
+            f"{st['plain_ms']:.3f} ms, bound {st['bound_ms']:.4f} ms (bytes: {nb_all / 1e9:.4f} "
+            "GB, 16 B a slot)")
+
     # graphed (capturing its keys, launches counted), uncaptured, graphed
     # again (replays): each run from the session's start state
     st0 = ses.state
@@ -1528,6 +1575,235 @@ def phase_train(card, seed, smi):
         f"{TRAIN_CARD_CPU_TOL:g}, parameters 2^-21 of max(1, |p|)): " + "; ".join(notes)
         + f"; {smi}")
     say("train", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# [mesh]: the sharding policy on a one-card NCCL mesh, and the dry run
+MESH_SMOLLM = ("smollm-135m", 8, 128, 2)  # arch, batch, seq, train steps each way
+MESH_GRANITE = ("granite-moe-3b-a800m", 4, 16, 8)  # arch, batch, prompt, greedy decode steps
+MESH_LR = 1e-3  # constant AdamW lr of the two train runs
+# with and without the policy on a 1x1 ("data", "model") mesh, fp32 compute
+# and TF32 off (in bf16 a one-ulp gap in a logit's gradient runs through
+# every layer): the same ops on the same shards but for the loss's
+# vocab-sharded logsumexp and argmax (``train/losses.py``), so each step's
+# loss within 1e-5 relative; every parameter within 2 * MESH_LR after the 2
+# steps (Adam's first steps move a parameter by about lr whatever its
+# gradient's size, so a rounding-size gap in a near-zero gradient can move
+# one element by up to a step), and at most 1 in 10^3 elements more than
+# 1e-6 apart
+MESH_LOSS_TOL = 1e-5
+MESH_PARAM_TOL = 2 * MESH_LR
+MESH_PARAM_SHARE = 1e-3
+MESH_BUDGET_S = 60  # the [mesh] child's limit
+# two dry-run cells on the 16x16 fake mesh (``repro_torch.launch.dryrun``),
+# started in the background after the build and read in [mesh]
+DRY_CELLS = (("smollm-135m", "train_4k", ""),
+             ("granite-moe-3b-a800m", "decode_32k", "moe_impl=ep_shard_map"))
+DRY = {}
+
+
+def start_dry_runs():
+    """Start the dry-run cells, one process each (host only: no card)."""
+    out = SNAP_ROOT / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
+               OMP_NUM_THREADS="1")
+    for arch, shape, override in DRY_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               "--mesh", "single", "--out", str(out)]
+        if override:
+            cmd += ["--override", override]
+        DRY[(arch, shape)] = (subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE, text=True),
+                              time.perf_counter(), out / f"{arch}__{shape}__single.json")
+
+
+def stop_dry_runs():
+    for proc, _, _ in DRY.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def mesh_child(seed: int, reduced: bool) -> int:
+    """The body of ``--mesh-child``: a world-size-1 NCCL process group and a
+    1x1 ``("data", "model")`` mesh on the card; (a) smollm-135m in fp32
+    compute, 2 train steps with the policy (parameters as DTensors) against
+    2 without; (b)
+    granite-moe-3b-a800m served with ``moe_impl="ep_shard_map"`` under the
+    policy against ``gspmd`` without one: a prefill and greedy decode
+    steps (the prefill's token and ``MESH_GRANITE[3]`` more).  Prints one
+    ``MESH {json}`` line.  ``reduced``: the configs' ``reduced()`` (the gpu
+    tests)."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.sharding.policy import REPLICATED, make_policy, shard_model
+
+    card = torch.device("cuda", 0)
+    torch.cuda.set_device(card)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        res = {"device": torch.cuda.get_device_name(0)}
+        name, B, S, steps = MESH_SMOLLM
+        cfg = get_config(name).reduced() if reduced else get_config(name)
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _, batches = train_batches(cfg, B, S, steps, card)
+        runs = {}
+        for tag in ("plain", "policy"):
+            model = build_model(cfg, device=card, generator=torch.Generator(card).manual_seed(seed))
+            pol = None
+            if tag == "policy":
+                pol = make_policy(mesh, cfg, B)
+                shard_model(pol, model)
+            opt = AdamW(lr=MESH_LR)
+            state = opt.init(lm_param_leaves(cfg, model))
+            step = make_train_step(model, cfg, opt, policy=pol)
+            losses, ms = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, b)
+                losses.append(float(metrics["loss"]))  # waits for the step
+                ms.append((time.perf_counter() - t0) * 1e3)
+            flat = convert._flatten(convert.lm_params_to_arrays(cfg, model), "", {})
+            runs[tag] = dict(losses=losses, ms=ms, params=flat)
+            del model, state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = runs["plain"], runs["policy"]
+        gaps = {k: np.abs(a["params"][k].astype(np.float64) - b["params"][k]) for k in a["params"]}
+        n_el = sum(g.size for g in gaps.values())
+        res["train"] = dict(
+            arch=name, batch=B, seq=S, layers=cfg.n_layers, losses_plain=a["losses"],
+            losses_policy=b["losses"], ms_plain=a["ms"], ms_policy=b["ms"],
+            loss_rel=max(abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"])),
+            param_gap=max(float(g.max()) for g in gaps.values()),
+            param_share=sum(int((g > 1e-6).sum()) for g in gaps.values()) / n_el)
+        name, B, P, new = MESH_GRANITE
+        base = get_config(name).reduced() if reduced else get_config(name)
+        prompt = torch.randint(0, base.vocab_size, (B, P), dtype=torch.int32,
+                               generator=torch.Generator(card).manual_seed(seed + 1), device=card)
+        serve = {}
+        for tag in ("gspmd", "ep_shard_map"):
+            cfg = dataclasses.replace(base, moe_impl=tag)
+            model = build_model(cfg, device=card, generator=torch.Generator(card).manual_seed(seed))
+            pol = None
+            if tag == "ep_shard_map":
+                pol = make_policy(mesh, cfg, B)
+                shard_model(pol, model)
+            prefill = make_prefill_fn(model, cfg, policy=pol, cache_len=P + new)
+            decode = make_serve_step(model, cfg, policy=pol)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, logits = prefill(prompt)
+            cur = torch.argmax(logits, -1).to(torch.int32)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            toks, ms = [cur], []
+            pos = torch.full((), P, dtype=torch.int32, device=card)
+            for _ in range(new):
+                t0 = time.perf_counter()
+                logits, cache = decode(cache, cur[:, None], pos)
+                pos = pos + 1
+                cur = torch.argmax(logits, -1).to(torch.int32)
+                toks.append(cur)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            serve[tag] = dict(tokens=torch.stack(toks, 1).cpu().tolist(), prefill_ms=prefill_ms,
+                              decode_ms=ms)
+            del model, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+        res["serve"] = dict(arch=name, batch=B, prompt=P, new=new, layers=base.n_layers,
+                            experts=base.n_experts, **serve)
+        res["replicated_ops"] = dict(REPLICATED)
+        print("MESH " + json.dumps(res), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_child(seed: int, reduced: bool, timeout: float):
+    """``--mesh-child`` in a fresh process (no process group outlives it
+    here); its ``MESH`` record."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--mesh-child", "--seed", str(seed)]
+    if reduced:
+        cmd.append("--reduced")
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("MESH ")]
+    require(out.returncode == 0 and len(lines) == 1,
+            f"the [mesh] child failed (rc {out.returncode}): {out.stderr[-3000:]}")
+    return json.loads(lines[0][5:])
+
+
+def check_mesh(res):
+    """The [mesh] record's checks; returns the lines to print."""
+    t, s = res["train"], res["serve"]
+    require(all(math.isfinite(v) for v in t["losses_plain"] + t["losses_policy"]),
+            "a [mesh] training loss is not finite")
+    require(t["loss_rel"] <= MESH_LOSS_TOL,
+            f"[mesh] losses with and without the policy {t['loss_rel']:.3g} apart (relative)")
+    require(t["param_gap"] <= MESH_PARAM_TOL and t["param_share"] <= MESH_PARAM_SHARE,
+            f"[mesh] parameters with and without the policy: max gap {t['param_gap']:.3g}, "
+            f"{t['param_share']:.3g} of the elements over 1e-6")
+    require(s["gspmd"]["tokens"] == s["ep_shard_map"]["tokens"],
+            "[mesh] the EP path's greedy tokens differ from the gspmd path's")
+    return t, s
+
+
+def phase_mesh(seed, smi):
+    """[mesh] the policy on a world-size-1 NCCL mesh (a child process), then
+    the dry-run cells started after the build."""
+    t_phase = time.perf_counter()
+    res = run_mesh_child(seed, False, MESH_BUDGET_S + 60)
+    t, s = check_mesh(res)
+    child_s = time.perf_counter() - t_phase
+    say("mesh", f"{t['arch']} ({t['layers']} layers, fp32 compute, TF32 off), batch "
+        f"{t['batch']}, seq {t['seq']}, AdamW lr {MESH_LR:g}, 2 steps each way on a 1x1 ('data', "
+        "'model') NCCL mesh: losses "
+        f"{t['losses_plain']} without the policy, {t['losses_policy']} with (max gap "
+        f"{t['loss_rel']:.3g} relative, tol {MESH_LOSS_TOL:g}); parameters max |delta| "
+        f"{t['param_gap']:.3g} (tol {MESH_PARAM_TOL:g}), {t['param_share']:.3g} of elements over "
+        f"1e-6 (tol {MESH_PARAM_SHARE:g}); ms a step (the second; the first warms up) "
+        f"{t['ms_plain'][-1]:.1f} without, {t['ms_policy'][-1]:.1f} with the policy "
+        f"(DTensor's host cost {t['ms_policy'][-1] - t['ms_plain'][-1]:.1f} ms); {smi}")
+    g, e = s["gspmd"], s["ep_shard_map"]
+    say("mesh", f"{s['arch']} ({s['layers']} layers, {s['experts']} experts), batch {s['batch']}, "
+        f"prompt {s['prompt']}, a prefill and {s['new']} greedy decode steps: "
+        "moe_impl='ep_shard_map' under the policy "
+        f"gives gspmd's tokens without one: {g['tokens'] == e['tokens']}; prefill "
+        f"{g['prefill_ms']:.1f} / {e['prefill_ms']:.1f} ms, decode {np.median(g['decode_ms']):.1f} / "
+        f"{np.median(e['decode_ms']):.1f} ms a step (median, host clock to a sync), without / "
+        f"with the policy; replicated ops {res['replicated_ops']}; child process "
+        f"{child_s:.1f} s; {smi}")
+    for (arch, shape), (proc, t0, path) in DRY.items():
+        try:
+            _, err = proc.communicate(timeout=max(5.0, MESH_BUDGET_S - (time.perf_counter() - t_phase)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            require(False, f"the dry run of {arch} {shape} did not finish in time")
+        require(proc.returncode == 0, f"the dry run of {arch} {shape} failed: {err[-3000:]}")
+        rec = json.loads(path.read_text())
+        require(rec["allocated_bytes"] == 0, f"the dry run of {arch} {shape} allocated")
+        coll = ", ".join(f"{k} {rec['collective_counts'][k]} x / {v / 1e9:.3f} GB"
+                         for k, v in rec["collective_by_kind"].items())
+        say("mesh", f"dry run {arch} {shape} on a fake 16x16 process group ({rec['chips']} ranks, "
+            f"meta shards, nothing allocated; host only, no card): step {rec['step_s']} s, set-up "
+            f"{rec['setup_s']} s, started {t0 - T_START:.1f} s into the script; per device: params "
+            f"{rec['param_bytes'] / 2**30:.4f} GiB, optimizer {rec['opt_bytes'] / 2**30:.4f} GiB, "
+            f"cache {rec['cache_bytes'] / 2**30:.4f} GiB, inputs {rec['input_bytes'] / 2**20:.3f} "
+            f"MiB; {rec['flops_per_device']:.4g} FLOPs, {rec['op_bytes_per_device']:.4g} B moved "
+            f"unfused; collectives {coll}; roofline (H100 data sheet) {rec['roofline']}, dominant "
+            f"{rec['dominant']}; useful FLOPs ratio {rec['useful_flops_ratio']:.4g}; replicated "
+            f"ops {rec['replicated_ops']}")
+    say("mesh", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_small_net():
@@ -4313,6 +4589,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=float, default=1.0, help="microcircuit scale")
     ap.add_argument("--restore-child", metavar="PATH", help=argparse.SUPPRESS)
     ap.add_argument("--streaming", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--reduced", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the card",
@@ -4320,15 +4598,19 @@ def main(argv=None) -> int:
         return 1
     if args.restore_child:  # the [ingest] phase's fresh process
         return restore_child(args.restore_child, args.streaming)
+    if args.mesh_child:  # the [mesh] phase's process group
+        return mesh_child(args.seed, args.reduced)
     LAUNCHER.append(Launcher())
     global T_START
     T_START = t_start = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
+    start_dry_runs()
     card = torch.device("cuda", torch.cuda.current_device())
     phase_contracts(card)
     phase_lm(card, args.seed, smi)
     phase_train(card, args.seed, smi)
+    phase_mesh(args.seed, smi)
 
     # one build of the microcircuit, as the uniform k>1 net; the k=1 paths
     # run its merge (the same labelling, with the inert padding neurons)
@@ -4524,10 +4806,11 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    child = "--restore-child" in sys.argv
+    child = "--restore-child" in sys.argv or "--mesh-child" in sys.argv
     try:
         sys.exit(main())
     finally:
+        stop_dry_runs()
         for launcher in LAUNCHER:
             launcher.close()
         if not child:  # the parent owns the snapshots

@@ -18,7 +18,9 @@ packages:
     :func:`lm_opt_state_from_arrays` carry an optimizer state (fp32 or
     8-bit moments) both ways, through ``models.leaves.lm_param_leaves``,
     the map between the two layouts.  What they return holds copies,
-    never views of a live parameter or moment.
+    never views of a live parameter or moment; a DTensor (a sharded run's
+    parameter or moment) is gathered whole first, so every rank gets the
+    tree an unsharded run would write.
 """
 from __future__ import annotations
 
@@ -214,10 +216,19 @@ def _params_tree(cfg, leaves: Sequence[ParamLeaf], values: Sequence[Any]):
     return root
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (``full_tensor``: every rank gets the full
+    value), else ``t``; a sharded run's checkpoint so holds the bytes of an
+    unsharded one."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _leaf_array(leaf: ParamLeaf) -> np.ndarray:
     if leaf.stacked:
-        return host_array(torch.stack([p.detach() for p in leaf.params]))
-    return host_array(leaf.params[0])
+        return host_array(torch.stack([_whole(p.detach()) for p in leaf.params]))
+    return host_array(_whole(leaf.params[0].detach()))
 
 
 def lm_params_to_arrays(cfg, model):
@@ -238,7 +249,7 @@ def lm_opt_state_to_arrays(cfg, state, like: bool = False):
     stacked shapes or of ``{"q", "scale"}`` dicts; ``SGDM``: ``dict(mu,
     count)``).  With ``like`` the same structure holding 0s, no copies (a
     ``CheckpointManager.restore`` structure)."""
-    conv = (lambda x: 0) if like else host_array
+    conv = (lambda x: 0) if like else (lambda x: host_array(_whole(x)))
     out: Dict[str, Any] = {"count": conv(state["count"])}
     for key, per_leaf in state.items():
         if key in _OPT_SKIP:

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ..sharding.policy import constrain
 from . import layers as L
 
 
@@ -70,12 +71,12 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         cdt = L.dtype_of(cfg.compute_dtype)
         S = frames.shape[1]
-        x = frames.to(cdt) + self.enc_pos[:S].to(cdt)
+        x = constrain(frames.to(cdt) + self.enc_pos[:S].to(cdt), "btd")
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
         for lp in self.enc_layers:
             out, _ = lp.attn(lp.ln1(x), positions=pos, causal=False)
             x = x + out
-            x = x + lp.mlp(lp.ln2(x))
+            x = constrain(x + lp.mlp(lp.ln2(x)), "btd")
         return self.enc_ln_f(x)
 
     # -- caches --------------------------------------------------------------
@@ -108,6 +109,7 @@ class EncDecLM(nn.Module):
             x = x + self.dec_pos.index_select(0, row).to(cdt)
             positions = cache_pos.reshape(1, 1) * torch.ones((B, 1), dtype=torch.int32,
                                                              device=dev)
+        x = constrain(x, "btd")
         for i, lp in enumerate(self.dec_layers):
             c_self = c_cross = None
             if cache is not None:
@@ -120,7 +122,7 @@ class EncDecLM(nn.Module):
                                    cache=c_cross, cache_pos=cache_pos, kv_source=enc_out,
                                    cross=True)
             x = x + out
-            x = x + lp.mlp(lp.ln2(x))
+            x = constrain(x + lp.mlp(lp.ln2(x)), "btd")
         return self.emb.logits(self.ln_f(x)), cache, {}
 
     def forward(self, tokens, *, frames=None, enc_out=None, cache=None, cache_pos=None, **_):

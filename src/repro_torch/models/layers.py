@@ -17,9 +17,17 @@ Conventions, as in the reference:
 
 Caches are written in place (``index_copy_`` at a device index), and a
 decode step reads its position from a 0-d device tensor: nothing in a step
-reads a value back to the host.  The reference's sharding hints
-(``constrain``) are the identity without a policy, and one card has none,
-so the port has no counterpart.
+reads a value back to the host.
+
+The reference's sharding hints are here at its call sites:
+``sharding.policy.constrain`` redistributes a DTensor activation to its
+kind's spec under a policy, and is the identity without one (one card, no
+policy: no op added).  Under a policy the parameters and inputs are
+DTensors and DTensor's sharding propagation plays GSPMD's part; a cache
+write that is not the whole cache, which DTensor has no in-place layout
+for, takes a masked ``where`` (a decode step) or
+``sharding.policy.replicated`` (a prefill into a longer or ring cache),
+then ``assign_`` writes the result into the cache in its own layout.
 """
 from __future__ import annotations
 
@@ -28,6 +36,9 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from ..sharding.policy import assign_, attend, constrain, dense, embedding, replicated, split_last
 
 NEG = -1e30  # the reference's mask value
 
@@ -69,7 +80,7 @@ class Dense(nn.Module):
             self.register_parameter("b", None)
 
     def forward(self, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
-        y = x.to(cdt) @ self.w.to(cdt)
+        y = dense(x.to(cdt), self.w.to(cdt))
         if self.b is not None:
             y = y + self.b.to(cdt)
         return y
@@ -210,6 +221,12 @@ def prefill_cache_write(k: torch.Tensor, cache_k: torch.Tensor, window: int) -> 
     """Write prefilled keys/values into a cache in place and return it.  A
     windowed (ring) cache keeps the last ``Sc`` entries at ``pos % Sc``."""
     S, Sc = k.shape[1], cache_k.shape[1]
+    if isinstance(cache_k, DTensor):
+        if not window and S == Sc:
+            return assign_(cache_k, k)
+        new = replicated("prefill_cache_write",
+                         lambda k, c: prefill_cache_write(k, c.clone(), window), k, cache_k)
+        return assign_(cache_k, new)
     if not window:
         if S > Sc:
             raise ValueError(f"a prefill of {S} tokens does not fit a cache of {Sc} slots")
@@ -228,6 +245,9 @@ def decode_cache_write(k: torch.Tensor, cache_k: torch.Tensor, cache_pos: torch.
     ``dynamic_update_slice`` takes, ``pos`` clamped to ``[0, Sc - 1]``."""
     Sc = cache_k.shape[1]
     slot = torch.remainder(cache_pos, Sc) if window else torch.clamp(cache_pos, 0, Sc - 1)
+    if isinstance(cache_k, DTensor):  # a mask over the slots: no collective
+        hit = (torch.arange(Sc, device=slot.device) == slot).reshape(1, Sc, 1, 1)
+        return assign_(cache_k, torch.where(hit, k.to(cache_k.dtype), cache_k))
     return cache_k.index_copy_(1, slot.reshape(1).long(), k.to(cache_k.dtype))
 
 
@@ -259,9 +279,10 @@ class Attention(nn.Module):
         cdt = dtype_of(cfg.compute_dtype)
         B, S, _ = x.shape
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        q = self.wq(x, cdt).reshape(B, S, H, hd)
+        q = split_last(self.wq(x, cdt), H, hd)
         if cfg.use_rope and not cross:
             q = rope(q, positions, cfg.rope_theta)
+        q = constrain(q, "bthd")
         k_valid = None
         decode = cache_pos is not None
         if cross and decode:
@@ -269,8 +290,8 @@ class Attention(nn.Module):
             k_valid = k.shape[1]
         else:
             kv_in = x if kv_source is None else kv_source
-            k = self.wk(kv_in, cdt).reshape(B, -1, KV, hd)
-            v = self.wv(kv_in, cdt).reshape(B, -1, KV, hd)
+            k = split_last(self.wk(kv_in, cdt), KV, hd)
+            v = split_last(self.wv(kv_in, cdt), KV, hd)
             if cfg.use_rope and not cross and kv_source is None:
                 k = rope(k, positions, cfg.rope_theta)
             if cache is not None and not decode:
@@ -282,12 +303,12 @@ class Attention(nn.Module):
                 v = decode_cache_write(v, cache["v"], cache_pos, window)
                 k_valid = torch.clamp(cache_pos + 1, max=Sc)
         if decode:
-            out = sdpa(q, k, v, causal=False, window=0, k_valid=k_valid)
+            out = attend(sdpa, q, k, v, causal=False, window=0, k_valid=k_valid)
         else:
             attn = chunked_attention if S > 2048 else sdpa
-            out = attn(q, k, v, causal=causal and kv_source is None, window=window,
-                       prefix_len=prefix_len)
-        return self.wo(out.reshape(B, S, H * hd), cdt), cache
+            out = attend(attn, q, k, v, causal=causal and kv_source is None, window=window,
+                         prefix_len=prefix_len)
+        return constrain(self.wo(out.reshape(B, S, H * hd), cdt), "btd"), cache
 
 
 # -- MLPs ---------------------------------------------------------------------
@@ -316,7 +337,8 @@ class MLP(nn.Module):
             h = gelu(self.w_gate(x, cdt)) * h
         else:
             h = gelu(h)
-        return self.w_out(h, cdt)
+        h = constrain(h, "btf")
+        return constrain(self.w_out(h, cdt), "btd")
 
 
 # -- embeddings ---------------------------------------------------------------
@@ -340,13 +362,12 @@ class Embed(nn.Module):
         # index_select, not F.embedding: on the card the embedding's backward
         # reads a segment count back to the host, index_select's (an
         # index_add_) does not
-        rows = self.embed.index_select(0, tokens.reshape(-1).long())
-        return rows.reshape(tokens.shape + (-1,)).to(dtype_of(self.cfg.compute_dtype))
+        return embedding(self.embed, tokens).to(dtype_of(self.cfg.compute_dtype))
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         cdt = dtype_of(self.cfg.compute_dtype)
         table = self.embed if self.cfg.tie_embeddings else self.out_head
-        return x.to(cdt) @ table.to(cdt).T
+        return constrain(dense(x.to(cdt), table.to(cdt).T), "logits")
 
 
 def zeros_aux(cfg, device) -> Dict[str, torch.Tensor]:

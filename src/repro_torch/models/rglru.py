@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ..sharding.policy import assign_, constrain
 from .layers import Dense, dtype_of, gelu, softplus, trunc_normal
 
 _C = 8.0
@@ -92,10 +93,10 @@ class RGLRU(nn.Module):
             hs = scan_recurrence(a, b)
             h = hs[:, -1]
         if state is not None:
-            state["h"].copy_(h)
-            state["conv"].copy_(new_conv)
+            assign_(state["h"], h)
+            assign_(state["conv"], new_conv)
         out = hs.to(cdt) * gelu(gate_br)
-        return self.w_out(out, cdt), state
+        return constrain(self.w_out(out, cdt), "btd"), state
 
 
 def rglru_init_state(cfg, batch, dtype, device) -> Dict[str, torch.Tensor]:

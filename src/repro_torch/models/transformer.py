@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding.policy import constrain
 from . import layers as L
 from .moe import MoE
 from .rglru import RGLRU, rglru_init_state
@@ -81,7 +82,7 @@ class Block(nn.Module):
             else:
                 m = self.mlp(h2)
             x = x + m
-        return x, cache, aux
+        return constrain(x, "btd"), cache, aux
 
 
 def block_cache_init(cfg, btype: str, batch: int, seq_len: int, dtype, device) -> Dict:
@@ -159,6 +160,7 @@ class DecoderLM(nn.Module):
                 positions = cache_pos.reshape(1, 1) * ones
             else:
                 positions = torch.arange(S, dtype=torch.int32, device=dev)[None, :] * ones
+        x = constrain(x, "btd")
         aux_total = L.zeros_aux(cfg, dev)
         P = cfg.pattern_period
         n_remat = 0

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..sharding.policy import assign_, constrain
 from .layers import NEG, Dense, Norm, dtype_of, gelu, softplus, trunc_normal
 from .rglru import causal_conv
 
@@ -146,10 +147,10 @@ class MLSTM(nn.Module):
             hs = torch.stack(ys, dim=1)  # (B, S, nh, hd)
         if state is not None:
             for key, val in zip(("C", "n", "m"), st):
-                state[key].copy_(val)
-            state["conv"].copy_(new_conv)
+                assign_(state[key], val)
+            assign_(state["conv"], new_conv)
         hflat = self.gn(hs.reshape(B, -1, di).to(cdt))
-        return self.w_down(hflat * F.silu(z), cdt), state
+        return constrain(self.w_down(hflat * F.silu(z), cdt), "btd"), state
 
 
 def mlstm_init_state(cfg, batch, dtype, device) -> Dict[str, torch.Tensor]:
@@ -224,10 +225,10 @@ class SLSTM(nn.Module):
             hs = torch.stack(ys, dim=1)
         if state is not None:
             for key, val in zip("cnmh", st):
-                state[key].copy_(val)
+                assign_(state[key], val)
         hflat = self.gn(hs.reshape(B, -1, d).to(cdt))
         a, b = torch.chunk(self.w_up(hflat, cdt), 2, dim=-1)
-        return self.w_down(gelu(a) * b, cdt), state
+        return constrain(self.w_down(gelu(a) * b, cdt), "btd"), state
 
 
 def slstm_init_state(cfg, batch, dtype, device) -> Dict[str, torch.Tensor]:

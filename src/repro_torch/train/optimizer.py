@@ -25,6 +25,19 @@ parameters and of the moments, one slice of the leading axis at a time for
 the 8-bit moments (its fp32 temporaries exist one slice at a time).
 ``count`` and ``lr`` are 0-d device tensors and nothing in ``update`` reads
 a value back to the host.
+
+On DTensor parameters (``sharding.policy.shard_model``) the moments take
+their parameters' placements, a stacked leaf's one dim further in (the
+reference's ``opt_shardings``: ``m`` and ``v`` as the params), and the
+8-bit blocks shard their leading dim as widely as it divides
+(``sharding.policy.q8_spec``).  ``update`` first lays each gradient out as
+its parameter (an all-reduce or reduce-scatter of the data-parallel
+partial sums), sums the norm's squares over the shards that hold distinct
+values, and then runs the same elementwise update on the local shards.
+The 8-bit update dequantizes a leaf's blocks, which cut across its
+parameters' shards, so it gathers that leaf's parameters, gradients and
+blocks whole, runs the update replicated and keeps each rank's chunk
+(GSPMD's answer to the same reshape).
 """
 from __future__ import annotations
 
@@ -33,8 +46,10 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..models.leaves import ParamLeaf
+from ..sharding.policy import local_shape, mesh_shape, placements, q8_spec
 
 BLOCK = 128
 _INV127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
@@ -106,6 +121,61 @@ def _rows(leaf: ParamLeaf, values: Sequence[torch.Tensor]) -> List[List[torch.Te
 
 
 # ---------------------------------------------------------------------------
+# DTensor parameters
+# ---------------------------------------------------------------------------
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its storage, under ``no_grad``), else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def like_params(grads, params) -> List[torch.Tensor]:
+    """Each gradient in its parameter's layout (a data-parallel ``Partial``
+    gradient is all-reduced or reduce-scattered here)."""
+    return [g.redistribute(p.device_mesh, p.placements)
+            if isinstance(g, DTensor) and g.placements != p.placements else g
+            for g, p in zip(grads, params)]
+
+
+def _as_dtensor(local: torch.Tensor, mesh, place, shape) -> DTensor:
+    return DTensor.from_local(local, mesh, place, run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _chunk(full: torch.Tensor, like: DTensor) -> torch.Tensor:
+    """This rank's chunk of ``full`` in ``like``'s layout (no collective)."""
+    rep = DTensor.from_local(full, like.device_mesh, [Replicate()] * like.device_mesh.ndim,
+                             run_check=False)
+    return rep.redistribute(like.device_mesh, like.placements).to_local()
+
+
+def moment_zeros(leaf: ParamLeaf) -> torch.Tensor:
+    """fp32 zeros in the leaf's (stacked) shape; on DTensor parameters a
+    DTensor in their layout, a stacked leaf's shard dims one further in."""
+    p = leaf.params[0]
+    if not isinstance(p, DTensor):
+        return torch.zeros(leaf.shape, dtype=torch.float32, device=p.device)
+    local = p.to_local()
+    lead = (len(leaf.params),) if leaf.stacked else ()
+    place = [Shard(s.dim + len(lead)) if isinstance(s, Shard) else s for s in p.placements]
+    z = torch.zeros(lead + tuple(local.shape), dtype=torch.float32, device=local.device)
+    return _as_dtensor(z, p.device_mesh, place, leaf.shape)
+
+
+def _q8_sharded(leaf: ParamLeaf, z: torch.Tensor) -> torch.Tensor:
+    """An 8-bit block tensor of zeros for ``leaf``, on DTensor parameters a
+    DTensor laid out by ``q8_spec``."""
+    p = leaf.params[0]
+    if not isinstance(p, DTensor):
+        return z
+    mesh = p.device_mesh
+    axes = mesh_shape(mesh)
+    spec = q8_spec(axes, tuple(z.shape))
+    return _as_dtensor(z.new_zeros(local_shape(axes, spec, tuple(z.shape))), mesh,
+                       placements(axes, spec), tuple(z.shape))
+
+
+# ---------------------------------------------------------------------------
 # Schedules
 # ---------------------------------------------------------------------------
 
@@ -128,8 +198,22 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     norm on any device, whatever order a device's reduction takes (an fp32
     sum over a 28 M-element embedding differed by 6e-6 between the card and
     the CPU)."""
-    norms = torch._foreach_norm(list(tensors), 2, dtype=torch.float64)
-    return torch.sqrt(torch.sum(torch.stack(norms) ** 2)).float()
+    tensors = list(tensors)
+    if not any(isinstance(t, DTensor) for t in tensors):
+        norms = torch._foreach_norm(tensors, 2, dtype=torch.float64)
+        return torch.sqrt(torch.sum(torch.stack(norms) ** 2)).float()
+    # DTensors: each shard's squares, summed over the mesh dims that shard
+    # the tensor (a replicated dim holds the same values on every rank)
+    groups: Dict[Tuple, List[torch.Tensor]] = {}
+    for t in tensors:
+        groups.setdefault(tuple(t.placements), []).append(t.to_local())
+    mesh = next(t.device_mesh for t in tensors if isinstance(t, DTensor))
+    total = 0.0
+    for place, local in groups.items():
+        sq = torch.stack(torch._foreach_norm(local, 2, dtype=torch.float64)) ** 2
+        summed = [Partial() if isinstance(p, Shard) else Replicate() for p in place]
+        total = total + DTensor.from_local(sq, mesh, summed, run_check=False).full_tensor().sum()
+    return torch.sqrt(total).float()
 
 
 def _clip_scale(gnorm: torch.Tensor, clip_norm: float) -> torch.Tensor:
@@ -168,8 +252,8 @@ class AdamW:
 
         def zeros(leaf):
             if self.quantize_moments:
-                return _q8_zeros(leaf.shape, dev)
-            return torch.zeros(leaf.shape, dtype=torch.float32, device=dev)
+                return {k: _q8_sharded(leaf, z) for k, z in _q8_zeros(leaf.shape, dev).items()}
+            return moment_zeros(leaf)
 
         return dict(leaves=leaves, m=[zeros(leaf) for leaf in leaves],
                     v=[zeros(leaf) for leaf in leaves],
@@ -212,7 +296,7 @@ class AdamW:
         moments and its ``count``): ``grads`` in the order of
         :func:`flat_params`.  Returns ``(state, metrics)`` with
         ``grad_norm`` and ``lr``, 0-d device tensors."""
-        grads = [g.float() for g in grads]
+        grads = [g.float() for g in like_params(grads, flat_params(state))]
         count = state["count"] + 1
         gnorm = global_norm(grads)
         clip = _clip_scale(gnorm, self.clip_norm) if self.clip_norm is not None else None
@@ -224,22 +308,38 @@ class AdamW:
             gs = [next(it) for _ in leaf.params]
             decay = len(leaf.shape) >= 2
             if not self.quantize_moments:
-                M, V = (list(m), list(v)) if leaf.stacked else ([m], [v])
-                self._core(leaf.params, gs, M, V, decay, c1, c2, lr, clip)
-                continue
-            prow, grow = _rows(leaf, leaf.params), _rows(leaf, gs)
-            for i in range(_lead(leaf.shape)):
-                sizes = [x.numel() for x in prow[i]]
-                m_f = (m["q"][i].float() * m["scale"][i]).reshape(-1)[:sum(sizes)]
-                v_f = (v["q"][i].float() * v["scale"][i]).reshape(-1)[:sum(sizes)]
-                self._core(prow[i], grow[i], list(m_f.split(sizes)), list(v_f.split(sizes)),
+                M, V = _local(m), _local(v)
+                M, V = (list(M), list(V)) if leaf.stacked else ([M], [V])
+                self._core([_local(p) for p in leaf.params], [_local(g) for g in gs], M, V,
                            decay, c1, c2, lr, clip)
-                for qs, x in ((m, m_f), (v, v_f)):
-                    q, scale = _q8_rows(x)
-                    qs["q"][i].copy_(q)
-                    qs["scale"][i].copy_(scale)
+                continue
+            if isinstance(m["q"], DTensor):
+                ps, gs = [p.full_tensor() for p in leaf.params], [g.full_tensor() for g in gs]
+                mf = {k: x.full_tensor() for k, x in m.items()}
+                vf = {k: x.full_tensor() for k, x in v.items()}
+                self._q8_leaf(leaf, ps, gs, mf, vf, decay, c1, c2, lr, clip)
+                for dst, src in zip(leaf.params + list(m.values()) + list(v.values()),
+                                    ps + list(mf.values()) + list(vf.values())):
+                    dst.to_local().copy_(_chunk(src, dst))
+                continue
+            self._q8_leaf(leaf, leaf.params, gs, m, v, decay, c1, c2, lr, clip)
         state["count"] = count
         return state, dict(grad_norm=gnorm, lr=lr)
+
+    def _q8_leaf(self, leaf, params, gs, m, v, decay, c1, c2, lr, clip) -> None:
+        """One leaf's 8-bit update in place, a slice of its leading axis at a
+        time, on plain tensors."""
+        prow, grow = _rows(leaf, params), _rows(leaf, gs)
+        for i in range(_lead(leaf.shape)):
+            sizes = [x.numel() for x in prow[i]]
+            m_f = (m["q"][i].float() * m["scale"][i]).reshape(-1)[:sum(sizes)]
+            v_f = (v["q"][i].float() * v["scale"][i]).reshape(-1)[:sum(sizes)]
+            self._core(prow[i], grow[i], list(m_f.split(sizes)), list(v_f.split(sizes)),
+                       decay, c1, c2, lr, clip)
+            for qs, x in ((m, m_f), (v, v_f)):
+                q, scale = _q8_rows(x)
+                qs["q"][i].copy_(q)
+                qs["scale"][i].copy_(scale)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,9 +352,7 @@ class SGDM:
         """``dict(leaves, mu, count)``, ``mu`` fp32 zeros per leaf."""
         leaves = list(leaves)
         dev = leaves[0].params[0].device
-        return dict(leaves=leaves,
-                    mu=[torch.zeros(leaf.shape, dtype=torch.float32, device=dev)
-                        for leaf in leaves],
+        return dict(leaves=leaves, mu=[moment_zeros(leaf) for leaf in leaves],
                     count=torch.zeros((), dtype=torch.int32, device=dev))
 
     @torch.no_grad()
@@ -263,14 +361,15 @@ class SGDM:
         parameters and ``state``), ``grads`` in the order of
         :func:`flat_params`."""
         params = flat_params(state)
-        grads = [g.float() for g in grads]
+        grads = [g.float() for g in like_params(grads, params)]
         count = state["count"] + 1
         gnorm = global_norm(grads)
+        params, grads = [_local(p) for p in params], [_local(g) for g in grads]
         if self.clip_norm is not None:
             grads = torch._foreach_mul(grads, _clip_scale(gnorm, self.clip_norm))
         lr = _lr_of(self.lr, count)
         mus = [x for leaf, mu in zip(state["leaves"], state["mu"])
-               for x in (list(mu) if leaf.stacked else [mu])]
+               for x in (list(_local(mu)) if leaf.stacked else [_local(mu)])]
         torch._foreach_mul_(mus, self.momentum)
         torch._foreach_add_(mus, grads)
         step = torch._foreach_mul(mus, lr)

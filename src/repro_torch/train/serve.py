@@ -6,6 +6,13 @@ functions here take no ``params``: ``prefill(tokens, extras)`` and
 ``serve_step(cache, token, pos)``.  A decode step reads its position from
 a 0-d device tensor and writes the cache in place, so it never waits on
 the host; the generation loop keeps its position on the device.
+
+With a ``policy`` (the model's parameters DTensors from
+``sharding.policy.shard_model``) both run under ``policy_context``: the
+tokens and extras are sharded over the batch axes, the prefill's cache is
+laid out by ``launch.specs.cache_spec`` (batch over the batch axes, a KV
+cache's sequence over "model"), and the logits come back whole as plain
+tensors.
 """
 from __future__ import annotations
 
@@ -13,32 +20,53 @@ from typing import Dict, Optional
 
 import torch
 
+from ..sharding.policy import Policy, distribute, policy_context
+from .train_loop import plain, shard_batch
 
-def make_prefill_fn(model, cfg, cache_len: Optional[int] = None):
+
+def shard_cache(policy: Optional[Policy], cache, batch: int):
+    """The cache's tensors as DTensors laid out by
+    ``launch.specs.cache_spec`` (unchanged without a policy)."""
+    if policy is None or policy.mesh is None:
+        return cache
+    from ..launch.specs import cache_spec
+
+    def one(x):
+        return distribute(policy, x, cache_spec(policy, tuple(x.shape), batch))
+    if isinstance(cache, dict):
+        return {k: one(v) for k, v in cache.items()}
+    return [{k: one(v) for k, v in layer.items()} for layer in cache]
+
+
+def make_prefill_fn(model, cfg, policy: Optional[Policy] = None,
+                    cache_len: Optional[int] = None):
     def prefill(tokens: torch.Tensor, extras: Optional[Dict] = None):
         """tokens: (B, S_prompt).  Returns ``(cache, last_logits)``."""
         B, S = tokens.shape
-        kwargs = dict(extras or {})
-        with torch.no_grad():
+        with torch.no_grad(), policy_context(policy):
+            kwargs = shard_batch(policy, dict(extras or {}))
             if cfg.encdec:
                 cache = model.init_cache(B, cache_len or cfg.max_seq,
                                          kwargs["frames"].shape[1])
             else:
                 cache = model.init_cache(B, cache_len or S)
+            cache = shard_cache(policy, cache, B)
+            tokens = shard_batch(policy, {"t": tokens})["t"]
             logits, cache, _ = model(tokens, cache=cache, **kwargs)
-        return cache, logits[:, -1]
+            return cache, plain(logits[:, -1])
 
     return prefill
 
 
-def make_serve_step(model, cfg):
+def make_serve_step(model, cfg, policy: Optional[Policy] = None):
     """Decode one token: ``(cache, token (B, 1), pos) -> (logits (B, V),
     cache)``, ``pos`` a 0-d device tensor."""
 
     def serve_step(cache, token: torch.Tensor, pos: torch.Tensor):
-        with torch.no_grad():
+        with torch.no_grad(), policy_context(policy):
+            token = shard_batch(policy, {"t": token})["t"]
             logits, cache, _ = model(token, cache=cache, cache_pos=pos)
-        return logits[:, -1], cache
+            return plain(logits[:, -1]), cache
 
     return serve_step
 

@@ -2090,3 +2090,29 @@ def test_adamw_8bit_card_matches_the_cpu(cuda):
             n_diff += int((d > 0).sum())
             n_all += d.numel()
     assert n_diff <= max(n_all // 10**4, 1), (n_diff, n_all)
+
+
+# -- the sharding policy on a one-card mesh ------------------------------------------
+
+def test_mesh_policy_on_a_one_card_nccl_mesh(cuda):
+    """``chip_smoke.py``'s ``[mesh]`` checks at ``reduced()`` widths, in a
+    fresh process (``--mesh-child --reduced``: a world-size-1 NCCL group and
+    a 1x1 ``("data", "model")`` mesh): smollm-135m's 2 train steps with the
+    policy against 2 without (losses within 1e-5 relative, parameters
+    within 2 x lr and at most 1 in 10^4 elements over 1e-6 apart), and
+    granite-moe-3b-a800m's EP path under the policy giving the gspmd path's
+    greedy tokens without one.  No process group outlives the child."""
+    import os
+    import sys
+
+    import torch.distributed as dist
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke
+
+    res = chip_smoke.run_mesh_child(0, True, 600)
+    chip_smoke.check_mesh(res)
+    assert res["device"] == torch.cuda.get_device_name(0)
+    assert len(res["serve"]["gspmd"]["tokens"][0]) == chip_smoke.MESH_GRANITE[3] + 1
+    assert not dist.is_initialized()

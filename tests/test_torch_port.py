@@ -63,3 +63,29 @@ def test_repolint_stays_clean_over_the_port():
 
     violations = repolint.lint_paths([PORT], tests_dir=os.path.join(ROOT, "tests"))
     assert violations == [], "\n".join(str(v) for v in violations)
+
+
+MESH_MODULES = ("sharding/__init__.py", "sharding/policy.py", "launch/mesh.py",
+                "launch/specs.py", "launch/dryrun.py", "analysis/roofline.py")
+
+
+@pytest.mark.parametrize("rel", MESH_MODULES)
+def test_mesh_modules_are_scanned(rel):
+    """The mesh half's modules are among the files the scan above reads."""
+    assert os.path.join(PORT, rel) in _port_files()
+
+
+def test_mesh_modules_import_without_a_process_group():
+    """Importing the mesh half starts no process group and builds no mesh:
+    the meshes are functions (the reference's ``launch/mesh.py`` rule)."""
+    code = (
+        "import torch.distributed as dist\n"
+        "import repro_torch.sharding, repro_torch.launch.mesh, repro_torch.launch.specs\n"
+        "import repro_torch.launch.dryrun, repro_torch.analysis.roofline\n"
+        "print(dist.is_initialized())\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
