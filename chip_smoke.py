@@ -70,6 +70,23 @@ event gather).  Phases, each printing its own lines:
      dry-run cells started after the build in background processes (smollm-135m
      ``train_4k``, granite-moe-3b-a800m ``decode_32k`` with EP, a fake 16x16
      process group, meta shards: seconds and bytes per device);
+  [lm child] two child processes on the card (``--lm-child serve`` and
+     ``--lm-child train``), each beside a host build of the parent's in
+     which the card idles, joined before the parent's next allocation or
+     timed run there, their lines printed at the join: right after [mesh],
+     beside the microcircuit's ``to_dcsr`` and merge, stablelm-12b,
+     phi3-medium-14b and command-r-35b (bf16 params, 56.4 GiB for
+     command-r) through every ``[lm]`` check at batch 4, prompt 16, 24 new
+     tokens, with the card's free memory before each build and the cache
+     path against the cache-free forward also at full depth in fp32
+     compute; beside p3's build, recurrentgemma-2b, xlstm-350m,
+     paligemma-3b and whisper-small trained at full width and depth, batch
+     4 x 128 (stub image tokens and frames), AdamW fp32 moments, 3 steps (2
+     where a step takes over 3 s), the second under
+     ``set_sync_debug_mode("error")``, every loss finite, every parameter
+     moved (a bf16 one of magnitude >= 0.5 may round its update away, as in
+     the reference, if its first moment moved), and each against the CPU
+     at 2 periods in fp32;
   3. kernels vs plain at the main path's shapes (the session's own panels,
      inputs from ``--seed``): ``lif_step`` bit-exact, ``spike_gather``
      (with the panels' row lengths) within rtol=atol=1e-5, equal to itself
@@ -96,7 +113,8 @@ event gather).  Phases, each printing its own lines:
      on the Brunel net): the segmented gather bit-equal to the unsegmented
      kernel's virtual rows added in ascending order (``ref.segment_add_ref``)
      and within 1e-5 of its plain version on a main-path and a 5% vector,
-     timed (on the Brunel net also ``stdp_update`` over every bucket, the
+     timed beside ``torch.sparse.mm`` over the split buckets' real rows
+     (on the Brunel net also ``stdp_update`` over every bucket, the
      split ones with ``row_map``'s post terms, bit-equal to its plain
      version, timed beside its bound); 256 steps graphed, uncaptured and replayed, rasters and end
      states bit-equal, one launch per kernel, bucket and step; then a
@@ -172,7 +190,9 @@ counts: 10,000 E and 2,500 I neurons, epsilon 0.1, 15.6 M synapses of which
 merged -> ``Session(SimConfig())``, which takes the ``fused_plastic``
 engine:
   8. the plastic kernels against their plain versions on that session's
-     panels: ``stdp_update`` bit-exact for every bucket, ``fused_step_plastic``
+     panels: ``stdp_update`` bit-exact for every bucket, and on the panels
+     cast to bf16 (a bf16 and an f32 mask; every op rounded to bf16, the
+     reference kernel's rule) in place and out of place, ``fused_step_plastic``
      bit-exact against ``lif_step`` + trace decay + ``spike_gather`` +
      ``stdp_update`` and against its plain version but for the currents
      (rtol=atol=1e-5);
@@ -184,8 +204,9 @@ engine:
      ``spike_gather`` and ``stdp_update``), counts checked, whose raster,
      traces and weights equal a fresh ``fused_plastic`` run's bit for bit;
  11. both plastic engines' us/step; a small plastic net on the card against
-     the CPU plain versions; timing of both plastic kernels, their plain
-     versions and their bounds.
+     the CPU plain versions; timing of both plastic kernels (``stdp_update``
+     also on the bf16 panels, with either mask), their plain versions and
+     their bounds.
 
 The k>1 plastic path: the k=4 net on the one card with ``SimConfig()``
 (dense exchange of spikes and pre-traces, overlap ``local``,
@@ -874,12 +895,15 @@ def phase_maxk(tag, net, cfg, act_main, unsplit_raster, steps=PARITY_STEPS):
                     for i, (d, c) in enumerate(zip(dev.delays, dev.cols)))
         + f"; {panel_gb:.3f} GB of cols + weights{' + masks' if plastic else ''}; fill "
         f"{sim.ell.fill_factor:.3f}")
+    csrs = {i: _csr_rows(dev.cols[i], dev.weights0[i], dev.row_len[i], dev.row_ptr[i], n_p)
+            for i in split}
     gen = torch.Generator(sim.device).manual_seed(2)
     vecs = {"main-path step": torch.from_numpy(act_main.astype(np.float32)).to(sim.device),
             "5% active": (torch.rand(n_p, generator=gen, device=sim.device) < 0.05).float()}
     fig, err = {}, 0.0
     for label, a in vecs.items():
-        t = dict(ms_segment=0.0, ms_unsegmented=0.0, plain_ms=0.0)
+        t = dict(ms_segment=0.0, ms_unsegmented=0.0, plain_ms=0.0, library_ms=0.0)
+        a2 = a[:, None].contiguous()
         nb = active = 0
         for i in split:
             c, w, rl, rp = dev.cols[i], dev.weights0[i], dev.row_len[i], dev.row_ptr[i]
@@ -903,6 +927,9 @@ def phase_maxk(tag, net, cfg, act_main, unsplit_raster, steps=PARITY_STEPS):
                 a, c, w, rl, reduce=rb), 20)
             t["plain_ms"] += cuda_ms(lambda: ref.spike_gather_segment_ref(
                 a, c, w, rp, depth=depth), 3)
+            torch.testing.assert_close(torch.sparse.mm(csrs[i], a2)[:, 0], got, rtol=1e-5,
+                                       atol=1e-5)
+            t["library_ms"] += cuda_ms(lambda: torch.sparse.mm(csrs[i], a2), 20)
             rows = torch.arange(c.shape[0], device=c.device) < v_rows[i]
             real_, active_, _ = gather_traffic(a, c, rl, rows)
             if rb == ("row_dot",):  # every slot of the virtual rows: col and weight
@@ -919,9 +946,11 @@ def phase_maxk(tag, net, cfg, act_main, unsplit_raster, steps=PARITY_STEPS):
             f"{label} ({int(a.sum())} of {n_p} ids): bit-equal to the unsegmented kernel's "
             f"virtual rows added in ascending order and to its row_dot variant; kernel "
             f"{t['ms_segment']:.4f} ms, unsegmented (the virtual rows alone) "
-            f"{t['ms_unsegmented']:.4f} ms, plain {t['plain_ms']:.3f} ms; bound "
+            f"{t['ms_unsegmented']:.4f} ms, plain {t['plain_ms']:.3f} ms, torch.sparse.mm "
+            f"over the real rows {t['library_ms']:.4f} ms; bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nb / 1e9:.4f} GB)")
 
+    del csrs
     if plastic:  # stdp_update over every bucket, as the unfused step calls it
         gen2 = torch.Generator(sim.device).manual_seed(3)
         pre_t, post_full = (torch.rand(n_p, generator=gen2, device=sim.device) for _ in range(2))
@@ -1042,8 +1071,15 @@ LM_LONG = ("smollm-135m", 64, 512, 128)  # arch, batch, prompt, new tokens
 # 5.8e-3, 1.1e-2, 1.7e-2, 3.5e-2 at 2, 4, 8, 12 layers and the port on the
 # same params 4.8e-3, 1.0e-2, 2.0e-2, 3.1e-2; at 24 layers on the card the
 # port reads 5.9e-2.  The limit sits above both with room; a fault in the
-# bf16 state would part the port from the reference at every depth
-LM_CACHE_TOL = {"xlstm-350m": 1e-1}  # max |delta| <= tol * max |logits|
+# bf16 state would part the port from the reference at every depth.
+# stablelm-12b and phi3-medium-14b (40 layers, bf16 params): their logits
+# at random init peak near 4, where a bf16 step is 2^-5, 0.0078 of the
+# peak, so the default limit is under three bf16 steps of the output; on
+# an NVIDIA H100 80GB HBM3 at 700 W they read 2.10e-2 and 2.03e-2, and at
+# full depth in fp32 compute 2.71e-6 and 2.65e-6 (``lm_fp32_gap``, held to
+# LM_CARD_CPU_TOL for the three dense LMs), so the gap is bf16 rounding,
+# not the cache.  Their limit is about six bf16 steps at the peak
+LM_CACHE_TOL = {"xlstm-350m": 1e-1, "stablelm-12b": 5e-2, "phi3-medium-14b": 5e-2}
 LM_CACHE_TOL_DEFAULT = 2e-2
 # card against CPU at full width, 2 periods deep, fp32 compute, TF32 off:
 # the same math, summed in other orders by cuBLAS and the CPU's BLAS; and
@@ -1125,7 +1161,41 @@ def lm_replay(model, cfg, prompt, extras, toks, cache_len, sync_check=False):
     return prefill_s, time.perf_counter() - t0, picks, logits, count.ops
 
 
-def lm_serve(model, cfg, prompt, extras, new):
+@contextlib.contextmanager
+def compute_in(model, dtype: str):
+    """``model`` computing in ``dtype`` for the body: each submodule's
+    ``cfg`` swapped for one with that ``compute_dtype`` (the parameters keep
+    theirs and are cast where they are used)."""
+    saved = [(m, m.cfg) for m in model.modules() if hasattr(m, "cfg")]
+    for m, c in saved:
+        m.cfg = dataclasses.replace(c, compute_dtype=dtype)
+    try:
+        yield
+    finally:
+        for m, c in saved:
+            m.cfg = c
+
+
+def lm_fp32_gap(model, cfg, prompt, extras, toks, cache_len):
+    """The cache path's last decode step against the cache-free forward at
+    full depth in fp32 compute, TF32 off (the bf16 parameters cast where
+    used): max |delta| / max |logits|.  A fault in the cache shows here at
+    the fp32 size, where bf16 rounding no longer hides it."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with compute_in(model, "float32"), torch.no_grad():
+            logits = lm_replay(model, cfg32, prompt, extras, toks, cache_len)[3].float()
+            full, _, _ = model(torch.cat([prompt, toks], dim=1), logits_slice=1,
+                               **(extras or {}))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    full = full[:, -1].float()
+    return float((logits - full).abs().max()) / float(full.abs().max())
+
+
+def lm_serve(model, cfg, prompt, extras, new, fp32_gap=False):
     """``greedy_generate`` (its tokens and seconds, peak device memory),
     then the same path in pieces (``lm_replay``): the prefill timed, one
     decode step under ``set_sync_debug_mode("error")`` and the other ``new
@@ -1164,9 +1234,15 @@ def lm_serve(model, cfg, prompt, extras, new):
             f"{cfg.name}: the last decode step differs from the cache-free forward by {delta} "
             f"(max |logits| {scale}, tol {tol} x)")
     same = bool(torch.equal(torch.stack(picks[:-1], 1).to(torch.int32), toks[:, 1:]))
+    gap32 = None
+    if fp32_gap:
+        gap32 = lm_fp32_gap(model, cfg, prompt, extras, toks, cache_len)
+        require(gap32 <= LM_CARD_CPU_TOL, f"{cfg.name}: at fp32 compute and full depth the last "
+                f"decode step differs from the cache-free forward by {gap32:.3g} of max |logits| "
+                f"(tol {LM_CARD_CPU_TOL})")
     return dict(gen_s=gen_s, prefill_ms=prefill_s * 1e3, decode_ms=decode_s / (new - 1) * 1e3,
                 tok_s=B * (new - 1) / decode_s, peak_gb=peak / 1e9, delta=delta, scale=scale,
-                tol=tol, replay_equal=same, ops=ops)
+                tol=tol, replay_equal=same, ops=ops, gap32=gap32)
 
 
 def lm_card_vs_cpu(cfg, card, seed):
@@ -1227,49 +1303,65 @@ def lm_card_vs_cpu(cfg, card, seed):
     return cfg2.n_layers, rel, cpu_s, fp32_cache
 
 
+def lm_config(name, B, S, new, vs_cpu, card, seed, smi):
+    """One ``[lm]`` line: ``name`` at full width built on the card (the
+    card's free memory before the build in the line), served through
+    ``lm_serve``, then (``vs_cpu``) held against the CPU at 2 periods."""
+    cfg = get_config(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=card, generator=torch.Generator(card).manual_seed(seed))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prompt, extras = lm_inputs(cfg, B, S, seed + 1, card)
+    f = lm_serve(model, cfg, prompt, extras, new, fp32_gap=name in LM_DENSE)
+    del model, prompt, extras
+    gc.collect()
+    torch.cuda.empty_cache()
+    tail = ""
+    if vs_cpu:
+        depth, rel, cpu_s, fp32_cache = lm_card_vs_cpu(cfg, card, seed)
+        tail = (f"; card vs CPU ({depth} layers, fp32 compute, TF32 off): max |delta| / max "
+                f"|logits| prefill {rel[0]:.2e}, decode {rel[1]:.2e}, {rel[2]:.2e}, and the "
+                f"card's last decode step vs its cache-free forward {fp32_cache:.2e} (tol "
+                f"{LM_CARD_CPU_TOL:g}; CPU {cpu_s:.1f} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("lm", f"{name} ({cfg.family}; {cfg.n_layers} layers, d {cfg.d_model}, params "
+        f"{cfg.param_dtype}, compute {cfg.compute_dtype}): card memory free before the build "
+        f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB; {n_params / 1e6:.1f} M params "
+        f"({n_bytes / 2**30:.2f} GiB) drawn in {build_s:.2f} s; batch {B}, prompt {S}"
+        + (f" + {cfg.n_img_tokens} image tokens" if cfg.n_img_tokens else "")
+        + (f", {LM_FRAMES} frames" if cfg.encdec else "")
+        + f", {new} new: greedy_generate {f['gen_s']:.3f} s; prefill {f['prefill_ms']:.2f} "
+        f"ms, decode {f['decode_ms']:.3f} ms a token (step), {f['tok_s']:.1f} tok/s, peak "
+        f"{f['peak_gb']:.3f} GB ({f['peak_gb'] * 1e9 / 2**30:.2f} GiB); last step vs "
+        f"cache-free forward max |delta| "
+        f"{f['delta']:.4g} of max |logits| {f['scale']:.4g} (tol {f['tol']:g} x)"
+        + ("" if f["gap32"] is None else f", in fp32 compute at full depth {f['gap32']:.2e} "
+           f"(tol {LM_CARD_CPU_TOL:g})")
+        + f"; replay's tokens equal greedy's: {f['replay_equal']}; a decode step clean under "
+        f"sync debug 'error', {f['ops']} aten ops ({f['decode_ms'] * 1e3 / f['ops']:.1f} us "
+        f"of the step each){tail}; {smi}")
+
+
 def phase_lm(card, seed, smi):
     """[lm] The LM substrate's serving path on the card: six configs at
     full width through ``greedy_generate`` (batch 4, prompt 16, 24 new
     tokens), each with its cache checked against a cache-free forward, a
     decode step under sync debug and the port held against the CPU at 2
-    periods; then smollm-135m at batch 64, prompt 512, 128 new tokens."""
+    periods; then smollm-135m at batch 64, prompt 512, 128 new tokens.
+    The three dense LMs of ``LM_DENSE`` run in ``--lm-child serve``."""
     t_phase = time.perf_counter()
     runs = [(name, LM_BATCH, LM_PROMPT, LM_NEW, True) for name in LM_ARCHS]
     runs.append(LM_LONG + (False,))
     for name, B, S, new, vs_cpu in runs:
-        cfg = get_config(name)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model = build_model(cfg, device=card, generator=torch.Generator(card).manual_seed(seed))
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        n_params = sum(p.numel() for p in model.parameters())
-        prompt, extras = lm_inputs(cfg, B, S, seed + 1, card)
-        f = lm_serve(model, cfg, prompt, extras, new)
-        del model, prompt, extras
-        gc.collect()
-        torch.cuda.empty_cache()
-        tail = ""
-        if vs_cpu:
-            depth, rel, cpu_s, fp32_cache = lm_card_vs_cpu(cfg, card, seed)
-            tail = (f"; card vs CPU ({depth} layers, fp32 compute, TF32 off): max |delta| / max "
-                    f"|logits| prefill {rel[0]:.2e}, decode {rel[1]:.2e}, {rel[2]:.2e}, and the "
-                    f"card's last decode step vs its cache-free forward {fp32_cache:.2e} (tol "
-                    f"{LM_CARD_CPU_TOL:g}; CPU {cpu_s:.1f} s)")
-            gc.collect()
-            torch.cuda.empty_cache()
-        say("lm", f"{name} ({cfg.family}; {cfg.n_layers} layers, d {cfg.d_model}, params "
-            f"{cfg.param_dtype}, compute {cfg.compute_dtype}): {n_params / 1e6:.1f} M params "
-            f"drawn in {build_s:.2f} s; batch {B}, prompt {S}"
-            + (f" + {cfg.n_img_tokens} image tokens" if cfg.n_img_tokens else "")
-            + (f", {LM_FRAMES} frames" if cfg.encdec else "")
-            + f", {new} new: greedy_generate {f['gen_s']:.3f} s; prefill {f['prefill_ms']:.2f} "
-            f"ms, decode {f['decode_ms']:.3f} ms a token (step), {f['tok_s']:.1f} tok/s, peak "
-            f"{f['peak_gb']:.3f} GB; last step vs cache-free forward max |delta| "
-            f"{f['delta']:.4g} of max |logits| {f['scale']:.4g} (tol {f['tol']:g} x); "
-            f"replay's tokens equal greedy's: {f['replay_equal']}; a decode step clean under "
-            f"sync debug 'error', {f['ops']} aten ops ({f['decode_ms'] * 1e3 / f['ops']:.1f} us "
-            f"of the step each){tail}; {smi}")
+        lm_config(name, B, S, new, vs_cpu, card, seed, smi)
     say("lm", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1305,13 +1397,13 @@ def train_batches(cfg, batch, seq, steps, card, start=0):
                 for s in range(start, steps)]
 
 
-def param_prints(model):
+def param_prints(params):
     """Per parameter, its sum and norm in fp64 (a fingerprint that any
     update moves)."""
     with torch.no_grad():
         return torch.stack([torch.stack([p.sum(dtype=torch.float64),
                                          torch.linalg.vector_norm(p, dtype=torch.float64)])
-                            for p in model.parameters()])
+                            for p in params])
 
 
 def resume_gaps(model, straight, base):
@@ -1446,7 +1538,7 @@ def train_granite(card, seed, smi):
     state = opt.init(lm_param_leaves(cfg, model))
     _, batches = train_batches(cfg, B, S, steps, card)
     step_fn = make_train_step(model, cfg, opt)
-    before = param_prints(model)
+    before = param_prints(model.parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_s, out = [], []
@@ -1457,7 +1549,7 @@ def train_granite(card, seed, smi):
         step_s.append(time.perf_counter() - t0)
         out.append({k: float(v) for k, v in metrics.items()})
     peak = torch.cuda.max_memory_allocated()
-    moved = (param_prints(model) != before).any(dim=1)
+    moved = (param_prints(model.parameters()) != before).any(dim=1)
     n_params = sum(p.numel() for p in model.parameters())
     require(all(math.isfinite(m["loss"]) for m in out), f"{name}: a loss is not finite")
     require(all(k in out[-1] for k in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")),
@@ -1481,20 +1573,26 @@ def train_granite(card, seed, smi):
 
 
 def _leaf_gap(a, b):
-    return float((a.double() - b.double()).abs().max())
+    """``(max |a - b|, max |b|)`` in fp64 on ``a``'s device, ``b`` copied
+    there (the card's reductions are quicker than the CPU's)."""
+    b = b.to(a.device)
+    return float((a.double() - b.double()).abs().max()), float(b.abs().max())
 
 
 def train_card_vs_cpu(name, card, seed, quantize):
-    """(c) ``name`` at full width, 2 periods deep, fp32 compute: one step's
-    loss and gradients on the card and on the CPU from the same parameters
-    and batch; then the update on both given the CPU's gradients.  Returns
-    the largest relative gaps."""
-    cfg = dataclasses.replace(get_config(name), n_layers=2 * get_config(name).pattern_period,
-                              compute_dtype="float32")
+    """(c) ``name`` at full width, 2 periods deep (an encoder 2 layers
+    deep), fp32 params and compute, the stub frontend's inputs drawn from
+    the seed: one step's loss and gradients on the card and on the CPU from
+    the same parameters and batch; then the update on both given the CPU's
+    gradients.  Returns the largest relative gaps."""
+    full = get_config(name)
+    cfg = dataclasses.replace(full, n_layers=2 * full.pattern_period, compute_dtype="float32",
+                              param_dtype="float32", enc_layers=min(full.enc_layers, 2))
     model = build_model(cfg, device=card, generator=torch.Generator(card).manual_seed(seed))
-    cpu_model = build_model(cfg, device="cpu")
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_model = build_model(cfg, device="meta")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, assign=True)
     batch = host_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2), 0)
+    batch.update(lm_inputs(cfg, 2, 1, seed + 2, torch.device("cpu"))[1] or {})
     opt = AdamW(lr=1e-3, quantize_moments=quantize)
     runs = []
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -1505,7 +1603,7 @@ def train_card_vs_cpu(name, card, seed, quantize):
             loss, _ = make_loss_fn(m, cfg)({k: v.to(dev) for k, v in batch.items()})
             grads = torch.autograd.grad(loss, flat_params(state), allow_unused=True,
                                         materialize_grads=True)
-            runs.append((m, state, float(loss.detach()), [g.detach().cpu() for g in grads]))
+            runs.append((m, state, float(loss.detach()), [g.detach() for g in grads]))
         (_, s_card, l_card, g_card), (_, s_cpu, l_cpu, g_cpu) = runs
         require(abs(l_card - l_cpu) <= TRAIN_CARD_CPU_TOL * abs(l_cpu),
                 f"{name}: loss {l_card} on the card, {l_cpu} on the CPU")
@@ -1513,7 +1611,8 @@ def train_card_vs_cpu(name, card, seed, quantize):
         g_rel = 0.0
         for p_name, a, b in zip((leaf.name for leaf in s_cpu["leaves"]
                                  for _ in leaf.params), g_card, g_cpu):
-            rel = _leaf_gap(a, b) / max(float(b.abs().max()), floor)
+            gap, b_max = _leaf_gap(a, b)
+            rel = gap / max(b_max, floor)
             g_rel = max(g_rel, rel)
             require(rel <= TRAIN_CARD_CPU_TOL, f"{name}: gradient of {p_name} on the card vs "
                     f"the CPU {rel:.3g} of its largest (tol {TRAIN_CARD_CPU_TOL})")
@@ -1523,10 +1622,9 @@ def train_card_vs_cpu(name, card, seed, quantize):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     p_gap = 0.0
     for a, b in zip(flat_params(s_card), flat_params(s_cpu)):
-        a, b = a.detach().cpu(), b.detach()
-        gap = _leaf_gap(a, b)
-        p_gap = max(p_gap, gap / max(1.0, float(b.abs().max())))
-        require(gap <= 2.0**-21 * max(1.0, float(b.abs().max())),
+        gap, b_max = _leaf_gap(a.detach(), b.detach())
+        p_gap = max(p_gap, gap / max(1.0, b_max))
+        require(gap <= 2.0**-21 * max(1.0, b_max),
                 f"{name}: a parameter after the update differs by {gap} card vs CPU")
     m_note = ""
     if quantize:
@@ -1534,12 +1632,12 @@ def train_card_vs_cpu(name, card, seed, quantize):
         s_rel = 0.0
         for key in ("m", "v"):
             for a, b in zip(s_card[key], s_cpu[key]):
-                d = (a["q"].cpu().int() - b["q"].int()).abs()
+                d = (a["q"].int() - b["q"].to(card).int()).abs()
                 require(int(d.max()) <= 1, f"{name}: 8-bit {key} q apart by {int(d.max())}")
                 n_diff += int((d > 0).sum())
                 n_all += d.numel()
-                s_rel = max(s_rel, _leaf_gap(a["scale"].cpu(), b["scale"]) /
-                            max(float(b["scale"].abs().max()), 1e-30))
+                gap, b_max = _leaf_gap(a["scale"], b["scale"])
+                s_rel = max(s_rel, gap / max(b_max, 1e-30))
         require(n_diff <= max(n_all // 10**4, 1) and s_rel <= 2.4e-7,
                 f"{name}: 8-bit moments card vs CPU: {n_diff} of {n_all} q apart, scale "
                 f"{s_rel:.3g} relative")
@@ -1548,14 +1646,15 @@ def train_card_vs_cpu(name, card, seed, quantize):
         m_rel = 0.0
         for key in ("m", "v"):
             for a, b in zip(s_card[key], s_cpu[key]):
-                rel = _leaf_gap(a.cpu(), b) / max(float(b.abs().max()), 1e-30)
+                gap, b_max = _leaf_gap(a, b)
+                rel = gap / max(b_max, 1e-30)
                 m_rel = max(m_rel, rel)
                 require(rel <= 1e-6, f"{name}: {key} card vs CPU {rel:.3g} of its largest")
         m_note = f"moments {m_rel:.2e} of their largest"
     del runs, model, cpu_model, s_card, s_cpu
     gc.collect()
     torch.cuda.empty_cache()
-    return (f"{name} ({cfg.n_layers} layers, fp32 compute, batch 2 x 32): loss "
+    return (f"{name} ({cfg.n_layers} layers, fp32, batch 2 x 32): loss "
             f"{abs(l_card - l_cpu) / abs(l_cpu):.2e} relative, gradients {g_rel:.2e} of their "
             f"leaf's largest, after the update parameters {p_gap:.2e} of max(1, |p|), "
             f"{m_note}")
@@ -1575,6 +1674,181 @@ def phase_train(card, seed, smi):
         f"{TRAIN_CARD_CPU_TOL:g}, parameters 2^-21 of max(1, |p|)): " + "; ".join(notes)
         + f"; {smi}")
     say("train", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# The configurations that fit one card and had run there only in part:
+# the three dense LMs served (before, only reduced, in the CPU tests) and
+# four families trained (before, they only served on the card).  Each set
+# runs in a child process on the card (``--lm-child serve`` and
+# ``--lm-child train``) while the parent builds on the host and the card
+# idles: the serving child beside the microcircuit's ``to_dcsr`` and
+# merge (about 90 s), the training child beside p3's numpy assembly
+# (about 75 s); the parent joins each before its next allocation or timed
+# run on the card.
+LM_DENSE = ("stablelm-12b", "phi3-medium-14b", "command-r-35b")
+TRAIN_FAMILIES = ("recurrentgemma-2b", "xlstm-350m", "paligemma-3b", "whisper-small")
+TRAIN_FAMILY_SHAPE = (4, 128, 3)  # batch, seq, steps
+TRAIN_SLOW_S = 3.0  # a second step over this: stop after it (2 steps)
+# A bf16 parameter may stay put through the first steps, as in the
+# reference, which also updates in fp32 and rounds back (``p.astype(f32) -
+# lr * upd``, ``repro/train/optimizer.py:128``): where every element is at
+# least this large in magnitude, half its bf16 spacing is at least 2^-9 =
+# 1.95e-3, and an early AdamW step, about lr * (1 + wd * |p|) = 3.3e-4 at
+# |p| = 1, rounds away.  Such a parameter (the norm scales, which start at
+# 1.0) passes if its fp32 first moment is non-zero: the gradient reached it
+TRAIN_BF16_STILL = 0.5
+LM_CHILD_BUDGET_S = 300  # each child's limit
+LM_CHILD_THREADS = 6  # the child's torch threads, one core or two left to the parent's build
+LM_CHILD = []  # the running children, stopped at exit
+
+
+def first_moments(state):
+    """Per parameter (``flat_params`` order), its fp32 AdamW first moment."""
+    out = []
+    for leaf, m in zip(state["leaves"], state["m"]):
+        out += list(m) if leaf.stacked else [m]
+    return out
+
+
+def train_family(name, card, seed, smi):
+    """``name`` at full width and depth, its own param dtype, bf16 compute:
+    batch 4 x seq 128 of the affine task (the stub frontend's frames or
+    image embeddings drawn from the seed), AdamW fp32 moments under the
+    launcher's cosine schedule, 3 steps (2 where the second takes over
+    ``TRAIN_SLOW_S``), the second under ``set_sync_debug_mode("error")``;
+    every loss finite, every parameter moved (or, bf16, held as
+    ``TRAIN_BF16_STILL`` says)."""
+    B, S, steps = TRAIN_FAMILY_SHAPE
+    cfg = get_config(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device=card, generator=torch.Generator(card).manual_seed(seed))
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, warmup=1, total=steps))
+    state = opt.init(lm_param_leaves(cfg, model))
+    _, batches = train_batches(cfg, B, S, steps, card)
+    extras = lm_inputs(cfg, B, 1, seed + 2, card)[1] or {}
+    step_fn = make_train_step(model, cfg, opt)
+    params = flat_params(state)
+    before = param_prints(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for s in range(steps):
+        if s == 2 and step_s[1] > TRAIN_SLOW_S:
+            break
+        if s == 1:  # warmed: the first step allocates
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            state, metrics = step_fn(state, dict(batches[s], **extras))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    require(all(math.isfinite(x) for x in losses), f"{name}: a loss is not finite: {losses}")
+    moved = (param_prints(params) != before).any(dim=1).tolist()
+    still = []
+    for p, m, mv in zip(params, first_moments(state), moved):
+        if mv:
+            continue
+        low = float(p.detach().abs().min())
+        require(p.dtype == torch.bfloat16 and low >= TRAIN_BF16_STILL
+                and bool((m != 0).any()),
+                f"{name}: a {p.dtype} parameter of shape {tuple(p.shape)} did not move (min "
+                f"|p| {low:.3g}, first moment non-zero: {bool((m != 0).any())})")
+        still.append(p.numel())
+    n_params = sum(p.numel() for p in params)
+    ms = 1e3 * float(np.mean(step_s[1:]))
+    say("train", f"{name} ({cfg.family}; {cfg.n_layers} layers, d {cfg.d_model}, params "
+        f"{cfg.param_dtype}, compute {cfg.compute_dtype}; {n_params / 1e9:.3f} B params), batch "
+        f"{B} x seq {S}" + (f" + {cfg.n_img_tokens} image tokens" if cfg.n_img_tokens else "")
+        + (f", {LM_FRAMES} frames" if cfg.encdec else "")
+        + f", AdamW fp32 moments, lr {TRAIN_LR:g} cosine, {len(step_s)} steps: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; {ms:.1f} ms a step (steps 2-{len(step_s)}, host clock with a sync; first "
+        f"{1e3 * step_s[0]:.1f} ms), {B * S / (ms / 1e3):.0f} tokens/s, peak {peak / 1e9:.3f} GB "
+        f"({peak / 2**30:.2f} GiB); step 2 clean under sync debug 'error'; every parameter "
+        f"moved" + (f" but {len(still)} bf16 ones of {sum(still)} elements, each at least "
+                    f"{TRAIN_BF16_STILL} in magnitude (an update under half a bf16 step, "
+                    "as in the reference), whose fp32 first moments moved" if still else "")
+        + f"; {smi}")
+    del model, state, step_fn, batches, params, extras
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_child(part: str, seed: int, t_offset: float) -> int:
+    """The body of ``--lm-child``: ``serve``, ``LM_DENSE`` served as
+    ``[lm]`` serves; ``train``, ``TRAIN_FAMILIES`` trained and each held
+    against the CPU.  The lines carry the parent's clock (``t_offset``: the
+    parent's seconds at the start)."""
+    global T_START
+    T_START = time.perf_counter() - t_offset
+    torch.set_num_threads(LM_CHILD_THREADS)
+    card = torch.device("cuda", torch.cuda.current_device())
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    if part == "serve":
+        for name in LM_DENSE:
+            lm_config(name, LM_BATCH, LM_PROMPT, LM_NEW, True, card, seed, smi)
+        say("lm", f"child: {', '.join(LM_DENSE)} in {time.perf_counter() - t0:.1f} s")
+        return 0
+    notes = []
+    for name in TRAIN_FAMILIES:
+        train_family(name, card, seed, smi)
+        notes.append(train_card_vs_cpu(name, card, seed, False))
+    say("train", "card vs CPU (TF32 off; tol: loss and gradients "
+        f"{TRAIN_CARD_CPU_TOL:g}, parameters 2^-21 of max(1, |p|)): " + "; ".join(notes)
+        + f"; {smi}")
+    say("train", f"child: {', '.join(TRAIN_FAMILIES)} in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def start_lm_child(part: str, seed: int, beside: str):
+    """Start ``--lm-child part``, its output into files under ``_snap/``."""
+    out = SNAP_ROOT / f"lm_child_{part}"
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--lm-child", part, "--seed", str(seed),
+           "--t-offset", f"{time.perf_counter() - T_START:.3f}"]
+    with open(out / "stdout", "w") as f_out, open(out / "stderr", "w") as f_err:
+        proc = subprocess.Popen(cmd, stdout=f_out, stderr=f_err)
+    LM_CHILD.append(proc)
+    what = (f"{', '.join(LM_DENSE)} served" if part == "serve"
+            else f"{', '.join(TRAIN_FAMILIES)} trained")
+    say("lm" if part == "serve" else "train",
+        f"started the child (pid {proc.pid}): {what} on the card, beside {beside}")
+    return part, proc, out, time.perf_counter()
+
+
+def join_lm_child(child):
+    """Wait for the child, print its lines, and fail if it failed."""
+    part, proc, out, t0 = child
+    t_wait = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(5.0, LM_CHILD_BUDGET_S - (t_wait - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    sys.stdout.write((out / "stdout").read_text())
+    sys.stdout.flush()
+    err = (out / "stderr").read_text()
+    require(rc == 0, f"the LM child '{part}' failed (rc {rc}; limit {LM_CHILD_BUDGET_S} s): "
+            f"{err[-3000:]}")
+    LM_CHILD.remove(proc)
+    say("lm" if part == "serve" else "train",
+        f"the child '{part}' ran {time.perf_counter() - t0:.1f} s; the parent waited "
+        f"{time.perf_counter() - t_wait:.1f} s for it after its host build")
+
+
+def stop_lm_child():
+    for proc in LM_CHILD:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 # [mesh]: the sharding policy on a one-card NCCL mesh, and the dry run
@@ -2872,6 +3146,25 @@ def phase_plastic_kernels(sim, params, rng):
     require(changed > 0, "stdp_update changed no weight")
     say("plastic", f"stdp_update, {len(cols)} buckets of {tuple(cols[0].shape)}: bit-exact vs "
         f"plain ({int(s1.sum())} of {n_p} neurons spike, {changed} slots change)")
+    # bf16 weights (the reference kernel's bf16 rule; the engines keep f32
+    # panels): the same panels cast to bf16, with a bf16 and an f32 mask
+    changed16 = 0
+    for c, w, pm, d in zip(cols, weights, plastic, sim.dev.delays):
+        w16 = w.bfloat16()
+        for m in (pm.bfloat16(), pm):
+            got = stdp_mod.stdp_update_cuda(w16, m, c, *stdp_args, params=stdp)
+            require(got.dtype == torch.bfloat16 and torch.equal(
+                got, stdp_mod.stdp_update_plain(w16, m, c, *stdp_args, params=stdp)),
+                f"stdp_update on bf16 weights ({m.dtype} mask, d={d}) differs from its plain "
+                "version")
+            inplace = w16.clone()
+            stdp_mod.stdp_update_cuda(inplace, m, c, *stdp_args, params=stdp, out=inplace)
+            require(torch.equal(inplace, got), f"stdp_update on bf16 weights in place (d={d})")
+        changed16 += int((got != w16).sum())
+    require(changed16 > 0, "stdp_update on bf16 weights changed no weight")
+    say("plastic", f"stdp_update on the {len(cols)} panels cast to bf16, bf16 and f32 masks: "
+        f"bit-exact vs plain (every op rounded to bf16), in place and out of place "
+        f"({changed16} slots change)")
 
     out = fused_mod.fused_step_plastic_cuda(v, refrac, i_tot, tp, tm, cols, weights, plastic,
                                             params=params, taus=taus, stdp=stdp)
@@ -3022,8 +3315,28 @@ def phase_plastic_timing(sim, params, inputs, errs, launches):
     say("timing", f"stdp_update, {nd} launches of {tuple(cols[0].shape)} (one step): kernel "
         f"{s_k:.4f} ms ({s_k / nd * 1e3:.2f} us a launch), plain {s_p:.3f} ms, bound "
         f"{s_b:.4f} ms ({slots * 16 / s_k / 1e6:.0f} GB/s of slot traffic)")
+    # bf16 weights: 10 B a slot with a bf16 mask (col 4, weight 2 read and 2
+    # written, mask 2), 12 B with an f32 mask
+    b16 = dict(ms_bf16=0.0, ms_bf16_f32_mask=0.0, plain_ms_bf16=0.0, bound_ms_bf16=0.0,
+               bound_ms_bf16_f32_mask=0.0)
+    for c, w, pm in zip(cols, weights, plastic):
+        w16, pm16 = w.bfloat16(), pm.bfloat16()
+        b16["ms_bf16"] += cuda_ms(lambda c=c, w=w16, pm=pm16: stdp_mod.stdp_update_cuda(
+            w, pm, c, *stdp_args, params=stdp), 50)
+        b16["ms_bf16_f32_mask"] += cuda_ms(lambda c=c, w=w16, pm=pm: stdp_mod.stdp_update_cuda(
+            w, pm, c, *stdp_args, params=stdp), 50)
+        b16["plain_ms_bf16"] += cuda_ms(lambda c=c, w=w16, pm=pm16: stdp_mod.stdp_update_plain(
+            w, pm, c, *stdp_args, params=stdp), 5)
+        vec_b = 2 * n_p * 4 + 2 * R * 4
+        b16["bound_ms_bf16"] += bound_ms(c.numel() * 10 + vec_b, 6 * c.numel())[0]
+        b16["bound_ms_bf16_f32_mask"] += bound_ms(c.numel() * 12 + vec_b, 6 * c.numel())[0]
+    say("timing", f"stdp_update on bf16 weights, {nd} launches (one step): bf16 mask "
+        f"{b16['ms_bf16']:.4f} ms ({b16['ms_bf16'] / nd * 1e3:.2f} us a launch), bound "
+        f"{b16['bound_ms_bf16']:.4f} ms (10 B a slot); f32 mask {b16['ms_bf16_f32_mask']:.4f} "
+        f"ms, bound {b16['bound_ms_bf16_f32_mask']:.4f} ms (12 B a slot); plain "
+        f"{b16['plain_ms_bf16']:.3f} ms")
     out.append(dict(name="stdp_update", ms=s_k, plain_ms=s_p, bound_ms=s_b, bound_by="bytes",
-                    library_ms=None, path="plastic_unfused"))
+                    library_ms=None, path="plastic_unfused", max_abs_err_bf16=0.0, **b16))
 
     kw = dict(params=params, taus=taus, stdp=stdp)
     f_bytes = slots * 16 + 10 * 4 * n_p + nd * R * 4
@@ -3329,6 +3642,21 @@ def _csr_of(cols, weights, row_len, n):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         return torch.sparse_csr_tensor(crow, cols[live].long(), weights[live], size=(R, n),
+                                       check_invariants=False)
+
+
+def _csr_rows(cols, weights, row_len, row_ptr, n):
+    """A split panel's real slots as a CSR matrix of its real rows (row
+    ``r`` holds the slots of virtual rows ``row_ptr[r]`` to ``row_ptr[r+1] -
+    1``, in order), for ``torch.sparse.mm`` on the segmented gather's work."""
+    R, K = cols.shape
+    live = torch.arange(K, device=cols.device)[None, :] < row_len.long()[:, None]
+    cum = torch.zeros(R + 1, dtype=torch.int64, device=cols.device)
+    cum[1:] = torch.cumsum(row_len.long(), 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(cum.index_select(0, row_ptr.long()), cols[live].long(),
+                                       weights[live], size=(row_ptr.shape[0] - 1, n),
                                        check_invariants=False)
 
 
@@ -4493,10 +4821,11 @@ def phase_rules_brunel(seed, card, smi):
     phase_super_chaos(spec, ses4, card, smi)
 
 
-def phase_rules_microcircuit(args, card):
+def phase_rules_microcircuit(args, card, after_build=None):
     """p3: the slice's main path, ``Session(microcircuit_rules(scale))`` with
     the keystream on the card, then 1000 steps, then rows of the card-built
-    net against the numpy oracle's ``build_partition``."""
+    net against the numpy oracle's ``build_partition``.  ``after_build`` is
+    called between the build and the run (the training child's join)."""
     spec = microcircuit_rules(scale=args.scale, seed=args.seed)
     reset_counts()
     t0 = time.perf_counter()
@@ -4515,6 +4844,8 @@ def phase_rules_microcircuit(args, card):
         f"{secs - rep.seconds:.1f} s; buckets {shapes}, fill {sim.ell.fill_factor:.3f}; engine "
         f"{ses.engine_choice}; host peak RSS "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f} GiB")
+    if after_build is not None:
+        after_build()
     pops = {p: spec.offsets()[p] for p in (q.name for q in spec.populations)}
     st0 = ses.state
     raster, run_launches = phase_main_path(ses, ses.n, pops, tag="p3", need_event=False)
@@ -4591,6 +4922,8 @@ def main(argv=None) -> int:
     ap.add_argument("--streaming", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--reduced", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--lm-child", choices=("serve", "train"), help=argparse.SUPPRESS)
+    ap.add_argument("--t-offset", type=float, default=0.0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on the card",
@@ -4600,6 +4933,8 @@ def main(argv=None) -> int:
         return restore_child(args.restore_child, args.streaming)
     if args.mesh_child:  # the [mesh] phase's process group
         return mesh_child(args.seed, args.reduced)
+    if args.lm_child:  # the dense LMs served and four families trained
+        return lm_child(args.lm_child, args.seed, args.t_offset)
     LAUNCHER.append(Launcher())
     global T_START
     T_START = t_start = time.perf_counter()
@@ -4611,6 +4946,7 @@ def main(argv=None) -> int:
     phase_lm(card, args.seed, smi)
     phase_train(card, args.seed, smi)
     phase_mesh(args.seed, smi)
+    serve_child = start_lm_child("serve", args.seed, "the host's microcircuit build")
 
     # one build of the microcircuit, as the uniform k>1 net; the k=1 paths
     # run its merge (the same labelling, with the inert padding neurons)
@@ -4624,6 +4960,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     net = merge_to_single(d4)
     say("host", f"merge_to_single: {time.perf_counter() - t0:.1f} s")
+    join_lm_child(serve_child)  # before the parent's next allocation on the card
     t0 = time.perf_counter()
     ses = Session(net, SimConfig())
     sim = ses.simulator
@@ -4773,7 +5110,9 @@ def main(argv=None) -> int:
     phase_rules_brunel(args.seed, card, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    ks_launches, rules_fused = phase_rules_microcircuit(args, card)
+    train_child = start_lm_child("train", args.seed, "p3's build on the host")
+    ks_launches, rules_fused = phase_rules_microcircuit(
+        args, card, after_build=lambda: join_lm_child(train_child))
     gc.collect()
     torch.cuda.empty_cache()
     kernels.append(phase_keystream_timing(args.seed, card, ks_launches, ks_err))
@@ -4791,9 +5130,14 @@ def main(argv=None) -> int:
         ms_segment_main_path=seg["main-path step"]["ms_segment"],
         bound_ms_segment_main_path=seg["main-path step"]["bound_ms"],
         plain_ms_segment=seg["5% active"]["plain_ms"],
+        library_ms_segment=seg["5% active"]["library_ms"],
+        ms_segment_brunel=MAXK["brunel"]["fig"]["5% active"]["ms_segment"],
+        bound_ms_segment_brunel=MAXK["brunel"]["fig"]["5% active"]["bound_ms"],
+        library_ms_segment_brunel=MAXK["brunel"]["fig"]["5% active"]["library_ms"],
         max_abs_err_segment=max(m["err"] for m in MAXK.values()),
-        segment="SimConfig(max_k=512) on the microcircuit, both buckets split; "
-                "launches_maxk: both [maxk] sessions' runs")
+        segment="SimConfig(max_k=512) on the microcircuit, both buckets split (_brunel: "
+                "max_k=64 on the Brunel net, 15 split buckets); library_ms_segment: "
+                "torch.sparse.mm over the real rows; launches_maxk: both [maxk] sessions' runs")
     say("graph", "us/step of each path, graphed / uncaptured (_graphs=False), host clock, "
         "in one call: " + "; ".join(
             f"{tag} {min(per[True]):.1f} / {min(per[False]):.1f}" for tag, per in GRAPH_US.items())
@@ -4806,11 +5150,12 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    child = "--restore-child" in sys.argv or "--mesh-child" in sys.argv
+    child = any(a in sys.argv for a in ("--restore-child", "--mesh-child", "--lm-child"))
     try:
         sys.exit(main())
     finally:
         stop_dry_runs()
+        stop_lm_child()
         for launcher in LAUNCHER:
             launcher.close()
         if not child:  # the parent owns the snapshots

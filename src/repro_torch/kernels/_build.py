@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -165,7 +165,7 @@ _SIGNATURES = {
         [_P] * 6 + [_I, _I, _I] + [_P] * 2 + [_I] + [_P] * 4 + [_I, _I] + [_F] * 7 + [_P, _I]
     ),
     "repro_fused_step_max_buckets": [],
-    "repro_stdp_update": [_P] * 8 + [_I, _I] + [_F] * 4 + [_P, _I],
+    "repro_stdp_update": [_P] * 8 + [_I] * 4 + [_F] * 4 + [_P, _I],
     "repro_fused_plastic_step": (
         [_P] * 10 + [_I, _I, _I] + [_P] * 6 + [_F] * 13 + [_P, _I]
     ),
@@ -254,14 +254,14 @@ def require(
 
 
 # the weight panels a gather kernel takes (spike_gather.cu, fused_step.cu,
-# event_step.cu, post_exchange.cu)
+# event_step.cu, post_exchange.cu), and stdp_update.cu's weights
 GATHER_WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def require_weights(name: str, w: torch.Tensor, device, dtype=None) -> int:
-    """Validate a gather's 2-D weight panel: f32 or bf16 (``dtype``, when
-    given, the type every panel of the launch shares); returns the kernel's
-    ``w_bf16`` flag."""
+    """Validate a 2-D weight panel of a gather or of ``stdp_update``: f32 or
+    bf16 (``dtype``, when given, the type every panel of the launch
+    shares); returns the kernel's ``w_bf16`` flag."""
     require_panel(name, w, dtype or w.dtype, device, GATHER_WEIGHT_DTYPES)
     return int(w.dtype == torch.bfloat16)
 
@@ -274,6 +274,19 @@ def require_panel(name: str, t: torch.Tensor, dtype, device, allowed=None) -> No
     if t.dtype not in allowed:
         raise TypeError(f"{name}: expected {' or '.join(map(str, allowed))}, got {t.dtype}")
     require(name, t, dtype, 2, device)
+
+
+def require_plastic_f32(what: str, weights: Sequence[torch.Tensor]) -> None:
+    """The fused plastic kernels take f32 weights only: the reference's
+    Pallas kernels raise on bf16 weights (their f32 updates do not store
+    into a bf16 panel), and its oracles return f32."""
+    for i, w in enumerate(weights):
+        if w.dtype != torch.float32:
+            raise TypeError(
+                f"{what}: weights[{i}] is {w.dtype}; the plastic fused kernels take f32 "
+                "weights only, as the reference's Pallas kernels do (they raise on bf16 "
+                "weights). ops.stdp_update takes bf16 weights"
+            )
 
 
 def check_row_len(row_len, nd: int, R: int, device) -> None:

@@ -177,6 +177,7 @@ def fused_step_plastic_cuda(
     tr_minus', currents, new_weights)`` with the vectors ``(n_p,)``,
     ``currents[i]`` of shape ``(R,)`` and ``new_weights[i]`` new tensors of
     the panels' shape (the kernel reads ``weights`` to the end)."""
+    _build.require_plastic_f32("fused_step_plastic", weights)
     n_p, R = _check_operands(
         "fused_step_plastic", v,
         dict(refrac=refrac, i_tot=i_tot, tr_plus=tr_plus, tr_minus=tr_minus),

@@ -183,7 +183,29 @@ def stdp_update_ref(
     ``valid == 0`` (padding or non-plastic synapses) keep their weight.
     The reference's operation order:
     ``(a_plus * pre_t) * post_s - (a_minus * post_t) * pre_s``, then
-    ``w + dw``, then the clip, then the mask."""
+    ``w + dw``, then the clip, then the mask.
+
+    bf16 weights give bf16 weights, as ``stdp_update_pallas`` computes
+    them: the four vectors rounded to bf16, the four scalars too (weak
+    types in the reference, so 0-d bf16 tensors here: a Python float would
+    keep torch's f32 opmath), and every op rounded to bf16."""
+    if weights.dtype == torch.bfloat16:
+        bf = torch.bfloat16
+        a_plus, a_minus, w_min, w_max = (
+            torch.tensor(x, dtype=bf, device=weights.device)
+            for x in (a_plus, a_minus, w_min, w_max))
+        pre_trace, pre_spike, post_trace, post_spike = (
+            x.to(bf) for x in (pre_trace, pre_spike, post_trace, post_spike))
+    return _pair_stdp(weights, valid, cols, pre_trace, pre_spike, post_trace, post_spike,
+                      a_plus, a_minus, w_min, w_max)
+
+
+def _pair_stdp(weights, valid, cols, pre_trace, pre_spike, post_trace, post_spike,
+               a_plus, a_minus, w_min, w_max):
+    """:func:`stdp_update_ref`'s arithmetic in torch's promotion: the fused
+    plastic steps' STDP, which like the reference's oracles gives f32
+    weights for bf16 ones with f32 traces (the reference's fused plastic
+    Pallas kernels refuse bf16 weights)."""
     pre_t = pre_trace.index_select(0, cols.reshape(-1)).reshape(cols.shape)
     pre_s = pre_spike.index_select(0, cols.reshape(-1)).reshape(cols.shape)
     dw = (
@@ -242,10 +264,9 @@ def fused_step_plastic_ref(
         pad_r = c.shape[0] - n_p
         post_t = torch.nn.functional.pad(tm, (0, pad_r)) if pad_r else tm
         post_s = torch.nn.functional.pad(s, (0, pad_r)) if pad_r else s
-        new_weights.append(stdp_update_ref(
+        new_weights.append(_pair_stdp(
             w, pm, c, tp, s, post_t, post_s,
-            a_plus=stdp["a_plus"], a_minus=stdp["a_minus"],
-            w_min=stdp["w_min"], w_max=stdp["w_max"],
+            stdp["a_plus"], stdp["a_minus"], stdp["w_min"], stdp["w_max"],
         ))
     return v2, r2, s, tp, tm, currents, new_weights
 
@@ -342,10 +363,9 @@ def _post_exchange_plastic(
         pad_r = c.shape[0] - n_p
         post_t = torch.nn.functional.pad(post_trace, (0, pad_r)) if pad_r else post_trace
         post_s = torch.nn.functional.pad(post_spike, (0, pad_r)) if pad_r else post_spike
-        new_weights.append(stdp_update_ref(
+        new_weights.append(_pair_stdp(
             w, pm, c, pre_trace, act, post_t, post_s,
-            a_plus=stdp["a_plus"], a_minus=stdp["a_minus"],
-            w_min=stdp["w_min"], w_max=stdp["w_max"],
+            stdp["a_plus"], stdp["a_minus"], stdp["w_min"], stdp["w_max"],
         ))
     return _ring_accumulate(ring, clear_mask, write_onehot, currents), new_weights
 

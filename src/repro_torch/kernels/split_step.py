@@ -225,6 +225,7 @@ def post_exchange_plastic_cuda(
     bucket's STDP update from ``act`` and ``pre_trace``.  Returns
     ``(new_ring, new_weights)``; the new weights are new tensors, the ring
     goes into ``out`` when given."""
+    _build.require_plastic_f32("post_exchange_plastic", weights)
     D, n_p, R = _check_post(
         "post_exchange_plastic",
         dict(act_gather=act_gather, act=act, pre_trace=pre_trace,

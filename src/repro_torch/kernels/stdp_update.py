@@ -6,6 +6,8 @@ Counterpart of ``repro/kernels/stdp_update.py:stdp_update_pallas``.
 any other; ``ops.stdp_update`` takes the plain version
 (:func:`stdp_update_plain`) only for CPU tensors.  Both take an optional
 ``out``, which may be ``weights`` itself: the update is then in place.
+Both take f32 or bf16 weights and give the new weights in that type; bf16
+is rounded at every operation, as ``stdp_update_pallas`` rounds it.
 
 Precondition of the kernel: every col id lies in ``[0, len(pre_trace))``.
 The simulator checks it on the host when it builds the panels.
@@ -37,6 +39,11 @@ def stdp_update_plain(
     return w if out is None else out.copy_(w)
 
 
+def _bf16(x: float) -> float:
+    """``x`` rounded to bf16 (round to nearest even), as an f32 value."""
+    return float(torch.tensor(x, dtype=torch.bfloat16))
+
+
 def stdp_update_cuda(
     weights: torch.Tensor,
     valid: torch.Tensor,
@@ -49,11 +56,14 @@ def stdp_update_cuda(
     params: Dict[str, float],
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch the kernel: the ``(R, K)`` f32 new weights, in ``out`` when
-    one is given (``out`` may be ``weights``)."""
-    _build.require("weights", weights, torch.float32, 2)
+    """Launch the kernel: the ``(R, K)`` new weights in the weights' type
+    (f32 or bf16), in ``out`` when one is given (``out`` may be
+    ``weights``).  The mask is f32, or bf16 with bf16 weights; the four
+    vectors are f32 (rounded to bf16 in the kernel with bf16 weights)."""
+    w_bf16 = _build.require_weights("weights", weights, None)
     dev = weights.device
-    _build.require("valid", valid, torch.float32, 2, dev)
+    _build.require_panel("valid", valid, valid.dtype, dev,
+                         (torch.float32, weights.dtype))
     _build.require("cols", cols, torch.int32, 2, dev)
     if not weights.shape == valid.shape == cols.shape:
         raise ValueError(
@@ -73,18 +83,20 @@ def stdp_update_cuda(
     if out is None:
         out = torch.empty_like(weights)
     else:
-        _build.require("out", out, torch.float32, 2, dev)
+        _build.require("out", out, weights.dtype, 2, dev)
         if out.shape != weights.shape:
             raise ValueError(f"out {tuple(out.shape)} != weights {tuple(weights.shape)}")
     if R == 0 or K == 0:
         return out
+    scalars = [params[k] for k in ("a_plus", "a_minus", "w_min", "w_max")]
+    if w_bf16:
+        scalars = [_bf16(x) for x in scalars]
     stream, device = _build.launch_args(weights)
     rc = _build.library().repro_stdp_update(
         weights.data_ptr(), valid.data_ptr(), cols.data_ptr(),
         pre_trace.data_ptr(), pre_spike.data_ptr(),
         post_trace.data_ptr(), post_spike.data_ptr(), out.data_ptr(), R, K,
-        params["a_plus"], params["a_minus"], params["w_min"], params["w_max"],
-        stream, device,
+        w_bf16, int(valid.dtype == torch.bfloat16), *scalars, stream, device,
     )
     _build.check(rc, "stdp_update")
     COUNTER.launches += 1

@@ -258,6 +258,91 @@ def test_stdp_update_kernel_bit_exact(cuda, rng, n, R, K, p_mask):
     assert torch.equal(other, got)
 
 
+STDP_BF = dict(a_plus=0.01, a_minus=0.012, w_min=-1.9, w_max=2.1)  # off the bf16 grid
+
+
+def _same_bf16(a, b):
+    """Bit for bit, NaNs included (the plain version on the card rounds a
+    NaN with the same __float2bfloat16_rn as the kernel)."""
+    return a.dtype == b.dtype == torch.bfloat16 and torch.equal(a.view(torch.int16),
+                                                                b.view(torch.int16))
+
+
+@pytest.mark.parametrize("mask_bf16", [True, False], ids=["bf16_mask", "f32_mask"])
+@pytest.mark.parametrize("n,R,K", [(64, 8, 32), (1000, 1000, 37), (12500, 12504, 128)])
+def test_stdp_update_kernel_bf16_equals_plain(cuda, rng, n, R, K, mask_bf16):
+    """bf16 weights: the kernel equals its plain version (every op rounded
+    to bf16) on the card, in place and out of place, with a bf16 or an f32
+    mask; a NaN weight and weights past the clip included."""
+    (c,), (w,) = _panels(rng, n, R, (K,), R, cuda)
+    (m,) = _masks(rng, R, (K,), R, cuda, 0.65)
+    w = w.bfloat16()
+    w[: R // 8] = 2.5  # past w_max: clipped where plastic
+    w[0, 0] = float("nan")
+    if mask_bf16:
+        m = m.bfloat16()
+    pre_t, post_t = _vec(rng, n, cuda), _vec(rng, R, cuda)
+    pre_s = (_vec(rng, n, cuda) < 0.3).float()
+    post_s = (_vec(rng, R, cuda) < 0.3).float()
+    args = (w, m, c, pre_t, pre_s, post_t, post_s)
+    before = stdp_mod.COUNTER.launches
+    got = ops.stdp_update(*args, params=STDP_BF)
+    assert stdp_mod.COUNTER.launches == before + 1
+    want = stdp_mod.stdp_update_plain(*args, params=STDP_BF)
+    assert _same_bf16(got, want)
+    nan = torch.isnan(got)
+    assert torch.equal(got[~nan], want[~nan]) and not torch.equal(got, w)
+    inplace = w.clone()
+    assert ops.stdp_update(inplace, *args[1:], params=STDP_BF, out=inplace) is inplace
+    assert _same_bf16(inplace, got)
+    other = torch.full_like(w, float("nan"))
+    ops.stdp_update(*args, params=STDP_BF, out=other)
+    assert _same_bf16(other, got)
+
+
+def test_stdp_update_kernel_refuses_mixed_and_wide_types(cuda, rng):
+    (c,), (w,) = _panels(rng, 64, 16, (32,), 16, cuda)
+    (m,) = _masks(rng, 16, (32,), 16, cuda)
+    vec, row = _vec(rng, 64, cuda), _vec(rng, 16, cuda)
+    w16 = w.bfloat16()
+    cases = [
+        (w, m.bfloat16(), {}),  # a bf16 mask on f32 weights
+        (w.double(), m.double(), {}),  # f64
+        (w.half(), m.half(), {}),  # f16
+        (w16, m.double(), {}),  # a wider mask
+        (w16, m, dict(out=torch.empty_like(w))),  # an f32 out for bf16 weights
+        (w, m, dict(out=torch.empty_like(w16))),  # a bf16 out for f32 weights
+    ]
+    for weights, mask, kw in cases:
+        with pytest.raises(TypeError):
+            ops.stdp_update(weights, mask, c, vec, vec, row, row, params=STDP, **kw)
+    with pytest.raises(TypeError):  # bf16 vectors: the kernel rounds f32 ones
+        ops.stdp_update(w16, m, c, vec.bfloat16(), vec, row, row, params=STDP)
+
+
+def test_plastic_fused_kernels_refuse_bf16_weights(cuda, rng):
+    """The reference's fused plastic Pallas kernels raise on bf16 weights;
+    the port's three plastic fused ops raise TypeError on the card."""
+    n_p, R, D, ks = 64, 64, 8, (16, 24)
+    v, r, i = _lif_inputs(rng, n_p, cuda)
+    cols, weights = _panels(rng, n_p, R, ks, n_p, cuda)
+    plastic = _masks(rng, R, ks, n_p, cuda)
+    w16 = [w.bfloat16() for w in weights]
+    tp, tm = _vec(rng, n_p, cuda), _vec(rng, n_p, cuda)
+    ring = torch.zeros((D, n_p), device=cuda)
+    clear, onehot, _ = _slots(D, 3, [1, 2], cuda)
+    act = (_vec(rng, n_p, cuda) < 0.2).float()
+    with pytest.raises(TypeError, match="f32 weights only"):
+        ops.fused_step_plastic(v, r, i, tp, tm, cols, w16, plastic, params=LIF_PARAMS,
+                               taus=TAUS, stdp=STDP)
+    with pytest.raises(TypeError, match="f32 weights only"):
+        ops.fused_post_exchange_plastic(act, tp, ring, clear, onehot, tm, act, cols, w16,
+                                        plastic, stdp=STDP)
+    with pytest.raises(TypeError, match="f32 weights only"):
+        ops.fused_post_exchange_remote_plastic(act, act, tp, ring, onehot, tm, act, cols, w16,
+                                               plastic, stdp=STDP)
+
+
 def _plastic_case(rng, n_p, R, ks, device, p_mask=0.5):
     v, r, i = _lif_inputs(rng, n_p, device)
     cols, weights = _panels(rng, n_p, R, ks, n_p, device)
