@@ -110,14 +110,18 @@ event gather).  Phases, each printing its own lines:
      first 256 steps (on the main session's panels, ``_share``); then
      ``[maxk]``: ``Session(net, SimConfig(max_k=512))`` on the same net
      (and, after the plastic parity, ``SimConfig(max_k=64, align_k=32)``
-     on the Brunel net): the segmented gather bit-equal to the unsegmented
-     kernel's virtual rows added in ascending order (``ref.segment_add_ref``)
-     and within 1e-5 of its plain version on a main-path and a 5% vector,
-     timed beside ``torch.sparse.mm`` over the split buckets' real rows
-     (on the Brunel net also ``stdp_update`` over every bucket, the
-     split ones with ``row_map``'s post terms, bit-equal to its plain
-     version, timed beside its bound); 256 steps graphed, uncaptured and replayed, rasters and end
-     states bit-equal, one launch per kernel, bucket and step; then a
+     on the Brunel net): the split step's one ``segment_gather`` launch
+     (every bucket's gather, segment sums and ring add) bit-equal to the
+     old composition (the unsegmented ``spike_gather`` kernel's virtual
+     rows, ``ref.segment_add_ref``, ``index_add_`` a bucket) and within
+     1e-5 of its plain version on a main-path and a 5% vector, each
+     bucket's ring row within 1e-5 of ``torch.sparse.mm`` over its real
+     rows, timed in turns with that composition and beside the library
+     (on the Brunel
+     net also ``stdp_update`` over every bucket, the split ones with
+     ``row_map``'s post terms, bit-equal to its plain version, timed beside
+     its bound); 256 steps graphed, uncaptured and replayed, rasters and
+     end states bit-equal, one ``segment_gather`` launch a step; then a
      small network on the card against the plain
      torch versions on the CPU, fed the seam's numpy noise and then the
      port's own noise, whose vectors must be bit-identical on both; then
@@ -362,6 +366,7 @@ from repro_torch.kernels import event_step as event_mod  # noqa: E402
 from repro_torch.kernels import fused_step as fused_mod  # noqa: E402
 from repro_torch.kernels import lif_step as lif_mod  # noqa: E402
 from repro_torch.kernels import noise as noise_mod  # noqa: E402
+from repro_torch.kernels import segment_gather as seg_mod  # noqa: E402
 from repro_torch.kernels import spike_gather as gather_mod  # noqa: E402
 from repro_torch.kernels import split_step as split_mod  # noqa: E402
 from repro_torch.kernels import step_front as front_mod  # noqa: E402
@@ -446,12 +451,16 @@ BUILD_ARRAYS = ("global_ids", "row_ptr", "col_idx", "vtx_model", "edge_model", "
 COUNTERS = (lif_mod.COUNTER, gather_mod.COUNTER, fused_mod.COUNTER, event_mod.COUNTER,
             stdp_mod.COUNTER, fused_mod.PLASTIC_COUNTER, split_mod.PRE_COUNTER,
             split_mod.POST_COUNTER, split_mod.PLASTIC_COUNTER, ks_mod.COUNTER, noise_mod.COUNTER,
-            front_mod.COUNTER)
+            front_mod.COUNTER, seg_mod.COUNTER)
 SOURCES = {
     "lif_step": ("src/repro_torch/kernels/csrc/lif_step.cu",
                  "src/repro/kernels/lif_step.py:38"),
     "spike_gather": ("src/repro_torch/kernels/csrc/spike_gather.cu",
                      "src/repro/kernels/spike_gather.py:65"),
+    # spike_gather_pallas over a split bucket's virtual rows, with the
+    # segment_sum and the ring add around it (simulator.py:644-655)
+    "segment_gather": ("src/repro_torch/kernels/csrc/segment_gather.cu",
+                       "src/repro/kernels/spike_gather.py:65"),
     "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
                    "src/repro/kernels/fused_step.py:140"),
     "event_post_exchange": ("src/repro_torch/kernels/csrc/event_step.cu",
@@ -866,14 +875,33 @@ def phase_parity(net, main_raster, nd, main_ses):
 MAXK = {}
 
 
+def old_split_step(act, ring, t, dev, reduce):
+    """The composition the split step's launch replaced: per bucket the
+    unsegmented ``spike_gather`` kernel over the virtual rows, their
+    ascending sum (``ref.segment_add_ref``; an unsplit bucket's first n_p
+    rows as they are) and one ``index_add_`` into the bucket's ring row."""
+    D, n_p = ring.shape
+    for b, (c, w, rl, d) in enumerate(zip(dev.cols, dev.weights0, dev.row_len, dev.delays)):
+        vrows = gather_mod.spike_gather_cuda(act, c, w, rl, reduce=reduce[b:b + 1])
+        rp = dev.row_ptr[b]
+        cur = vrows[:n_p] if rp is None else ref.segment_add_ref(vrows, rp, dev.segment.depth[b])
+        ring.index_add_(0, torch.remainder(t + d, D).view(1), cur[None])
+    return ring
+
+
 def phase_maxk(tag, net, cfg, act_main, unsplit_raster, steps=PARITY_STEPS):
     """[maxk] ``Session(net, cfg)`` with ``cfg.max_k`` at full width: the
-    unfused engine with split buckets.  The segmented gather against the
-    unsegmented kernel's virtual rows added in ascending order
-    (``ref.segment_add_ref``) bit for bit, in both reductions, and against
-    the plain version within 1e-5, on a main-path spike vector and a 5%
-    vector, timed; then ``steps`` steps graphed and uncaptured, rasters and
-    end states bit-equal, one launch per kernel, bucket and step."""
+    unfused engine with split buckets, whose gathers, segment sums and ring
+    adds are one ``segment_gather`` launch a step.  The launch's ring
+    against the old composition (``old_split_step``) bit for bit, in the
+    recorded reduction and the row_dot variant, and against the plain
+    version within 1e-5, each bucket's ring row within 1e-5 of its start
+    plus ``torch.sparse.mm`` over the bucket's real rows, on a main-path
+    spike vector and a 5% vector, both timed in turns with the old
+    composition and beside the library;
+    then ``steps`` steps graphed and uncaptured, rasters and end states
+    bit-equal, one launch a step of ``lif_step``, ``segment_gather`` and
+    ``noise_add`` (and of ``stdp_update`` a bucket on a plastic net)."""
     t0 = time.perf_counter()
     ses = Session(net, cfg)
     sim = ses.simulator
@@ -883,72 +911,99 @@ def phase_maxk(tag, net, cfg, act_main, unsplit_raster, steps=PARITY_STEPS):
     plastic = dev.any_plastic
     require(ses.engine_choice.engine == "unfused", f"{tag}: engine {ses.engine_choice}")
     split = [i for i, ident in enumerate(dev.identity_rows) if not ident]
-    require(split, f"{tag}: max_k={cfg.max_k} split no row")
-    n_p, nd = dev.n_p, len(dev.cols)
-    v_rows = {i: int(dev.row_ptr[i][-1]) for i in split}
+    require(split and dev.segment is not None, f"{tag}: max_k={cfg.max_k} split no row")
+    n_p, nd, plan = dev.n_p, len(dev.cols), dev.segment
     panel_gb = sum(c.numel() * (12 if plastic else 8) for c in dev.cols) / 1e9
     say("maxk", f"{tag}: Session(SimConfig(max_k={cfg.max_k}, align_k={cfg.align_k})) on the "
-        f"same net: {build_s:.1f} s (ELL build, upload); engine {ses.engine_choice.engine} "
-        f"({ses.engine_choice.reason}); buckets "
-        + ", ".join(f"d={d} {tuple(c.shape)}" + (f" split: {v_rows[i]} virtual rows, depth "
-                                                 f"{dev.split_depth[i]}" if i in v_rows else "")
+        f"same net: {build_s:.1f} s (ELL build, tiles, upload); engine "
+        f"{ses.engine_choice.engine} ({ses.engine_choice.reason}); buckets "
+        + ", ".join(f"d={d} {tuple(c.shape)}" + (f" split: {plan.rows[i]} virtual rows, depth "
+                                                 f"{plan.depth[i]}" if i in split else "")
                     for i, (d, c) in enumerate(zip(dev.delays, dev.cols)))
         + f"; {panel_gb:.3f} GB of cols + weights{' + masks' if plastic else ''}; fill "
-        f"{sim.ell.fill_factor:.3f}")
-    csrs = {i: _csr_rows(dev.cols[i], dev.weights0[i], dev.row_len[i], dev.row_ptr[i], n_p)
-            for i in split}
+        f"{sim.ell.fill_factor:.3f}; {plan.tiles.shape[0]} tiles of at most {plan.tile_slots} "
+        "slots")
+    csrs = [_csr_of(c, w, rl, n_p) if rp is None else _csr_rows(c, w, rl, rp, n_p)
+            for c, w, rl, rp in zip(dev.cols, dev.weights0, dev.row_len, dev.row_ptr)]
     gen = torch.Generator(sim.device).manual_seed(2)
     vecs = {"main-path step": torch.from_numpy(act_main.astype(np.float32)).to(sim.device),
             "5% active": (torch.rand(n_p, generator=gen, device=sim.device) < 0.05).float()}
+    ring0 = torch.randn((sim.d_ring, n_p), generator=gen, device=sim.device)
+    t = torch.tensor(7 * sim.d_ring + 3, dtype=torch.int64, device=sim.device)
+    red = dev.reduce
     fig, err = {}, 0.0
     for label, a in vecs.items():
-        t = dict(ms_segment=0.0, ms_unsegmented=0.0, plain_ms=0.0, library_ms=0.0)
+        config = {}
+
+        def launch(ring, reduce=red):
+            return seg_mod.segment_gather_ring_cuda(
+                a, ring, t, dev.delays, plan, dev.cols, dev.weights0, dev.row_len, dev.row_ptr,
+                reduce=reduce, config=config)
+
+        got = launch(ring0.clone())
+        want = old_split_step(a, ring0.clone(), t, dev, red)
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"{tag}: the split step's launch differs from the old composition ({label})")
+        require(torch.equal(launch(ring0.clone(), "row_dot"), got),
+                f"{tag}: the launch differs from its row_dot variant ({label})")
+        plain = ref.segment_gather_ring_ref(a, ring0.clone(), t, dev.delays, dev.cols,
+                                            dev.weights0, dev.row_ptr, plan.depth)
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+        err = max(err, float((got - plain).abs().max()))
         a2 = a[:, None].contiguous()
-        nb = active = 0
-        for i in split:
-            c, w, rl, rp = dev.cols[i], dev.weights0[i], dev.row_len[i], dev.row_ptr[i]
-            depth, rb = dev.split_depth[i], dev.reduce[i:i + 1]
-            got = gather_mod.spike_gather_cuda(a, c, w, rl, row_ptr=rp, reduce=rb)
-            vrows = gather_mod.spike_gather_cuda(a, c, w, rl, reduce=rb)
-            want = ref.segment_add_ref(vrows, rp, depth)
-            require(got.shape == (n_p,) and torch.equal(got.view(torch.int32),
-                                                         want.view(torch.int32)),
-                    f"{tag}: the segmented gather differs from the ascending sum of its "
-                    f"virtual rows ({label}, d={dev.delays[i]})")
-            require(torch.equal(got, gather_mod.spike_gather_cuda(a, c, w, row_ptr=rp,
-                                                                  reduce="row_dot")),
-                    f"{tag}: the segmented gather differs from its row_dot variant ({label})")
-            plain = ref.spike_gather_segment_ref(a, c, w, rp, depth=depth)
-            torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
-            err = max(err, float((got - plain).abs().max()))
-            t["ms_segment"] += cuda_ms(lambda: gather_mod.spike_gather_cuda(
-                a, c, w, rl, row_ptr=rp, reduce=rb), 20)
-            t["ms_unsegmented"] += cuda_ms(lambda: gather_mod.spike_gather_cuda(
-                a, c, w, rl, reduce=rb), 20)
-            t["plain_ms"] += cuda_ms(lambda: ref.spike_gather_segment_ref(
-                a, c, w, rp, depth=depth), 3)
-            torch.testing.assert_close(torch.sparse.mm(csrs[i], a2)[:, 0], got, rtol=1e-5,
-                                       atol=1e-5)
-            t["library_ms"] += cuda_ms(lambda: torch.sparse.mm(csrs[i], a2), 20)
-            rows = torch.arange(c.shape[0], device=c.device) < v_rows[i]
+        # each bucket's ring row against its start plus the library's sums
+        t_host = int(t)
+        for m, d in zip(csrs, dev.delays):
+            slot = (t_host + d) % sim.d_ring
+            torch.testing.assert_close(got[slot], ring0[slot] + torch.sparse.mm(m, a2)[:n_p, 0],
+                                       rtol=1e-5, atol=1e-5)
+        # the kernel, the old composition and the unsegmented kernel alone in
+        # turns (kernel, old, old, kernel), each on its own ring
+        rings = [ring0.clone() for _ in range(3)]
+        times = {k: [] for k in ("ms", "old_ms", "vrows_ms")}
+        for order in (("ms", "old_ms", "vrows_ms"), ("vrows_ms", "old_ms", "ms")):
+            for k in order:
+                if k == "ms":
+                    times[k].append(cuda_ms(lambda: launch(rings[0]), 20))
+                elif k == "old_ms":
+                    times[k].append(cuda_ms(lambda: old_split_step(a, rings[1], t, dev, red), 10))
+                else:
+                    times[k].append(cuda_ms(lambda: [gather_mod.spike_gather_cuda(
+                        a, c, w, rl, reduce=red[b:b + 1]) for b, (c, w, rl) in enumerate(
+                        zip(dev.cols, dev.weights0, dev.row_len))], 20))
+        f = {k: min(v) for k, v in times.items()}
+        f["plain_ms"] = cuda_ms(lambda: ref.segment_gather_ring_ref(
+            a, rings[2], t, dev.delays, dev.cols, dev.weights0, dev.row_ptr, plan.depth), 3)
+        f["library_ms"] = cuda_ms(lambda: [torch.sparse.mm(m, a2) for m in csrs], 20)
+        # the activity read once, then per bucket: each real slot's col,
+        # the weight of each real slot whose source is active (of every real
+        # slot on a row_dot bucket: the padding slots past row_len carry
+        # nothing), row_len of each virtual row, row_ptr, and the ring row
+        # read and written
+        nb, active = 4 * a.shape[0], 0
+        for i, (c, w, rl, rp) in enumerate(zip(dev.cols, dev.weights0, dev.row_len,
+                                               dev.row_ptr)):
+            v_rows = plan.rows[i]
+            rows = torch.arange(c.shape[0], device=c.device) < v_rows
             real_, active_, _ = gather_traffic(a, c, rl, rows)
-            if rb == ("row_dot",):  # every slot of the virtual rows: col and weight
-                real_ = active_ = v_rows[i] * c.shape[1]
+            if red[i] == "row_dot":
+                active_ = real_
             active += active_
-            # cols and weights read, the activity and row_ptr read (and
-            # row_len, which the row_dot variant does not read), the (n_p,)
-            # sums written
-            nb += (4 * (real_ + active_) + 4 * n_p + 4 * (n_p + 1) + 4 * n_p
-                   + (0 if rb == ("row_dot",) else 4 * v_rows[i]))
-        t["bound_ms"], t["bound_by"] = bound_ms(nb, 2 * active)
-        fig[label] = t
-        say("maxk", f"{tag}: segmented spike_gather over the {len(split)} split bucket(s), "
-            f"{label} ({int(a.sum())} of {n_p} ids): bit-equal to the unsegmented kernel's "
-            f"virtual rows added in ascending order and to its row_dot variant; kernel "
-            f"{t['ms_segment']:.4f} ms, unsegmented (the virtual rows alone) "
-            f"{t['ms_unsegmented']:.4f} ms, plain {t['plain_ms']:.3f} ms, torch.sparse.mm "
-            f"over the real rows {t['library_ms']:.4f} ms; bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nb / 1e9:.4f} GB)")
+            nb += (4 * real_ + w.element_size() * active_ + 4 * v_rows
+                   + (0 if rp is None else 4 * (n_p + 1)) + 8 * n_p)
+        f["bound_ms"], f["bound_by"] = bound_ms(nb, 2 * active)
+        f["gb"] = nb / 1e9
+        f["config"] = dict(config)
+        fig[label] = f
+        say("maxk", f"{tag}: segment_gather over the {nd} bucket(s) ({len(split)} split), "
+            f"{label} ({int(a.sum())} of {n_p} ids): ring bit-equal to the old composition "
+            f"(unsegmented spike_gather, segment_add_ref, index_add_ a bucket) and to its "
+            f"row_dot variant; kernel {f['ms']:.4f} ms ({', '.join(f'{x:.4f}' for x in times['ms'])}), "
+            f"old composition {f['old_ms']:.4f} ms, the virtual rows alone (unsegmented "
+            f"spike_gather) {f['vrows_ms']:.4f} ms, plain {f['plain_ms']:.3f} ms, "
+            f"torch.sparse.mm over every bucket's real rows {f['library_ms']:.4f} ms; bound "
+            f"{f['bound_ms']:.4f} ms ({f['bound_by']}: {nb / 1e9:.4f} GB): "
+            f"{f['bound_ms'] / f['ms']:.0%}; launch {config}")
 
     del csrs
     if plastic:  # stdp_update over every bucket, as the unfused step calls it
@@ -990,7 +1045,7 @@ def phase_maxk(tag, net, cfg, act_main, unsplit_raster, steps=PARITY_STEPS):
     reset_counts()
     _, _, r_g, secs_c = run_session(ses, steps)
     launches = read_counts()
-    want = dict(lif_step=steps, spike_gather=steps * nd, noise_add=steps)
+    want = dict(lif_step=steps, segment_gather=steps, noise_add=steps)
     if plastic:
         want["stdp_update"] = steps * nd
     require(launches == only(**want), f"{tag}: launches {launches}")
@@ -1020,13 +1075,32 @@ def phase_maxk(tag, net, cfg, act_main, unsplit_raster, steps=PARITY_STEPS):
         f"{', weights' if plastic else ''}) bit-equal; kernel nodes a step "
         + ", ".join(f"{k}: {v:.2f}" for k, v in nodes.items())
         + f"; launches {launches}; against the unsplit path's raster: {differ} entries differ "
-        "(the split sums each row in another order); max |segmented - plain| "
+        "(the split sums each row in another order); max |launch - plain| "
         f"{err:.3e} (rtol=atol=1e-5)")
     MAXK[tag] = dict(fig=fig, launches=launches, err=err, us_graphed=secs_g / steps * 1e6,
-                     us_uncaptured=secs_u / steps * 1e6)
+                     us_uncaptured=secs_u / steps * 1e6, nodes=nodes)
     del ses, sim, dev, st0, st_g
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def maxk_entry():
+    """The kernels line's ``segment_gather`` row: the microcircuit's 5%
+    vector as its figure, the main-path vector and the Brunel net beside."""
+    mc, br = MAXK["microcircuit"]["fig"], MAXK["brunel"]["fig"]
+    src, rep = SOURCES["segment_gather"]
+    row = dict(name="segment_gather", route="cuda", source=src, replaces=rep,
+               launches=sum(m["launches"]["segment_gather"] for m in MAXK.values()),
+               max_abs_err=max(m["err"] for m in MAXK.values()), path="maxk",
+               vector="SimConfig(max_k=512) on the microcircuit, 5% active; _main_path: a "
+               "main-path spike vector; _brunel: SimConfig(max_k=64, align_k=32) on the Brunel "
+               "net; library_ms: torch.sparse.mm over every bucket's real rows; old_ms: the "
+               "unsegmented spike_gather, segment_add_ref and index_add_ a bucket")
+    for suffix, f in (("", mc["5% active"]), ("_main_path", mc["main-path step"]),
+                      ("_brunel", br["5% active"]), ("_brunel_main_path", br["main-path step"])):
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "old_ms"):
+            row[key + suffix] = f[key]
+    return row
 
 
 def phase_contracts(card):
@@ -5118,26 +5192,7 @@ def main(argv=None) -> int:
     kernels.append(phase_keystream_timing(args.seed, card, ks_launches, ks_err))
     next(k for k in kernels if k["name"] == "fused_step")["launches_rules_microcircuit"] = \
         rules_fused
-    # the heavy-row split runs unfused: its segmented launches are the
-    # spike_gather row's, and it launches no fused_step
-    for k in kernels:
-        if k["name"] in ("spike_gather", "fused_step"):
-            k["launches_maxk"] = sum(m["launches"][k["name"]] for m in MAXK.values())
-    seg = MAXK["microcircuit"]["fig"]
-    next(k for k in kernels if k["name"] == "spike_gather").update(
-        ms_segment=seg["5% active"]["ms_segment"],
-        bound_ms_segment=seg["5% active"]["bound_ms"],
-        ms_segment_main_path=seg["main-path step"]["ms_segment"],
-        bound_ms_segment_main_path=seg["main-path step"]["bound_ms"],
-        plain_ms_segment=seg["5% active"]["plain_ms"],
-        library_ms_segment=seg["5% active"]["library_ms"],
-        ms_segment_brunel=MAXK["brunel"]["fig"]["5% active"]["ms_segment"],
-        bound_ms_segment_brunel=MAXK["brunel"]["fig"]["5% active"]["bound_ms"],
-        library_ms_segment_brunel=MAXK["brunel"]["fig"]["5% active"]["library_ms"],
-        max_abs_err_segment=max(m["err"] for m in MAXK.values()),
-        segment="SimConfig(max_k=512) on the microcircuit, both buckets split (_brunel: "
-                "max_k=64 on the Brunel net, 15 split buckets); library_ms_segment: "
-                "torch.sparse.mm over the real rows; launches_maxk: both [maxk] sessions' runs")
+    kernels.append(maxk_entry())  # the heavy-row split's launch, on both [maxk] sessions
     say("graph", "us/step of each path, graphed / uncaptured (_graphs=False), host clock, "
         "in one call: " + "; ".join(
             f"{tag} {min(per[True]):.1f} / {min(per[False]):.1f}" for tag, per in GRAPH_US.items())

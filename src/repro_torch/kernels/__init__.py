@@ -5,13 +5,15 @@ beside its plain torch version, behind the ``ops`` entry points.
     ``event_post_exchange``, ``stdp_update``, ``fused_step_plastic``, and the
     split step's ``fused_pre_exchange`` and ``fused_post_exchange*``, the
     procedural construction's ``builder_keystream``, the simulator's
-    per-step ``step_noise`` and ``step_noise_add``, and the step front
-    ``step_front`` of the split and event engines
+    per-step ``step_noise`` and ``step_noise_add``, the step front
+    ``step_front`` of the split and event engines, and the heavy-row
+    split's ``segment_gather_ring``
   - :mod:`.dispatch`     -- backend by device, step-engine selection
   - :mod:`.ref`          -- the plain torch versions (correctness contract)
   - :mod:`.lif_step`, :mod:`.spike_gather`, :mod:`.fused_step`,
     :mod:`.event_step`, :mod:`.stdp_update`, :mod:`.split_step`,
-    :mod:`.keystream`, :mod:`.noise`, :mod:`.step_front` -- kernel wrappers
+    :mod:`.keystream`, :mod:`.noise`, :mod:`.step_front`,
+    :mod:`.segment_gather` -- kernel wrappers
     with their launch counters
   - :mod:`._build`       -- builds ``csrc/*.cu`` on first use
 """

@@ -158,9 +158,11 @@ _U = ctypes.c_uint32
 _L = ctypes.c_int64
 _SIGNATURES = {
     "repro_lif_step": [_P] * 6 + [_I] + [_F] * 7 + [_P, _I],
-    "repro_spike_gather": (
-        [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P] + [_I] * 4 + [_P, _I]
+    "repro_spike_gather": [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_P, _I],
+    "repro_segment_gather": (
+        [_P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P, _I] + [_P] * 8 + [_I]
     ),
+    "repro_segment_gather_max_buckets": [],
     "repro_fused_step": (
         [_P] * 6 + [_I, _I, _I] + [_P] * 2 + [_I] + [_P] * 4 + [_I, _I] + [_F] * 7 + [_P, _I]
     ),

@@ -236,29 +236,35 @@ __device__ __forceinline__ float row_dot_active(const int* cols, const W* w,
 
 // Blocks of `kernel` (with `threads` threads and `smem` bytes of dynamic
 // shared memory) that fit on the card at once.  Above the default 48 KB the
-// kernel is first allowed that much dynamic shared memory.  The last answer
-// per (device, kernel, smem) is kept: the wrappers call this every launch.
+// kernel is first allowed the card's opt-in maximum of dynamic shared memory.  The last answer
+// per (device, kernel, threads, smem) is kept: the wrappers call this every
+// launch.
 static inline cudaError_t resident_blocks(const void* kernel, int device,
                                           int threads, size_t smem,
                                           int* blocks) {
   struct Entry {
     const void* kernel;
     int device;
+    int threads;
     size_t smem;
     int blocks;
   };
   static Entry cache[16] = {};
   for (const Entry& e : cache) {
-    if (e.kernel == kernel && e.device == device && e.smem == smem) {
+    if (e.kernel == kernel && e.device == device && e.threads == threads &&
+        e.smem == smem) {
       *blocks = e.blocks;
       return cudaSuccess;
     }
   }
   cudaError_t err;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    // the card's whole opt-in: a later launch of the kernel with less (a
+    // cached answer sets nothing) stays allowed
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return err;
   }
   int sms = 0;
@@ -271,7 +277,7 @@ static inline cudaError_t resident_blocks(const void* kernel, int device,
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   *blocks = sms * per_sm;
   static int next = 0;
-  cache[next] = Entry{kernel, device, smem, *blocks};
+  cache[next] = Entry{kernel, device, threads, smem, *blocks};
   next = (next + 1) % 16;
   return cudaSuccess;
 }

@@ -31,6 +31,8 @@
 // (the caller's choice from the data), where a NaN weight of a silent
 // source must give the reference's NaN, and it is the bit-exact oracle of
 // the active variant on the card.
+// The heavy-row split's virtual rows, with their segment sums and the ring
+// add, are segment_gather.cu's one launch a step.
 #include "common.cuh"
 
 namespace {
@@ -46,7 +48,7 @@ __global__ void __launch_bounds__(kPackThreads)
   pack_active_bits(act, n, bits, word, threadIdx.x & 31);
 }
 
-// One virtual row's reduction (the unsegmented gather's whole work).
+// One row's reduction.
 template <bool kShared, bool kRowDot, class W>
 __device__ __forceinline__ float gather_row(const float* act, const int* cols, const W* w,
                                             const int* row_len, const uint32_t* bits,
@@ -58,12 +60,10 @@ __device__ __forceinline__ float gather_row(const float* act, const int* cols, c
                  : row_dot_active(cols + off, w + off, act, LdgBits{bits}, len, lane);
 }
 
-// rows: R (one output a panel row) or, segmented, the real rows n_out
-template <bool kShared, bool kRowDot, bool kSegment, class W>
+template <bool kShared, bool kRowDot, class W>
 __global__ void __launch_bounds__(kThreads, 1)
-    spike_gather_kernel(const float* act, const int* cols, const W* w,
-                        const int* row_len, const int* row_ptr, const uint32_t* bits,
-                        int words, float* __restrict__ out, int rows, int K) {
+    spike_gather_kernel(const float* act, const int* cols, const W* w, const int* row_len,
+                        const uint32_t* bits, int words, float* __restrict__ out, int R, int K) {
   extern __shared__ uint32_t staged[];
   if (kShared && !kRowDot) {
     for (int i = threadIdx.x; i < words; i += kThreads) staged[i] = __ldg(bits + i);
@@ -71,65 +71,38 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const int lane = threadIdx.x & 31;
   const int nwarps = gridDim.x * kWarpsPerBlock;
-  for (int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); row < rows;
-       row += nwarps) {
-    float s;
-    if (kSegment) {
-      // every lane holds the same bits after the xor tree, so the sum is
-      // warp-uniform; the virtual rows in ascending order
-      s = 0.0f;
-      const int end = __ldg(row_ptr + row + 1);
-      for (int v = __ldg(row_ptr + row); v < end; ++v) {
-        s = __fadd_rn(
-            s, gather_row<kShared, kRowDot>(act, cols, w, row_len, bits, staged, v, K, lane));
-      }
-    } else {
-      s = gather_row<kShared, kRowDot>(act, cols, w, row_len, bits, staged, row, K, lane);
-    }
+  for (int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5); row < R; row += nwarps) {
+    const float s =
+        gather_row<kShared, kRowDot>(act, cols, w, row_len, bits, staged, row, K, lane);
     if (lane == 0) out[row] = s;
   }
 }
 
-template <bool kShared, bool kRowDot, bool kSegment, class W>
+template <bool kShared, bool kRowDot, class W>
 cudaError_t launch(const float* act, const int* cols, const void* w, const int* row_len,
-                   const int* row_ptr, const uint32_t* bits, int words, float* out, int rows,
-                   int K, cudaStream_t s, int device) {
-  const auto kernel = spike_gather_kernel<kShared, kRowDot, kSegment, W>;
+                   const uint32_t* bits, int words, float* out, int R, int K, cudaStream_t s,
+                   int device) {
+  const auto kernel = spike_gather_kernel<kShared, kRowDot, W>;
   const size_t smem = kShared && !kRowDot ? 4 * static_cast<size_t>(words) : 0;
   int grid = 0;
   cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), device, kThreads,
                                     smem, &grid);
   if (err != cudaSuccess) return err;
-  const int needed = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int needed = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (needed < grid) grid = needed;
-  kernel<<<grid, kThreads, smem, s>>>(act, cols, static_cast<const W*>(w), row_len, row_ptr,
-                                      bits, words, out, rows, K);
+  kernel<<<grid, kThreads, smem, s>>>(act, cols, static_cast<const W*>(w), row_len, bits, words,
+                                      out, R, K);
   return cudaGetLastError();
 }
 
-template <bool kShared, bool kRowDot, bool kSegment>
+template <bool kShared, bool kRowDot>
 cudaError_t launch_w(int w_bf16, const float* act, const int* cols, const void* w,
-                     const int* row_len, const int* row_ptr, const uint32_t* bits, int words,
-                     float* out, int rows, int K, cudaStream_t s, int device) {
-  return w_bf16 ? launch<kShared, kRowDot, kSegment, __nv_bfloat16>(
-                      act, cols, w, row_len, row_ptr, bits, words, out, rows, K, s, device)
-                : launch<kShared, kRowDot, kSegment, float>(
-                      act, cols, w, row_len, row_ptr, bits, words, out, rows, K, s, device);
-}
-
-template <bool kSegment>
-cudaError_t launch_mode(bool dense, bool shared, int w_bf16, const float* act, const int* cols,
-                        const void* w, const int* row_len, const int* row_ptr,
-                        const uint32_t* bits, int words, float* out, int rows, int K,
-                        cudaStream_t s, int device) {
-  if (dense)
-    return launch_w<false, true, kSegment>(w_bf16, act, cols, w, row_len, row_ptr, bits, 0,
-                                           out, rows, K, s, device);
-  if (shared)
-    return launch_w<true, false, kSegment>(w_bf16, act, cols, w, row_len, row_ptr, bits,
-                                           words, out, rows, K, s, device);
-  return launch_w<false, false, kSegment>(w_bf16, act, cols, w, row_len, row_ptr, bits, words,
-                                          out, rows, K, s, device);
+                     const int* row_len, const uint32_t* bits, int words, float* out, int R,
+                     int K, cudaStream_t s, int device) {
+  return w_bf16 ? launch<kShared, kRowDot, __nv_bfloat16>(act, cols, w, row_len, bits, words,
+                                                           out, R, K, s, device)
+                : launch<kShared, kRowDot, float>(act, cols, w, row_len, bits, words, out, R,
+                                                  K, s, device);
 }
 
 }  // namespace
@@ -138,30 +111,28 @@ cudaError_t launch_mode(bool dense, bool shared, int w_bf16, const float* act, c
 // of ceil(n / 32) words.  smem_cap: the most bytes of shared memory the
 // bitmask may take (< 0: the card's limit; 0: read it from device memory).
 // dense != 0: the row_dot variant (bits, row_len and smem_cap unused).
-// row_ptr: null, out is (R,); else (n_out + 1,) offsets of each real row's
-// virtual rows, out is (n_out,).
 extern "C" int repro_spike_gather(const float* act, int n, const int* cols, const void* w,
-                                  int w_bf16, const int* row_len, const int* row_ptr,
-                                  int n_out, uint32_t* bits, float* out, int R, int K,
-                                  int smem_cap, int dense, void* stream, int device) {
+                                  int w_bf16, const int* row_len, uint32_t* bits, float* out,
+                                  int R, int K, int smem_cap, int dense, void* stream,
+                                  int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int words = (n + 31) / 32;
-  bool shared = false;
-  if (!dense) {
-    if (words > 0) {
-      pack_kernel<<<(words * 32 + kPackThreads - 1) / kPackThreads, kPackThreads, 0, s>>>(
-          act, n, bits, words);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-    err = bits_in_shared(device, words, smem_cap, &shared);
+  if (dense)
+    return launch_w<false, true>(w_bf16, act, cols, w, row_len, bits, 0, out, R, K, s, device);
+  if (words > 0) {
+    pack_kernel<<<(words * 32 + kPackThreads - 1) / kPackThreads, kPackThreads, 0, s>>>(
+        act, n, bits, words);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (row_ptr != nullptr)
-    return launch_mode<true>(dense != 0, shared, w_bf16, act, cols, w, row_len, row_ptr, bits,
-                             words, out, n_out, K, s, device);
-  return launch_mode<false>(dense != 0, shared, w_bf16, act, cols, w, row_len, nullptr, bits,
-                            words, out, R, K, s, device);
+  bool shared = false;
+  err = bits_in_shared(device, words, smem_cap, &shared);
+  if (err != cudaSuccess) return err;
+  if (shared)
+    return launch_w<true, false>(w_bf16, act, cols, w, row_len, bits, words, out, R, K, s,
+                                 device);
+  return launch_w<false, false>(w_bf16, act, cols, w, row_len, bits, words, out, R, K, s,
+                                device);
 }

@@ -19,6 +19,7 @@ from .fused_step import (
 from .keystream import keystream_cuda, keystream_plain
 from .lif_step import lif_step_cuda
 from .noise import noise_add_cuda, noise_add_plain, noise_cuda, noise_plain
+from .segment_gather import segment_gather_ring_cuda, segment_gather_ring_plain
 from .spike_gather import spike_gather_cuda
 from .split_step import post_exchange_cuda, post_exchange_plastic_cuda, pre_exchange_cuda
 from .step_front import step_front_cuda, step_front_plain
@@ -101,36 +102,52 @@ def step_front(vtx, slot, ids, *, seed, t, sigma, draw, bias, hist_row, tr_plus=
 # -- spike_gather ---------------------------------------------------------
 
 @implementation("spike_gather", "ref")
-def _spike_gather_ref(activity, cols, weights, row_len=None, *, row_ptr=None, depth=None,
-                      reduce="row_dot"):
+def _spike_gather_ref(activity, cols, weights, row_len=None, *, reduce="row_dot"):
     # the slots past row_len are (col 0, weight 0): the whole row sums the
     # same; every slot is summed, whatever reduce says
-    if row_ptr is not None:
-        return ref.spike_gather_segment_ref(activity, cols, weights, row_ptr, depth=depth)
     return ref.spike_gather_ref(activity, cols, weights)
 
 
 implementation("spike_gather", "cuda")(spike_gather_cuda)
 
 
-def spike_gather(activity, cols, weights, row_len=None, *, row_ptr=None, depth=None,
-                 reduce="row_dot"):
+def spike_gather(activity, cols, weights, row_len=None, *, reduce="row_dot"):
     """``cur[r] = sum_k weights[r,k] * activity[cols[r,k]]`` (f32), for f32
     or bf16 ``weights`` (widened exactly, summed in f32) and any float
     ``activity``.
 
     ``row_len``, the ``(R,)`` int32 count of real slots per row (the ELL
     puts them first, ``(col 0, weight 0)`` after), lets the kernel skip the
-    padding; None takes every row as ``K`` long.  ``row_ptr``, an ``(n_out
-    + 1,)`` int32 of offsets, makes the rows virtual rows of a heavy-row
-    split (``SimConfig(max_k=...)``): the result is ``(n_out,)``, each real
-    row the ascending sum of its virtual rows (``depth``: the most of them
-    in one row, the plain version's loop count).  ``reduce`` picks the
+    padding; None takes every row as ``K`` long.  ``reduce`` picks the
     kernel's reduction (``dispatch.launch_row_dot``): ``"row_dot"`` (the
     default) sums every slot, and the engines pass the choice recorded at
     upload (``PartitionDeviceData.reduce``, ``dispatch.panel_reduce``)."""
     return lookup("spike_gather", backend_for(activity.device))(
-        activity, cols, weights, row_len, row_ptr=row_ptr, depth=depth, reduce=reduce
+        activity, cols, weights, row_len, reduce=reduce
+    )
+
+
+# -- segment_gather_ring (the heavy-row split's step) -----------------------
+
+implementation("segment_gather_ring", "ref")(segment_gather_ring_plain)
+implementation("segment_gather_ring", "cuda")(segment_gather_ring_cuda)
+
+
+def segment_gather_ring(act, ring, t, delays, plan, cols, weights, row_len=None, row_ptr=None,
+                        *, reduce="row_dot"):
+    """The gathers of a ``SimConfig(max_k=...)`` step added into the ring,
+    in place: per bucket, a split bucket's virtual rows gathered and each
+    real row's added in ascending order from ``+0.0`` (``row_ptr``, its
+    ``(n_p + 1,)`` int32 offsets), or an unsplit bucket's first ``n_p`` rows
+    (``row_ptr`` None), added into ``ring[(t + delay) % D]``.  ``t`` is an
+    int or the 0-d int64 step on the ring's device, which stays there;
+    ``plan`` is the upload's ``segment_plan``; ``row_len`` and ``reduce``
+    as for :func:`spike_gather`, per bucket.  One launch on the card
+    (``kernels/segment_gather.py``), which takes delays that differ modulo
+    ``D``, as the step's do.  Returns ``ring``."""
+    return lookup("segment_gather_ring", backend_for(act.device))(
+        act, ring, t, tuple(delays), plan, tuple(cols), tuple(weights), _tuple(row_len),
+        _tuple(row_ptr), reduce=reduce,
     )
 
 

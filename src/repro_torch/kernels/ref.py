@@ -95,6 +95,35 @@ def spike_gather_segment_ref(
     return segment_add_ref(spike_gather_ref(activity, cols, weights), row_ptr, depth)
 
 
+def segment_gather_ring_ref(
+    act: Tensor,  # (n,) activity
+    ring: Tensor,  # (D, n_p) ring, updated in place
+    t,  # the step: an int, or a 0-d integer tensor on the ring's device
+    delays: Sequence[int],  # per bucket its delay
+    cols: Sequence[Tensor],  # per bucket (R, K) int32; split buckets' rows are virtual rows
+    weights: Sequence[Tensor],  # per bucket (R, K)
+    row_ptr: Sequence[Optional[Tensor]],  # per bucket (n_p + 1,) int32 offsets, or None
+    depth: Optional[Sequence[int]] = None,  # per bucket most virtual rows of a row
+) -> Tensor:
+    """The heavy-row split's step: per bucket in order, the segmented
+    gather of a split bucket (:func:`spike_gather_segment_ref`), or an
+    unsplit bucket's first ``n_p`` rows (:func:`spike_gather_ref`), added
+    into ``ring[(t + d) % D]``, one f32 add per element: the reference's
+    ``ring.at[(t + d) % D].add`` (``repro/snn/simulator.py:654-655``).  The
+    row index is made on the ring's device from ``t``; the add is
+    ``index_put_`` with ``accumulate`` (the CPU's ``index_add_`` starts every
+    core's thread for one row).  Returns ``ring``."""
+    D, n_p = ring.shape
+    for b, (c, w, rp, d) in enumerate(zip(cols, weights, row_ptr, delays)):
+        if rp is None:
+            cur = spike_gather_ref(act, c, w)[:n_p]
+        else:
+            cur = spike_gather_segment_ref(act, c, w, rp,
+                                           depth=None if depth is None else depth[b])
+        ring.index_put_((ring_row(t + d, D, ring.device),), cur.unsqueeze(0), accumulate=True)
+    return ring
+
+
 def lif_step_ref(
     v: Tensor,  # (R,) membrane potential
     refrac: Tensor,  # (R,) remaining refractory steps (float, >= 0)

@@ -9,13 +9,9 @@ tensors.  Weights are f32 or bf16 panels, widened exactly and accumulated
 in f32 as the reference's wrapper does (``spike_gather.py:36-42``); any
 float activity is cast to f32; the currents are f32.
 
-With ``row_ptr`` the kernel runs its segmented mode, the heavy-row split
-of ``SimConfig(max_k=...)``: the panel's rows are virtual rows, real row
-``r`` owns rows ``row_ptr[r] .. row_ptr[r+1]-1`` (contiguous, ascending),
-and the result is ``(len(row_ptr) - 1,)``, each real row the ascending f32
-sum, from ``+0.0``, of its virtual rows' gathers: the reference's
-``jax.ops.segment_sum`` over ``row_map``.  Its plain version is
-``ref.spike_gather_segment_ref``.
+The heavy-row split of ``SimConfig(max_k=...)`` (virtual rows, their
+segment sums and the ring add) is ``segment_gather.py``'s one launch a
+step.
 
 The kernel reads only what carries information: a pack launch turns the
 activity into a bitmask (one bit per id, set iff ``act != 0``), and the
@@ -49,11 +45,10 @@ import torch
 from . import _build
 from .dispatch import launch_row_dot
 from .ref import spike_gather_ref as spike_gather_plain
-from .ref import spike_gather_segment_ref as spike_gather_segment_plain
 
 COUNTER = _build.LaunchCounter("spike_gather")
 
-__all__ = ["COUNTER", "spike_gather_cuda", "spike_gather_plain", "spike_gather_segment_plain"]
+__all__ = ["COUNTER", "spike_gather_cuda", "spike_gather_plain"]
 
 
 def spike_gather_cuda(
@@ -62,16 +57,10 @@ def spike_gather_cuda(
     weights: torch.Tensor,
     row_len: Optional[torch.Tensor] = None,
     *,
-    row_ptr: Optional[torch.Tensor] = None,
-    depth: Optional[int] = None,
     reduce="row_dot",
     shared_bitmask: bool = True,
 ) -> torch.Tensor:
-    """Launch the kernel: ``(R,)`` f32 currents, or with ``row_ptr`` (an
-    ``(n_out + 1,)`` int32 of offsets into the virtual rows, ascending,
-    ending at most at ``R``) the ``(n_out,)`` segment sums.  ``depth``,
-    the most virtual rows of one real row, is the plain version's loop
-    count; the kernel reads ``row_ptr`` alone.  ``reduce``: ``"row_dot"``
+    """Launch the kernel: ``(R,)`` f32 currents.  ``reduce``: ``"row_dot"``
     or a one-panel sequence (the engines pass the choice recorded at
     upload; ``dispatch.launch_row_dot``).  ``shared_bitmask=False`` reads
     the bitmask from device memory, the path a vector too long for shared
@@ -91,16 +80,8 @@ def spike_gather_cuda(
         _build.require("row_len", row_len, torch.int32, 1, dev)
         if row_len.shape[0] != R:
             raise ValueError(f"row_len {tuple(row_len.shape)} for {R} rows")
-    n_out = R
-    if row_ptr is not None:
-        _build.require("row_ptr", row_ptr, torch.int32, 1, dev)
-        if row_ptr.shape[0] < 1:
-            raise ValueError("row_ptr needs at least one offset")
-        n_out = row_ptr.shape[0] - 1
-    out = torch.empty(n_out, dtype=torch.float32, device=dev)
-    if n_out == 0 or R == 0:
-        return out.zero_()
-    if K == 0:
+    out = torch.empty(R, dtype=torch.float32, device=dev)
+    if R == 0 or K == 0:
         return out.zero_()
     dense = launch_row_dot(reduce, [weights])
     n = activity.shape[0]
@@ -108,8 +89,7 @@ def spike_gather_cuda(
     stream, device = _build.launch_args(activity)
     rc = _build.library().repro_spike_gather(
         activity.data_ptr(), n, cols.data_ptr(), weights.data_ptr(), w_bf16,
-        None if row_len is None else row_len.data_ptr(),
-        None if row_ptr is None else row_ptr.data_ptr(), n_out, bits.data_ptr(),
+        None if row_len is None else row_len.data_ptr(), bits.data_ptr(),
         out.data_ptr(), R, K, -1 if shared_bitmask else 0, int(dense), stream, device,
     )
     _build.check(rc, "spike_gather")

@@ -98,6 +98,7 @@ from ..kernels.dispatch import (
     StepEngineChoice, backend_for, panel_reduce, resolve_device, select_step_engine,
 )
 from ..kernels.event_step import EventPlan, event_id_cap
+from ..kernels.segment_gather import SegmentPlan, segment_plan
 from .neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V, make_neuron_step
 from .reshard import RUNTIME_KEYS, concat_runtime
 
@@ -108,10 +109,10 @@ class SimConfig:
 
     ``max_k`` splits rows wider than it into virtual rows (the k = 1
     engine's ELL, ``core/ell.py``; k > 1 ignores it, as the reference
-    does), which takes the ``unfused`` engine: its gathers add each row's
-    virtual rows in the segmented mode of ``ops.spike_gather``.  There is no
-    ``backend`` field: the run's device decides between the CUDA kernels and
-    the plain versions."""
+    does), which takes the ``unfused`` engine: a step's gathers, each row's
+    virtual rows added and the ring add are one ``ops.segment_gather_ring``.
+    There is no ``backend`` field: the run's device decides between the CUDA
+    kernels and the plain versions."""
 
     fused: Optional[bool] = None  # None=auto, True=require fused step, False=off
     align_k: int = 128
@@ -201,10 +202,11 @@ class PartitionDeviceData:
     reduce_local: Optional[Tuple[str, ...]] = None
     # per bucket of a heavy-row split (SimConfig(max_k=...)), whose panel
     # rows are virtual rows: the (n_p + 1,) int32 offsets of each real row's
-    # virtual rows (the segmented gather's row_ptr) and the most virtual
-    # rows of one real row; None and 0 for a bucket of real rows
+    # virtual rows; None for a bucket of real rows
     row_ptr: Optional[List[Optional[torch.Tensor]]] = None
-    split_depth: Tuple[int, ...] = ()
+    # the split step's tiles over every bucket's virtual rows
+    # (ops.segment_gather_ring); None when no bucket is split
+    segment: Optional[SegmentPlan] = None
     # per split bucket of a plastic partition the (R,) int32 virtual row ->
     # real row map (stdp_update's post-synaptic terms); None elsewhere
     row_map: Optional[List[Optional[torch.Tensor]]] = None
@@ -283,7 +285,8 @@ def partition_device_data(
         plastic=None if plastic is None else [torch.from_numpy(m).to(device) for m in plastic],
         row_ptr=[None if p is None else torch.from_numpy(p).to(device) for p in ptrs]
         if split else None,
-        split_depth=tuple(0 if p is None else int(np.diff(p).max(initial=0)) for p in ptrs),
+        segment=segment_plan(ptrs, [b.cols.shape[1] for b in ell.buckets], part.n, device)
+        if split else None,
         row_map=[None if b.identity_rows else torch.from_numpy(b.row_map).to(device)
                  for b in ell.buckets] if split and plastic is not None else None,
     )
@@ -699,18 +702,22 @@ def make_core_step(
             )
             carry["weights"] = tuple(new_w)
         elif not choice.fused:
+            split = dev.segment is not None
+            if split:
+                # every bucket's gather, each row's virtual rows added (the
+                # reference's segment_sum) and the ring add in one op, from
+                # the weights before this step's updates below
+                ops.segment_gather_ring(act, ring, t, dev.delays, dev.segment, dev.cols, weights,
+                                        dev.row_len, dev.row_ptr, reduce=carry["_reduce"])
             idx = step_slots(carry)
             post_terms = {}  # panel rows -> the padded post terms, made once a step
             for i, (c, w) in enumerate(zip(dev.cols, weights)):
-                # a split bucket's segmented gather gives the (n_p,) sums of
-                # each row's virtual rows (the reference's segment_sum)
-                row_ptr = None if dev.row_ptr is None else dev.row_ptr[i]
-                add_to_ring(ring, idx[1 + i:2 + i],
-                            ops.spike_gather(act, c, w, dev.row_len[i], row_ptr=row_ptr,
-                                             depth=None if row_ptr is None else dev.split_depth[i],
-                                             reduce=carry["_reduce"][i:i + 1]))
+                if not split:
+                    add_to_ring(ring, idx[1 + i:2 + i],
+                                ops.spike_gather(act, c, w, dev.row_len[i],
+                                                 reduce=carry["_reduce"][i:i + 1]))
                 if plastic:
-                    if row_ptr is not None:  # each virtual row takes its row's terms
+                    if split and dev.row_ptr[i] is not None:  # each virtual row takes its row's terms
                         post_t = carry["tr_minus"].index_select(0, dev.row_map[i])
                         post_s = spikes.index_select(0, dev.row_map[i])
                     else:
@@ -719,8 +726,8 @@ def make_core_step(
                             post_terms[R] = tuple(torch.nn.functional.pad(x, (0, R - n_p))
                                                   for x in (carry["tr_minus"], spikes))
                         post_t, post_s = post_terms[R]
-                    # in place: run() cloned the weights, and the gather
-                    # above read them first
+                    # in place: run() cloned the weights, and the gathers
+                    # read them first
                     ops.stdp_update(w, dev.plastic[i], c, pre_trace, act, post_t,
                                     post_s, params=stdp_params, out=w)
         if not use_front:  # the front wrote it

@@ -33,6 +33,7 @@ from repro.kernels.spike_gather import spike_gather_pallas
 from repro.kernels.stdp_update import stdp_update_pallas
 from repro_torch.kernels import dispatch, ops, ref
 from repro_torch.kernels import event_step as tev
+from repro_torch.kernels.segment_gather import segment_plan
 
 LIF_PARAMS = dict(
     dt=0.1, tau_m=10.0, v_rest=-65.0, v_reset=-65.0, v_thresh=-50.0,
@@ -100,9 +101,15 @@ def test_segmented_gather_takes_bf16_weights(rng):
     act = torch.from_numpy((rng.random(n) < 0.3).astype(np.float32))
     cols = torch.from_numpy(rng.integers(0, n, (R, K)).astype(np.int32))
     w16, _ = _bf16(rng.normal(size=(R, K)))
-    got = ops.spike_gather(act, cols, w16, row_ptr=row_ptr)
+    plan = segment_plan([row_ptr.numpy()], [K], 4, "cpu")
+
+    def sums(w):
+        ring = torch.zeros((1, 4))
+        return ops.segment_gather_ring(act, ring, 0, [0], plan, [cols], [w], row_ptr=[row_ptr])[0]
+
+    got = sums(w16)
     assert got.dtype == torch.float32 and got.shape == (4,)
-    assert torch.equal(got, ops.spike_gather(act, cols, w16.float(), row_ptr=row_ptr))
+    assert torch.equal(got, sums(w16.float()))
     assert torch.equal(got, ref.segment_add_ref(ref.spike_gather_ref(act, cols, w16), row_ptr))
 
 

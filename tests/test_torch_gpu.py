@@ -19,6 +19,7 @@ from repro_torch.kernels import event_step as event_mod
 from repro_torch.kernels import fused_step as fused_mod
 from repro_torch.kernels import keystream as ks_mod
 from repro_torch.kernels import lif_step as lif_mod
+from repro_torch.kernels import segment_gather as seg_mod
 from repro_torch.kernels import spike_gather as gather_mod
 from repro_torch.kernels import split_step as split_mod
 from repro_torch.kernels import step_front as front_mod
@@ -1750,52 +1751,120 @@ def test_streamed_restore_equals_the_eager_one_on_the_card(cuda, tmp_path, k, re
 
 # -- the heavy-row split and bf16 weights in the gathers ----------------------
 #
-# The segmented gather (row_ptr, SimConfig(max_k=...)) must equal the
-# unsegmented kernel's virtual rows added in ascending order
-# (ref.segment_add_ref) bit for bit, in both reductions and with the
-# bitmask in either memory; a bf16 panel must equal its exact f32 widening
-# bit for bit, in spike_gather (segmented too) and fused_step.
+# The split step's one launch (segment_gather_ring, SimConfig(max_k=...))
+# must give the ring of the old composition bit for bit: per bucket the
+# unsegmented kernel's virtual rows, added in ascending order
+# (ref.segment_add_ref; an unsplit bucket's first n_p rows as they are),
+# then the ring add (index_add_ of one row), in both reductions (mixed per
+# bucket) and with the activity or its bitmask in shared memory or in
+# device memory; a bf16 panel must equal its exact f32 widening bit for
+# bit, in spike_gather and fused_step.
 
 
 def _split_case(rng, n, n_rows, K, depth, device):
     """A heavy-row split's panels: row r owns 1..depth contiguous virtual
     rows (row_ptr), each laid out as the ELL builder lays a row out; eight
-    padding rows after them, empty."""
+    padding rows after them, empty (at n_rows = 1 in row 0's range, as
+    ``simulator.split_row_ptr`` leaves them)."""
     counts = rng.integers(1, depth + 1, n_rows)
     counts[0] = depth  # the deepest row is row 0
     row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     cols, weights, valid = _ell_case(rng, n, int(row_ptr[-1]) + 8, (K,), int(row_ptr[-1]),
                                      device)
+    if n_rows == 1:
+        row_ptr[-1] += 8
     return (cols[0], weights[0], _row_lengths(valid, device)[0],
             torch.from_numpy(row_ptr).to(device), int(depth))
 
 
+def _split_step_case(rng, n, n_p, buckets, device):
+    """Per bucket ``("split", K, depth)`` or ``("rows", K)``: cols, weights,
+    row lengths, row_ptr (None for real rows) and the upload's plan."""
+    case = []
+    for spec in buckets:
+        if spec[0] == "split":
+            c, w, rl, rp, _ = _split_case(rng, n, n_p, spec[1], spec[2], device)
+        else:
+            cols, weights, valid = _ell_case(rng, n, n_p + 8, (spec[1],), n_p, device)
+            c, w, rl, rp = cols[0], weights[0], _row_lengths(valid, device)[0], None
+        case.append((c, w, rl, rp))
+    cols, weights, row_len, row_ptr = map(list, zip(*case))
+    plan = seg_mod.segment_plan([None if p is None else p.cpu().numpy() for p in row_ptr],
+                        [c.shape[1] for c in cols], n_p, device)
+    return cols, weights, row_len, row_ptr, plan
+
+
+def _old_split_step(act, ring, t, delays, plan, cols, weights, row_len, row_ptr, reduce):
+    """The composition the launch replaced: per bucket the unsegmented
+    kernel, the ascending segment sum and one index_add_ into its ring row."""
+    D, n_p = ring.shape
+    for b, (c, w, rl, rp, d) in enumerate(zip(cols, weights, row_len, row_ptr, delays)):
+        vrows = gather_mod.spike_gather_cuda(act, c, w, rl, reduce=reduce[b:b + 1])
+        cur = vrows[:n_p] if rp is None else ref.segment_add_ref(vrows, rp, plan.depth[b])
+        ring.index_add_(0, torch.remainder(t + d, D).view(1), cur[None])
+    return ring
+
+
 @pytest.mark.parametrize("kind", ACT_KINDS)
-@pytest.mark.parametrize("n,n_rows,K,depth", [
-    (400, 100, 32, 3), (5000, 2000, 129, 10), (77172, 20000, 512, 4),
+@pytest.mark.parametrize("n,n_p,buckets,delays", [
+    (64, 1, (("split", 32, 5),), (2,)),
+    (400, 100, (("split", 32, 3), ("rows", 40), ("split", 24, 1)), (3, 5, 3 + 15)),
+    (5000, 2000, (("split", 129, 10), ("split", 1100, 2), ("rows", 64)), (1, 2, 15)),
+    (77172, 20000, (("split", 512, 4), ("rows", 512)), (8, 15)),
+    (2_000_000, 3000, (("split", 64, 3), ("rows", 96)), (4, 9)),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_segmented_gather_bit_exact_vs_ascending_sum(cuda, rng, kind, n, n_rows, K, depth, dtype):
-    c, w, rl, row_ptr, depth = _split_case(rng, n, n_rows, K, depth, cuda)
-    w = w.to(getattr(torch, dtype))
+def test_segmented_gather_bit_exact_vs_ascending_sum(cuda, rng, kind, n, n_p, buckets, delays,
+                                                     dtype):
+    """The launch's ring equals the unsegmented kernel's virtual rows, the
+    ascending segment sum and the ring add, bit for bit, with the activity
+    in shared memory (small nets), its bitmask there (the microcircuit's
+    77,172 ids) and both in device memory (2M ids)."""
+    cols, weights, row_len, row_ptr, plan = _split_step_case(rng, n, n_p, buckets, cuda)
+    weights = [w.to(getattr(torch, dtype)) for w in weights]
     act = _activity(kind, rng, n, cuda)
-    red = panel_reduce([w])
-    before = gather_mod.COUNTER.launches
-    got = ops.spike_gather(act, c, w, rl, row_ptr=row_ptr, depth=depth, reduce=red)
-    assert gather_mod.COUNTER.launches == before + 1 and got.shape == (n_rows,)
-    vrows = ops.spike_gather(act, c, w, rl, reduce=red)
-    want = ref.segment_add_ref(vrows, row_ptr, depth)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))  # signed zeros too
-    for other in (
-        gather_mod.spike_gather_cuda(act, c, w, rl, row_ptr=row_ptr, reduce="row_dot"),
-        gather_mod.spike_gather_cuda(act, c, w, row_ptr=row_ptr, reduce=red),
-        gather_mod.spike_gather_cuda(act, c, w, rl, row_ptr=row_ptr, reduce=red,
-                                     shared_bitmask=False),
-    ):
-        assert torch.equal(got, other)
-    # the plain version: the gather summed in another order
-    plain = ref.spike_gather_segment_ref(act, c, w, row_ptr)
-    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-4)
+    D = 16
+    ring0 = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    t = torch.tensor(21, dtype=torch.int64, device=cuda)
+    # bucket 0 on the row_dot variant, the others as recorded (active)
+    red = ("row_dot",) + tuple(panel_reduce([w])[0] for w in weights[1:])
+    want = _old_split_step(act, ring0.clone(), t, delays, plan, cols, weights, row_len,
+                           row_ptr, red)
+    # where the activity fits shared memory, else its bitmask where a bucket
+    # takes the active reduction and it fits, else device memory
+    mode = seg_mod.MODES[0 if 4 * n <= 100_000 else 1 if "active" in red and n < 10**6 else 2]
+    before = seg_mod.COUNTER.launches
+    for reduce in (red, "row_dot"):
+        config = {}
+        got = seg_mod.segment_gather_ring_cuda(act, ring0.clone(), t, delays, plan, cols,
+                                               weights, row_len, row_ptr, reduce=reduce,
+                                               config=config)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), reduce
+        if reduce is red:
+            assert config["mode"] == mode, config
+    assert seg_mod.COUNTER.launches == before + 2
+    assert torch.equal(ops.segment_gather_ring(act, ring0.clone(), t, delays, plan, cols, weights,
+                                               row_len, row_ptr, reduce=red), want)
+    # the plain version: the gathers summed in another order
+    plain = ref.segment_gather_ring_ref(act, ring0.clone(), t, delays, cols, weights, row_ptr,
+                                        plan.depth)
+    torch.testing.assert_close(want, plain, rtol=1e-5, atol=1e-4)
+
+
+def test_segmented_gather_refuses_shared_write_slots(cuda):
+    """Two buckets whose delays meet in one ring row (3 and 19 with D=16):
+    the step never makes them, and the kernel adds every bucket in parallel."""
+    act = torch.zeros(32, device=cuda)
+    c = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    w = torch.zeros((2, 4), device=cuda)
+    plan = seg_mod.segment_plan([None, None], [4, 4], 2, cuda)
+    ring = torch.zeros((16, 2), device=cuda)
+    before = seg_mod.COUNTER.launches
+    with pytest.raises(ValueError, match="share a ring slot"):
+        seg_mod.segment_gather_ring_cuda(act, ring, 0, [3, 19], plan, [c, c], [w, w])
+    assert seg_mod.COUNTER.launches == before
+    seg_mod.segment_gather_ring_cuda(act, ring, 0, [3, 18], plan, [c, c], [w, w])
+    assert seg_mod.COUNTER.launches == before + 1
 
 
 @pytest.mark.parametrize("kind", ACT_KINDS)
@@ -1849,16 +1918,22 @@ def test_gathers_refuse_mixed_or_wide_weights(cuda):
     with pytest.raises(TypeError):
         fused_mod.fused_step_cuda(act, act, act, [c, c], [w, w.to(torch.bfloat16)],
                                   params=LIF_PARAMS)
+    plan = seg_mod.segment_plan([np.array([0, 1, 2], np.int32)], [4], 2, cuda)
+    ring = torch.zeros((4, 2), device=cuda)
     with pytest.raises(TypeError):
-        gather_mod.spike_gather_cuda(act, c, w, row_ptr=torch.zeros(3, dtype=torch.int64,
-                                                                    device=cuda))
+        seg_mod.segment_gather_ring_cuda(act, ring, 0, [1], plan, [c], [w],
+                                         row_ptr=[torch.zeros(3, dtype=torch.int64, device=cuda)])
+    with pytest.raises(TypeError):
+        seg_mod.segment_gather_ring_cuda(act, ring, 0, [1, 2], seg_mod.segment_plan(
+            [None, None], [4, 4], 2, cuda), [c, c], [w, w.to(torch.bfloat16)])
 
 
 @pytest.mark.parametrize("kind,max_k", [("mc", 64), ("ei", 16)])
 def test_max_k_graphs_equal_the_uncaptured_loop(cuda, kind, max_k):
     """SimConfig(max_k=...) on the card: the unfused engine with split
     buckets, graphed against _graphs=False bit-equal (raster, state, traces,
-    weights), one segmented launch a split bucket and step."""
+    weights), one segment_gather launch a step for all buckets and no
+    spike_gather; an uncaptured chunk makes no host sync."""
     on, off = _graph_sims(cuda, kind, 1, max_k=max_k, align_k=32)
     assert on.engine_choice.engine == "unfused"
     split = sum(not x for x in on.dev.identity_rows)
@@ -1867,7 +1942,13 @@ def test_max_k_graphs_equal_the_uncaptured_loop(cuda, kind, max_k):
     assert int(r_a.sum()) > 0 and torch.equal(r_a, r_b)
     _assert_bit_equal_states(st_a, st_b)
     assert n_a == n_b
-    assert n_a[_build.COUNTERS.index(gather_mod.COUNTER)] == 148 * len(on.dev.delays)
+    assert n_a[_build.COUNTERS.index(seg_mod.COUNTER)] == 148
+    assert n_a[_build.COUNTERS.index(gather_mod.COUNTER)] == 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        off.run(st_b, 16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def test_contract_matrix_on_the_card(cuda):

@@ -35,6 +35,7 @@ from repro.snn.simulator import Simulator as JSimulator
 from repro_torch import io as tio
 from repro_torch.core import block_partition, build_delay_ell, from_edges
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.segment_gather import segment_plan
 from repro_torch.snn import RasterMonitor, Session, SimConfig
 from repro_torch.snn import network as tnet
 from repro_torch.snn.dist_sim import DistSimulator
@@ -87,6 +88,17 @@ def _host(st):
             for key in ("vtx_state", "ring", "hist", "tr_plus", "tr_minus", "weights")}
 
 
+def _segment_sums(act, cols, weights, row_ptr):
+    """One split bucket's row sums through ``ops.segment_gather_ring``: its
+    ring add at t = 0, delay 0 into a zeroed one-row ring."""
+    n_p = len(row_ptr) - 1
+    ring = torch.zeros((1, n_p))
+    plan = segment_plan([row_ptr], [cols.shape[1]], n_p, "cpu")
+    ops.segment_gather_ring(act, ring, 0, [0], plan, [cols], [weights],
+                            row_ptr=[torch.from_numpy(row_ptr)])
+    return ring[0]
+
+
 # -- the ELL and the plain segmented gather ---------------------------------
 
 @pytest.mark.parametrize("max_k,align_k", [(16, 4), (64, 32), (None, 32)])
@@ -124,10 +136,9 @@ def test_one_heavy_row_split_matches_reference(rng):
     # the segmented gather re-reduces the virtual rows to the row sums
     from repro_torch.snn.simulator import split_row_ptr
 
-    row_ptr = torch.from_numpy(split_row_ptr(got.row_map, n))
+    row_ptr = split_row_ptr(got.row_map, n)
     act = torch.from_numpy(rng.random(n).astype(np.float32))
-    cur = ops.spike_gather(act, torch.from_numpy(got.cols), torch.from_numpy(got.weights),
-                           row_ptr=row_ptr)
+    cur = _segment_sums(act, torch.from_numpy(got.cols), torch.from_numpy(got.weights), row_ptr)
     dense = np.zeros(n, np.float32)
     np.add.at(dense, dst, edge_state[:, 0] * act.numpy()[src])
     np.testing.assert_allclose(cur.numpy(), dense, rtol=1e-5, atol=1e-5)
@@ -152,7 +163,7 @@ def test_segment_ref_matches_reference_segment_sum(rng, n, n_rows, K, depth):
     got = ref.spike_gather_segment_ref(*args)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
     assert torch.equal(got, ref.spike_gather_segment_ref(*args, depth=int(counts.max())))
-    assert torch.equal(got, ops.spike_gather(args[0], args[1], args[2], row_ptr=args[3]))
+    assert torch.equal(got, _segment_sums(*args[:3], row_ptr))
 
 
 # -- the engine against the reference ---------------------------------------
