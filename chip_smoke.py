@@ -199,7 +199,11 @@ engine:
      reference kernel's rule) in place and out of place, ``fused_step_plastic``
      bit-exact against ``lif_step`` + trace decay + ``spike_gather`` +
      ``stdp_update`` and against its plain version but for the currents
-     (rtol=atol=1e-5);
+     (rtol=atol=1e-5); and as the engine launches it (the real slots by
+     ``row_len``, the currents added into the ring in the launch, the
+     weights in place): the ring bit-exact against ``index_add_`` of its
+     currents, the rest against the every-slot launch, no padding or
+     non-plastic slot written;
   9. 1000 steps with both monitors, every chunk on ``fused_plastic``, counts
      set to 0 just before and read just after; plastic slots changed,
      non-plastic and padding slots bit-identical to the initial weights,
@@ -210,14 +214,17 @@ engine:
  11. both plastic engines' us/step; a small plastic net on the card against
      the CPU plain versions; timing of both plastic kernels (``stdp_update``
      also on the bf16 panels, with either mask), their plain versions and
-     their bounds.
+     their bounds (the real slots by ``row_len``, every slot in brackets);
+     the ``[graph]`` line holds the graphed step to 16 kernels.
 
 The k>1 plastic path: the k=4 net on the one card with ``SimConfig()``
 (dense exchange of spikes and pre-traces, overlap ``local``,
 ``fused_split_plastic``: the step front with both trace decays, the local
 ``post_exchange`` pass, the remote ``post_exchange_plastic`` pass):
  12. ``pre_exchange`` and both variants of ``post_exchange_plastic`` on
-     partition 0 against their plain versions and the unfused kernels;
+     partition 0 against their plain versions and the unfused kernels, and
+     in the engine's form (``row_len``, the weights in place, the remote
+     pass's own slice zeroed in the kernel) against the every-slot launch;
  13. 1000 steps, counts checked; raster, hist, traces and weights
      bit-identical to the k=1 plastic path's;
  14. 256 steps each of ``overlap="off"``, ``"double_buffer"``,
@@ -2541,6 +2548,8 @@ def step_kernels(sim, step, state):
         carries = []
         for c, dev in zip([state] if k1 else state, [sim.dev] if k1 else sim.devs):
             carry = {k: v.clone() if torch.is_tensor(v) else v for k, v in c.items()}
+            # the plastic kernels update the carry's weights in place
+            carry["weights"] = tuple(w.clone() for w in c["weights"])
             carry["_reduce"] = state_reduce(dev, carry["weights"])
             carries.append(carry)
         return carries
@@ -2639,7 +2648,7 @@ def require_no_host_sync(sim, state, steps=16):
 
 
 def phase_graph(tag, ses, st0, gather0, steps, raster, after=None, measure=True,
-                order=(True, False), **run):
+                order=(True, False), max_kernels=None, **run):
     """[graph] The path's ``steps`` steps from its start state ``st0``
     (gather mode ``gather0``), graphed and uncaptured in turns (by default
     graphed, then uncaptured: one run each way), each raster equal to the path's and
@@ -2647,7 +2656,8 @@ def phase_graph(tag, ses, st0, gather0, steps, raster, after=None, measure=True,
     graphs' nodes by kind; one uncaptured chunk with no host sync; and the
     path queued for ``phase_idle`` (``measure=False`` skips these three).
     ``run`` goes to ``ses.run``, ``after()`` runs after each timed run, and
-    ``order`` says which runs are graphed.  Returns the us/step of both
+    ``order`` says which runs are graphed; ``max_kernels`` bounds each
+    captured key's kernel nodes a step.  Returns the us/step of both
     (lists)."""
     sim = ses.simulator
     per, ends = {True: [], False: []}, {}
@@ -2685,6 +2695,10 @@ def phase_graph(tag, ses, st0, gather0, steps, raster, after=None, measure=True,
             + ", ".join(f"{k} {v}" for k, v in sorted(kinds.items()))
             + f"; {kinds['kernel'] / g.steps:.2f} kernels a step")
         require(kinds["memcpy_to_host"] == 0, f"{tag}: a memcpy to the host in {g.what}")
+        # the chunk adds one kernel of its own (its outputs) to its steps'
+        require(max_kernels is None or kinds["kernel"] <= max_kernels * g.steps + 1,
+                f"{tag}: {g.what} runs more than {max_kernels} kernels a step "
+                f"({kinds['kernel']} kernel nodes for {g.steps} steps)")
     require_no_host_sync(sim, st0)
     say("graph", f"{tag}: an uncaptured chunk of {sim.engine_choice.engine} under "
         "torch.cuda.set_sync_debug_mode('error'): no host sync")
@@ -3262,6 +3276,44 @@ def phase_plastic_kernels(sim, params, rng):
     say("plastic", "fused_step_plastic: bit-exact vs lif_step + trace decay + spike_gather + "
         "stdp_update kernels, and vs its plain version in spikes, v, refrac, traces and "
         f"weights; currents max |kernel - plain| = {err:.3e} (rtol=atol=1e-5)")
+
+    # the main path's form: the real slots only (row_len), the currents
+    # added into the ring in the launch, the weights in place
+    row_len, D, delays = sim.dev.row_len, sim.d_ring, sim.dev.delays
+    t_step = 7
+    ring0 = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(dev)
+    ring0[:, : n_p // 4] = -0.0  # signed zeros: rows with no input keep -0 + +0 = +0
+    want_ring = ring0.clone()
+    for cur, d in zip(out[5], delays):
+        want_ring.index_add_(0, torch.tensor([(t_step + d) % D], device=dev), cur[:n_p][None])
+    ring = ring0.clone()
+    work = [w.clone() for w in weights]
+    t_dev = torch.tensor(t_step, dtype=torch.int64, device=dev)
+    got = fused_mod.fused_step_plastic_cuda(v, refrac, i_tot, tp, tm, cols, work, plastic,
+                                            row_len, params=params, taus=taus, stdp=stdp,
+                                            ring=ring, t=t_dev, delays=delays, weights_out=work)
+    require(got[5] is ring and same_bits(ring, want_ring),
+            "fused_step_plastic's ring add differs from index_add_ of its currents")
+    require(all(same_bits(a, b) for a, b in zip(got[:5], out[:5])) and all(
+        same_bits(a, b) for a, b in zip(work, out[6])),
+        "fused_step_plastic over the real slots, in place, differs from every slot, out of place")
+    written = sum(int((a.view(torch.int32) != b.view(torch.int32))[pm == 0].sum())
+                  for a, b, pm in zip(work, weights, plastic))
+    require(written == 0, "fused_step_plastic wrote a padding or non-plastic slot")
+    plain_ring = ring0.clone()
+    plain_w = [w.clone() for w in weights]
+    fused_mod.fused_step_plastic_plain(v, refrac, i_tot, tp, tm, cols, plain_w, plastic, row_len,
+                                       params=params, taus=taus, stdp=stdp, ring=plain_ring,
+                                       t=t_dev, delays=delays, weights_out=plain_w)
+    require(all(same_bits(a, b) for a, b in zip(work, plain_w)),
+            "fused_step_plastic's ring form: weights differ from its plain version")
+    torch.testing.assert_close(ring, plain_ring, rtol=1e-5, atol=1e-5)
+    real = sum(int(rl.sum()) for rl in row_len)
+    say("plastic", f"fused_step_plastic as the engine runs it ({real} real slots of "
+        f"{sum(c.numel() for c in cols)}, ring t={t_step}, weights in place): ring bit-exact vs "
+        "index_add_ of the currents (signed zeros too), the rest bit-exact vs every slot out "
+        "of place, no padding or non-plastic slot written; vs its plain version weights "
+        "bit-exact, ring within rtol=atol=1e-5")
     inputs = dict(v=v, refrac=refrac, i_tot=i_tot, tp=tp, tm=tm, stdp_args=stdp_args)
     return inputs, {"stdp_update": 0.0, "fused_plastic_step": err}
 
@@ -3365,6 +3417,24 @@ def phase_plastic_small_net(seed):
     require(n_diff <= 0.01 * spikes, "card and CPU rasters disagree on the small plastic net")
 
 
+def plastic_slot_bytes(cols, plastic, row_len, act):
+    """The slot bytes a one-pass plastic kernel must move over its buckets'
+    real slots (``row_len``): col and mask (8 B) at every real slot, the
+    weight read and written (8 B) at a plastic one, and a non-plastic
+    slot's weight (4 B) only where the gather's ``act[col]`` is not 0, as a
+    gather's weight is counted (row 2b).  Also the earlier yardstick, 16 B
+    at every real slot, and the counts: (bytes, bytes at 16 B a real slot,
+    real, plastic, active non-plastic)."""
+    real = plastic_real = active = 0
+    for c, pm, rl in zip(cols, plastic, row_len):
+        is_real = torch.arange(c.shape[1], device=c.device)[None, :] < rl[:, None]
+        is_plastic = (pm > 0) & is_real
+        real += int(is_real.sum())
+        plastic_real += int(is_plastic.sum())
+        active += int((is_real & ~is_plastic & (act[c.long()] != 0)).sum())
+    return 8 * real + 8 * plastic_real + 4 * active, 16 * real, real, plastic_real, active
+
+
 def phase_plastic_timing(sim, params, inputs, errs, launches):
     v, refrac, i_tot, tp, tm = (inputs[k] for k in ("v", "refrac", "i_tot", "tp", "tm"))
     stdp_args = inputs["stdp_args"]
@@ -3375,20 +3445,26 @@ def phase_plastic_timing(sim, params, inputs, errs, launches):
     slots = sum(c.numel() for c in cols)
     out = []
 
-    s_k = s_p = s_b = 0.0
-    for c, w, pm in zip(cols, weights, plastic):
+    # the bounds count the real slots (row_len), 16 B each (col, weight and
+    # mask read, the weight written) and 4 B of row_len a row, as row 2b's
+    # bound does; the padded bound (every slot) in brackets
+    reals = [int(rl.sum()) for rl in sim.dev.row_len]
+    real = sum(reals)
+    s_k = s_p = s_b = s_pad = 0.0
+    for c, w, pm, r_b in zip(cols, weights, plastic, reals):
         tk = cuda_ms(lambda c=c, w=w, pm=pm: stdp_mod.stdp_update_cuda(
             w, pm, c, *stdp_args, params=stdp), 50)
         tp_ = cuda_ms(lambda c=c, w=w, pm=pm: stdp_mod.stdp_update_plain(
             w, pm, c, *stdp_args, params=stdp), 5)
-        # col, weight and mask read and the weight written: 16 bytes a
-        # slot, plus the two presynaptic and two postsynaptic vectors
-        nb = c.numel() * 16 + 2 * n_p * 4 + 2 * R * 4
-        b, _ = bound_ms(nb, 6 * c.numel())
+        # plus the two presynaptic and two postsynaptic vectors
+        vec_b = 2 * n_p * 4 + 2 * R * 4
+        b, _ = bound_ms(r_b * 16 + R * 4 + vec_b, 6 * r_b)
         s_k, s_p, s_b = s_k + tk, s_p + tp_, s_b + b
+        s_pad += bound_ms(c.numel() * 16 + vec_b, 6 * c.numel())[0]
     say("timing", f"stdp_update, {nd} launches of {tuple(cols[0].shape)} (one step): kernel "
         f"{s_k:.4f} ms ({s_k / nd * 1e3:.2f} us a launch), plain {s_p:.3f} ms, bound "
-        f"{s_b:.4f} ms ({slots * 16 / s_k / 1e6:.0f} GB/s of slot traffic)")
+        f"{s_b:.4f} ms ({real} real slots; every slot [{s_pad:.4f}]): {s_b / s_k:.0%} "
+        f"[{s_pad / s_k:.0%}]")
     # bf16 weights: 10 B a slot with a bf16 mask (col 4, weight 2 read and 2
     # written, mask 2), 12 B with an f32 mask
     b16 = dict(ms_bf16=0.0, ms_bf16_f32_mask=0.0, plain_ms_bf16=0.0, bound_ms_bf16=0.0,
@@ -3410,21 +3486,44 @@ def phase_plastic_timing(sim, params, inputs, errs, launches):
         f"ms, bound {b16['bound_ms_bf16_f32_mask']:.4f} ms (12 B a slot); plain "
         f"{b16['plain_ms_bf16']:.3f} ms")
     out.append(dict(name="stdp_update", ms=s_k, plain_ms=s_p, bound_ms=s_b, bound_by="bytes",
-                    library_ms=None, path="plastic_unfused", max_abs_err_bf16=0.0, **b16))
+                    library_ms=None, path="plastic_unfused", max_abs_err_bf16=0.0,
+                    bound_ms_every_slot=s_pad, **b16))
 
+    # as the engine launches it: the real slots, the ring add, the weights
+    # in place (on copies of the panels and of a ring)
     kw = dict(params=params, taus=taus, stdp=stdp)
-    f_bytes = slots * 16 + 10 * 4 * n_p + nd * R * 4
-    f_flops = 14 * n_p + 8 * slots
+    D = sim.d_ring
+    work = [w.clone() for w in weights]
+    ring = torch.zeros((D, n_p), dtype=torch.float32, device=sim.device)
+    t_dev = torch.zeros((), dtype=torch.int64, device=sim.device)
+    ring_kw = dict(ring=ring, t=t_dev, delays=sim.dev.delays, weights_out=work)
+    # the slots as plastic_slot_bytes counts them (the gather's activity
+    # is this step's spikes), 4 B of row_len a row, the ten state and trace
+    # vectors, the ring row read and written a row and bucket; 16 B a real
+    # slot and every slot in brackets
+    spikes = fused_mod.fused_step_plastic_cuda(
+        v, refrac, i_tot, tp, tm, cols, work, plastic, sim.dev.row_len, **kw, **ring_kw)[2]
+    slot_b, slot_16, _, n_pl, n_act = plastic_slot_bytes(cols, plastic, sim.dev.row_len, spikes)
+    rest = nd * R * 4 + 10 * 4 * n_p + nd * n_p * 8
+    f_bytes = slot_b + rest
+    f_pad = slots * 16 + 10 * 4 * n_p + nd * R * 4
+    f_flops = 14 * n_p + 8 * real
     tk = cuda_ms(lambda: fused_mod.fused_step_plastic_cuda(
-        v, refrac, i_tot, tp, tm, cols, weights, plastic, **kw), 50)
+        v, refrac, i_tot, tp, tm, cols, work, plastic, sim.dev.row_len, **kw, **ring_kw), 50)
     tp_ = cuda_ms(lambda: fused_mod.fused_step_plastic_plain(
-        v, refrac, i_tot, tp, tm, cols, weights, plastic, **kw), 5)
+        v, refrac, i_tot, tp, tm, cols, work, plastic, sim.dev.row_len, **kw, **ring_kw), 5)
     b, by = bound_ms(f_bytes, f_flops)
-    say("timing", f"fused_plastic_step ({nd} buckets, {slots} slots): kernel {tk:.4f} ms "
-        f"({f_bytes / tk / 1e6:.0f} GB/s), plain {tp_:.3f} ms, bound {b:.4f} ms "
-        f"({f_bytes / 1e9:.4f} GB)")
+    b_16, _ = bound_ms(slot_16 + rest, f_flops)
+    b_pad, _ = bound_ms(f_pad, 14 * n_p + 8 * slots)
+    say("timing", f"fused_plastic_step ({nd} buckets, {real} real slots of {slots}, {n_pl} "
+        f"plastic, {n_act} non-plastic under a spike; row_len, the ring add and the weights "
+        f"in place): kernel {tk:.4f} ms ({f_bytes / tk / 1e6:.0f} GB/s of the bound's "
+        f"traffic), plain {tp_:.3f} ms, bound {b:.4f} ms ({f_bytes / 1e9:.4f} GB): "
+        f"{b / tk:.0%}; 16 B a real slot [{b_16:.4f} ms, {b_16 / tk:.0%}]; every slot "
+        f"[{b_pad:.4f} ms, {f_pad / 1e9:.4f} GB]")
     out.append(dict(name="fused_plastic_step", ms=tk, plain_ms=tp_, bound_ms=b, bound_by=by,
-                    library_ms=None, path="plastic"))
+                    library_ms=None, path="plastic", bound_ms_16b_a_real_slot=b_16,
+                    bound_ms_every_slot=b_pad))
     for k in out:
         src, rep = SOURCES[k["name"]]
         k.update(route="cuda", source=src, replaces=rep, launches=launches[k["name"]],
@@ -4013,10 +4112,25 @@ def phase_k4_plastic_kernels(dsim, params, rng):
             changed += int((nw != w).sum())
         require(changed > 0, f"{name} changed no weight")
         errs[name] = float((new_ring - want[0]).abs().max())
+        # as the engine launches it: the real slots, the weights in place,
+        # and for the remote pass the own slice zeroed in the kernel
+        ring_e, work = ring.clone(), [w.clone() for w in weights]
+        split_mod.post_exchange_plastic_cuda(
+            act if cl is not None else None, act, pre, ring_e, cl, onehot, post_t, post_s, cols,
+            work, plastic, dev.row_len, stdp=stdp, out=ring_e,
+            own=None if cl is not None else (0, n_p), weights_out=work)
+        require(same_bits(ring_e, new_ring) and all(same_bits(a, b) for a, b in zip(work, new_w)),
+                f"{name} over the real slots, in place{'' if cl is not None else ', own slice'} "
+                "differs from every slot, out of place")
+        written = sum(int((a.view(torch.int32) != b.view(torch.int32))[pm == 0].sum())
+                      for a, b, pm in zip(work, weights, plastic))
+        require(written == 0, f"{name} wrote a padding or non-plastic slot")
         say("k4", f"{name}, {len(cols)} buckets of {tuple(cols[0].shape)}: ring bit-exact vs "
             "spike_gather + ring formulation, weights bit-exact vs plain and vs stdp_update "
             f"({changed} slots change); ring max |kernel - plain| = {errs[name]:.3e} "
-            "(rtol=atol=1e-5)")
+            "(rtol=atol=1e-5); the engine's form (row_len, weights in place"
+            f"{'' if cl is not None else ', own slice zeroed in the kernel'}) bit-equal, no "
+            "padding or non-plastic slot written")
     errs["pre_exchange"] = 0.0
     inputs = dict(v=v, refrac=refrac, i_tot=i_tot, tp=tp, tm=tm, act=act, act_remote=act_remote,
                   pre=pre, post_t=post_t, post_s=post_s, ring=ring, clear=clear, onehot=onehot)
@@ -4100,28 +4214,45 @@ def phase_k4_plastic_timing(dsim, params, inputs, errs, launches):
                     library_ms=None, path="k4_plastic",
                     launches_of="the old chain's run in front_engine_ab: no engine launches "
                     "pre_exchange, the step front took its place"))
-    # 16 bytes a slot (col, weight, mask read, weight written), the three
-    # global vectors, the post terms, the ring read and written
-    nb = slots * 16 + 3 * n * 4 + 2 * n_p * 4 + 2 * D * n_p * 4 + (nd + 1) * D * 4
-    b, by = bound_ms(nb, 10 * slots)
+    # the slots as plastic_slot_bytes counts them (the remote pass's
+    # gather reads the own slice as 0), 4 B of row_len a row, the three
+    # global vectors, the post terms, the ring read and written; 16 B a
+    # real slot and every slot (and no row_len) in brackets
+    real = sum(int(rl.sum()) for rl in dev.row_len)
+    rest = 3 * n * 4 + 2 * n_p * 4 + 2 * D * n_p * 4 + (nd + 1) * D * 4
+    act_remote = x["act"].clone()
+    act_remote[:n_p] = 0
+    b_pad, _ = bound_ms(slots * 16 + rest, 10 * slots)
+    # as the engine launches them: row_len, the weights in place (on copies
+    # of the panels), the remote pass's own slice zeroed in the kernel
     work = x["ring"].clone()
-    for name, a, cl in (("post_exchange_remote_plastic", x["act_remote"], None),
+    work_w = [w.clone() for w in weights]
+    for name, a, cl in (("post_exchange_remote_plastic", None, None),
                         ("post_exchange_plastic", x["act"], x["clear"])):
+        slot_b, slot_16, _, n_pl, n_act = plastic_slot_bytes(
+            cols, plastic, dev.row_len, act_remote if a is None else a)
+        nb = slot_b + nd * R * 4 + rest
+        b, by = bound_ms(nb, 10 * real)
+        b_16, _ = bound_ms(slot_16 + nd * R * 4 + rest, 10 * real)
         tk = cuda_ms(lambda a=a, cl=cl: split_mod.post_exchange_plastic_cuda(
             a, x["act"], x["pre"], work, cl, x["onehot"], x["post_t"], x["post_s"], cols,
-            weights, plastic, stdp=stdp, out=work), 50)
+            work_w, plastic, dev.row_len, stdp=stdp, out=work,
+            own=(0, n_p) if a is None else None, weights_out=work_w), 50)
         if cl is None:
-            tp = cuda_ms(lambda a=a: ref.fused_post_exchange_remote_plastic_ref(
-                a, x["act"], x["pre"], x["ring"], x["onehot"], x["post_t"], x["post_s"], cols,
-                weights, plastic, stdp=stdp), 5)
+            tp = cuda_ms(lambda: ref.fused_post_exchange_remote_plastic_ref(
+                None, x["act"], x["pre"], x["ring"], x["onehot"], x["post_t"], x["post_s"], cols,
+                work_w, plastic, dev.row_len, stdp=stdp, own=(0, n_p), weights_out=work_w), 5)
         else:
             tp = cuda_ms(lambda cl=cl: ref.fused_post_exchange_plastic_ref(
                 x["act"], x["pre"], x["ring"], cl, x["onehot"], x["post_t"], x["post_s"], cols,
-                weights, plastic, stdp=stdp), 5)
-        say("timing", f"{name} ({nd} buckets, {slots} slots, partition 0): kernel {tk:.4f} ms "
-            f"({nb / tk / 1e6:.0f} GB/s), plain {tp:.3f} ms, bound {b:.4f} ms ({nb / 1e9:.4f} GB)")
+                work_w, plastic, dev.row_len, stdp=stdp, weights_out=work_w), 5)
+        say("timing", f"{name} ({nd} buckets, {real} real slots of {slots}, {n_pl} plastic, "
+            f"{n_act} non-plastic under an active id, partition 0; row_len, weights in "
+            f"place): kernel {tk:.4f} ms ({nb / tk / 1e6:.0f} GB/s of the bound's traffic), "
+            f"plain {tp:.3f} ms, bound {b:.4f} ms ({nb / 1e9:.4f} GB): {b / tk:.0%}; 16 B a "
+            f"real slot [{b_16:.4f} ms, {b_16 / tk:.0%}]; every slot [{b_pad:.4f} ms]")
         out.append(dict(name=name, ms=tk, plain_ms=tp, bound_ms=b, bound_by=by,
-                        library_ms=None,
+                        library_ms=None, bound_ms_16b_a_real_slot=b_16, bound_ms_every_slot=b_pad,
                         path="k4_plastic" if cl is None else "k4_plastic_overlap_off"))
     for k in out:
         src, rep = SOURCES[k["name"]]
@@ -5135,7 +5266,9 @@ def main(argv=None) -> int:
     p_inputs, p_errs = phase_plastic_kernels(psim, pparams, np.random.default_rng(args.seed))
     st0 = pses.state
     p_raster, p_launches = phase_plastic_path(pses, pnet.n)
-    phase_graph("plastic", pses, st0, "dense", STEPS, p_raster)
+    # the fused plastic kernel adds the currents into the ring itself: 16
+    # kernels a step, 31 with an index_add_ a bucket
+    phase_graph("plastic", pses, st0, "dense", STEPS, p_raster, max_kernels=16)
     unf, fus, unf_launches = phase_plastic_parity(pnet, p_raster)
     phase_maxk("brunel", pnet, SimConfig(max_k=64, align_k=32), p_raster[STEPS // 2], p_raster)
     # stdp_update runs only on the unfused plastic path: its count is that run's

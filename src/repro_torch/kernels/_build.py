@@ -169,7 +169,7 @@ _SIGNATURES = {
     "repro_fused_step_max_buckets": [],
     "repro_stdp_update": [_P] * 8 + [_I] * 4 + [_F] * 4 + [_P, _I],
     "repro_fused_plastic_step": (
-        [_P] * 10 + [_I, _I, _I] + [_P] * 6 + [_F] * 13 + [_P, _I]
+        [_P] * 10 + [_I] * 3 + [_P] * 8 + [_I, _P] + [_F] * 13 + [_P, _I]
     ),
     "repro_fused_plastic_step_max_buckets": [],
     "repro_event_step": (
@@ -183,7 +183,7 @@ _SIGNATURES = {
     ),
     "repro_post_exchange_max_buckets": [],
     "repro_post_exchange_plastic": (
-        [_P] * 9 + [_I] * 4 + [_P] * 5 + [_F] * 4 + [_P, _I]
+        [_P] * 3 + [_I] * 2 + [_P] * 6 + [_I] * 4 + [_P] * 5 + [_F] * 4 + [_P, _I]
     ),
     "repro_post_exchange_plastic_max_buckets": [],
     "repro_keystream": [_P, _P, _L, _I, _U, _U, _U, _P, _I],
@@ -289,6 +289,24 @@ def require_plastic_f32(what: str, weights: Sequence[torch.Tensor]) -> None:
                 "weights only, as the reference's Pallas kernels do (they raise on bf16 "
                 "weights). ops.stdp_update takes bf16 weights"
             )
+
+
+def plastic_weights_out(weights: Sequence[torch.Tensor], weights_out) -> List[torch.Tensor]:
+    """The tensors a plastic kernel updates in place: ``weights_out`` (the
+    same shapes and type as ``weights``), holding ``weights``' values
+    (copied in unless it is ``weights`` itself), or new copies of
+    ``weights`` when None."""
+    if weights_out is None:
+        return [w.clone() for w in weights]
+    if len(weights_out) != len(weights):
+        raise ValueError(f"{len(weights_out)} weights_out panels for {len(weights)} buckets")
+    for i, (o, w) in enumerate(zip(weights_out, weights)):
+        require_panel(f"weights_out[{i}]", o, w.dtype, w.device)
+        if o.shape != w.shape:
+            raise ValueError(f"weights_out[{i}] {tuple(o.shape)} for a panel {tuple(w.shape)}")
+        if o is not w:
+            o.copy_(w)
+    return list(weights_out)
 
 
 def check_row_len(row_len, nd: int, R: int, device) -> None:

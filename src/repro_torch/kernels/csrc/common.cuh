@@ -2,8 +2,10 @@
 //
 // lif_advance is the one definition of the LIF arithmetic on the card
 // (lif_step.cu and phase 1 of fused_step.cu).  row_dot is the ELL row
-// reduction over every slot of a row (the plastic kernels, and the row_dot
-// variant of every gather); row_dot_active is the same reduction that reads
+// reduction over every slot of a row (the row_dot variant of every gather);
+// plastic_row is the same reduction over a row's real slots with the STDP
+// update of those slots in the same pass (the plastic kernels); row_dot_active
+// is the same reduction that reads
 // only the real slots and only the weights of active sources (spike_gather.cu,
 // event_step.cu, fused_step.cu, post_exchange.cu), and gives row_dot's result
 // bit for bit when the weights are finite (argument below).  A gather whose
@@ -325,6 +327,143 @@ __device__ __forceinline__ float stdp_slot(float w, float mask, float pre_t,
   const float x = __fadd_rn(w, __fsub_rn(pot, dep));
   const float clipped = isnan(x) ? x : fminf(fmaxf(x, p.w_min), p.w_max);
   return mask > 0.0f ? clipped : w;
+}
+
+// -- The plastic row pass (fused_plastic_step.cu, post_exchange_plastic.cu) --
+//
+// One warp takes a (bucket, row) item and reads each real slot of the row
+// once: lane j holds slots j, j+32, j+64, j+96 of a 128-slot chunk (the
+// slots of row_dot's lane j, in its order), loads each one's col, weight
+// and plastic mask, gathers the activity and the pre-trace at the col, and
+// from those registers runs row_dot's fma chain, then stdp_slot, whose new
+// weight goes back into the same slot (in place) where the mask is > 0 and
+// the bits change.  Then row_dot's xor tree.
+//
+// Why the sum is row_dot's over every slot, bit for bit, though the slots
+// past len are never read.  The ELL pads a row after its len real slots
+// with (col 0, weight +0, mask 0).  row_dot adds fma(+0, act[0], acc) for
+// each; with act[0] finite (spikes are 0 or 1) the product is an exact
+// +-0, and acc + (+-0) is acc unless acc is -0.  acc starts at +0, and
+// under round-to-nearest a sum is -0 only when both terms are -0, so acc is
+// never -0 before a padding slot (row_dot_active's argument, above, covers
+// the same step).  So each lane's partial sum is row_dot's, and so is the
+// tree.  The padding's new weight is its old one (stdp_slot keeps a slot
+// whose mask is 0), so not writing it changes nothing either.
+// Precondition: act[0] is finite (the spikes are; the kernels' callers
+// pass spike vectors), and each row's len real slots come first.
+constexpr int kPlasticChunk = 128;  // slots of a chunk: 4 a lane
+
+struct PlasticChunk {
+  int c[4];
+  float w[4];
+  float m[4];
+};
+
+// What a warp knows of its item before it reads the slots: where the row
+// lies, its real slots and its post-synaptic terms (0 for rows >= n_p).
+struct PlasticRow {
+  const int* cols;
+  float* w;  // read and written by this warp alone in the launch
+  const float* mask;
+  int len;
+  float post_t;
+  float post_s;
+};
+
+// The lane's slots base + lane + 32u (u < 4) below len.  The weights are
+// written back in this launch (by this thread, after this read), so they
+// are read through L2 (ld.global.cg), not the read-only path.
+__device__ __forceinline__ void load_plastic_chunk(PlasticChunk& x, const PlasticRow& row,
+                                                   int base, int lane) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int k = base + 32 * u + lane;
+    const bool on = k < row.len;
+    x.c[u] = on ? __ldg(row.cols + k) : 0;
+    x.w[u] = on ? __ldcg(row.w + k) : 0.0f;
+    x.m[u] = on ? __ldg(row.mask + k) : 0.0f;
+  }
+}
+
+// One chunk: the gathers of its slots (src.load(col, g, s, t): the gather's
+// activity g, STDP's pre-spike s and pre-trace t at col), the fma chain
+// into acc, and the STDP write-back.  Returns acc.
+template <class Src>
+__device__ __forceinline__ float plastic_chunk(const PlasticChunk& x, const PlasticRow& row,
+                                               int base, int lane, const Src& src,
+                                               const StdpParams& sp, float acc) {
+  float g[4], s[4], t[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    g[u] = s[u] = t[u] = 0.0f;
+    if (base + 32 * u + lane < row.len) src.load(x.c[u], g[u], s[u], t[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (base + 32 * u + lane < row.len) acc = __fmaf_rn(x.w[u], g[u], acc);
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int k = base + 32 * u + lane;
+    if (k < row.len && x.m[u] > 0.0f) {
+      const float nw = stdp_slot(x.w[u], x.m[u], t[u], s[u], row.post_t, row.post_s, sp);
+      if (__float_as_uint(nw) != __float_as_uint(x.w[u])) row.w[k] = nw;
+    }
+  }
+  return acc;
+}
+
+// The whole item, its first chunk already in `first`; returns the row's
+// sum on every lane (row_dot's tree).
+template <class Src>
+__device__ __forceinline__ float plastic_row(const PlasticRow& row, const PlasticChunk& first,
+                                             const Src& src, const StdpParams& sp, int lane) {
+  float acc = plastic_chunk(first, row, 0, lane, src, sp, 0.0f);
+  for (int base = kPlasticChunk; base < row.len; base += kPlasticChunk) {  // warp-uniform
+    PlasticChunk x;
+    load_plastic_chunk(x, row, base, lane);
+    acc = plastic_chunk(x, row, base, lane, src, sp, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+  }
+  return acc;
+}
+
+// A warp's walk over its items first, first + stride, ... < total.  Lane j
+// loads the len and post terms of the warp's item j of each 32
+// (items.terms(i)), which the lanes then take by shuffles, so that an item
+// does not wait on a load of its own before its slots' loads go out.
+// items.row(i, len, post_t, post_s) gives the row; items.finish(i, sum)
+// takes each item's sum (on every lane).  The slots' loads of one item at a
+// time: a prefetch of the next item's first chunk in registers (92-96
+// registers a thread, 16 warps an SM) and copies of it through shared
+// memory by cp.async, 2-4 items ahead, were both slower on the H100 than
+// the warps that one item a warp leaves room for (PERF.md).
+template <class Items, class Src>
+__device__ __forceinline__ void plastic_walk(const Items& items, int first, int stride,
+                                             int total, const Src& src, const StdpParams& sp,
+                                             int lane) {
+  if (first >= total) return;  // warp-uniform
+  const int n = (total - first + stride - 1) / stride;
+  int len = 0;
+  float pt = 0.0f, ps = 0.0f;
+  for (int j = 0; j < n; ++j) {
+    if ((j & 31) == 0) {
+      const int mine = j + lane;
+      len = 0;
+      pt = ps = 0.0f;
+      if (mine < n) items.terms(first + mine * stride, len, pt, ps);
+    }
+    const int sl = j & 31;
+    const PlasticRow row =
+        items.row(first + j * stride, __shfl_sync(0xffffffffu, len, sl),
+                  __shfl_sync(0xffffffffu, pt, sl), __shfl_sync(0xffffffffu, ps, sl));
+    PlasticChunk x;
+    load_plastic_chunk(x, row, 0, lane);
+    items.finish(first + j * stride, plastic_row(row, x, src, sp, lane));
+  }
 }
 
 static inline StdpParams make_stdp_params(float a_plus, float a_minus,

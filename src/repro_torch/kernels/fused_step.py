@@ -28,8 +28,13 @@ every slot bit for bit when the weights are finite.  It runs where
 (``dispatch.panel_reduce``: ``active`` only where they are all finite);
 otherwise the kernel's row_dot variant runs, whose NaN rows are the
 reference's.  ``reduce="row_dot"``, the default, is the bit-exact oracle
-on the card.  The plastic kernel reads every slot (its weights change
-every step).
+on the card.  The plastic kernel reads each row's first ``row_len[r]``
+slots once (their weights change every step, so every real slot is read;
+the padding past ``row_len`` adds nothing and keeps its weight, as
+``csrc/common.cuh:plastic_row`` argues), writes the new weights in place
+into ``weights_out`` (only plastic slots whose bits change), and in its
+ring form adds each bucket's currents into ``ring[(t + d) % D]`` in the
+same launch, as the engine's step needs.
 """
 from __future__ import annotations
 
@@ -158,6 +163,27 @@ def fused_step_cuda(
     return v_out, r_out, s_out, currents
 
 
+def _check_ring(ring, t, delays, nd: int, n_p: int, device) -> Tuple[torch.Tensor, List[int]]:
+    """Validate the ring form's operands: a ``(D, n_p)`` f32 ring on
+    ``device``, the step ``t`` and one delay a bucket, no two the same modulo
+    ``D`` (each ring element takes one add a launch).  Returns the step as
+    the kernel reads it and each bucket's ring offset ``d % D``."""
+    _build.require("ring", ring, torch.float32, 2, device)
+    D = ring.shape[0]
+    if ring.shape[1] != n_p or D < 1:
+        raise ValueError(f"ring {tuple(ring.shape)} for n_p={n_p} neurons")
+    if delays is None or len(delays) != nd:
+        raise ValueError(f"the ring form takes one delay a bucket: {nd} buckets, delays "
+                         f"{delays}")
+    offsets = [int(d) % D for d in delays]
+    if len(set(offsets)) != nd:
+        raise ValueError(f"delays {tuple(delays)} share a ring slot modulo D={D}: the "
+                         "kernel adds every bucket's rows in parallel")
+    if t is None:
+        raise ValueError("the ring form needs the step t")
+    return _build.step_tensor(t, device), offsets
+
+
 def fused_step_plastic_cuda(
     v: torch.Tensor,
     refrac: torch.Tensor,
@@ -167,16 +193,28 @@ def fused_step_plastic_cuda(
     cols: Sequence[torch.Tensor],
     weights: Sequence[torch.Tensor],
     plastic: Sequence[torch.Tensor],
+    row_len: Optional[Sequence[torch.Tensor]] = None,
     *,
     params: Dict[str, float],
     taus: Tuple[float, float],
     stdp: Dict[str, float],
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-           List[torch.Tensor], List[torch.Tensor]]:
+    ring: Optional[torch.Tensor] = None,
+    t=None,
+    delays: Optional[Sequence[int]] = None,
+    weights_out: Optional[Sequence[torch.Tensor]] = None,
+):
     """Launch the plastic kernel: ``(v', refrac', spikes, tr_plus',
-    tr_minus', currents, new_weights)`` with the vectors ``(n_p,)``,
-    ``currents[i]`` of shape ``(R,)`` and ``new_weights[i]`` new tensors of
-    the panels' shape (the kernel reads ``weights`` to the end)."""
+    tr_minus', currents, new_weights)`` with the vectors ``(n_p,)`` and
+    ``currents[i]`` of shape ``(R,)``.  ``row_len``: per bucket ``(R,)``
+    int32 real slots a row (the ELL layout: real slots first, ``(col 0,
+    weight +0, mask 0)`` after), or None (rows K long).  The ring form
+    (``ring``, a ``(D, n_p)`` f32 tensor, with the step ``t``, an int or
+    the 0-d int64 step on the card, and one delay a bucket, no two the same
+    modulo ``D``) adds each bucket's currents of rows ``< n_p`` into
+    ``ring[(t + d) % D]`` in the launch, one f32 add an element, and
+    returns the ring in the currents' place.  The new weights go into
+    ``weights_out`` (which may be ``weights``: in place) or into new copies
+    of the panels; only plastic slots whose bits change are written."""
     _build.require_plastic_f32("fused_step_plastic", weights)
     n_p, R = _check_operands(
         "fused_step_plastic", v,
@@ -185,12 +223,16 @@ def fused_step_plastic_cuda(
     )
     nd = len(cols)
     dev = v.device
+    _build.check_row_len(row_len, nd, R, dev)
+    t_dev, offsets = (None, None) if ring is None else _check_ring(ring, t, delays, nd, n_p, dev)
+    new_weights = _build.plastic_weights_out(weights, weights_out)
     outs = [torch.empty_like(v) for _ in range(5)]
-    currents = [torch.empty(R, dtype=torch.float32, device=dev) for _ in cols]
-    new_weights = [torch.empty_like(w) for w in weights]
+    currents = None if ring is not None else [
+        torch.empty(R, dtype=torch.float32, device=dev) for _ in cols]
     if n_p == 0:
-        return (*outs, [c.zero_() for c in currents], [w.clone() for w in weights])
+        return (*outs, ring if currents is None else [c.zero_() for c in currents], new_weights)
     ptrs = ctypes.c_void_p * nd
+    ints = ctypes.c_int * nd
     decay, ref_steps = lif_constants(params["dt"], params["tau_m"], params["t_ref"])
     stream, device = _build.launch_args(v)
     rc = _build.library().repro_fused_plastic_step(
@@ -198,11 +240,13 @@ def fused_step_plastic_cuda(
         tr_plus.data_ptr(), tr_minus.data_ptr(), *[o.data_ptr() for o in outs],
         n_p, R, nd,
         ptrs(*[c.data_ptr() for c in cols]),
-        ptrs(*[w.data_ptr() for w in weights]),
-        ptrs(*[p.data_ptr() for p in plastic]),
         ptrs(*[w.data_ptr() for w in new_weights]),
-        (ctypes.c_int * nd)(*[c.shape[1] for c in cols]),
-        ptrs(*[c.data_ptr() for c in currents]),
+        ptrs(*[p.data_ptr() for p in plastic]),
+        ptrs(*([None] * nd if row_len is None else [rl.data_ptr() for rl in row_len])),
+        ints(*[c.shape[1] for c in cols]),
+        None if currents is None else ptrs(*[c.data_ptr() for c in currents]),
+        None if ring is None else ring.data_ptr(), None if t_dev is None else t_dev.data_ptr(),
+        0 if ring is None else ring.shape[0], None if offsets is None else ints(*offsets),
         params["v_rest"], params["v_reset"], params["v_thresh"],
         decay, 1.0 - decay, params["r_m"], ref_steps,
         trace_decay_constant(params["dt"], taus[0]),
@@ -212,4 +256,4 @@ def fused_step_plastic_cuda(
     )
     _build.check(rc, "fused_step_plastic")
     PLASTIC_COUNTER.launches += 1
-    return (*outs, currents, new_weights)
+    return (*outs, ring if currents is None else currents, new_weights)

@@ -217,19 +217,28 @@ implementation("fused_step_plastic", "cuda")(fused_step_plastic_cuda)
 
 
 def fused_step_plastic(
-    v, refrac, i_tot, tr_plus, tr_minus, cols, weights, plastic, *,
-    params, taus, stdp,
+    v, refrac, i_tot, tr_plus, tr_minus, cols, weights, plastic, row_len=None, *,
+    params, taus, stdp, ring=None, t=None, delays=None, weights_out=None,
 ):
     """Plastic fused LIF step (identity exchange): LIF advance, spike
     emission, both trace decays, every bucket's gather from the pre-update
     weights and its masked STDP update, in one launch.  Returns ``(v',
-    refrac', spikes, tr_plus', tr_minus', currents, new_weights)``; the new
-    weights are new tensors.  ``stdp`` carries a_plus/a_minus/w_min/w_max
-    (other keys are ignored)."""
+    refrac', spikes, tr_plus', tr_minus', currents, new_weights)``.
+    ``stdp`` carries a_plus/a_minus/w_min/w_max (other keys are ignored).
+    ``row_len`` (per bucket ``(R,)`` int32 real slots a row, the ELL's real
+    slots first and ``(col 0, weight +0, mask 0)`` after) lets the kernel
+    read only the real slots.  The ring form, ``ring`` ``(D, n_p)`` with
+    the step ``t`` (an int or the 0-d int64 step on the ring's device) and
+    the buckets' ``delays`` (no two the same modulo ``D``), adds each
+    bucket's currents into ``ring[(t + d) % D]`` in the same launch, one
+    f32 add an element (the engine's step; the ring takes the currents'
+    place in the result).  The new weights go into ``weights_out`` (it may
+    be ``weights``: in place, the engine's carry) or new tensors."""
     return lookup("fused_step_plastic", backend_for(v.device))(
         v, refrac, i_tot, tr_plus, tr_minus,
-        tuple(cols), tuple(weights), tuple(plastic),
-        params=params, taus=tuple(taus), stdp=stdp,
+        tuple(cols), tuple(weights), tuple(plastic), _tuple(row_len),
+        params=params, taus=tuple(taus), stdp=stdp, ring=ring, t=t,
+        delays=None if delays is None else tuple(delays), weights_out=weights_out,
     )
 
 
@@ -371,45 +380,49 @@ def fused_post_exchange_remote(act, ring, write_onehot, cols, weights, row_len=N
 
 @implementation("fused_post_exchange_plastic", "ref")
 def _fused_post_exchange_plastic_ref(act, pre_trace, ring, clear_mask, write_onehot,
-                                     post_trace, post_spike, cols, weights, plastic, *,
-                                     stdp, out=None):
+                                     post_trace, post_spike, cols, weights, plastic,
+                                     row_len=None, *, stdp, out=None, weights_out=None):
     new_ring, new_w = ref.fused_post_exchange_plastic_ref(
         act, pre_trace, ring, clear_mask, write_onehot, post_trace, post_spike,
-        cols, weights, plastic, stdp=stdp,
+        cols, weights, plastic, stdp=stdp, weights_out=weights_out,
     )
     return _into(out, new_ring), new_w
 
 
 @implementation("fused_post_exchange_plastic", "cuda")
 def _fused_post_exchange_plastic_cuda(act, pre_trace, ring, clear_mask, write_onehot,
-                                      post_trace, post_spike, cols, weights, plastic, *,
-                                      stdp, out=None):
+                                      post_trace, post_spike, cols, weights, plastic,
+                                      row_len=None, *, stdp, out=None, weights_out=None):
     return post_exchange_plastic_cuda(
         act, act, pre_trace, ring, clear_mask, write_onehot, post_trace, post_spike,
-        cols, weights, plastic, stdp=stdp, out=out,
+        cols, weights, plastic, row_len, stdp=stdp, out=out, weights_out=weights_out,
     )
 
 
 def fused_post_exchange_plastic(act, pre_trace, ring, clear_mask, write_onehot,
-                                post_trace, post_spike, cols, weights, plastic, *,
-                                stdp, out=None):
+                                post_trace, post_spike, cols, weights, plastic, row_len=None, *,
+                                stdp, out=None, weights_out=None):
     """Plastic post-exchange half: ring rotate, every bucket's gather from
     the pre-update weights and its masked STDP update.  Returns
-    ``(new_ring, new_weights)``; the new weights are new tensors.  ``stdp``
-    carries a_plus/a_minus/w_min/w_max (other keys are ignored)."""
+    ``(new_ring, new_weights)``; the new weights go into ``weights_out``
+    (it may be ``weights``: in place) or new tensors.  ``stdp`` carries
+    a_plus/a_minus/w_min/w_max (other keys are ignored); ``row_len`` as for
+    :func:`fused_step_plastic`."""
     return lookup("fused_post_exchange_plastic", backend_for(ring.device))(
         act, pre_trace, ring, clear_mask, write_onehot, post_trace, post_spike,
-        tuple(cols), tuple(weights), tuple(plastic), stdp=stdp, out=out,
+        tuple(cols), tuple(weights), tuple(plastic), _tuple(row_len), stdp=stdp, out=out,
+        weights_out=weights_out,
     )
 
 
 @implementation("fused_post_exchange_remote_plastic", "ref")
 def _fused_post_exchange_remote_plastic_ref(act_remote, act, pre_trace, ring,
                                             write_onehot, post_trace, post_spike, cols,
-                                            weights, plastic, *, stdp, out=None):
+                                            weights, plastic, row_len=None, *, stdp, out=None,
+                                            own=None, weights_out=None):
     new_ring, new_w = ref.fused_post_exchange_remote_plastic_ref(
         act_remote, act, pre_trace, ring, write_onehot, post_trace, post_spike,
-        cols, weights, plastic, stdp=stdp,
+        cols, weights, plastic, stdp=stdp, own=own, weights_out=weights_out,
     )
     return _into(out, new_ring), new_w
 
@@ -417,21 +430,27 @@ def _fused_post_exchange_remote_plastic_ref(act_remote, act, pre_trace, ring,
 @implementation("fused_post_exchange_remote_plastic", "cuda")
 def _fused_post_exchange_remote_plastic_cuda(act_remote, act, pre_trace, ring,
                                              write_onehot, post_trace, post_spike, cols,
-                                             weights, plastic, *, stdp, out=None):
+                                             weights, plastic, row_len=None, *, stdp, out=None,
+                                             own=None, weights_out=None):
     return post_exchange_plastic_cuda(
         act_remote, act, pre_trace, ring, None, write_onehot, post_trace, post_spike,
-        cols, weights, plastic, stdp=stdp, out=out,
+        cols, weights, plastic, row_len, stdp=stdp, out=out, own=own, weights_out=weights_out,
     )
 
 
 def fused_post_exchange_remote_plastic(act_remote, act, pre_trace, ring, write_onehot,
-                                       post_trace, post_spike, cols, weights, plastic, *,
-                                       stdp, out=None):
+                                       post_trace, post_spike, cols, weights, plastic,
+                                       row_len=None, *, stdp, out=None, own=None,
+                                       weights_out=None):
     """Plastic remote pass of the overlapped split step: the gathers of
     ``act_remote`` (own slice zeroed) added to the ring with no clear, and
-    the STDP update from the full ``act`` and ``pre_trace``.  Returns
-    ``(new_ring, new_weights)``."""
+    the STDP update from the full ``act`` and ``pre_trace``.  With
+    ``act_remote`` None and ``own=(lo, hi)`` the gather reads ``act`` with
+    the own ids ``lo..hi-1`` as 0, in the kernel (no zeroed copy).  Returns
+    ``(new_ring, new_weights)``; ``row_len`` and ``weights_out`` as for
+    :func:`fused_post_exchange_plastic`."""
     return lookup("fused_post_exchange_remote_plastic", backend_for(ring.device))(
         act_remote, act, pre_trace, ring, write_onehot, post_trace, post_spike,
-        tuple(cols), tuple(weights), tuple(plastic), stdp=stdp, out=out,
+        tuple(cols), tuple(weights), tuple(plastic), _tuple(row_len), stdp=stdp, out=out,
+        own=None if own is None else tuple(own), weights_out=weights_out,
     )

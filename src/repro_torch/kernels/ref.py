@@ -108,20 +108,14 @@ def segment_gather_ring_ref(
     """The heavy-row split's step: per bucket in order, the segmented
     gather of a split bucket (:func:`spike_gather_segment_ref`), or an
     unsplit bucket's first ``n_p`` rows (:func:`spike_gather_ref`), added
-    into ``ring[(t + d) % D]``, one f32 add per element: the reference's
-    ``ring.at[(t + d) % D].add`` (``repro/snn/simulator.py:654-655``).  The
-    row index is made on the ring's device from ``t``; the add is
-    ``index_put_`` with ``accumulate`` (the CPU's ``index_add_`` starts every
-    core's thread for one row).  Returns ``ring``."""
-    D, n_p = ring.shape
-    for b, (c, w, rp, d) in enumerate(zip(cols, weights, row_ptr, delays)):
-        if rp is None:
-            cur = spike_gather_ref(act, c, w)[:n_p]
-        else:
-            cur = spike_gather_segment_ref(act, c, w, rp,
-                                           depth=None if depth is None else depth[b])
-        ring.index_put_((ring_row(t + d, D, ring.device),), cur.unsqueeze(0), accumulate=True)
-    return ring
+    into ``ring[(t + d) % D]`` (:func:`add_currents_to_ring`).  Returns
+    ``ring``."""
+    currents = [
+        spike_gather_ref(act, c, w) if rp is None else
+        spike_gather_segment_ref(act, c, w, rp, depth=None if depth is None else depth[b])
+        for b, (c, w, rp) in enumerate(zip(cols, weights, row_ptr))
+    ]
+    return add_currents_to_ring(ring, t, delays, currents)
 
 
 def lif_step_ref(
@@ -262,6 +256,30 @@ def fused_step_ref(
     return v2, r2, s, currents
 
 
+def _into_weights(new_weights: List[Tensor], weights_out) -> List[Tensor]:
+    """The plastic plain versions' weights: ``new_weights`` as they are, or
+    copied into ``weights_out`` (which may be the input panels: in place)."""
+    if weights_out is None:
+        return new_weights
+    for o, w in zip(weights_out, new_weights):
+        o.copy_(w)
+    return list(weights_out)
+
+
+def add_currents_to_ring(ring: Tensor, t, delays: Sequence[int], currents) -> Tensor:
+    """Per bucket in order ``ring[(t + d) % D] += cur[:n_p]``, one f32 add an
+    element: the reference's ``ring.at[(t + d) % D].add``
+    (``repro/snn/simulator.py:654-655``).  The row index is made on the
+    ring's device from ``t``; the add is ``index_put_`` with ``accumulate``
+    (the CPU's ``index_add_`` starts every core's thread for one row).
+    Returns ``ring``."""
+    D, n_p = ring.shape
+    for cur, d in zip(currents, delays):
+        ring.index_put_((ring_row(t + d, D, ring.device),), cur[:n_p].unsqueeze(0),
+                        accumulate=True)
+    return ring
+
+
 def fused_step_plastic_ref(
     v: Tensor,  # (n_p,)
     refrac: Tensor,  # (n_p,)
@@ -271,17 +289,28 @@ def fused_step_plastic_ref(
     cols: Sequence[Tensor],  # per delay bucket (R, K_d) int32, local ids
     weights: Sequence[Tensor],  # per delay bucket (R, K_d)
     plastic: Sequence[Tensor],  # per delay bucket (R, K_d) 0/1 STDP mask
+    row_len: Optional[Sequence[Tensor]] = None,  # per bucket (R,) real slots; unread
     *,
     params: Dict[str, float],
     taus: Tuple[float, float],  # (tau_plus, tau_minus)
     stdp: Dict[str, float],  # a_plus / a_minus / w_min / w_max
-) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, List[Tensor], List[Tensor]]:
+    ring: Optional[Tensor] = None,  # (D, n_p): the ring form
+    t=None,  # the step (an int or a 0-d integer tensor), with the ring
+    delays: Optional[Sequence[int]] = None,  # per bucket its delay, with the ring
+    weights_out: Optional[Sequence[Tensor]] = None,  # where the new weights go
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, object, List[Tensor]]:
     """The plastic fused step composed from the plain versions in the
     reference's step order: LIF advance, both trace decays, then per bucket
     the gather from the *pre-update* weights and the STDP update (identity
     exchange: the pre-spike is the spike vector, the pre-trace is
     ``tr_plus'``; rows ``r >= n_p`` take 0 for the post terms).  Returns
-    ``(v', refrac', spikes, tr_plus', tr_minus', currents, new_weights)``."""
+    ``(v', refrac', spikes, tr_plus', tr_minus', currents, new_weights)``;
+    with ``ring`` (the ring form) each bucket's currents of rows ``< n_p``
+    are added into ``ring[(t + d) % D]`` (:func:`add_currents_to_ring`)
+    and the ring takes the currents' place.  The new weights go into
+    ``weights_out`` when given (it may be ``weights``: in place).
+    ``row_len`` changes nothing: the slots past it are ``(col 0, weight
+    +0, mask 0)``, which add nothing and keep their weight."""
     v2, r2, s = lif_step_ref(v, refrac, i_tot, **params)
     dt = params["dt"]
     tp = trace_decay_ref(tr_plus, s, dt=dt, tau=taus[0])
@@ -297,6 +326,9 @@ def fused_step_plastic_ref(
             w, pm, c, tp, s, post_t, post_s,
             stdp["a_plus"], stdp["a_minus"], stdp["w_min"], stdp["w_max"],
         ))
+    new_weights = _into_weights(new_weights, weights_out)
+    if ring is not None:
+        return v2, r2, s, tp, tm, add_currents_to_ring(ring, t, delays, currents), new_weights
     return v2, r2, s, tp, tm, currents, new_weights
 
 
@@ -383,7 +415,7 @@ def fused_post_exchange_remote_ref(
 
 def _post_exchange_plastic(
     act_gather, act, pre_trace, ring, clear_mask, write_onehot, post_trace,
-    post_spike, cols, weights, plastic, stdp,
+    post_spike, cols, weights, plastic, stdp, weights_out=None,
 ):
     n_p = ring.shape[1]
     currents, new_weights = [], []
@@ -396,7 +428,8 @@ def _post_exchange_plastic(
             w, pm, c, pre_trace, act, post_t, post_s,
             stdp["a_plus"], stdp["a_minus"], stdp["w_min"], stdp["w_max"],
         ))
-    return _ring_accumulate(ring, clear_mask, write_onehot, currents), new_weights
+    return (_ring_accumulate(ring, clear_mask, write_onehot, currents),
+            _into_weights(new_weights, weights_out))
 
 
 def fused_post_exchange_plastic_ref(
@@ -410,20 +443,32 @@ def fused_post_exchange_plastic_ref(
     cols: Sequence[Tensor],  # per delay bucket (R, K_d) int32, global ids
     weights: Sequence[Tensor],
     plastic: Sequence[Tensor],  # per delay bucket (R, K_d) 0/1 STDP mask
+    row_len: Optional[Sequence[Tensor]] = None,  # per bucket (R,) real slots; unread
     *,
     stdp: Dict[str, float],  # a_plus / a_minus / w_min / w_max
+    weights_out: Optional[Sequence[Tensor]] = None,  # where the new weights go
 ) -> Tuple[Tensor, List[Tensor]]:
     """The plastic post-exchange half: ring rotate, every bucket's gather
     from the pre-update weights and its masked STDP update, in one pass
-    over the panels.  Returns ``(new_ring, new_weights)``."""
+    over the panels.  Returns ``(new_ring, new_weights)``; the new weights
+    go into ``weights_out`` when given (it may be ``weights``: in place).
+    ``row_len`` changes nothing, as in :func:`fused_step_plastic_ref`."""
     return _post_exchange_plastic(
         act, act, pre_trace, ring, clear_mask, write_onehot, post_trace,
-        post_spike, cols, weights, plastic, stdp,
+        post_spike, cols, weights, plastic, stdp, weights_out,
     )
 
 
+def mask_own(act: Tensor, own: Tuple[int, int]) -> Tensor:
+    """``act`` with the ids ``own[0]..own[1]-1`` (a partition's own slice)
+    zeroed, as a new tensor: the remote pass's gather activity."""
+    out = act.clone()
+    out[own[0]:own[1]] = 0.0
+    return out
+
+
 def fused_post_exchange_remote_plastic_ref(
-    act_remote: Tensor,  # (n,) exchanged activity, own slice zeroed
+    act_remote: Optional[Tensor],  # (n,) exchanged activity, own slice zeroed
     act: Tensor,  # (n,) full exchanged activity (for STDP)
     pre_trace: Tensor,  # (n,) exchanged global presynaptic traces
     ring: Tensor,  # (D, n_p) ring already rotated by the local pass
@@ -433,17 +478,23 @@ def fused_post_exchange_remote_plastic_ref(
     cols: Sequence[Tensor],  # per delay bucket (R, K_d), the FULL panels
     weights: Sequence[Tensor],
     plastic: Sequence[Tensor],
+    row_len: Optional[Sequence[Tensor]] = None,  # per bucket (R,) real slots; unread
     *,
     stdp: Dict[str, float],
+    own: Optional[Tuple[int, int]] = None,  # with act_remote None: the own slice
+    weights_out: Optional[Sequence[Tensor]] = None,
 ) -> Tuple[Tensor, List[Tensor]]:
     """The plastic remote pass of the overlapped split step: the gathers of
-    ``act_remote`` added to the ring with no clear, and the STDP update
-    from the full ``act`` and ``pre_trace`` (elementwise per slot, so the
-    weights equal the serialized pass's).  Returns ``(new_ring,
-    new_weights)``."""
+    ``act_remote`` (or, when it is None, of ``act`` with the ids of ``own``
+    zeroed, :func:`mask_own`) added to the ring with no clear, and the STDP
+    update from the full ``act`` and ``pre_trace`` (elementwise per slot,
+    so the weights equal the serialized pass's).  Returns ``(new_ring,
+    new_weights)``, the weights into ``weights_out`` when given."""
+    if act_remote is None:
+        act_remote = mask_own(act, own)
     return _post_exchange_plastic(
         act_remote, act, pre_trace, ring, None, write_onehot, post_trace,
-        post_spike, cols, weights, plastic, stdp,
+        post_spike, cols, weights, plastic, stdp, weights_out,
     )
 
 

@@ -13,9 +13,11 @@ Counterparts of ``repro/kernels/fused_step.py``'s split kernels:
   * :func:`post_exchange_plastic_cuda` --
     ``fused_post_exchange_plastic_pallas`` and
     ``fused_post_exchange_remote_plastic_pallas``: the same with the STDP
-    update of every slot; the gather reads ``act_gather`` (the full
-    activity, or the remote pass's activity with the own slice zeroed), the
-    STDP update the full ``act`` and ``pre_trace``.
+    update of every real slot (``row_len``), the new weights written in
+    place into ``weights_out``; the gather reads ``act_gather`` (the full
+    activity, or the remote pass's activity with the own slice zeroed,
+    which the kernel can make itself from ``act`` and the slice's id range
+    ``own``), the STDP update the full ``act`` and ``pre_trace``.
 
 :func:`post_exchange_cuda` takes f32 or bf16 weight panels (one type for
 every bucket of a launch), widened exactly and summed in f32 as the
@@ -205,7 +207,7 @@ def post_exchange_cuda(
 
 
 def post_exchange_plastic_cuda(
-    act_gather: torch.Tensor,
+    act_gather: Optional[torch.Tensor],
     act: torch.Tensor,
     pre_trace: torch.Tensor,
     ring: torch.Tensor,
@@ -216,49 +218,67 @@ def post_exchange_plastic_cuda(
     cols: Sequence[torch.Tensor],
     weights: Sequence[torch.Tensor],
     plastic: Sequence[torch.Tensor],
+    row_len: Optional[Sequence[torch.Tensor]] = None,
     *,
     stdp: Dict[str, float],
     out: Optional[torch.Tensor] = None,
+    own: Optional[Tuple[int, int]] = None,
+    weights_out: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Launch the plastic post-exchange kernel: the ring as
     :func:`post_exchange_cuda` computes it from ``act_gather``, and every
-    bucket's STDP update from ``act`` and ``pre_trace``.  Returns
-    ``(new_ring, new_weights)``; the new weights are new tensors, the ring
-    goes into ``out`` when given."""
+    bucket's STDP update from ``act`` and ``pre_trace``.  ``act_gather``
+    None with ``own=(lo, hi)``: the gather reads ``act`` with the ids
+    ``lo..hi-1`` (the partition's own slice) as +0, in the kernel.
+    ``row_len``: per bucket ``(R,)`` int32 real slots a row (real slots
+    first, ``(col 0, weight +0, mask 0)`` after), or None (rows K long).
+    Returns ``(new_ring, new_weights)``: the ring goes into ``out`` when
+    given (``out`` may be ``ring``), the weights into ``weights_out`` (which
+    may be ``weights``: in place) or into new copies of the panels; only
+    plastic slots whose bits change are written."""
     _build.require_plastic_f32("post_exchange_plastic", weights)
+    if (act_gather is None) == (own is None):
+        raise ValueError("post_exchange_plastic gathers act_gather, or act with the own "
+                         "slice own=(lo, hi) read as 0: give one of the two")
+    acts = dict(act=act, pre_trace=pre_trace, post_trace=post_trace, post_spike=post_spike)
+    if act_gather is not None:
+        acts["act_gather"] = act_gather
     D, n_p, R = _check_post(
-        "post_exchange_plastic",
-        dict(act_gather=act_gather, act=act, pre_trace=pre_trace,
-             post_trace=post_trace, post_spike=post_spike),
-        ring, clear_mask, write_onehot, cols,
+        "post_exchange_plastic", acts, ring, clear_mask, write_onehot, cols,
         dict(weights=weights, plastic=plastic), out,
     )
     n = act.shape[0]
-    if act_gather.shape != (n,) or pre_trace.shape != (n,):
+    if (act_gather is not None and act_gather.shape != (n,)) or pre_trace.shape != (n,):
         raise ValueError(
-            f"act_gather {tuple(act_gather.shape)}, act {tuple(act.shape)} and "
-            f"pre_trace {tuple(pre_trace.shape)} must share one length"
+            f"act_gather {None if act_gather is None else tuple(act_gather.shape)}, act "
+            f"{tuple(act.shape)} and pre_trace {tuple(pre_trace.shape)} must share one length"
         )
     if post_trace.shape != (n_p,) or post_spike.shape != (n_p,):
         raise ValueError(
             f"post_trace {tuple(post_trace.shape)} and post_spike "
             f"{tuple(post_spike.shape)} for a ring of n_p={n_p} neurons"
         )
+    lo, hi = (0, 0) if own is None else (int(own[0]), int(own[1]))
+    if not 0 <= lo <= hi <= n:
+        raise ValueError(f"own slice {own} outside the {n} ids")
+    nd = len(cols)
+    _build.check_row_len(row_len, nd, R, ring.device)
     out = torch.empty_like(ring) if out is None else out
-    new_weights = [torch.empty_like(w) for w in weights]
+    new_weights = _build.plastic_weights_out(weights, weights_out)
     if R == 0:
         return out, new_weights
-    nd = len(cols)
     ptrs = ctypes.c_void_p * nd
     stream, device = _build.launch_args(ring)
+    # the kernel takes act_gather == act as "gather act itself"
+    gather = None if act_gather is None else act_gather.data_ptr()
     rc = _build.library().repro_post_exchange_plastic(
-        act_gather.data_ptr(), act.data_ptr(), pre_trace.data_ptr(),
+        gather, act.data_ptr(), pre_trace.data_ptr(), lo, hi - lo,
         ring.data_ptr(), out.data_ptr(), _ptr(clear_mask), write_onehot.data_ptr(),
         post_trace.data_ptr(), post_spike.data_ptr(), n_p, D, R, nd,
         ptrs(*[c.data_ptr() for c in cols]),
-        ptrs(*[w.data_ptr() for w in weights]),
-        ptrs(*[p.data_ptr() for p in plastic]),
         ptrs(*[w.data_ptr() for w in new_weights]),
+        ptrs(*[p.data_ptr() for p in plastic]),
+        ptrs(*([None] * nd if row_len is None else [rl.data_ptr() for rl in row_len])),
         (ctypes.c_int * nd)(*[c.shape[1] for c in cols]),
         stdp["a_plus"], stdp["a_minus"], stdp["w_min"], stdp["w_max"],
         stream, device,

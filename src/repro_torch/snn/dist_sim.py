@@ -412,7 +412,7 @@ class DistSimulator:
             out[lo:hi] = 0.0
             return out
 
-        return dict(local=local, embed=embed, mask_remote=mask_remote)
+        return dict(local=local, embed=embed, mask_remote=mask_remote, own=(lo, hi))
 
     def _make_steps(self, gather: str, *, front: bool = True) -> List[Callable]:
         """The k partitions' step functions of ``gather``; ``front=False``

@@ -456,9 +456,11 @@ def make_core_step(
     engines: ``local(spikes)`` the own slice of the activity as the
     exchange would deliver it, ``embed(v)`` the own slice placed into a
     zeroed global vector, ``mask_remote(act)`` the activity with the own
-    slice zeroed.  With ``double_buffer`` the carry holds a ``_pending``
-    entry (step t's deferred remote pass), applied at the top of step t+1
-    and by ``step.pending_flush(carry)``, which a run calls at its end."""
+    slice zeroed, and ``own``, that slice's ids ``(lo, hi)`` (the plastic
+    remote pass zeroes them in its kernel).  With ``double_buffer`` the
+    carry holds a ``_pending`` entry (step t's deferred remote pass),
+    applied at the top of step t+1 and by ``step.pending_flush(carry)``,
+    which a run calls at its end."""
     D = d_ring
     n_p = dev.n_p
     device = dev.vtx_state0.device
@@ -535,12 +537,14 @@ def make_core_step(
             return
         ring = carry["ring"]
         if choice.plastic:
-            _, new_w = ops.fused_post_exchange_remote_plastic(
-                overlap_ctx["mask_remote"](pend["act"]), pend["act"], pend["pre_trace"],
-                ring, pend["onehot"], pend["post_trace"], pend["post_spike"],
-                dev.cols, carry["weights"], dev.plastic, stdp=stdp_params, out=ring,
+            # the gather reads act with the own slice as 0, in the kernel;
+            # the weights are updated in place in the carry's
+            ops.fused_post_exchange_remote_plastic(
+                None, pend["act"], pend["pre_trace"], ring, pend["onehot"],
+                pend["post_trace"], pend["post_spike"], dev.cols, carry["weights"],
+                dev.plastic, dev.row_len, stdp=stdp_params, out=ring, own=overlap_ctx["own"],
+                weights_out=carry["weights"],
             )
-            carry["weights"] = tuple(new_w)
         elif choice.event:
             # the slots of the pending step's t, no clear
             ops.event_post_exchange(
@@ -598,18 +602,17 @@ def make_core_step(
                 add_to_ring(ring, idx[1 + b:2 + b], cur)
         elif choice.engine == "fused_plastic":
             # one cooperative launch: LIF advance + both trace decays, then
-            # per bucket the gather from the pre-update weights and the
-            # masked STDP update (identity exchange: the pre-spike is the
-            # spike vector, the pre-trace tr_plus')
-            (v2, r2, spikes, carry["tr_plus"], carry["tr_minus"], currents,
-             new_weights) = ops.fused_step_plastic(
+            # per bucket and row, over its real slots, the gather from the
+            # pre-update weights, the masked STDP update in place in the
+            # carry's weights (identity exchange: the pre-spike is the spike
+            # vector, the pre-trace tr_plus') and the add into
+            # ring[(t + d) % D]
+            v2, r2, spikes, carry["tr_plus"], carry["tr_minus"], _, _ = ops.fused_step_plastic(
                 v, refrac, i_in, carry["tr_plus"], carry["tr_minus"], dev.cols,
-                carry["weights"], dev.plastic, params=lif_params, taus=taus,
-                stdp=stdp_params,
+                carry["weights"], dev.plastic, dev.row_len, params=lif_params, taus=taus,
+                stdp=stdp_params, ring=ring, t=t, delays=dev.delays,
+                weights_out=carry["weights"],
             )
-            carry["weights"] = tuple(new_weights)
-            for b, cur in enumerate(currents):
-                add_to_ring(ring, idx[1 + b:2 + b], cur)
         elif choice.plastic:  # fused_split_plastic: LIF + both trace decays
             v2, r2, spikes, carry["tr_plus"], carry["tr_minus"] = ops.fused_pre_exchange(
                 v, refrac, i_in, carry["tr_plus"], carry["tr_minus"],
@@ -696,11 +699,11 @@ def make_core_step(
             ops.event_post_exchange(act, ring, t, dev.delays, event_plan, dev.cols, weights,
                                     dev.row_len, reduce=carry["_reduce"])
         elif choice.engine == "fused_split_plastic":
-            _, new_w = ops.fused_post_exchange_plastic(
+            ops.fused_post_exchange_plastic(
                 act, pre_trace, ring, clear, onehot, carry["tr_minus"], spikes, dev.cols,
-                weights, dev.plastic, stdp=stdp_params, out=ring,
+                weights, dev.plastic, dev.row_len, stdp=stdp_params, out=ring,
+                weights_out=weights,
             )
-            carry["weights"] = tuple(new_w)
         elif not choice.fused:
             split = dev.segment is not None
             if split:

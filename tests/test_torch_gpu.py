@@ -344,26 +344,66 @@ def test_plastic_fused_kernels_refuse_bf16_weights(cuda, rng):
                                                plastic, stdp=STDP)
 
 
-def _plastic_case(rng, n_p, R, ks, device, p_mask=0.5):
+# "every_slot": random panels, no row_len (every slot real); "ell": the ELL
+# layout, row r's row_len[r] < K real slots first, then (col 0, weight +0,
+# mask 0); "ell_full": every row K long, its row_len given
+PLASTIC_LAYOUTS = ("every_slot", "ell", "ell_full")
+
+
+def _plastic_panels(rng, n_act, n_p, R, ks, device, p_mask, layout):
+    """``(cols, weights, plastic, row_len)`` of a plastic launch; in the
+    ELL layouts a ``p_mask`` share of the real slots is plastic and a
+    quarter of the rows hold weights past ``w_max``."""
+    if layout == "every_slot":
+        cols, weights = _panels(rng, n_act, R, ks, n_p, device)
+        return cols, weights, _masks(rng, R, ks, n_p, device, p_mask), None
+    cols, weights, plastic, row_len = [], [], [], []
+    for K in ks:
+        rl = np.full(R, K) if layout == "ell_full" else rng.integers(0, K, R)
+        rl[n_p:] = 0
+        real = np.arange(K)[None, :] < rl[:, None]
+        w = (1.5 * rng.normal(size=(R, K))).astype(np.float32)
+        w[: R // 4] += 2.5  # past w_max: clipped where plastic
+        cols.append(torch.from_numpy(np.where(real, rng.integers(0, n_act, (R, K)), 0)
+                                     .astype(np.int32)).to(device))
+        weights.append(torch.from_numpy(np.where(real, w, 0.0).astype(np.float32)).to(device))
+        plastic.append(torch.from_numpy((real & (rng.random((R, K)) < p_mask))
+                                        .astype(np.float32)).to(device))
+        row_len.append(torch.from_numpy(rl.astype(np.int32)).to(device))
+    return cols, weights, plastic, row_len
+
+
+def _plastic_case(rng, n_p, R, ks, device, p_mask=0.5, layout="every_slot"):
     v, r, i = _lif_inputs(rng, n_p, device)
-    cols, weights = _panels(rng, n_p, R, ks, n_p, device)
-    plastic = _masks(rng, R, ks, n_p, device, p_mask)
-    return v, r, i, _vec(rng, n_p, device), _vec(rng, n_p, device), cols, weights, plastic
+    cols, weights, plastic, row_len = _plastic_panels(rng, n_p, n_p, R, ks, device, p_mask,
+                                                      layout)
+    return (v, r, i, _vec(rng, n_p, device), _vec(rng, n_p, device), cols, weights, plastic,
+            row_len)
 
 
+def _untouched(new_w, weights, plastic):
+    """No padding or non-plastic slot was written (bit for bit)."""
+    return all(torch.equal(a.view(torch.int32)[pm == 0], b.view(torch.int32)[pm == 0])
+               for a, b, pm in zip(new_w, weights, plastic))
+
+
+@pytest.mark.parametrize("layout", PLASTIC_LAYOUTS)
 @pytest.mark.parametrize("n_p,R,ks,p_mask", [
     (64, 64, (16,), 0.5),
     (100, 104, (8, 24), 0.5),  # R > n_p
     (37, 40, (4, 12, 20), 0.5),  # K not a multiple of 32
     (500, 504, tuple(range(8, 8 * 16, 8)), 0.5),  # 15 buckets, as balanced_ei
     (1000, 1000, (37,), 0.0),  # one bucket, all-zero mask
+    (300, 304, (40, 200, 300), 1.0),  # every slot plastic, rows past one 128-slot chunk
     (12500, 12504, (128,) * 15, 0.65),  # balanced_ei(12500) panel widths
 ])
-def test_fused_plastic_kernel_vs_unfused_kernels_and_plain(cuda, rng, n_p, R, ks, p_mask):
-    v, r, i, tp, tm, cols, weights, plastic = _plastic_case(rng, n_p, R, ks, cuda, p_mask)
+def test_fused_plastic_kernel_vs_unfused_kernels_and_plain(cuda, rng, n_p, R, ks, p_mask,
+                                                          layout):
+    v, r, i, tp, tm, cols, weights, plastic, row_len = _plastic_case(
+        rng, n_p, R, ks, cuda, p_mask, layout)
     kw = dict(params=LIF_PARAMS, taus=TAUS, stdp=STDP)
     before = fused_mod.PLASTIC_COUNTER.launches
-    out = ops.fused_step_plastic(v, r, i, tp, tm, cols, weights, plastic, **kw)
+    out = ops.fused_step_plastic(v, r, i, tp, tm, cols, weights, plastic, row_len, **kw)
     assert fused_mod.PLASTIC_COUNTER.launches == before + 1
     v2, r2, s2, tp2, tm2, curs, new_w = out
     assert int(s2.sum()) > 0
@@ -380,11 +420,15 @@ def test_fused_plastic_kernel_vs_unfused_kernels_and_plain(cuda, rng, n_p, R, ks
         assert torch.equal(cur, ops.spike_gather(s1, c, w, reduce=panel_reduce([w])))
         assert torch.equal(nw, ops.stdp_update(w, pm, c, tp1, s1, post_t, post_s,
                                                params=STDP))
-        frozen = pm == 0
-        assert torch.equal(nw[frozen], w[frozen])
+    assert _untouched(new_w, weights, plastic)
+    # every slot read (no row_len): the same bits
+    every = ops.fused_step_plastic(v, r, i, tp, tm, cols, weights, plastic, **kw)
+    for a, b in zip((*out[:5], *curs, *new_w), (*every[:5], *every[5], *every[6])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     # the plain version: bit-exact but for the currents (f32 sums in another
     # order: rtol=atol=1e-5)
-    want = fused_mod.fused_step_plastic_plain(v, r, i, tp, tm, cols, weights, plastic, **kw)
+    want = fused_mod.fused_step_plastic_plain(v, r, i, tp, tm, cols, weights, plastic, row_len,
+                                              **kw)
     for a, b in zip(out[:5], want[:5]):
         assert torch.equal(a, b)
     for a, b in zip(curs, want[5]):
@@ -393,6 +437,46 @@ def test_fused_plastic_kernel_vs_unfused_kernels_and_plain(cuda, rng, n_p, R, ks
         assert torch.equal(a, b)
     if p_mask > 0:
         assert any(not torch.equal(a, b) for a, b in zip(new_w, weights))
+
+    # the engine's form: the currents added into the ring in the launch (the
+    # step t on the card) and the weights in place; the ring equals
+    # index_add_ of the currents bit for bit, signed zeros included
+    D, t = len(ks) + 3, 9
+    delays = list(range(1, len(ks) + 1))
+    ring0 = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    ring0[:, : n_p // 4] = -0.0
+    want_ring = ring0.clone()
+    for cur, d in zip(curs, delays):
+        want_ring.index_add_(0, torch.tensor([(t + d) % D], device=cuda), cur[:n_p][None])
+    ring = ring0.clone()
+    work = [w.clone() for w in weights]
+    t_dev = torch.tensor(t, dtype=torch.int64, device=cuda)
+    got = ops.fused_step_plastic(v, r, i, tp, tm, cols, work, plastic, row_len, ring=ring,
+                                 t=t_dev, delays=delays, weights_out=work, **kw)
+    assert fused_mod.PLASTIC_COUNTER.launches == before + 3
+    assert got[5] is ring and all(a is b for a, b in zip(got[6], work))
+    assert torch.equal(ring.view(torch.int32), want_ring.view(torch.int32))
+    for a, b in zip((*got[:5], *work), (*out[:5], *new_w)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    plain_ring, plain_w = ring0.clone(), [w.clone() for w in weights]
+    fused_mod.fused_step_plastic_plain(v, r, i, tp, tm, cols, plain_w, plastic, row_len,
+                                       ring=plain_ring, t=t_dev, delays=delays,
+                                       weights_out=plain_w, **kw)
+    torch.testing.assert_close(ring, plain_ring, rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(work, plain_w))
+
+
+def test_fused_plastic_ring_form_refuses_shared_write_slots(cuda, rng):
+    v, r, i, tp, tm, cols, weights, plastic, row_len = _plastic_case(
+        rng, 64, 64, (16, 16), cuda, 0.5, "ell")
+    kw = dict(params=LIF_PARAMS, taus=TAUS, stdp=STDP)
+    ring = torch.zeros((4, 64), device=cuda)
+    with pytest.raises(ValueError, match="share a ring slot"):
+        ops.fused_step_plastic(v, r, i, tp, tm, cols, weights, plastic, row_len, ring=ring,
+                               t=0, delays=[1, 5], **kw)
+    with pytest.raises(ValueError, match="ring"):
+        ops.fused_step_plastic(v, r, i, tp, tm, cols, weights, plastic, row_len,
+                               ring=torch.zeros((4, 63), device=cuda), t=0, delays=[1, 2], **kw)
 
 
 def test_plastic_kernels_refuse_cpu_tensors_and_bad_operands(cuda, rng):
@@ -444,6 +528,42 @@ def test_plastic_engines_bit_identical_on_card(cuda):
     assert any(not torch.equal(a, b) for a, b in zip(fs.state["weights"], w0))
     for a, b in zip(fs.state["weights"], us.state["weights"]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_plastic_session_weights_never_alias_the_panels_on_card(cuda, k):
+    """The plastic kernels update a run's carry's weights in place: no
+    state a run hands back (graphed runs) shares memory with the uploaded
+    panels, which a ``_share``d session borrows, and the panels stay as
+    uploaded; the borrowing session's run equals the lender's."""
+    from repro_torch.core import block_partition
+    from repro_torch.snn import RasterMonitor, Session, SimConfig, balanced_ei, to_dcsr
+
+    ei = balanced_ei(n=2000, stdp=True, seed=0)
+    if k == 1:
+        net, kw = to_dcsr(ei, k=1), dict(device=cuda)
+    else:
+        net = to_dcsr(ei, assignment=block_partition(2000, k), uniform=True)
+        kw = dict(engine="spmd", devices=[cuda] * k)
+    a = Session(net, SimConfig(), **kw)
+    b = Session(net, SimConfig(), _share=a, **kw)
+    devs = [a.simulator.dev] if k == 1 else a.simulator.devs
+    w0 = [w.clone() for d in devs for w in d.weights0]
+    panels = {w.untyped_storage().data_ptr() for d in devs for w in d.weights0}
+
+    def weights(state):
+        return [w for c in ([state] if k == 1 else state) for w in c["weights"]]
+
+    rasters = []
+    for ses in (a, b):
+        mon = RasterMonitor()
+        ses.run(200, monitors=[mon], chunk_size=100)
+        rasters.append(mon.raster)
+        assert not panels & {w.untyped_storage().data_ptr() for w in weights(ses.state)}
+        assert any(not torch.equal(x, y) for x, y in zip(weights(ses.state), w0))
+        assert all(torch.equal(x, y) for x, y in zip([w for d in devs for w in d.weights0], w0))
+    np.testing.assert_array_equal(rasters[0], rasters[1])
+    assert all(torch.equal(x, y) for x, y in zip(weights(a.state), weights(b.state)))
 
 
 # -- the split (k>1) step's kernels -----------------------------------------
@@ -527,34 +647,41 @@ def test_post_exchange_kernel_bit_exact_vs_gather_kernel(cuda, rng, n_p, n, R, k
     assert torch.equal(inplace.view(torch.int32), got.view(torch.int32))
 
 
-@pytest.mark.parametrize("n_p,n,R,ks,remote", [
-    (64, 256, 64, (16,), False),
-    (100, 400, 104, (8, 24), True),
-    (3125, 12500, 3128, (128,) * 15, False),  # balanced_ei(12500) at k=4
-    (3125, 12500, 3128, (128,) * 15, True),
+@pytest.mark.parametrize("layout", PLASTIC_LAYOUTS)
+@pytest.mark.parametrize("n_p,n,R,ks,remote,p_mask", [
+    (64, 256, 64, (16,), False, 0.5),
+    (100, 400, 104, (8, 24), True, 0.5),
+    (100, 400, 104, (8, 200), True, 1.0),  # rows past one 128-slot chunk, every slot plastic
+    (100, 400, 104, (8, 24), False, 0.0),
+    (3125, 12500, 3128, (128,) * 15, False, 0.5),  # balanced_ei(12500) at k=4
+    (3125, 12500, 3128, (128,) * 15, True, 0.5),
 ])
-def test_post_exchange_plastic_kernel_vs_unfused_kernels(cuda, rng, n_p, n, R, ks, remote):
+def test_post_exchange_plastic_kernel_vs_unfused_kernels(cuda, rng, n_p, n, R, ks, remote,
+                                                         p_mask, layout):
     D, t = 16, 9
     delays = list(range(1, len(ks) + 1))
-    cols, weights = _panels(rng, n, R, ks, n_p, cuda)
-    plastic = _masks(rng, R, ks, n_p, cuda)
+    cols, weights, plastic, row_len = _plastic_panels(rng, n, n_p, R, ks, cuda, p_mask, layout)
     act = (_vec(rng, n, cuda) < 0.1).float()
     pre = _vec(rng, n, cuda)
     post_t, post_s = _vec(rng, n_p, cuda), (_vec(rng, n_p, cuda) < 0.2).float()
     ring = torch.from_numpy(rng.normal(size=(D, n_p)).astype(np.float32)).to(cuda)
+    ring[:, : n_p // 4] = -0.0
     clear, onehot, _ = _slots(D, t, delays, cuda)
+    lo = n_p  # partition 1's own slice
     act_g = act.clone()
     if remote:
-        act_g[:n_p] = 0.0  # partition 0's own slice
+        act_g[lo:lo + n_p] = 0.0
     before = split_mod.PLASTIC_COUNTER.launches
     if remote:
         new_ring, new_w = ops.fused_post_exchange_remote_plastic(
-            act_g, act, pre, ring, onehot, post_t, post_s, cols, weights, plastic, stdp=STDP)
+            act_g, act, pre, ring, onehot, post_t, post_s, cols, weights, plastic, row_len,
+            stdp=STDP)
         want = ref.fused_post_exchange_remote_plastic_ref(
             act_g, act, pre, ring, onehot, post_t, post_s, cols, weights, plastic, stdp=STDP)
     else:
         new_ring, new_w = ops.fused_post_exchange_plastic(
-            act, pre, ring, clear, onehot, post_t, post_s, cols, weights, plastic, stdp=STDP)
+            act, pre, ring, clear, onehot, post_t, post_s, cols, weights, plastic, row_len,
+            stdp=STDP)
         want = ref.fused_post_exchange_plastic_ref(
             act, pre, ring, clear, onehot, post_t, post_s, cols, weights, plastic, stdp=STDP)
     assert split_mod.PLASTIC_COUNTER.launches == before + 1
@@ -566,7 +693,24 @@ def test_post_exchange_plastic_kernel_vs_unfused_kernels(cuda, rng, n_p, n, R, k
     for nw, c, w, pm, pw in zip(new_w, cols, weights, plastic, want[1]):
         assert torch.equal(nw, ops.stdp_update(w, pm, c, pre, act, pt, ps, params=STDP))
         assert torch.equal(nw, pw)
-    assert any(not torch.equal(a, b) for a, b in zip(new_w, weights))
+    assert _untouched(new_w, weights, plastic)
+    if p_mask > 0:
+        assert any(not torch.equal(a, b) for a, b in zip(new_w, weights))
+    # the engines' form: the ring in place (out=ring), the weights in place,
+    # the remote pass's own slice zeroed in the kernel (own=): the same bits
+    ring_e, work = ring.clone(), [w.clone() for w in weights]
+    if remote:
+        got = ops.fused_post_exchange_remote_plastic(
+            None, act, pre, ring_e, onehot, post_t, post_s, cols, work, plastic, row_len,
+            stdp=STDP, out=ring_e, own=(lo, lo + n_p), weights_out=work)
+    else:
+        got = ops.fused_post_exchange_plastic(
+            act, pre, ring_e, clear, onehot, post_t, post_s, cols, work, plastic, row_len,
+            stdp=STDP, out=ring_e, weights_out=work)
+    assert got[0] is ring_e and all(a is b for a, b in zip(got[1], work))
+    assert torch.equal(ring_e.view(torch.int32), new_ring.view(torch.int32))
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(work, new_w))
 
 
 @pytest.mark.parametrize("slot", [5, None])

@@ -179,6 +179,159 @@ def test_fused_plain_is_the_unfused_composition_bit_for_bit(rng):
                                                params=STDP))
 
 
+def _ell_panels(rng, n_p, R, ks, n_act, p_mask, full_rows):
+    """Panels in the ELL layout: row r's ``row_len[r]`` real slots first
+    (random ``< K``, or every row ``K`` long with ``full_rows``), then
+    ``(col 0, weight +0, mask 0)``; rows past ``n_p`` empty; a plastic
+    share ``p_mask`` of the real slots, and weights past ``w_max`` among
+    them."""
+    cols, weights, plastic, lens = [], [], [], []
+    for K in ks:
+        rl = np.full(R, K) if full_rows else rng.integers(0, K, R)
+        rl[n_p:] = 0
+        real = np.arange(K)[None, :] < rl[:, None]
+        w = (1.5 * rng.normal(size=(R, K))).astype(np.float32)
+        w[: R // 4] += 2.5  # past w_max: clipped where plastic
+        cols.append(np.where(real, rng.integers(0, n_act, (R, K)), 0).astype(np.int32))
+        weights.append(np.where(real, w, 0.0).astype(np.float32))
+        plastic.append((real & (rng.random((R, K)) < p_mask)).astype(np.float32))
+        lens.append(rl.astype(np.int32))
+    return cols, weights, plastic, lens
+
+
+def _ring0(rng, D, n_p):
+    ring = rng.normal(size=(D, n_p)).astype(np.float32)
+    ring[:, : n_p // 4] = -0.0  # signed zeros: -0 + +0 is +0
+    return ring
+
+
+@pytest.mark.parametrize("full_rows", [False, True], ids=["row_len<K", "row_len=K"])
+@pytest.mark.parametrize("p_mask", [0.0, 0.5, 1.0])
+def test_fused_step_plastic_ring_form_matches_reference(rng, p_mask, full_rows):
+    """The plain version in the engine's form (row_len, the ring add, the
+    weights in place) against the reference's fused_plastic_step op by op,
+    its currents added into the ring as the reference's step adds them."""
+    n_p, R, ks, D, t = 100, 104, (8, 24, 40), 6, 11
+    delays = (1, 3, 6)
+    vecs = _plastic_case(rng, n_p, R, ks)[0]
+    cols, weights, plastic, lens = _ell_panels(rng, n_p, R, ks, n_p, p_mask, full_rows)
+    ring0 = _ring0(rng, D, n_p)
+    kw = dict(params=LIF_PARAMS, taus=TAUS, stdp=STDP)
+    tw = [_t(w).clone() for w in weights]
+    ring = _t(ring0).clone()
+    got = ops.fused_step_plastic(
+        *map(_t, vecs), [_t(c) for c in cols], tw, [_t(p) for p in plastic],
+        [_t(rl) for rl in lens], ring=ring, t=t, delays=delays, weights_out=tw, **kw)
+    assert got[5] is ring and all(a is b for a, b in zip(got[6], tw))
+    with jax.disable_jit():
+        oracle = jops.fused_step_plastic(
+            *map(_j, vecs), [_j(c) for c in cols], [_j(w) for w in weights],
+            [_j(p) for p in plastic], backend="ref", **kw)
+    assert float(got[2].sum()) > 0, "case emits no spikes"
+    for i in (1, 2, 3, 4):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(oracle[i]))
+    want_ring = ring0.copy()
+    for cur, d in zip(oracle[5], delays):
+        want_ring[(t + d) % D] += np.asarray(cur)[:n_p]
+    # f32 sums in another order: rtol=atol=1e-5
+    np.testing.assert_allclose(ring.numpy(), want_ring, rtol=1e-5, atol=1e-5)
+    for a, b, w0, pm in zip(tw, oracle[6], weights, plastic):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        np.testing.assert_array_equal(a.numpy()[pm == 0], w0[pm == 0])
+        if p_mask == 1.0:
+            assert a.numpy().max() <= STDP["w_max"] or not pm.any()
+    assert (p_mask == 0.0) == all((a.numpy() == w).all() for a, w in zip(tw, weights))
+
+
+@pytest.mark.parametrize("p_mask", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("variant", ["serial", "remote_own"])
+def test_post_exchange_plastic_engine_forms_match_reference(rng, variant, p_mask):
+    """Both post-exchange plastic ops in the engines' form (row_len, the
+    weights in place; the remote pass's own slice zeroed by ``own``)
+    against the reference's ops op by op."""
+    n_p, n, D, R, ks, lo = 24, 96, 5, 24, (8, 16, 40), 24
+    cols, weights, plastic, lens = _ell_panels(rng, n_p, R, ks, n, p_mask, False)
+    act = (rng.random(n) < 0.3).astype(np.float32)
+    pre = rng.random(n).astype(np.float32)
+    post_t = rng.random(n_p).astype(np.float32)
+    post_s = (rng.random(n_p) < 0.3).astype(np.float32)
+    ring0 = _ring0(rng, D, n_p)
+    clear = np.ones(D, np.float32)
+    clear[2] = 0.0
+    onehot = np.zeros((len(ks), D), np.float32)
+    onehot[np.arange(len(ks)), [3, 4, 0]] = 1.0
+    tw = [_t(w).clone() for w in weights]
+    T = ([_t(c) for c in cols], tw, [_t(p) for p in plastic], [_t(rl) for rl in lens])
+    J = ([_j(c) for c in cols], [_j(w) for w in weights], [_j(p) for p in plastic])
+    if variant == "serial":
+        got = ops.fused_post_exchange_plastic(
+            _t(act), _t(pre), _t(ring0), _t(clear), _t(onehot), _t(post_t), _t(post_s), *T,
+            stdp=STDP, weights_out=tw)
+        with jax.disable_jit():
+            oracle = jref.fused_post_exchange_plastic_ref(
+                _j(act), _j(pre), _j(ring0), _j(clear), _j(onehot), _j(post_t), _j(post_s),
+                *J, stdp=STDP)
+    else:
+        act_remote = act.copy()
+        act_remote[lo:lo + n_p] = 0.0  # the own slice of partition 1
+        got = ops.fused_post_exchange_remote_plastic(
+            None, _t(act), _t(pre), _t(ring0), _t(onehot), _t(post_t), _t(post_s), *T,
+            stdp=STDP, own=(lo, lo + n_p), weights_out=tw)
+        with jax.disable_jit():
+            oracle = jref.fused_post_exchange_remote_plastic_ref(
+                _j(act_remote), _j(act), _j(pre), _j(ring0), _j(onehot), _j(post_t),
+                _j(post_s), *J, stdp=STDP)
+    assert all(a is b for a, b in zip(got[1], tw))
+    # the ring sums in another order: rtol=atol=1e-5; STDP is elementwise
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(oracle[0]), rtol=1e-5, atol=1e-5)
+    for a, b, w0, pm in zip(tw, oracle[1], weights, plastic):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        np.testing.assert_array_equal(a.numpy()[pm == 0], w0[pm == 0])
+    assert (p_mask == 0.0) == all((a.numpy() == w).all() for a, w in zip(tw, weights))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_plastic_carry_weights_never_alias_the_panels(k):
+    """The plastic engines update a run's carry's weights in place: no
+    state a run hands back shares memory with the uploaded panels, which a
+    ``_share``d simulator borrows; the panels and the caller's state stay as
+    they were, and the borrower's run equals the lender's (k = 2: the split
+    engine with its remote pass, overlap ``local``)."""
+    from repro_torch.core import block_partition
+    from repro_torch.snn import DistSimulator
+
+    ei = tnet.balanced_ei(n=N, stdp=True)
+    if k == 1:
+        net = tnet.to_dcsr(ei, k=1)
+        a = Simulator(net, SimConfig(fused=True), device="cpu")
+        b = Simulator(net, SimConfig(fused=True), device="cpu", _share=a)
+        devs = [a.dev]
+    else:
+        net = tnet.to_dcsr(ei, assignment=block_partition(N, k), uniform=True)
+        cfg = SimConfig(fused=True, overlap="local")
+        a = DistSimulator(net, cfg, devices=["cpu"] * k)
+        b = DistSimulator(net, cfg, devices=["cpu"] * k, _share=a)
+        assert a.engine_choice.engine == "fused_split_plastic"
+        devs = a.devs
+    w0 = [w.clone() for d in devs for w in d.weights0]
+    panels = {w.untyped_storage().data_ptr() for d in devs for w in d.weights0}
+
+    def weights(state):
+        return [w for c in ([state] if k == 1 else state) for w in c["weights"]]
+
+    ends = []
+    for sim in (a, b):
+        st = sim.init_state()
+        end, _ = sim.run(st, STEPS)
+        assert not panels & {w.untyped_storage().data_ptr() for w in weights(end)}
+        assert any(not torch.equal(x, y) for x, y in zip(weights(end), w0))
+        # the caller's state is never changed, the panels neither
+        assert all(torch.equal(x, y) for x, y in zip(weights(st), w0))
+        assert all(torch.equal(x, y) for x, y in zip([w for d in devs for w in d.weights0], w0))
+        ends.append(weights(end))
+    assert all(torch.equal(x, y) for x, y in zip(*ends))
+
+
 # -- engine selection -----------------------------------------------------
 
 def test_plastic_engine_selection():
