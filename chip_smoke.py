@@ -118,10 +118,12 @@ event gather).  Phases, each printing its own lines:
      bucket's ring row within 1e-5 of ``torch.sparse.mm`` over its real
      rows, timed in turns with that composition and beside the library
      (on the Brunel
-     net also ``stdp_update`` over every bucket, the split ones with
-     ``row_map``'s post terms, bit-equal to its plain version, timed beside
-     its bound); 256 steps graphed, uncaptured and replayed, rasters and
-     end states bit-equal, one ``segment_gather`` launch a step; then a
+     net also ``stdp_update_step``'s one launch over every bucket, the
+     split ones with ``row_map``'s post terms, bit-equal to its plain
+     version and to the per-panel kernel a bucket, timed in turns with that
+     loop and beside its bound); 256 steps graphed, uncaptured and
+     replayed, rasters and end states bit-equal, one ``segment_gather``
+     launch a step (and one ``stdp_update``); then a
      small network on the card against the plain
      torch versions on the CPU, fed the seam's numpy noise and then the
      port's own noise, whose vectors must be bit-identical on both; then
@@ -209,12 +211,18 @@ engine:
      non-plastic and padding slots bit-identical to the initial weights,
      plastic weights within ``[w_min, w_max]``;
  10. 256 steps of ``SimConfig(fused=False)`` (``lif_step``, then per bucket
-     ``spike_gather`` and ``stdp_update``), counts checked, whose raster,
+     ``spike_gather``, then one ``stdp_update`` launch over every bucket),
+     counts checked, whose raster,
      traces and weights equal a fresh ``fused_plastic`` run's bit for bit;
  11. both plastic engines' us/step; a small plastic net on the card against
      the CPU plain versions; timing of both plastic kernels (``stdp_update``
-     also on the bf16 panels, with either mask), their plain versions and
-     their bounds (the real slots by ``row_len``, every slot in brackets);
+     as the engine's one ``stdp_update_step`` launch a step, in place,
+     first held bit for bit against its plain version and the per-panel
+     kernel a bucket, then timed in turns with that old loop; and per
+     panel on the bf16 panels, with
+     either mask), their plain versions and
+     their bounds (the real slots by ``row_len``; ``stdp_update_step``'s
+     those of the rows its plan lists; every slot in brackets);
      the ``[graph]`` line holds the graphed step to 16 kernels.
 
 The k>1 plastic path: the k=4 net on the one card with ``SimConfig()``
@@ -908,7 +916,7 @@ def phase_maxk(tag, net, cfg, act_main, unsplit_raster, steps=PARITY_STEPS):
     composition and beside the library;
     then ``steps`` steps graphed and uncaptured, rasters and end states
     bit-equal, one launch a step of ``lif_step``, ``segment_gather`` and
-    ``noise_add`` (and of ``stdp_update`` a bucket on a plastic net)."""
+    ``noise_add`` (and of ``stdp_update`` on a plastic net)."""
     t0 = time.perf_counter()
     ses = Session(net, cfg)
     sim = ses.simulator
@@ -1013,38 +1021,12 @@ def phase_maxk(tag, net, cfg, act_main, unsplit_raster, steps=PARITY_STEPS):
             f"{f['bound_ms'] / f['ms']:.0%}; launch {config}")
 
     del csrs
-    if plastic:  # stdp_update over every bucket, as the unfused step calls it
+    if plastic:  # stdp_update_step over every bucket, as the unfused step calls it
         gen2 = torch.Generator(sim.device).manual_seed(3)
-        pre_t, post_full = (torch.rand(n_p, generator=gen2, device=sim.device) for _ in range(2))
+        pre_t, post_t = (torch.rand(n_p, generator=gen2, device=sim.device) for _ in range(2))
         act = vecs["5% active"]
-        st = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, launches_a_step=nd)
-        nb_all = 0
-        for i, (c, w, pm) in enumerate(zip(dev.cols, dev.weights0, dev.plastic)):
-            R = c.shape[0]
-            if i in split:  # each virtual row takes its row's post terms
-                post_t, post_s = (x.index_select(0, dev.row_map[i]) for x in (post_full, act))
-            else:
-                post_t, post_s = (torch.nn.functional.pad(x, (0, R - n_p)) for x in (post_full, act))
-            args = (pre_t, act, post_t, post_s)
-            require(torch.equal(stdp_mod.stdp_update_cuda(w, pm, c, *args, params=sim.stdp_params),
-                                stdp_mod.stdp_update_plain(w, pm, c, *args,
-                                                           params=sim.stdp_params)),
-                    f"{tag}: stdp_update differs from its plain version (d={dev.delays[i]})")
-            st["ms"] += cuda_ms(lambda: stdp_mod.stdp_update_cuda(
-                w, pm, c, *args, params=sim.stdp_params), 50)
-            st["plain_ms"] += cuda_ms(lambda: stdp_mod.stdp_update_plain(
-                w, pm, c, *args, params=sim.stdp_params), 5)
-            # col, weight and mask read and the weight written: 16 bytes a
-            # slot, plus the two presynaptic and two postsynaptic vectors
-            nb = c.numel() * 16 + 2 * n_p * 4 + 2 * R * 4
-            nb_all += nb
-            st["bound_ms"] += bound_ms(nb, 6 * c.numel())[0]
-        fig["stdp_update"] = st
-        say("maxk", f"{tag}: stdp_update over the {nd} buckets (a step's launches, split ones "
-            f"with each virtual row's post terms; 5% spikes): bit-equal to its plain version; "
-            f"kernel {st['ms']:.4f} ms ({st['ms'] / nd * 1e3:.2f} us a launch), plain "
-            f"{st['plain_ms']:.3f} ms, bound {st['bound_ms']:.4f} ms (bytes: {nb_all / 1e9:.4f} "
-            "GB, 16 B a slot)")
+        fig["stdp_update"] = stdp_step_figures(tag, dev, pre_t, act, post_t, act,
+                                               sim.stdp_params)
 
     # graphed (capturing its keys, launches counted), uncaptured, graphed
     # again (replays): each run from the session's start state
@@ -1054,7 +1036,7 @@ def phase_maxk(tag, net, cfg, act_main, unsplit_raster, steps=PARITY_STEPS):
     launches = read_counts()
     want = dict(lif_step=steps, segment_gather=steps, noise_add=steps)
     if plastic:
-        want["stdp_update"] = steps * nd
+        want["stdp_update"] = steps
     require(launches == only(**want), f"{tag}: launches {launches}")
     st_g = ses.state
     require(sim.graph_mode == "cuda_graph", f"{tag}: graph mode {sim.graph_mode}")
@@ -3314,7 +3296,8 @@ def phase_plastic_kernels(sim, params, rng):
         "index_add_ of the currents (signed zeros too), the rest bit-exact vs every slot out "
         "of place, no padding or non-plastic slot written; vs its plain version weights "
         "bit-exact, ring within rtol=atol=1e-5")
-    inputs = dict(v=v, refrac=refrac, i_tot=i_tot, tp=tp, tm=tm, stdp_args=stdp_args)
+    inputs = dict(v=v, refrac=refrac, i_tot=i_tot, tp=tp, tm=tm, stdp_args=stdp_args,
+                  step_args=(tp1, s1, tm1, s1))
     return inputs, {"stdp_update": 0.0, "fused_plastic_step": err}
 
 
@@ -3374,7 +3357,7 @@ def phase_plastic_parity(net, main_raster):
     _, _, r_u, secs = run_session(unf, PARITY_STEPS)
     launches = read_counts()
     require(launches == only(lif_step=PARITY_STEPS, spike_gather=PARITY_STEPS * nd,
-                             stdp_update=PARITY_STEPS * nd, noise_add=PARITY_STEPS),
+                             stdp_update=PARITY_STEPS, noise_add=PARITY_STEPS),
             f"unfused plastic path launches {launches}")
     fus = Session(net, SimConfig())
     _, _, r_f, _ = run_session(fus, PARITY_STEPS)
@@ -3435,6 +3418,99 @@ def plastic_slot_bytes(cols, plastic, row_len, act):
     return 8 * real + 8 * plastic_real + 4 * active, 16 * real, real, plastic_real, active
 
 
+def stdp_step_figures(tag, dev, pre_t, pre_s, post_t, post_s, stdp):
+    """``stdp_update_step`` (row 10, one launch a step) on a partition's
+    panels: its weights bit-equal to its plain version and to the
+    per-panel kernel a bucket (the old loop, post terms padded or taken
+    through the row map), one launch a group, no masked-off slot written;
+    then timed in turns with the old loop (both in place on copies), and
+    the plain version.  The bound counts what these inputs need: the mask
+    at each real slot of a row that holds a plastic slot (the rows the
+    plan lists: a row without one needs nothing), col and weight at each
+    plastic real slot, 4 B written at each slot whose bits change (counted
+    on these inputs), the plan's 16 B item a listed row, the four vectors;
+    the yardsticks: the mask at every real slot with ``row_len`` a row and
+    ``row_map`` a split row (the form the plan replaced), col and mask at
+    every real slot and the plastic weight read and written (rows 4/7/8's,
+    less their non-plastic weight term), and 16 B at every slot."""
+    plan = dev.stdp_plan
+    cols, w0, masks = dev.cols, dev.weights0, dev.plastic
+    padded = [tuple(x.index_select(0, rm) if rm is not None else
+                    torch.nn.functional.pad(x, (0, c.shape[0] - dev.n_p)) for x in (post_t, post_s))
+              for c, rm in zip(cols, plan.row_map)]
+    old = [stdp_mod.stdp_update_cuda(w, m, c, pre_t, pre_s, *pp, params=stdp)
+           for w, m, c, pp in zip(w0, masks, cols, padded)]
+    work = [w.clone() for w in w0]
+    before = stdp_mod.COUNTER.launches
+    stdp_mod.stdp_update_step_cuda(work, masks, cols, pre_t, pre_s, post_t, post_s, plan=plan,
+                                   params=stdp)
+    torch.cuda.synchronize()
+    groups = sum(hi > lo for lo, hi in plan.groups)
+    require(stdp_mod.COUNTER.launches == before + groups == before + 1,
+            f"{tag}: stdp_update_step made {stdp_mod.COUNTER.launches - before} launches")
+    plain = stdp_mod.stdp_update_step_plain([w.clone() for w in w0], masks, cols, pre_t, pre_s,
+                                            post_t, post_s, plan=plan, params=stdp)
+    for b, (x, y, z) in enumerate(zip(work, old, plain)):
+        require(same_bits(x, y), f"{tag}: stdp_update_step differs from the per-panel kernel "
+                f"(bucket {b})")
+        require(same_bits(x, z), f"{tag}: stdp_update_step differs from its plain version "
+                f"(bucket {b})")
+    writes = sum(int((x.view(torch.int32) != w.view(torch.int32)).sum())
+                 for x, w in zip(work, w0))
+    require(writes > 0, f"{tag}: stdp_update_step changed no weight")
+    real = plastic_real = slots = rows = split_rows = 0
+    for c, m, rl, rm in zip(cols, masks, dev.row_len, plan.row_map):
+        is_real = torch.arange(c.shape[1], device=c.device)[None, :] < rl[:, None]
+        real += int(is_real.sum())
+        plastic_real += int(((m > 0) & is_real).sum())
+        slots += c.numel()
+        rows += c.shape[0]
+        split_rows += 0 if rm is None else c.shape[0]
+    vec_b = 4 * (pre_t.numel() + pre_s.numel() + post_t.numel() + post_s.numel())
+    items = int(plan.items.shape[0])
+    listed_real = int(plan.items[:, 2].sum())  # the listed rows' real slots
+    nb = 4 * listed_real + 8 * plastic_real + 4 * writes + 16 * items + vec_b
+    ops_ = 8 * plastic_real
+    f = dict(launches_a_step=groups, real_slots=real, listed_real_slots=listed_real,
+             plastic_slots=plastic_real, writes=writes, items=items, rows=rows, gb=nb / 1e9)
+    f["bound_ms"], f["bound_by"] = bound_ms(nb, ops_)
+    f["bound_ms_all_rows"] = bound_ms(4 * real + 8 * plastic_real + 4 * writes + 4 * rows
+                                      + 4 * split_rows + vec_b, ops_)[0]
+    f["bound_ms_rows_4_7_8"] = bound_ms(8 * real + 8 * plastic_real + 4 * rows
+                                        + 4 * split_rows + vec_b, ops_)[0]
+    f["bound_ms_every_slot"] = bound_ms(16 * slots + vec_b, 8 * slots)[0]
+    old_w = [w.clone() for w in w0]
+    times = {"ms": [], "old_ms": []}
+    for key in ("ms", "old_ms", "old_ms", "ms"):
+        if key == "ms":
+            times[key].append(cuda_ms(lambda: stdp_mod.stdp_update_step_cuda(
+                work, masks, cols, pre_t, pre_s, post_t, post_s, plan=plan, params=stdp), 50))
+        else:
+            times[key].append(cuda_ms(lambda: [stdp_mod.stdp_update_cuda(
+                w, m, c, pre_t, pre_s, *pp, params=stdp, out=w)
+                for w, m, c, pp in zip(old_w, masks, cols, padded)], 20))
+    f.update({k: min(v) for k, v in times.items()})
+    f["runs_ms"] = times
+    f["plain_ms"] = cuda_ms(lambda: stdp_mod.stdp_update_step_plain(
+        old_w, masks, cols, pre_t, pre_s, post_t, post_s, plan=plan, params=stdp), 3)
+    say("timing" if tag == "plastic" else "maxk",
+        f"{tag}: stdp_update_step over the {len(cols)} buckets ({items} rows with a plastic "
+        f"slot of {rows}; {real} real slots of {slots}, {listed_real} in the listed rows, "
+        f"{plastic_real} plastic, "
+        f"{writes} written on these inputs; in place): bit-equal to its plain version and to "
+        f"the per-panel kernel a bucket; {groups} launch: kernel {f['ms']:.4f} ms ("
+        f"{', '.join(f'{x:.4f}' for x in times['ms'])}; {nb / f['ms'] / 1e6:.0f} GB/s of the "
+        f"bound's traffic), the old loop of {len(cols)} per-panel launches {f['old_ms']:.4f} ms "
+        f"({', '.join(f'{x:.4f}' for x in times['old_ms'])}), plain {f['plain_ms']:.3f} ms; "
+        f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}: {nb / 1e9:.4f} GB): "
+        f"{f['bound_ms'] / f['ms']:.0%}; every real row's mask, row_len and row_map "
+        f"[{f['bound_ms_all_rows']:.4f} ms: {f['bound_ms_all_rows'] / f['ms']:.0%}]; "
+        f"rows 4/7/8's yardstick [{f['bound_ms_rows_4_7_8']:.4f} "
+        f"ms: {f['bound_ms_rows_4_7_8'] / f['ms']:.0%}]; every slot "
+        f"[{f['bound_ms_every_slot']:.4f} ms: {f['bound_ms_every_slot'] / f['ms']:.0%}]")
+    return f
+
+
 def phase_plastic_timing(sim, params, inputs, errs, launches):
     v, refrac, i_tot, tp, tm = (inputs[k] for k in ("v", "refrac", "i_tot", "tp", "tm"))
     stdp_args = inputs["stdp_args"]
@@ -3445,26 +3521,10 @@ def phase_plastic_timing(sim, params, inputs, errs, launches):
     slots = sum(c.numel() for c in cols)
     out = []
 
-    # the bounds count the real slots (row_len), 16 B each (col, weight and
-    # mask read, the weight written) and 4 B of row_len a row, as row 2b's
-    # bound does; the padded bound (every slot) in brackets
-    reals = [int(rl.sum()) for rl in sim.dev.row_len]
-    real = sum(reals)
-    s_k = s_p = s_b = s_pad = 0.0
-    for c, w, pm, r_b in zip(cols, weights, plastic, reals):
-        tk = cuda_ms(lambda c=c, w=w, pm=pm: stdp_mod.stdp_update_cuda(
-            w, pm, c, *stdp_args, params=stdp), 50)
-        tp_ = cuda_ms(lambda c=c, w=w, pm=pm: stdp_mod.stdp_update_plain(
-            w, pm, c, *stdp_args, params=stdp), 5)
-        # plus the two presynaptic and two postsynaptic vectors
-        vec_b = 2 * n_p * 4 + 2 * R * 4
-        b, _ = bound_ms(r_b * 16 + R * 4 + vec_b, 6 * r_b)
-        s_k, s_p, s_b = s_k + tk, s_p + tp_, s_b + b
-        s_pad += bound_ms(c.numel() * 16 + vec_b, 6 * c.numel())[0]
-    say("timing", f"stdp_update, {nd} launches of {tuple(cols[0].shape)} (one step): kernel "
-        f"{s_k:.4f} ms ({s_k / nd * 1e3:.2f} us a launch), plain {s_p:.3f} ms, bound "
-        f"{s_b:.4f} ms ({real} real slots; every slot [{s_pad:.4f}]): {s_b / s_k:.0%} "
-        f"[{s_pad / s_k:.0%}]")
+    # the engine form, one launch a step, beside the old loop of per-panel
+    # launches on the same inputs
+    f = stdp_step_figures("plastic", sim.dev, *inputs["step_args"], stdp)
+    real = f["real_slots"]
     # bf16 weights: 10 B a slot with a bf16 mask (col 4, weight 2 read and 2
     # written, mask 2), 12 B with an f32 mask
     b16 = dict(ms_bf16=0.0, ms_bf16_f32_mask=0.0, plain_ms_bf16=0.0, bound_ms_bf16=0.0,
@@ -3485,9 +3545,9 @@ def phase_plastic_timing(sim, params, inputs, errs, launches):
         f"{b16['bound_ms_bf16']:.4f} ms (10 B a slot); f32 mask {b16['ms_bf16_f32_mask']:.4f} "
         f"ms, bound {b16['bound_ms_bf16_f32_mask']:.4f} ms (12 B a slot); plain "
         f"{b16['plain_ms_bf16']:.3f} ms")
-    out.append(dict(name="stdp_update", ms=s_k, plain_ms=s_p, bound_ms=s_b, bound_by="bytes",
-                    library_ms=None, path="plastic_unfused", max_abs_err_bf16=0.0,
-                    bound_ms_every_slot=s_pad, **b16))
+    out.append(dict(name="stdp_update", library_ms=None, path="plastic_unfused",
+                    max_abs_err_bf16=0.0, **{k: v for k, v in f.items() if k != "runs_ms"},
+                    **b16))
 
     # as the engine launches it: the real slots, the ring add, the weights
     # in place (on copies of the panels and of a ring)
@@ -4047,7 +4107,7 @@ def require_plastic_equal(ses4, ses1, what):
 def plastic_k4_launches(overlap, fused, steps, nd):
     if not fused:
         return only(lif_step=K_PARTS * steps, spike_gather=K_PARTS * nd * steps,
-                    stdp_update=K_PARTS * nd * steps, noise_add=K_PARTS * steps)
+                    stdp_update=K_PARTS * steps, noise_add=K_PARTS * steps)
     local = overlap != "off"
     return only(step_front=K_PARTS * steps, post_exchange=K_PARTS * steps * local,
                 post_exchange_plastic=K_PARTS * steps)
@@ -5276,6 +5336,14 @@ def main(argv=None) -> int:
     phase_plastic_engines(pses, unf)
     phase_plastic_small_net(args.seed)
     kernels += phase_plastic_timing(psim, pparams, p_inputs, p_errs, p_launches)
+    # row 10 on the Brunel [maxk] panels (split buckets, post terms through
+    # the row map) beside its figures on the unsplit panels
+    mk = MAXK["brunel"]["fig"]["stdp_update"]
+    next(k for k in kernels if k["name"] == "stdp_update").update(
+        {f"{key}_maxk": mk[key] for key in ("ms", "old_ms", "plain_ms", "bound_ms",
+                                             "bound_ms_all_rows", "bound_ms_rows_4_7_8",
+                                             "bound_ms_every_slot", "writes", "items")},
+        launches_maxk=MAXK["brunel"]["launches"]["stdp_update"])
 
     t0 = time.perf_counter()
     pses4 = spmd_session(pd4, card)

@@ -10,9 +10,13 @@ builds its kernels.  On the Brunel net of ``chip_smoke.py``
 as the 4 partitions on one card) a run makes ``phase_plastic_kernels`` and
 ``phase_plastic_timing`` (``stdp_update``, ``fused_plastic_step``), then
 ``phase_k4_plastic_kernels`` and ``phase_k4_plastic_timing`` (the two
-``post_exchange_plastic`` passes), and times 256 graphed steps of both
-paths twice (host clock around a synchronised run, the key captured
-first), with the captured graph's kernel nodes a step.  The run's own
+``post_exchange_plastic`` passes), and times 256 graphed steps twice (host
+clock around a synchronised run, the key captured first), with the
+captured graph's kernel nodes a step, of four paths: ``fused_plastic``,
+the k=4 ``fused_split_plastic``, the ``unfused`` plastic engine
+(``SimConfig(fused=False)``: ``spike_gather`` a bucket and the step's
+``stdp_update``) and its ``[maxk]`` form (``SimConfig(max_k=64,
+align_k=32)``: one ``segment_gather`` and the ``stdp_update``).  The run's own
 checks (each kernel against its plain version) must pass.  Prints each
 run's figures, then a table of them, and the card's name and power limit.
 Needs one CUDA card.
@@ -74,6 +78,8 @@ def one(root: Path) -> dict:
     out["kernels"] = {k["name"]: k["ms"] for k in got}
     graphed("plastic", pses)
     graphed("k4p", pses4)
+    graphed("unfused", C.Session(pnet, C.SimConfig(fused=False)))
+    graphed("maxk", C.Session(pnet, C.SimConfig(max_k=64, align_k=32)))
     return out
 
 

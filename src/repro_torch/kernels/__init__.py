@@ -6,8 +6,9 @@ beside its plain torch version, behind the ``ops`` entry points.
     split step's ``fused_pre_exchange`` and ``fused_post_exchange*``, the
     procedural construction's ``builder_keystream``, the simulator's
     per-step ``step_noise`` and ``step_noise_add``, the step front
-    ``step_front`` of the split and event engines, and the heavy-row
-    split's ``segment_gather_ring``
+    ``step_front`` of the split and event engines, the heavy-row split's
+    ``segment_gather_ring``, and the unfused engine's ``stdp_update_step``
+    (every bucket of a step in one launch)
   - :mod:`.dispatch`     -- backend by device, step-engine selection
   - :mod:`.ref`          -- the plain torch versions (correctness contract)
   - :mod:`.lif_step`, :mod:`.spike_gather`, :mod:`.fused_step`,

@@ -168,6 +168,8 @@ _SIGNATURES = {
     ),
     "repro_fused_step_max_buckets": [],
     "repro_stdp_update": [_P] * 8 + [_I] * 4 + [_F] * 4 + [_P, _I],
+    "repro_stdp_update_step": [_P, _I] + [_P] * 4 + [_I] + [_P] * 4 + [_F] * 4 + [_P, _I],
+    "repro_stdp_update_step_max_buckets": [],
     "repro_fused_plastic_step": (
         [_P] * 10 + [_I] * 3 + [_P] * 8 + [_I, _P] + [_F] * 13 + [_P, _I]
     ),

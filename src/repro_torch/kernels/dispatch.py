@@ -27,8 +27,9 @@ reference, which sends everything off the TPU to ``ref``.
   * ``fused_split_event`` -- the step front, the exchange, then the event
     gather over the exchanged activity;
   * ``unfused`` -- ``lif_step`` plus one ``spike_gather`` launch per delay
-    bucket, and on plastic nets the trace decays as torch ops and one
-    ``stdp_update`` launch per bucket.
+    bucket (one ``segment_gather`` launch with ``max_k``), and on plastic
+    nets the trace decays as torch ops and one ``stdp_update`` launch
+    (``ops.stdp_update_step``) over every bucket.
 
 The split engines carry an overlap mode (``StepEngineChoice.overlap``):
 ``off`` runs the post-exchange pass after the exchange; ``local`` splits it

@@ -23,7 +23,9 @@ from .segment_gather import segment_gather_ring_cuda, segment_gather_ring_plain
 from .spike_gather import spike_gather_cuda
 from .split_step import post_exchange_cuda, post_exchange_plastic_cuda, pre_exchange_cuda
 from .step_front import step_front_cuda, step_front_plain
-from .stdp_update import stdp_update_cuda, stdp_update_plain
+from .stdp_update import (
+    stdp_update_cuda, stdp_update_plain, stdp_update_step_cuda, stdp_update_step_plain,
+)
 
 # -- builder_keystream (procedural construction word matrix) --------------
 
@@ -207,6 +209,26 @@ def stdp_update(
     return lookup("stdp_update", backend_for(weights.device))(
         weights, valid, cols, pre_trace, pre_spike, post_trace, post_spike,
         params=params, out=out,
+    )
+
+
+implementation("stdp_update_step", "ref")(stdp_update_step_plain)
+implementation("stdp_update_step", "cuda")(stdp_update_step_cuda)
+
+
+def stdp_update_step(
+    weights, plastic, cols, pre_trace, pre_spike, post_trace, post_spike, *, plan, params,
+):
+    """Pair STDP over every delay bucket of a step, in place in
+    ``weights`` (f32 panels, returned): each bucket as :func:`stdp_update`
+    with ``valid = plastic[b]``, its post terms the ``(n_p,)``
+    ``post_trace``/``post_spike`` padded with 0 to its rows, or taken
+    through its row map (``plan.row_map``, a split bucket).  ``plan`` is
+    the panels' ``stdp_update.StdpStepPlan`` (``stdp_step_plan``, made at
+    upload)."""
+    return lookup("stdp_update_step", backend_for(weights[0].device))(
+        tuple(weights), tuple(plastic), tuple(cols), pre_trace, pre_spike, post_trace,
+        post_spike, plan=plan, params=params,
     )
 
 

@@ -52,6 +52,7 @@ from ..kernels.dispatch import (
     StepEngineChoice, backend_for, panel_reduce, resolve_device, select_step_engine,
 )
 from ..kernels.event_step import EventPlan, event_id_cap
+from ..kernels.stdp_update import stdp_step_plan
 from .neurons import LIF_V
 from .reshard import RUNTIME_KEYS, stack_runtime
 from .simulator import (
@@ -361,6 +362,7 @@ class DistSimulator:
                 reduce_remote=panel_reduce(weights_remote),
             )
         weights0 = up(s.weights)
+        row_len = row_lengths([v[p] for v in s.valid], dev)
         return PartitionDeviceData(
             n_p=s.n_p,
             vtx_model=torch.from_numpy(s.vtx_model[p]).to(dev),
@@ -368,10 +370,12 @@ class DistSimulator:
             delays=s.delays,
             cols=checked_cols([c[p] for c in s.cols], self.n_global, "delay-bucket", dev),
             weights0=weights0,
-            row_len=row_lengths([v[p] for v in s.valid], dev),
+            row_len=row_len,
             reduce=panel_reduce(weights0, s.any_plastic),
             identity_rows=tuple(True for _ in s.delays),
             plastic=up(s.plastic) if s.any_plastic else None,
+            stdp_plan=stdp_step_plan([m[p] for m in s.plastic], row_len, None, s.n_p, dev)
+            if s.any_plastic else None,
             **extra,
         )
 

@@ -12,8 +12,9 @@ reference's documented order:
      the global activity (identity at k = 1).
   4. propagate: per delay bucket b in order,
      ``ring[(t + d_b) % D] += spike_gather(act, cols_b, w_b)[:n_p]``;
-     on plastic nets the bucket's STDP update follows its gather, from the
-     weights the gather read.
+     on plastic nets every bucket's STDP update follows the gathers, from
+     the weights they read (a gather reads only its own bucket's weights,
+     so this is the reference's bucket-by-bucket order, bit for bit).
   5. history: ``hist[t % D] = spikes``; ``t += 1`` (on the device).
 
 The k = 1 engines: ``fused`` does 2 and the gathers of 4 in one cooperative
@@ -28,7 +29,9 @@ reference's mask multiply and adds every bucket through a one-hot
 (``fused_split``, ``fused_split_plastic`` with STDP, ``fused_split_event``
 over the flagged row blocks).  ``unfused`` launches ``lif_step`` and then
 one ``spike_gather`` per bucket, and on plastic nets decays the traces as
-torch ops and launches one ``stdp_update`` per bucket.  All go through the
+torch ops and launches one ``stdp_update`` over every bucket
+(``ops.stdp_update_step``: the rows of the upload's ``stdp_plan``, their
+post terms read in the kernel).  All go through the
 same device routines, so their rasters, traces and weights are
 bit-identical on the card (the split engines' ring may hold ``-0.0`` where
 the others hold ``+0.0``), and through the same plain versions on the CPU.
@@ -99,6 +102,7 @@ from ..kernels.dispatch import (
 )
 from ..kernels.event_step import EventPlan, event_id_cap
 from ..kernels.segment_gather import SegmentPlan, segment_plan
+from ..kernels.stdp_update import StdpStepPlan, stdp_step_plan
 from .neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V, make_neuron_step
 from .reshard import RUNTIME_KEYS, concat_runtime
 
@@ -207,9 +211,10 @@ class PartitionDeviceData:
     # the split step's tiles over every bucket's virtual rows
     # (ops.segment_gather_ring); None when no bucket is split
     segment: Optional[SegmentPlan] = None
-    # per split bucket of a plastic partition the (R,) int32 virtual row ->
-    # real row map (stdp_update's post-synaptic terms); None elsewhere
-    row_map: Optional[List[Optional[torch.Tensor]]] = None
+    # the unfused step's STDP work (ops.stdp_update_step): the rows holding
+    # a plastic slot, their real slots and post rows (a split bucket's
+    # row_map); None when the partition has no plastic synapse
+    stdp_plan: Optional[StdpStepPlan] = None
     cols_remote: Optional[List[torch.Tensor]] = None  # per bucket (R, K_r)
     weights_remote: Optional[List[torch.Tensor]] = None
     row_len_remote: Optional[List[torch.Tensor]] = None
@@ -272,6 +277,7 @@ def partition_device_data(
     weights0 = [torch.from_numpy(b.weights).to(device) for b in ell.buckets]
     split = not all(b.identity_rows for b in ell.buckets)
     ptrs = [None if b.identity_rows else split_row_ptr(b.row_map, part.n) for b in ell.buckets]
+    row_len = row_lengths([b.valid for b in ell.buckets], device)
     return PartitionDeviceData(
         n_p=part.n,
         vtx_model=torch.from_numpy(part.vtx_model).to(device),
@@ -279,7 +285,7 @@ def partition_device_data(
         delays=tuple(b.delay for b in ell.buckets),
         cols=checked_cols([b.cols for b in ell.buckets], ell.n_global, "delay-bucket", device),
         weights0=weights0,
-        row_len=row_lengths([b.valid for b in ell.buckets], device),
+        row_len=row_len,
         reduce=panel_reduce(weights0, plastic is not None),
         identity_rows=tuple(b.identity_rows for b in ell.buckets),
         plastic=None if plastic is None else [torch.from_numpy(m).to(device) for m in plastic],
@@ -287,8 +293,9 @@ def partition_device_data(
         if split else None,
         segment=segment_plan(ptrs, [b.cols.shape[1] for b in ell.buckets], part.n, device)
         if split else None,
-        row_map=[None if b.identity_rows else torch.from_numpy(b.row_map).to(device)
-                 for b in ell.buckets] if split and plastic is not None else None,
+        stdp_plan=None if plastic is None else stdp_step_plan(
+            plastic, row_len, [None if b.identity_rows else b.row_map for b in ell.buckets],
+            part.n, device),
     )
 
 
@@ -712,27 +719,20 @@ def make_core_step(
                 # the weights before this step's updates below
                 ops.segment_gather_ring(act, ring, t, dev.delays, dev.segment, dev.cols, weights,
                                         dev.row_len, dev.row_ptr, reduce=carry["_reduce"])
-            idx = step_slots(carry)
-            post_terms = {}  # panel rows -> the padded post terms, made once a step
-            for i, (c, w) in enumerate(zip(dev.cols, weights)):
-                if not split:
+            else:
+                idx = step_slots(carry)
+                for i, (c, w) in enumerate(zip(dev.cols, weights)):
                     add_to_ring(ring, idx[1 + i:2 + i],
                                 ops.spike_gather(act, c, w, dev.row_len[i],
                                                  reduce=carry["_reduce"][i:i + 1]))
-                if plastic:
-                    if split and dev.row_ptr[i] is not None:  # each virtual row takes its row's terms
-                        post_t = carry["tr_minus"].index_select(0, dev.row_map[i])
-                        post_s = spikes.index_select(0, dev.row_map[i])
-                    else:
-                        R = c.shape[0]
-                        if R not in post_terms:  # rows >= n_p: post terms 0
-                            post_terms[R] = tuple(torch.nn.functional.pad(x, (0, R - n_p))
-                                                  for x in (carry["tr_minus"], spikes))
-                        post_t, post_s = post_terms[R]
-                    # in place: run() cloned the weights, and the gathers
-                    # read them first
-                    ops.stdp_update(w, dev.plastic[i], c, pre_trace, act, post_t,
-                                    post_s, params=stdp_params, out=w)
+            if plastic:
+                # every bucket's update in one op, in place (run() cloned
+                # the weights), after every gather: a gather reads only its
+                # own bucket's weights; the post terms of each row (0 past
+                # n_p, a split bucket's through its row_map) in the op
+                ops.stdp_update_step(weights, dev.plastic, dev.cols, pre_trace, act,
+                                     carry["tr_minus"], spikes, plan=dev.stdp_plan,
+                                     params=stdp_params)
         if not use_front:  # the front wrote it
             carry["hist"].index_copy_(0, step_slots(carry)[:1], spikes.to(torch.uint8)[None])
         carry.pop("_slots", None)

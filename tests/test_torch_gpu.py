@@ -566,6 +566,162 @@ def test_plastic_session_weights_never_alias_the_panels_on_card(cuda, k):
     assert all(torch.equal(x, y) for x, y in zip(weights(a.state), weights(b.state)))
 
 
+# -- stdp_update_step: every bucket of a step in one launch -----------------
+
+def _step_bucket(rng, n, R, K, rows, row_map=None, p_plastic=0.6):
+    """An ELL panel (real slots first, ``(col 0, weight 0, mask 0)`` past
+    them) of ``R`` rows, the first ``rows`` holding slots; numpy arrays."""
+    rl = rng.integers(0, K + 1, R).astype(np.int32)
+    rl[rows:] = 0
+    rl[rng.random(R) < 0.1] = 0
+    rl[0] = 0  # a row of row_len 0
+    real = np.arange(K)[None, :] < rl[:, None]
+    cols = np.where(real, rng.integers(0, n, (R, K)), 0).astype(np.int32)
+    w = np.where(real, rng.normal(size=(R, K)), 0.0).astype(np.float32)
+    m = (real & (rng.random((R, K)) < p_plastic)).astype(np.float32)
+    rm = None
+    if row_map is not None:
+        rm = np.zeros(R, np.int32)
+        rm[:rows] = row_map
+    return dict(w=w, m=m, cols=cols, row_len=rl, row_map=rm)
+
+
+STEP_CASES = ("padded", "split", "many_buckets", "long_rows", "nan_pre_trace", "clip_dw0",
+              "neg_zero", "brunel")
+
+
+def _step_case(rng, name):
+    n_p, n = 300, 1000
+    if name == "brunel":  # the Brunel net's panel shape, 15 buckets
+        n_p = n = 12500
+        buckets = [_step_bucket(rng, n, 12504, 128, n_p, p_plastic=0.5) for _ in range(15)]
+    elif name == "split":
+        buckets = []
+        for K in (16, 64):
+            rows = np.repeat(np.arange(n_p), rng.integers(1, 4, n_p))
+            buckets.append(_step_bucket(rng, n, len(rows) + 8, K, len(rows), row_map=rows))
+        buckets.append(_step_bucket(rng, n, 304, 40, n_p))
+    elif name == "many_buckets":
+        buckets = [_step_bucket(rng, n, 304, 1 + b % 40, n_p)
+                   for b in range(stdp_mod.STEP_MAX_BUCKETS + 5)]
+    elif name == "long_rows":  # rows of up to 300 real slots: three chunks and more
+        buckets = [_step_bucket(rng, n, 304, K, n_p) for K in (300, 129, 128)]
+    else:
+        buckets = [_step_bucket(rng, n, 304, K, n_p) for K in (128, 77, 8)]
+    pre_t = rng.random(n).astype(np.float32)
+    pre_s = (rng.random(n) < 0.3).astype(np.float32)
+    post_t = rng.random(n_p).astype(np.float32)
+    post_s = (rng.random(n_p) < 0.3).astype(np.float32)
+    if name == "nan_pre_trace":
+        for b in buckets:
+            b["m"][b["cols"] == 7] = 0.0
+        pre_t[7] = np.nan
+    elif name in ("clip_dw0", "neg_zero"):
+        pre_s[:], post_s[:] = 0.0, 0.0
+        for b in buckets:
+            if name == "clip_dw0":
+                b["w"] *= 3.0
+            else:
+                b["w"][:, ::2] = -0.0
+    return n_p, buckets, (pre_t, pre_s, post_t, post_s)
+
+
+@pytest.mark.parametrize("name", STEP_CASES)
+def test_stdp_update_step_kernel_equals_its_plain_version(cuda, rng, name):
+    """One launch a call (two past STEP_MAX_BUCKETS buckets), the weights
+    updated in place, bit-equal to the per-bucket plain version."""
+    n_p, buckets, vecs = _step_case(rng, name)
+    plan = stdp_mod.stdp_step_plan([b["m"] for b in buckets], [b["row_len"] for b in buckets],
+                                   [b["row_map"] for b in buckets], n_p, cuda)
+    on = dict(device=cuda)
+    masks = [torch.from_numpy(b["m"]).to(**on) for b in buckets]
+    cols = [torch.from_numpy(b["cols"]).to(**on) for b in buckets]
+    vec = [torch.from_numpy(v).to(**on) for v in vecs]
+    w0 = [torch.from_numpy(b["w"]).to(**on) for b in buckets]
+    work = [w.clone() for w in w0]
+    ptrs = [w.data_ptr() for w in work]
+    before = stdp_mod.COUNTER.launches
+    got = ops.stdp_update_step(work, masks, cols, *vec, plan=plan, params=STDP)
+    torch.cuda.synchronize()
+    assert stdp_mod.COUNTER.launches == before + len(plan.groups)
+    assert len(plan.groups) == (2 if name == "many_buckets" else 1)
+    assert [w.data_ptr() for w in got] == ptrs and all(g is w for g, w in zip(got, work))
+    want = stdp_mod.stdp_update_step_plain([w.clone() for w in w0], masks, cols, *vec,
+                                           plan=plan, params=STDP)
+    changed = 0
+    for g, x, m, w in zip(work, want, masks, w0):
+        assert torch.equal(g.view(torch.int32), x.view(torch.int32))
+        assert torch.equal(g.view(torch.int32)[m == 0], w.view(torch.int32)[m == 0])
+        changed += int((g.view(torch.int32) != w.view(torch.int32)).sum())
+    assert changed > 0
+    # the per-panel kernel on each bucket, as the old loop launched it
+    for b, (x, m, c, w) in enumerate(zip(want, masks, cols, w0)):
+        rm = plan.row_map[b]
+        if rm is None:
+            R = w.shape[0]
+            pt, ps = (torch.nn.functional.pad(v, (0, R - n_p)) for v in vec[2:])
+        else:
+            pt, ps = (v.index_select(0, rm) for v in vec[2:])
+        assert torch.equal(ops.stdp_update(w, m, c, vec[0], vec[1], pt, ps, params=STDP), x)
+
+
+def test_stdp_update_step_refuses_bad_operands(cuda, rng):
+    n_p, buckets, vecs = _step_case(rng, "padded")
+    plan = stdp_mod.stdp_step_plan([b["m"] for b in buckets], [b["row_len"] for b in buckets],
+                                   None, n_p, cuda)
+    w = [torch.from_numpy(b["w"]).to(cuda) for b in buckets]
+    m = [torch.from_numpy(b["m"]).to(cuda) for b in buckets]
+    c = [torch.from_numpy(b["cols"]).to(cuda) for b in buckets]
+    v = [torch.from_numpy(x).to(cuda) for x in vecs]
+    with pytest.raises(TypeError, match="f32"):
+        ops.stdp_update_step([x.bfloat16() for x in w], m, c, *v, plan=plan, params=STDP)
+    with pytest.raises(ValueError, match="entries"):
+        ops.stdp_update_step(w, m, c, v[0], v[1], v[2][:5], v[3], plan=plan, params=STDP)
+    with pytest.raises(ValueError, match="buckets"):
+        ops.stdp_update_step(w[:2], m[:2], c[:2], *v, plan=plan, params=STDP)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.stdp_update_step(w, m, c, *v, plan=stdp_mod.stdp_step_plan(
+            [b["m"] for b in buckets], [b["row_len"] for b in buckets], None, n_p, "cpu"),
+            params=STDP)
+
+
+@pytest.mark.parametrize("max_k", [None, 64])
+def test_unfused_plastic_session_one_stdp_launch_a_step_panels_untouched(cuda, max_k):
+    """The unfused plastic engine (and its max_k form) makes one
+    ``stdp_update`` launch a step, graphed, updating the carry's weights in
+    place; the uploaded panels, which a ``_share``d session borrows, stay
+    as uploaded, and the borrower's run equals the lender's and the fused
+    engine's."""
+    from repro_torch.snn import RasterMonitor, Session, SimConfig, balanced_ei, to_dcsr
+
+    net = to_dcsr(balanced_ei(n=2000, stdp=True, seed=0), k=1)
+    cfg = SimConfig(fused=False, **(dict(max_k=max_k, align_k=32) if max_k else {}))
+    a = Session(net, cfg, device=cuda)
+    b = Session(net, cfg, device=cuda, _share=a)
+    assert a.simulator.engine_choice.engine == "unfused"
+    w0 = [w.clone() for w in a.simulator.dev.weights0]
+    panels = {w.untyped_storage().data_ptr() for w in a.simulator.dev.weights0}
+    rasters = []
+    for ses in (a, b):
+        mon = RasterMonitor()
+        before = stdp_mod.COUNTER.launches
+        ses.run(200, monitors=[mon], chunk_size=100)
+        assert stdp_mod.COUNTER.launches == before + 200
+        assert ses.simulator.graph_mode == "cuda_graph"
+        rasters.append(mon.raster)
+        assert not panels & {w.untyped_storage().data_ptr() for w in ses.state["weights"]}
+        assert any(not torch.equal(x, y) for x, y in zip(ses.state["weights"], w0))
+        assert all(torch.equal(x, y) for x, y in zip(a.simulator.dev.weights0, w0))
+    np.testing.assert_array_equal(rasters[0], rasters[1])
+    assert all(torch.equal(x, y) for x, y in zip(a.state["weights"], b.state["weights"]))
+    if max_k is None:
+        f = Session(net, SimConfig(), device=cuda)
+        mon = RasterMonitor()
+        f.run(200, monitors=[mon], chunk_size=100)
+        np.testing.assert_array_equal(mon.raster, rasters[0])
+        assert all(torch.equal(x, y) for x, y in zip(f.state["weights"], a.state["weights"]))
+
+
 # -- the split (k>1) step's kernels -----------------------------------------
 
 def test_split_kernels_build(cuda):
