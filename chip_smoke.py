@@ -311,23 +311,39 @@ session:
  f2. ``[super] main``: the main path's session rewound to the snapshot's
      step (the snapshot is the checkpoint root's first step), an undisturbed
      ``run(256, chunk_size=64)``, then ``run_supervised(256, chunk_size=64,
-     checkpoint_every=128, max_to_keep=2)`` from the same state with a NaN
-     put into one membrane after the third chunk by a state hook: one
-     rollback, 64 steps lost, raster, spike counts, ``vtx_state``, ring and
+     checkpoint_every=128, max_to_keep=2)`` from the same state under the
+     port's ``FaultPlan([Fault("supervisor:state", "nan", after=2,
+     count=1)], seed=FAULT_SEED)``, a NaN in one seeded membrane after the
+     third chunk: the plan fired once, one rollback, 64 steps lost, raster, spike counts, ``vtx_state``, ring and
      hist bit-equal to the undisturbed run, the same simulator, no graph key
      added or captured again; the rollback's seconds (writer drain,
      ``restore_resilient``, in-place reload), us/step against the plain run
      and the checkpoint stalls;
  f3. ``[super] k4p chaos``: the p2 k=4 session (its manifest carries the
      RuleSpec), ``run_supervised(512, chunk_size=128,
-     checkpoint_every=128)`` under a transient ``OSError`` on each shard's
-     first write, a NaN in partition 2 after chunk 2 and, armed with it, a
-     flipped byte in the newest step's ``part0.npz`` at its first read: one
-     rollback to t0 (256 steps lost) through the quarantine and the
-     regeneration of partition 0 from the keystream on the card; the whole
-     carry bit-equal to an undisturbed run and ``net.parts[0]`` equal to a
-     fresh ``build_partition``; the regeneration's seconds and keystream
-     launches.
+     checkpoint_every=128)`` under one of the port's ``FaultPlan`` s:
+     ``Fault("shard_write", "io_error", per_path=True)`` (a transient
+     ``OSError`` on each shard's first write), a ``supervisor:state``
+     ``nan`` after chunk 2 (partition and row drawn from the seed) and a
+     ``shard_read`` ``bit_flip`` matching the newest step's ``part0.npz``,
+     which fires at the rollback's first read of it; ``plan.fired`` checked
+     by kind: one rollback to t0 (256 steps lost) through the quarantine
+     and the regeneration of partition 0 from the keystream on the card;
+     the whole carry bit-equal to an undisturbed run and ``net.parts[0]``
+     equal to a fresh ``build_partition``; the regeneration's seconds and
+     keystream launches;
+ f4. ``[chaos]``: on the same k=4 session, from one start state,
+     ``run(256, checkpoint_every=64, max_to_keep=2)`` clean and then under
+     each of the port's ``chaos_plan(name, seed=0)`` (transient-io,
+     torn-write, slow-disk) into a fresh root, the writes drained inside
+     the plan: the plan fired, the end carry bit-equal to the clean run's
+     and every file of both kept steps equal to the clean run's by
+     ``file_crc``; us/step, the writer's drain and the checkpoint stalls
+     beside the clean run's.  Then ``run_supervised(256, chunk_size=64,
+     checkpoint_every=64)`` under ``Fault("supervisor:state", "storm",
+     after=1, count=1)``: one rollback of 64 steps, caught on chunk 2 by
+     the membrane ceiling ``HealthConfig().max_vm`` reduced on the card,
+     in place, the end carry bit-equal to the clean run's.
 
 The compiled chunk (``[graph]`` lines; on the card every run replays one
 CUDA graph per step engine, chunk length and recordings): after each path
@@ -353,7 +369,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
-import errno
 import functools
 import gc
 import hashlib
@@ -404,10 +419,14 @@ from repro_torch.builder import (  # noqa: E402
 )
 from repro_torch.core import EDGE_DELAY, block_partition, merge_to_single  # noqa: E402
 from repro_torch.io import (  # noqa: E402
-    CheckpointManager, fault_hook, fsync_enabled, load_binary, snapshot_steps, state_fault_hook,
+    CheckpointManager, fsync_enabled, load_binary, snapshot_steps,
 )
 from repro_torch.snn import (  # noqa: E402
-    RasterMonitor, RateMonitor, Session, SimConfig, balanced_ei, microcircuit, to_dcsr,
+    HealthConfig, RasterMonitor, RateMonitor, Session, SimConfig, balanced_ei, microcircuit,
+    to_dcsr,
+)
+from repro_torch.testing import (  # noqa: E402
+    CHAOS_PLANS, Fault, FaultPlan, chaos_plan, file_crc, no_faults,
 )
 from repro_torch.snn.neurons import LIF_BIAS, LIF_PARAM_KEYS, LIF_REF, LIF_V  # noqa: E402
 from repro_torch.kernels.dispatch import launch_row_dot, panel_reduce  # noqa: E402
@@ -4402,6 +4421,9 @@ def phase_snapshot_microcircuit(ses, smi):
 
 SUPER_STEPS, SUPER_CHUNK, SUPER_EVERY, SUPER_KEEP = 256, 64, 128, 2
 CHAOS_STEPS, CHAOS_CHUNK, CHAOS_EVERY = 512, 128, 128
+# [chaos]: each chaos plan over a checkpointed run, and the storm
+PLAN_STEPS, PLAN_EVERY, PLAN_KEEP = 256, 64, 2
+FAULT_SEED = 5  # the seed of every FaultPlan of the [super] and [chaos] phases
 CARRY_KEYS = ("vtx_state", "ring", "hist", "tr_plus", "tr_minus")
 
 
@@ -4558,12 +4580,14 @@ def phase_super_main(ses, path, live_st0, n_bytes, smi):
     """[super] main: the main path's session, rewound to the snapshot's
     step, runs ``run_supervised(256, chunk_size=64, checkpoint_every=128,
     max_to_keep=2)`` (the snapshot, moved into the checkpoint root, is the
-    first rollback target); the chip's own state hook puts a NaN into one
-    membrane after the third chunk, which rolls the run back to t0 + 128.
-    Raster, spike counts, ``vtx_state``, ring and hist bit-equal to an
-    undisturbed ``run(256, chunk_size=64)`` from the same state; the
-    simulator object and its captured graphs are the same after the
-    rollback, with no key added or captured again."""
+    first rollback target); the port's ``FaultPlan([Fault("supervisor:state",
+    "nan", after=2, count=1)], seed=FAULT_SEED)`` puts a NaN into one
+    membrane, drawn from the seed as the reference's plan draws it, after
+    the third chunk, which rolls the run back to t0 + 128.  Raster, spike
+    counts, ``vtx_state``, ring and hist bit-equal to an undisturbed
+    ``run(256, chunk_size=64)`` from the same state; the simulator object
+    and its captured graphs are the same after the rollback, with no key
+    added or captured again."""
     sim = ses.simulator
     t0 = int(live_st0["t"])
     root = SNAP_ROOT / "super_main"
@@ -4581,22 +4605,16 @@ def phase_super_main(ses, path, live_st0, n_bytes, smi):
     want_end = ses.state
     keys0 = graph_keys(sim)
 
-    nan_row = ses.n // 2
-    calls = []
-
-    def poison(site, state):
-        calls.append(site)
-        if len(calls) == 3:
-            state["vtx_state"][nan_row, LIF_V] = float("nan")
-        return state
-
+    plan = FaultPlan([Fault("supervisor:state", "nan", after=2, count=1)], seed=FAULT_SEED)
+    # the plan's own draw over the carry's rows
+    nan_row = int(plan.rng_for(0, 0).integers(0, live_st0["vtx_state"].shape[0]))
     ses._state = live_st0
     sim.set_gather("dense")
     mon = RasterMonitor()
     reset_counts()
     torch.cuda.synchronize()
     t_run = time.perf_counter()
-    with state_fault_hook(poison), warnings.catch_warnings(record=True) as caught:
+    with plan, warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         res = ses.run_supervised(SUPER_STEPS, monitors=[mon], chunk_size=SUPER_CHUNK,
                                  checkpoint_every=SUPER_EVERY, checkpoint_dir=str(root),
@@ -4604,6 +4622,7 @@ def phase_super_main(ses, path, live_st0, n_bytes, smi):
     torch.cuda.synchronize()
     sup_s = time.perf_counter() - t_run
     launches = read_counts()
+    require(plan.fired == [("supervisor:state", None, "nan")], f"faults fired {plan.fired}")
     require(res.rollbacks == 1 and res.steps_lost == SUPER_CHUNK,
             f"rollbacks {res.rollbacks}, steps lost {res.steps_lost}")
     require(res.t_final == t0 + SUPER_STEPS and ses.t == t0 + SUPER_STEPS, f"t {ses.t}")
@@ -4624,7 +4643,7 @@ def phase_super_main(ses, path, live_st0, n_bytes, smi):
     require(len(warned) == 1, f"rollback warnings {warned}")
     say("super", f"main: run_supervised({SUPER_STEPS}, chunk_size={SUPER_CHUNK}, "
         f"checkpoint_every={SUPER_EVERY}, max_to_keep={SUPER_KEEP}) from t0={t0}, a NaN in "
-        f"membrane {nan_row} after chunk 3: rollbacks {res.rollbacks}, steps lost "
+        f"membrane {nan_row} after chunk 3 from FaultPlan(seed={FAULT_SEED}): rollbacks {res.rollbacks}, steps lost "
         f"{res.steps_lost}, events {[(e.kind, e.t) for e in res.events]}; raster "
         f"({int(mon.raster.sum())} spikes), spike counts, vtx_state, ring and hist bit-equal to "
         f"the undisturbed run; the same simulator, {len(keys1)} graph keys before and after, none "
@@ -4641,12 +4660,14 @@ def phase_super_main(ses, path, live_st0, n_bytes, smi):
 def phase_super_chaos(spec, ses4, card, smi):
     """[super] k4p chaos: the Brunel rules net's k=4 spmd session (built on
     the card, so its manifest carries the RuleSpec) runs
-    ``run_supervised(512, chunk_size=128, checkpoint_every=128)`` under
-    three faults from the chip's own callables on the port's hooks: a
-    transient ``OSError`` on each shard path's first write (the writer's
-    retries absorb it), a NaN in one membrane of partition 2 after chunk 2,
-    and, armed with the NaN, one flipped byte of the newest step's
-    ``part0.npz`` at its first read.  The rollback quarantines that shard,
+    ``run_supervised(512, chunk_size=128, checkpoint_every=128)`` under one
+    of the port's ``FaultPlan`` s holding three faults: a transient
+    ``OSError`` on each shard path's first write (``per_path``; the
+    writer's retries absorb it), a NaN in one membrane after chunk 2 (its
+    partition and row drawn from the seed over the ``k * n_p`` rows, as the
+    reference draws it over its stacked layout), and one seeded bit flip of
+    the newest step's ``part0.npz`` at its first read, which is the
+    rollback's.  The rollback quarantines that shard,
     regenerates partition 0 from the keystream on the card, and falls back
     to t0: 256 steps lost; raster, spike counts and the whole carry
     (``vtx_state``, every plastic weight, both traces) bit-equal to an
@@ -4661,46 +4682,28 @@ def phase_super_chaos(spec, ses4, card, smi):
     root = SNAP_ROOT / "super_chaos"
     require_disk(8 * sum(getattr(p, key).nbytes for p in ses4.net.parts for key in BUILD_ARRAYS))
     flip_at = os.path.join(f"step_{t0 + CHAOS_EVERY:08d}", "part0.npz")
-    written, fired = set(), []
-    armed = [False]
-
-    def file_faults(site, path):
-        if site == "shard_write" and path not in written:
-            written.add(path)
-            fired.append("io_error")
-            raise OSError(errno.EIO, "transient write error on the first write of a shard", path)
-        if site == "shard_read" and armed[0] and path.endswith(flip_at):
-            armed[0] = False
-            with open(path, "r+b") as f:
-                f.seek(200)
-                b = f.read(1)
-                f.seek(200)
-                f.write(bytes([b[0] ^ 0xFF]))
-            fired.append("bit_flip")
-
-    calls = []
-
-    def poison(site, state):
-        calls.append(site)
-        if len(calls) == 2:
-            state[2]["vtx_state"][7, LIF_V] = float("nan")
-            armed[0] = True
-            fired.append("nan")
-        return state
+    plan = FaultPlan([Fault("shard_write", "io_error", per_path=True),
+                      Fault("supervisor:state", "nan", after=1, count=1),
+                      Fault("shard_read", "bit_flip", match=flip_at, count=1)], seed=FAULT_SEED)
+    n_p = st0[0]["vtx_state"].shape[0]
+    nan_at = divmod(int(plan.rng_for(1, 0).integers(0, K_PARTS * n_p)), n_p)  # the plan's draw
 
     ses4._state = st0
     mon = RasterMonitor()
     reset_counts()
     t_run = time.perf_counter()
-    with fault_hook(file_faults), state_fault_hook(poison), warnings.catch_warnings():
+    with plan, warnings.catch_warnings():
         warnings.simplefilter("ignore")
         res = ses4.run_supervised(CHAOS_STEPS, monitors=[mon], chunk_size=CHAOS_CHUNK,
                                   checkpoint_every=CHAOS_EVERY, checkpoint_dir=str(root))
     torch.cuda.synchronize()
     sup_s = time.perf_counter() - t_run
     launches = read_counts()
-    require(fired.count("nan") == 1 and fired.count("bit_flip") == 1
-            and fired.count("io_error") == len(written) > 0, f"faults fired {Counter(fired)}")
+    kinds = [kind for _, _, kind in plan.fired]
+    written = {path for _, path, kind in plan.fired if kind == "io_error"}
+    require(kinds.count("nan") == 1 and kinds.count("bit_flip") == 1
+            and kinds.index("nan") < kinds.index("bit_flip")
+            and kinds.count("io_error") == len(written) > 0, f"faults fired {Counter(kinds)}")
     require(res.rollbacks == 1 and res.steps_lost == 2 * CHAOS_CHUNK,
             f"rollbacks {res.rollbacks}, steps lost {res.steps_lost}")
     (rep,) = res.restore_reports
@@ -4724,9 +4727,10 @@ def phase_super_chaos(spec, ses4, card, smi):
     require(launches["keystream"] > 0, f"no keystream launch regenerated partition 0: {launches}")
     say("super", f"k4p chaos: run_supervised({CHAOS_STEPS}, chunk_size={CHAOS_CHUNK}, "
         f"checkpoint_every={CHAOS_EVERY}) on the Brunel rules net, {K_PARTS} partitions on the "
-        f"card, from t0={t0}: {fired.count('io_error')} transient shard write errors absorbed by "
-        f"the writer's retries, a NaN in partition 2 after chunk 2, part0.npz of step "
-        f"{t0 + CHAOS_EVERY} bit-flipped at its first read -> quarantined, fell back to t0: "
+        f"card, from t0={t0}, FaultPlan(seed={FAULT_SEED}): {kinds.count('io_error')} transient "
+        f"shard write errors absorbed by the writer's retries, a NaN in partition {nan_at[0]} "
+        f"row {nan_at[1]} after chunk 2, part0.npz of step {t0 + CHAOS_EVERY} bit-flipped at "
+        f"its first read -> quarantined, fell back to t0: "
         f"rollbacks {res.rollbacks}, steps lost {res.steps_lost}, events "
         f"{[(e.kind, e.t) for e in res.events]}; raster ({int(mon.raster.sum())} spikes), spike "
         f"counts, vtx_state, every plastic weight and both traces bit-equal to the undisturbed "
@@ -4739,8 +4743,105 @@ def phase_super_chaos(spec, ses4, card, smi):
         f"in-place reload {rb['reload']:.3f} s; {sup_s / CHAOS_STEPS * 1e6:.1f} us/step "
         f"supervised ({sup_s:.3f} s); checkpoint stalls "
         f"{[round(x, 3) for x in ses4.last_ckpt_stalls]} s; {smi}")
-    ses4.close()
     shutil.rmtree(root)
+
+
+def step_crcs(root):
+    """``file_crc`` of every file of every step directory under ``root``."""
+    return {f"{d.name}/{f.name}": file_crc(str(f))
+            for d in sorted(Path(root).iterdir()) for f in sorted(d.iterdir())}
+
+
+def phase_chaos(ses4, smi):
+    """[chaos] on the Brunel rules net's k=4 session, from one start state:
+    ``run(256, checkpoint_every=64, max_to_keep=2)`` clean, then under each
+    of the port's ``chaos_plan(name, seed=0)`` (transient-io, torn-write,
+    slow-disk), each into a fresh root with the writes drained inside the
+    plan: the end carry bit-equal to the clean run's, every file of every
+    kept step equal to the clean run's by ``file_crc``, and the plan fired.
+    Then the storm: ``run_supervised(256, chunk_size=64,
+    checkpoint_every=64)`` under ``Fault("supervisor:state", "storm",
+    after=1, count=1)``, 1e4 in every membrane after chunk 2, caught on
+    that chunk by the membrane ceiling ``HealthConfig().max_vm`` reduced on
+    the card: one rollback of 64 steps, in place, and the end carry
+    bit-equal to the clean run's."""
+    st, t0 = ses4.state, ses4.t
+    require_disk(8 * sum(getattr(p, key).nbytes for p in ses4.net.parts for key in BUILD_ARRAYS))
+
+    def checkpointed_run(root):
+        ses4._state = st
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        ses4.run(PLAN_STEPS, checkpoint_every=PLAN_EVERY, checkpoint_dir=str(root),
+                 max_to_keep=PLAN_KEEP)
+        torch.cuda.synchronize()
+        t_wait = time.perf_counter()
+        ses4.wait()
+        run_s, drain_s = t_wait - t_run, time.perf_counter() - t_wait
+        return run_s / PLAN_STEPS * 1e6, drain_s, [round(x, 3) for x in ses4.last_ckpt_stalls]
+
+    root = SNAP_ROOT / "chaos_clean"
+    with no_faults():
+        clean = checkpointed_run(root)
+    want_end, crcs = ses4.state, step_crcs(root)
+    n_bytes = sum(snapshot_bytes(d) for d in root.iterdir())
+    steps = sorted({key.split("/")[0] for key in crcs})
+    require(len(steps) == PLAN_KEEP and len(crcs) == PLAN_KEEP * (K_PARTS + 1),
+            f"kept {sorted(crcs)}")
+    shutil.rmtree(root)
+    for name in CHAOS_PLANS:
+        root = SNAP_ROOT / f"chaos_{name}"
+        with chaos_plan(name, seed=0) as plan:
+            got = checkpointed_run(root)
+        kinds = Counter(kind for _, _, kind in plan.fired)
+        require(kinds, f"{name}: the plan never fired")
+        require_states_bit_equal(ses4.state, want_end, f"{name} vs clean end state")
+        require(step_crcs(root) == crcs, f"{name}: the kept steps' files differ from the clean "
+                f"run's: {step_crcs(root)} against {crcs}")
+        shutil.rmtree(root)
+        say("chaos", f"{name}: run({PLAN_STEPS}, checkpoint_every={PLAN_EVERY}, "
+            f"max_to_keep={PLAN_KEEP}) on the Brunel rules net, {K_PARTS} partitions on the card, "
+            f"from t0={t0} under chaos_plan({name!r}, seed=0): fired {dict(kinds)}; end carry "
+            f"bit-equal to the clean run's; the {len(crcs)} files of steps {steps} "
+            f"({n_bytes / 1e9:.3f} GB) equal to the clean run's by file_crc; {got[0]:.1f} us/step "
+            f"to the run's return (clean {clean[0]:.1f}), writer drain {got[1]:.3f} s (clean "
+            f"{clean[1]:.3f}), checkpoint stalls {got[2]} s (clean {clean[2]}); {smi}")
+
+    root = SNAP_ROOT / "chaos_storm"
+    plan = FaultPlan([Fault("supervisor:state", "storm", after=1, count=1)], seed=FAULT_SEED)
+    ses4._state = st
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    with plan, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = ses4.run_supervised(PLAN_STEPS, chunk_size=PLAN_EVERY, checkpoint_every=PLAN_EVERY,
+                                  checkpoint_dir=str(root))
+    torch.cuda.synchronize()
+    sup_s = time.perf_counter() - t_run
+    max_vm = HealthConfig().max_vm
+    require(plan.fired == [("supervisor:state", None, "storm")], f"faults fired {plan.fired}")
+    require(res.rollbacks == 1 and res.steps_lost == PLAN_EVERY,
+            f"rollbacks {res.rollbacks}, steps lost {res.steps_lost}")
+    ev = res.events[0]
+    require(ev.kind == "health" and ev.t == t0 + 2 * PLAN_EVERY
+            and ev.detail.startswith("membrane runaway") and f"ceiling {max_vm}" in ev.detail,
+            f"events {res.events}")
+    require_states_bit_equal(ses4.state, want_end, "storm vs clean end state")
+    (rb,) = ses4.last_rollbacks
+    require(rb["in_place"] and (rb["t_from"], rb["t_to"]) == (t0 + 2 * PLAN_EVERY,
+                                                              t0 + PLAN_EVERY), f"rollback {rb}")
+    warned = [str(w.message) for w in caught if "rolled back" in str(w.message)]
+    require(len(warned) == 1, f"rollback warnings {warned}")
+    shutil.rmtree(root)
+    say("chaos", f"storm: run_supervised({PLAN_STEPS}, chunk_size={PLAN_EVERY}, "
+        f"checkpoint_every={PLAN_EVERY}) on the same session from t0={t0} under "
+        f"Fault('supervisor:state', 'storm', after=1, count=1): every membrane set to 1e4 after "
+        f"chunk 2, caught on that chunk by the ceiling max_vm={max_vm} reduced on the card "
+        f"({ev.detail!r}); rollbacks {res.rollbacks}, steps lost {res.steps_lost}, "
+        f"{rb['t_from']} -> {rb['t_to']} in place (drain {rb['drain']:.3f} s, restore_resilient "
+        f"{rb['restore']:.3f} s, reload {rb['reload']:.3f} s); end carry bit-equal to the clean "
+        f"run's; {sup_s / PLAN_STEPS * 1e6:.1f} us/step supervised ({sup_s:.3f} s); checkpoint "
+        f"stalls {[round(x, 3) for x in ses4.last_ckpt_stalls]} s; {smi}")
 
 
 def snapshot_arrays(path):
@@ -5084,6 +5185,8 @@ def phase_rules_brunel(seed, card, smi):
     phase_idle()
     del ses1
     phase_super_chaos(spec, ses4, card, smi)
+    phase_chaos(ses4, smi)
+    ses4.close()
 
 
 def phase_rules_microcircuit(args, card, after_build=None):

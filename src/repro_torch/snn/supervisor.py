@@ -33,8 +33,10 @@ Where the port differs from the reference:
   running engine's is uploaded into a new carry of the same simulator, so
   its panels and its captured CUDA graphs stay; otherwise it rebuilds the
   engine, as the reference does.
-* The state hook is the port's own (``io.hooks.apply_state_faults``), which
-  returns the carry unchanged unless a test installed a callable.
+* The state hook is the port's own (``io.hooks.apply_state_faults``): the
+  port's active ``testing.fault_plans`` plans write their ``nan`` and
+  ``storm`` faults into the carry in place; without one it returns the
+  carry unchanged.
 
 Because the trajectory is a pure function of ``(seed, t, permanent id)`` and
 chunking is bit-transparent, a rollback and re-run reproduces the pre-fault
